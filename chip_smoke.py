@@ -1,0 +1,551 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port on one CUDA card (an H100).
+
+    python3 chip_smoke.py
+
+Phases, in order; any failure exits nonzero and prints no result:
+
+1. Build every CUDA kernel of the port from ``kubeflow_tpu_torch/ops/csrc``
+   (one nvcc per source, all at once) and hold the flash-attention forward
+   kernel against its plain PyTorch version on O and lse, in bfloat16 and
+   float32 (TF32 off for the plain version), at every shape the serving
+   run of phase 2 gives it and at a GQA, a strided and a non-causal D=64
+   case.
+2. Main path at full width: a Llama-2-7B ``GenerativePredictor`` (32
+   layers, random weights from a seed) served through ``PredictorApp`` on
+   a local port answers 4 concurrent HTTP ``:generate`` requests (prompts
+   of 17, 300, 700 and 1500 tokens; 3 greedy, 1 sampled).  The flash
+   kernel's launch count over that run must be 32 x the prefill chunks;
+   re-sent requests must reproduce their tokens.  Then, off the counted
+   run: every kernel call of a chunked 1500-token prefill is held against
+   the plain version on the same inputs, and the prefill logits of one
+   prompt through the kernel and through the plain routes must agree.
+3. Numbers: device time by operator (torch.profiler) of one 512-token
+   prefill chunk and one 4-row decode step at 7B; the card's name and
+   power limit; the kernel's device time at each main-path shape beside
+   its bound, the plain version's time and ``scaled_dot_product_attention``'s
+   (a yardstick the port never calls); TTFT and decode tokens/s of phase 2.
+
+The line before the last is the ``kernels`` JSON object; the last line is
+``{"ok": true, "device": {...}}``.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import json
+import math
+import statistics
+import subprocess
+import sys
+import threading
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent
+
+# H100 SXM peaks (NVIDIA data sheet, dense): bytes/s of HBM3, bf16 and
+# fp32 rates in FLOP/s (the f32 kernel runs on the CUDA cores)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+
+# phase 2's requests: prompt lengths and the engine settings
+PROMPT_LENS = (17, 300, 700, 1500)
+MAX_SEQ, PREFILL_CHUNK, NEW_TOKENS = 2048, 512, 16
+EXTRA_SHAPES = [  # (name, B, Sq, Sk, H, Hkv, D, causal)
+    ("gqa_ragged_strided", 2, 200, 700, 32, 8, 128, True),
+    ("noncausal_d64", 2, 100, 300, 4, 4, 64, False),
+]
+# |kernel - plain| <= atol + rtol * |plain| per element of O, and <= lse
+# absolutely.  f32: summation order only.  bf16: the kernel rounds P to
+# bf16 for the PV product (2^-8 relative per weight) and both round O to
+# bf16, so a rounding can flip by one ulp (2^-7 relative: 0.0156 at |O| 2)
+TOL = {torch.float32: {"atol": 1e-5, "rtol": 1e-5, "lse": 1e-4},
+       torch.bfloat16: {"atol": 1e-2, "rtol": 1e-2, "lse": 1e-3}}
+# each bf16 kernel call inside the 7B prefill, against the plain version on
+# the same activations.  Per element of O: rounding P to bf16 (relative
+# 2^-8) moves O by at most 2^-8 sum_j p_j |v_j|, and the two bf16 roundings
+# of O differ by at most one ulp (<= 2^-7 |O|); the check allows
+# 2^-7 (|O| + sum_j p_j |v_j|), twice the P term, and reports the largest
+# |dO| / allowance ("o", <= 1).  lse: |dlse| relative to max(1, |lse|)
+# (float32 sums in another order).
+IN_MODEL_TOL = {"o": 1.0, "lse": 1e-4}
+# prefill logits of 32 bf16 layers, relative to max |logit|.  Against the
+# kernel's plain version (same math, other summation order) each layer
+# differs only where a bf16 rounding of O flips; against the plain masked
+# route also by its rounding of every softmax weight to bf16 before PV.
+# A random-weight 32-layer stack amplifies such rounding-level differences
+# to a few percent of max |logit| (4.5e-2 for both, measured on an H100);
+# a wrong kernel moves the logits by O(1).  The kernel itself is held
+# tightly, call by call, by the in-model check above.
+LOGITS_REL_TOL = {"kernel_plain_version": 1e-1, "plain_route": 1e-1}
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def check(ok, what) -> None:
+    """Fail the run (a raise, unlike ``assert``, survives ``python -O``)."""
+    if not ok:
+        raise AssertionError(f"chip_smoke check failed: {what}")
+
+
+def prefill_shapes() -> list[tuple[int, int]]:
+    """(Sq, Sk) of every flash call per layer in phase 2: the engine's
+    chunking of each prompt, each chunk padded to a prefill bucket."""
+    from kubeflow_tpu_torch.serving.engine import PREFILL_BUCKETS
+
+    shapes = []
+    for n in PROMPT_LENS:
+        pos = 0
+        while pos < n:
+            take = min(n - pos, PREFILL_CHUNK)
+            cb = next((b for b in PREFILL_BUCKETS
+                       if take <= b <= MAX_SEQ - pos), take)
+            shapes.append((cb, pos + cb))
+            pos += take
+    return shapes
+
+
+def main_path_shapes() -> list[tuple]:
+    """Distinct 7B prefill shapes of phase 2 with their launch counts per
+    layer: (name, B, Sq, Sk, H, Hkv, D, causal, count)."""
+    counts: dict[tuple[int, int], int] = {}
+    for s in prefill_shapes():
+        counts[s] = counts.get(s, 0) + 1
+    return [(f"7b_prefill_{sq}x{sk}", 1, sq, sk, 32, 32, 128, True, c)
+            for (sq, sk), c in sorted(counts.items())]
+
+
+def make_qkv(b, sq, sk, h, hkv, d, dtype, seed, strided=False):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    if strided:  # q as a [B, H, S, D] tensor viewed [B, S, H, D]
+        q = torch.randn(b, h, sq, d, generator=g, device="cuda").to(dtype)
+        q = q.transpose(1, 2)
+    else:
+        q = torch.randn(b, sq, h, d, generator=g, device="cuda").to(dtype)
+    k = torch.randn(b, sk, hkv, d, generator=g, device="cuda").to(dtype)
+    v = torch.randn(b, sk, hkv, d, generator=g, device="cuda").to(dtype)
+    return q, k, v
+
+
+def phase_kernels(fa) -> float:
+    """Hold the kernel against its plain version; returns the max |O| error
+    at the bf16 main-path shapes."""
+    from kubeflow_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    libs = _build.build_all()
+    log(f"built {sorted(libs)} in {time.perf_counter() - t0:.1f}s")
+    for name in libs:
+        for line in _build.build_log(name).splitlines():
+            if "registers" in line or "spill" in line or "error" in line:
+                log(f"  nvcc[{name}] {line.strip()}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    main_err = 0.0
+    cases = [s[:8] for s in main_path_shapes()] + EXTRA_SHAPES
+    for i, (name, b, sq, sk, h, hkv, d, causal) in enumerate(cases):
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = make_qkv(b, sq, sk, h, hkv, d, dtype, seed=i,
+                               strided=name.endswith("strided"))
+            o, lse = fa.flash_attention_with_lse(q, k, v, causal=causal)
+            ro, rlse = fa.flash_attention_reference(q, k, v, causal=causal)
+            torch.cuda.synchronize()
+            tol = TOL[dtype]
+            diff = (o.float() - ro.float()).abs()
+            e_o = diff.max().item()
+            over = (diff - tol["atol"] - tol["rtol"] * ro.float().abs()
+                    ).max().item()
+            e_l = (lse - rlse).abs().max().item()
+            ok = math.isfinite(e_o) and over <= 0 and e_l <= tol["lse"]
+            log(f"flash_fwd {name} {str(dtype)[6:]}: max|dO| {e_o:.3e} "
+                f"(tol {tol['atol']:g} + {tol['rtol']:g}|O|), max|dlse| "
+                f"{e_l:.3e} (tol {tol['lse']:g}) {'ok' if ok else 'FAIL'}")
+            check(ok, f"flash_fwd disagrees at {name} {dtype}")
+            if dtype == torch.bfloat16 and name.startswith("7b_prefill"):
+                main_err = max(main_err, e_o)
+    return main_err
+
+
+def post(port: int, path: str, body: dict) -> tuple[int, dict]:
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    try:
+        conn.request("POST", path, json.dumps(body),
+                     {"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        return resp.status, json.loads(resp.read())
+    finally:
+        conn.close()
+
+
+@contextlib.contextmanager
+def flash_route(replacement):
+    """Route the attention dispatcher's flash calls to ``replacement``
+    (same signature as ``flash_attention``) for the duration."""
+    from kubeflow_tpu_torch.ops import attention
+
+    original = attention.flash_attention
+    attention.flash_attention = replacement
+    try:
+        yield
+    finally:
+        attention.flash_attention = original
+
+
+@contextlib.contextmanager
+def plain_attention_route(model):
+    """Run ``model`` with its attention on the plain masked route
+    (use_flash off) for the duration; the weights are shared."""
+    attns = [blk.attention for blk in model.layers]
+    flash_cfg = attns[0].cfg
+    plain_cfg = dataclasses.replace(flash_cfg, use_flash=False)
+    for a in attns:
+        a.cfg = plain_cfg
+    try:
+        yield
+    finally:
+        for a in attns:
+            a.cfg = flash_cfg
+
+
+def check_in_model(fa, model, prompt: list[int]) -> None:
+    """Chunked prefill of ``prompt`` through a batch-1 cache, as the engine
+    runs it, with every flash call held against the plain version on the
+    same q, k, v (the kernel's output goes on)."""
+    from kubeflow_tpu_torch.models import llama
+
+    worst = {"o": 0.0, "lse": 0.0}
+    shapes = set()
+
+    def checked(q, k, v, *, causal=False):
+        o, lse = fa.flash_attention_with_lse(q, k, v, causal=causal)
+        ro, rlse = fa.flash_attention_reference(q, k, v, causal=causal)
+        sum_pv = fa.flash_attention_reference(q, k, v.abs(),
+                                              causal=causal)[0].float()
+        allowance = 2.0 ** -7 * (ro.float().abs() + sum_pv) + 1e-6
+        e_o = ((o.float() - ro.float()).abs() / allowance).max().item()
+        e_l = ((lse - rlse).abs().max()
+               / rlse.abs().max().clamp_min(1.0)).item()
+        check(math.isfinite(e_o) and math.isfinite(e_l), (e_o, e_l))
+        worst["o"], worst["lse"] = max(worst["o"], e_o), max(worst["lse"], e_l)
+        shapes.add((q.shape[1], k.shape[1]))
+        return o
+
+    cache = llama.init_cache(model.config, 1, MAX_SEQ)
+    with torch.no_grad(), flash_route(checked):
+        for pos in range(0, len(prompt), PREFILL_CHUNK):
+            chunk = prompt[pos:pos + PREFILL_CHUNK]
+            for layer in cache["layers"]:
+                layer["index"] = pos
+            model(torch.tensor([chunk], device="cuda"), cache=cache)
+    ok = worst["o"] <= IN_MODEL_TOL["o"] and worst["lse"] <= IN_MODEL_TOL["lse"]
+    log(f"in-model check, {len(prompt)}-token prefill (Sq, Sk) "
+        f"{sorted(shapes)} x {model.config.num_layers} layers: max "
+        f"|dO|/(2^-7 (|O| + P|V|)) {worst['o']:.3e} (tol "
+        f"{IN_MODEL_TOL['o']:g}), max|dlse|/max|lse| "
+        f"{worst['lse']:.3e} (tol {IN_MODEL_TOL['lse']:g}) "
+        f"{'ok' if ok else 'FAIL'}")
+    check(ok, worst)
+    del cache
+
+
+def phase_serving(fa) -> dict:
+    from kubeflow_tpu_torch.serving.httpserve import serve
+    from kubeflow_tpu_torch.serving.predictor import (GenerativePredictor,
+                                                      PredictorApp)
+
+    t0 = time.perf_counter()
+    pred = GenerativePredictor("llama", size="7b", max_seq=MAX_SEQ,
+                               prefill_chunk=PREFILL_CHUNK, max_batch=4,
+                               seed=0)
+    torch.cuda.synchronize()
+    cfg = pred.cfg
+    log(f"llama 7b built in {time.perf_counter() - t0:.1f}s: "
+        f"{cfg.num_layers} layers, hidden {cfg.hidden_size}, "
+        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card")
+    httpd, thread = serve(PredictorApp({"llama": pred}), 0)
+    port = httpd.server_port
+    try:
+        def make_bodies(seed):
+            rng = np.random.default_rng(seed)
+            bodies = [{"ids": [rng.integers(1, cfg.vocab_size, n).tolist()],
+                       "max_new_tokens": NEW_TOKENS} for n in PROMPT_LENS]
+            bodies[3].update(temperature=0.8, seed=7)
+            return bodies
+
+        def concurrent_round(bodies):
+            results: list = [None] * len(bodies)
+
+            def call(i):
+                results[i] = post(port, "/v1/models/llama:generate",
+                                  bodies[i])
+
+            threads = [threading.Thread(target=call, args=(i,))
+                       for i in range(len(bodies))]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=600)
+            return results
+
+        # warm-up round at the same shapes (CUDA module loading, cuBLAS
+        # heuristics, allocator), other prompts; not counted
+        check(all(r[0] == 200 for r in concurrent_round(make_bodies(1))),
+              "warm-up round")
+        bodies = make_bodies(0)
+        prompts = [b["ids"][0] for b in bodies]
+        chunks = len(prefill_shapes())
+        before = pred.engine.stats()["timing"]
+
+        fa.flash_attention.launches = 0          # the main path starts
+        t0 = time.perf_counter()
+        results = concurrent_round(bodies)
+        wall = time.perf_counter() - t0
+        launches = fa.flash_attention.launches   # the main path ended
+        after = pred.engine.stats()["timing"]
+
+        for i, (status, body) in enumerate(results):
+            check(status == 200, (i, status, body))
+            out = body["ids"][0]
+            check(len(out) == PROMPT_LENS[i] + NEW_TOKENS, (i, len(out)))
+            check(out[:PROMPT_LENS[i]] == prompts[i], (i, "prompt echo"))
+            check(all(0 <= t < cfg.vocab_size for t in out), (i, "ids"))
+        expect = cfg.num_layers * chunks
+        log(f"4 concurrent requests in {wall:.2f}s; flash_fwd launches "
+            f"{launches} (expected {cfg.num_layers} x {chunks} chunks = "
+            f"{expect})")
+        check(launches == expect, (launches, expect))
+        check(after["prefill_chunks"] - before["prefill_chunks"] == chunks,
+              "prefill chunks")
+
+        for i in (1, 3):  # a greedy and the seeded request, alone
+            status, body = post(port, "/v1/models/llama:generate", bodies[i])
+            check(status == 200 and body["ids"] == results[i][1]["ids"],
+                  (i, "re-sent request"))
+        log("re-sent greedy and seeded requests reproduce their tokens")
+
+        model = pred.module
+        check_in_model(fa, model, prompts[3])
+
+        # prefill logits: kernel route vs the plain routes, same weights
+        ids = torch.tensor([prompts[1]], device="cuda")
+
+        def plain_version(q, k, v, *, causal=False):
+            return fa.flash_attention_reference(q, k, v, causal=causal)[0]
+
+        with torch.no_grad():
+            k_logits = model(ids)["logits"]
+            check(torch.equal(model(ids)["logits"], k_logits),
+                  "the kernel route is not deterministic")
+            with flash_route(plain_version):
+                v_logits = model(ids)["logits"]
+            with plain_attention_route(model):
+                p_logits = model(ids)["logits"]
+        check(bool(torch.isfinite(k_logits).all()), "finite logits")
+        for name, ref in (("kernel_plain_version", v_logits),
+                          ("plain_route", p_logits)):
+            rel = ((k_logits - ref).abs().max() / ref.abs().max()).item()
+            tol = LOGITS_REL_TOL[name]
+            log(f"prefill logits [1, {len(prompts[1])}, {cfg.vocab_size}] "
+                f"kernel vs {name}: max rel err {rel:.3e} (tol {tol:g})")
+            check(rel <= tol, (name, rel))
+
+        n_ttft = after["ttft_count"] - before["ttft_count"]
+        dec_tok = after["decode_tokens"] - before["decode_tokens"]
+        dec_s = after["decode_seconds"] - before["decode_seconds"]
+        return {"launches": launches,
+                "ttft_mean_s": (after["ttft_sum"] - before["ttft_sum"])
+                / max(n_ttft, 1),
+                "decode_tok_per_s": dec_tok / dec_s if dec_s else 0.0,
+                "wall_s": wall}
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=10)
+        pred.stop(timeout=60)
+
+
+def time_ms(fn, reps: int = 20, windows: int = 7) -> float:
+    """Device time of one call: median over windows of the mean of
+    ``reps`` back-to-back calls, from CUDA events, after a warm-up.  Each
+    window is enqueued behind a device-side sleep longer than the host
+    takes to enqueue it, so the calls run back to back even when the
+    Python wrapper is slower than the kernel."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(windows):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(20_000_000)      # ~10 ms at H100 clocks
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return statistics.median(times)
+
+
+def flash_bound(b, sq, sk, h, hkv, d, causal, dtype) -> tuple[float, float]:
+    """Least time the card needs, as (bytes ms, operations ms): each input
+    read once and each output written once over the HBM rate; the FLOPs of
+    the visible (q, k) pairs over the dtype's peak rate."""
+    item = torch.tensor([], dtype=dtype).element_size()
+    nbytes = (2 * b * sq * h * d + 2 * b * sk * hkv * d) * item \
+        + b * h * sq * 4
+    if causal:  # query i sees keys [0, i + sk - sq]
+        pairs = sum(max(0, min(sk, i + sk - sq + 1)) for i in range(sq))
+    else:
+        pairs = sq * sk
+    flops = 4.0 * d * pairs * b * h
+    return nbytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[dtype] * 1e3
+
+
+def profile_forward(model, label: str, ids, cache) -> None:
+    """Device time of one forward by operator (torch.profiler), top 6, and
+    the flash kernel's share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.no_grad():
+        model(ids, cache=cache)          # warm
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            model(ids, cache=cache)
+            torch.cuda.synchronize()
+    # device kernels only: operator rows repeat their kernels' time
+    events = [e for e in prof.key_averages()
+              if str(e.device_type).endswith("CUDA")
+              and e.self_device_time_total > 0]
+    total = sum(e.self_device_time_total for e in events)
+    log(f"profile {label}: device time {total / 1e3:.3f} ms")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:6]:
+        log(f"  {e.self_device_time_total / 1e3:9.3f} ms "
+            f"{100 * e.self_device_time_total / max(total, 1):5.1f}% "
+            f"x{e.count:<4d} {e.key[:90]}")
+
+
+def phase_profile() -> None:
+    """Where a prefill chunk's and a decode step's device time goes, at
+    the 7B serving shapes (random weights, seed 0)."""
+    from kubeflow_tpu_torch.models import llama, registry
+
+    model = registry.get("llama").make_model(size="7b").init_weights(0)
+    cfg = model.config
+    scratch = llama.init_cache(cfg, 1, MAX_SEQ)
+    for layer in scratch["layers"]:
+        layer["index"] = 512
+    ids = torch.randint(1, cfg.vocab_size, (1, 512), device="cuda")
+    profile_forward(model, "prefill chunk [1, 512] at offset 512", ids,
+                    scratch)
+    view = llama.init_cache(cfg, 4, MAX_SEQ, per_sequence=True)
+    for layer in view["layers"]:
+        layer["index"] = torch.tensor([16, 300, 700, 1500], device="cuda")
+    tok = torch.randint(1, cfg.vocab_size, (4, 1), device="cuda")
+    profile_forward(model, "decode step [4, 1] over a 4 x 2048 view", tok,
+                    view)
+    del model, scratch, view
+    torch.cuda.empty_cache()
+
+
+def phase_numbers(fa) -> list[dict]:
+    """Kernel, plain and library times with the bound, at each main-path
+    shape; rows carry the shape's launches per layer."""
+    from torch.nn.attention.bias import causal_lower_right
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=30)
+    log(smi.stdout.strip().splitlines()[0] if smi.stdout.strip()
+        else f"nvidia-smi: {smi.stderr.strip()}")
+    rows = []
+    for name, b, sq, sk, h, hkv, d, causal, count in main_path_shapes():
+        dtype = torch.bfloat16
+        q, k, v = make_qkv(b, sq, sk, h, hkv, d, dtype, seed=11)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        mask = causal_lower_right(sq, sk) if causal else None
+        launches = fa.flash_attention.launches
+        ms = time_ms(lambda: fa.flash_attention(q, k, v, causal=causal))
+        fa.flash_attention.launches = launches   # timing is not the path
+        plain_ms = time_ms(
+            lambda: fa.flash_attention_reference(q, k, v, causal=causal))
+        library_ms = time_ms(lambda: sdpa(qt, kt, vt, attn_mask=mask))
+        t_bytes, t_ops = flash_bound(b, sq, sk, h, hkv, d, causal, dtype)
+        row = {"shape": name, "per_layer": count, "ms": ms,
+               "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "bytes_ms": t_bytes, "operations_ms": t_ops,
+               "library_ms": library_ms}
+        log(f"flash_fwd {name} bf16 (x{count} per layer): kernel {ms:.4f} "
+            f"ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}), plain "
+            f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms")
+        rows.append(row)
+    return rows
+
+
+def per_launch(rows: list[dict], key: str) -> float:
+    """Mean over the main path's launches (each shape weighted by its
+    launches per layer)."""
+    n = sum(r["per_layer"] for r in rows)
+    return sum(r[key] * r["per_layer"] for r in rows) / n
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; this smoke "
+              "run needs a CUDA card", file=sys.stderr)
+        return 2
+    import kubeflow_tpu_torch
+    from kubeflow_tpu_torch.ops import flash_attention as fa
+
+    pkg = Path(kubeflow_tpu_torch.__file__).resolve().parent
+    if pkg.parent != ROOT:
+        print(f"chip_smoke: kubeflow_tpu_torch was imported from {pkg}, not "
+              f"from the checkout beside this script ({ROOT})",
+              file=sys.stderr)
+        return 2
+    log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+        f"{torch.cuda.get_device_name(0)}")
+    t_start = time.perf_counter()
+    max_err = phase_kernels(fa)
+    serving = phase_serving(fa)
+    phase_profile()
+    rows = phase_numbers(fa)
+    log(f"phase 2: TTFT mean {serving['ttft_mean_s'] * 1e3:.1f} ms over the "
+        f"4 concurrent requests; decode "
+        f"{serving['decode_tok_per_s']:.1f} tok/s over 4 slots; total "
+        f"{time.perf_counter() - t_start:.1f}s")
+    ms, bytes_ms, ops_ms = (per_launch(rows, k) for k in
+                            ("ms", "bytes_ms", "operations_ms"))
+    kernels = [{
+        "name": "flash_fwd", "route": "cuda",
+        "source": "kubeflow_tpu_torch/ops/csrc/flash_fwd.cu",
+        "replaces": "kubeflow_tpu/ops/flash_attention.py:136",
+        "launches": serving["launches"], "max_abs_err": max_err,
+        # per launch, over the main path's mix of prefill shapes
+        "ms": ms, "kernel_ms": ms, "plain_ms": per_launch(rows, "plain_ms"),
+        "bound_ms": per_launch(rows, "bound_ms"),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": per_launch(rows, "library_ms"), "shapes": rows,
+    }]
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

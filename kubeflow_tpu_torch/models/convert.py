@@ -1,0 +1,77 @@
+"""Weight bridge: a flax params tree (as numpy) onto the port's modules.
+
+The port's modules keep the flax leaf names and layouts, so the mapping is
+by path alone: ``layer_3/attention/q/kernel`` becomes
+``layers.3.attention.q.kernel``.  The input is a nested dict of numpy
+arrays (what ``jax.tree.map(np.asarray, params)`` gives), so the port never
+imports JAX to read it.  bfloat16 arrays (numpy's ``bfloat16`` from
+ml_dtypes) are taken bit for bit.
+"""
+
+from __future__ import annotations
+
+import re
+
+import numpy as np
+import torch
+
+from kubeflow_tpu_torch.models.llama import LlamaConfig
+
+
+def _flatten(tree: dict, prefix: str = "") -> dict[str, np.ndarray]:
+    out: dict[str, np.ndarray] = {}
+    for key, val in tree.items():
+        path = f"{prefix}/{key}" if prefix else str(key)
+        if isinstance(val, dict):
+            out.update(_flatten(val, path))
+        else:
+            out[path] = np.asarray(val)
+    return out
+
+
+def _to_tensor(arr: np.ndarray) -> torch.Tensor:
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.uint16).copy()).view(
+            torch.bfloat16)
+    return torch.from_numpy(np.ascontiguousarray(arr).copy())
+
+
+def from_jax_params(tree: dict, cfg: LlamaConfig) -> dict[str, torch.Tensor]:
+    """Map a Llama flax params tree onto a ``LlamaModel`` state dict
+    (CPU tensors; ``load_state_dict`` copies them to the model's device).
+    Raises on a missing, unexpected or misshapen leaf."""
+    state: dict[str, torch.Tensor] = {}
+    for path, arr in _flatten(tree).items():
+        name = re.sub(r"^layer_(\d+)/", r"layers.\1/", path).replace("/", ".")
+        state[name] = _to_tensor(arr)
+    expected = _expected_shapes(cfg)
+    missing = sorted(set(expected) - set(state))
+    extra = sorted(set(state) - set(expected))
+    if missing or extra:
+        raise ValueError(f"params tree does not match {cfg}: missing "
+                         f"{missing[:4]}, unexpected {extra[:4]}")
+    for name, shape in expected.items():
+        if tuple(state[name].shape) != shape:
+            raise ValueError(f"{name}: shape {tuple(state[name].shape)}, "
+                             f"expected {shape}")
+    return state
+
+
+def _expected_shapes(cfg: LlamaConfig) -> dict[str, tuple]:
+    h, hd, f = cfg.hidden_size, cfg.head_dim, cfg.intermediate_size
+    shapes = {"tok_embeddings.embedding": (cfg.vocab_size, h),
+              "final_norm.scale": (h,)}
+    for i in range(cfg.num_layers):
+        p = f"layers.{i}."
+        shapes.update({
+            p + "attention_norm.scale": (h,),
+            p + "ffn_norm.scale": (h,),
+            p + "attention.q.kernel": (h, cfg.num_heads, hd),
+            p + "attention.k.kernel": (h, cfg.num_kv_heads, hd),
+            p + "attention.v.kernel": (h, cfg.num_kv_heads, hd),
+            p + "attention.o.kernel": (cfg.num_heads * hd, h),
+            p + "gate.kernel": (h, f),
+            p + "up.kernel": (h, f),
+            p + "down.kernel": (f, h),
+        })
+    return shapes
