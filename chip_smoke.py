@@ -6,25 +6,40 @@
 Phases, in order; any failure exits nonzero and prints no result:
 
 1. Build every CUDA kernel of the port from ``kubeflow_tpu_torch/ops/csrc``
-   (one nvcc per source, all at once) and hold the flash-attention forward
-   kernel against its plain PyTorch version on O and lse, in bfloat16 and
-   float32 (TF32 off for the plain version), at every shape the serving
-   run of phase 2 gives it and at a GQA, a strided and a non-causal D=64
-   case.
-2. Main path at full width: a Llama-2-7B ``GenerativePredictor`` (32
-   layers, random weights from a seed) served through ``PredictorApp`` on
-   a local port answers 4 concurrent HTTP ``:generate`` requests (prompts
-   of 17, 300, 700 and 1500 tokens; 3 greedy, 1 sampled).  The flash
-   kernel's launch count over that run must be 32 x the prefill chunks;
-   re-sent requests must reproduce their tokens.  Then, off the counted
-   run: every kernel call of a chunked 1500-token prefill is held against
-   the plain version on the same inputs, and the prefill logits of one
-   prompt through the kernel and through the plain routes must agree.
-3. Numbers: device time by operator (torch.profiler) of one 512-token
-   prefill chunk and one 4-row decode step at 7B; the card's name and
-   power limit; the kernel's device time at each main-path shape beside
-   its bound, the plain version's time and ``scaled_dot_product_attention``'s
-   (a yardstick the port never calls); TTFT and decode tokens/s of phase 2.
+   (one nvcc per source, all at once).  Hold the flash-attention forward
+   kernel (K1) against its plain PyTorch version on O and lse, in bfloat16
+   and float32 (TF32 off for the plain version), at every shape the
+   serving run of phase 2 and the training run of phase 4 give it and at
+   a GQA, a strided and a non-causal D=64 case; hold the backward kernels
+   (K2 dQ, K3 dK/dV) against theirs at the training shape, a causal D=128,
+   a ragged Sq = Sk = 200 and a GQA (32 over 8 heads) case.
+2. Serving main path at full width: a Llama-2-7B ``GenerativePredictor``
+   (32 layers, random weights from a seed) served through ``PredictorApp``
+   on a local port answers 4 concurrent HTTP ``:generate`` requests
+   (prompts of 17, 300, 700 and 1500 tokens; 3 greedy, 1 sampled).  The
+   flash kernel's launch count over that run must be 32 x the prefill
+   chunks; re-sent requests must reproduce their tokens.  Then, off the
+   counted run: every kernel call of a chunked 1500-token prefill is held
+   against the plain version on the same inputs, and the prefill logits of
+   one prompt through the kernel and through the plain routes must agree.
+3. Device time by operator (torch.profiler) of one 512-token prefill
+   chunk and one 4-row decode step at 7B.
+4. Training main path at full width: ``python -m
+   kubeflow_tpu_torch.training``'s ``main`` in-process trains BERT-large
+   (24 layers, hidden 1024, 16 heads of 64, sequence 512, bf16, random
+   weights from a seed) for 10 adamw steps at global batch 24.  Every step
+   must launch K1 48 times (24 layers, each recomputed by remat) and K2
+   and K3 24 times each, and every loss must be finite.  Then, off the
+   counted run: one train step through the kernels against the same step
+   through the plain attention route (same weights and batch) in loss and
+   grad_norm, with every K2 and K3 call of it held against its plain
+   version on the same inputs; and the step's device time by operator.
+5. Numbers: the card's name and power limit; each kernel's device time at
+   its main-path shapes beside its bound, its plain version's time and a
+   PyTorch call that computes the same function (``scaled_dot_product_
+   attention`` forward, and its backward for K2 and K3: yardsticks the
+   port never calls); TTFT and decode tokens/s of phase 2; BERT-large
+   samples/s of phase 4.
 
 The line before the last is the ``kernels`` JSON object; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -34,8 +49,10 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -49,9 +66,17 @@ import torch
 ROOT = Path(__file__).resolve().parent
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s of HBM3, bf16 and
-# fp32 rates in FLOP/s (the f32 kernel runs on the CUDA cores)
+# fp32 rates in FLOP/s (the f32 kernels run on the CUDA cores)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# what each kernel moves and computes: tensors shaped like Q [B, Sq, H, D]
+# and like K [B, Sk, Hkv, D] read or written once, float32 rows [B, H, Sq]
+# (lse, delta), and products of 2 D FLOPs per visible (query, key) pair
+KERNEL_WORK = {  # name: (q-like, k-like, rows, products)
+    "flash_fwd": (2, 2, 1, 2),        # Q, O | K, V | lse | QK^T, PV
+    "flash_bwd_dq": (3, 2, 2, 3),     # Q, dO, dQ | K, V | lse, delta
+    "flash_bwd_dkv": (2, 4, 2, 4),    # Q, dO | K, V, dK, dV | lse, delta
+}
 
 # phase 2's requests: prompt lengths and the engine settings
 PROMPT_LENS = (17, 300, 700, 1500)
@@ -60,6 +85,32 @@ EXTRA_SHAPES = [  # (name, B, Sq, Sk, H, Hkv, D, causal)
     ("gqa_ragged_strided", 2, 200, 700, 32, 8, 128, True),
     ("noncausal_d64", 2, 100, 300, 4, 4, 64, False),
 ]
+# phase 4: BERT-large pretraining through the port's worker entrypoint
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 10, 24, 512
+TRAIN_CONFIG = {"model": "bert", "model_config": {"size": "large"},
+                "global_batch": TRAIN_BATCH, "steps": TRAIN_STEPS,
+                "log_every": 1, "seed": 0,
+                "optimizer": {"name": "adamw", "learning_rate": 1e-4}}
+TRAIN_SHAPE = ("bert_large_train", TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 16, 16,
+               64, False)
+# per step: K1 runs twice per layer (forward, and remat's recompute in the
+# backward), K2 and K3 once per layer
+TRAIN_LAUNCHES = {"flash_fwd": 48, "flash_bwd_dq": 24, "flash_bwd_dkv": 24}
+BWD_SHAPES = [TRAIN_SHAPE,  # (name, B, Sq, Sk, H, Hkv, D, causal)
+              ("causal_d128", 2, 384, 384, 8, 8, 128, True),
+              ("ragged_200_causal", 2, 200, 200, 16, 16, 64, True),
+              ("gqa_32_over_8", 2, 256, 256, 32, 8, 128, True)]
+# max |kernel - plain| / max |plain| per gradient (dQ, dK, dV).  f32:
+# summation order only.  bf16: the kernels round P and dS to bf16 for
+# their products (2^-8 relative per weight) and the gradients to bf16.
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# one train step through the kernels against the same step through the
+# plain attention route, relative.  Both round the softmax weights to bf16
+# before PV; the routes differ in where the backward rounds (the kernels
+# round dS, the plain route's autograd rounds the weights' gradient), and
+# 24 random-weight bf16 layers amplify such rounding-level differences
+# (measured on an H100: 2.5e-5 on the loss, 3.7e-4 on grad_norm).
+STEP_TOL = {"loss": 1e-3, "grad_norm": 5e-3}
 # |kernel - plain| <= atol + rtol * |plain| per element of O, and <= lse
 # absolutely.  f32: summation order only.  bf16: the kernel rounds P to
 # bf16 for the PV product (2^-8 relative per weight) and both round O to
@@ -134,9 +185,38 @@ def make_qkv(b, sq, sk, h, hkv, d, dtype, seed, strided=False):
     return q, k, v
 
 
-def phase_kernels(fa) -> float:
-    """Hold the kernel against its plain version; returns the max |O| error
-    at the bf16 main-path shapes."""
+def check_backward(fa, name, b, sq, sk, h, hkv, d, causal, dtype,
+                   seed) -> tuple[float, float]:
+    """Hold K2 and K3 against their plain versions on the same q, k, v,
+    dO, lse and delta; returns the max abs errors (dQ, dK/dV)."""
+    q, k, v = make_qkv(b, sq, sk, h, hkv, d, dtype, seed)
+    g = torch.Generator(device="cuda").manual_seed(seed + 1000)
+    do = torch.randn(q.shape, generator=g, device="cuda").to(dtype)
+    o, lse = fa.flash_attention_with_lse(q, k, v, causal=causal)
+    delta = fa.flash_bwd_delta(o, do)
+    got = (fa.flash_bwd_dq(q, k, v, do, lse, delta, causal=causal),
+           *fa.flash_bwd_dkv(q, k, v, do, lse, delta, causal=causal))
+    want = (fa.flash_bwd_dq_reference(q, k, v, do, lse, delta, causal=causal),
+            *fa.flash_bwd_dkv_reference(q, k, v, do, lse, delta,
+                                        causal=causal))
+    torch.cuda.synchronize()
+    errs, rels = [], []
+    for x, ref in zip(got, want):
+        diff = (x.float() - ref.float()).abs().max().item()
+        errs.append(diff)
+        rels.append(diff / ref.float().abs().max().item())
+    ok = all(math.isfinite(r) and r <= BWD_TOL[dtype] for r in rels)
+    log(f"flash_bwd {name} {str(dtype)[6:]}: max|d| dQ {errs[0]:.3e} dK "
+        f"{errs[1]:.3e} dV {errs[2]:.3e}; / max|ref| {rels[0]:.3e} "
+        f"{rels[1]:.3e} {rels[2]:.3e} (tol {BWD_TOL[dtype]:g}) "
+        f"{'ok' if ok else 'FAIL'}")
+    check(ok, f"flash_bwd disagrees at {name} {dtype}")
+    return errs[0], max(errs[1:])
+
+
+def phase_kernels(fa) -> dict:
+    """Hold the kernels against their plain versions; returns each
+    kernel's max abs error at the bf16 main-path shapes."""
     from kubeflow_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
@@ -149,7 +229,7 @@ def phase_kernels(fa) -> float:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     main_err = 0.0
-    cases = [s[:8] for s in main_path_shapes()] + EXTRA_SHAPES
+    cases = [s[:8] for s in main_path_shapes()] + [TRAIN_SHAPE] + EXTRA_SHAPES
     for i, (name, b, sq, sk, h, hkv, d, causal) in enumerate(cases):
         for dtype in (torch.bfloat16, torch.float32):
             q, k, v = make_qkv(b, sq, sk, h, hkv, d, dtype, seed=i,
@@ -168,9 +248,16 @@ def phase_kernels(fa) -> float:
                 f"(tol {tol['atol']:g} + {tol['rtol']:g}|O|), max|dlse| "
                 f"{e_l:.3e} (tol {tol['lse']:g}) {'ok' if ok else 'FAIL'}")
             check(ok, f"flash_fwd disagrees at {name} {dtype}")
-            if dtype == torch.bfloat16 and name.startswith("7b_prefill"):
+            if dtype == torch.bfloat16 and name.startswith(
+                    ("7b_prefill", TRAIN_SHAPE[0])):
                 main_err = max(main_err, e_o)
-    return main_err
+    errs = {"flash_fwd": main_err}
+    for i, (name, *shape) in enumerate(BWD_SHAPES):
+        for dtype in (torch.bfloat16, torch.float32):
+            e_dq, e_dkv = check_backward(fa, name, *shape, dtype, seed=50 + i)
+            if dtype == torch.bfloat16 and name == TRAIN_SHAPE[0]:
+                errs.update(flash_bwd_dq=e_dq, flash_bwd_dkv=e_dkv)
+    return errs
 
 
 def post(port: int, path: str, body: dict) -> tuple[int, dict]:
@@ -246,7 +333,8 @@ def check_in_model(fa, model, prompt: list[int]) -> None:
             for layer in cache["layers"]:
                 layer["index"] = pos
             model(torch.tensor([chunk], device="cuda"), cache=cache)
-    ok = worst["o"] <= IN_MODEL_TOL["o"] and worst["lse"] <= IN_MODEL_TOL["lse"]
+    ok = (worst["o"] <= IN_MODEL_TOL["o"]
+          and worst["lse"] <= IN_MODEL_TOL["lse"])
     log(f"in-model check, {len(prompt)}-token prefill (Sq, Sk) "
         f"{sorted(shapes)} x {model.config.num_layers} layers: max "
         f"|dO|/(2^-7 (|O| + P|V|)) {worst['o']:.3e} (tol "
@@ -396,43 +484,93 @@ def time_ms(fn, reps: int = 20, windows: int = 7) -> float:
     return statistics.median(times)
 
 
-def flash_bound(b, sq, sk, h, hkv, d, causal, dtype) -> tuple[float, float]:
-    """Least time the card needs, as (bytes ms, operations ms): each input
-    read once and each output written once over the HBM rate; the FLOPs of
-    the visible (q, k) pairs over the dtype's peak rate."""
+def flash_bound(kernel, b, sq, sk, h, hkv, d, causal,
+                dtype) -> tuple[float, float]:
+    """Least time the card needs for ``kernel`` (``KERNEL_WORK``), as
+    (bytes ms, operations ms): each input read once and each output
+    written once over the HBM rate; the FLOPs of the visible (q, k) pairs
+    over the dtype's peak rate."""
+    n_q, n_k, n_rows, products = KERNEL_WORK[kernel]
     item = torch.tensor([], dtype=dtype).element_size()
-    nbytes = (2 * b * sq * h * d + 2 * b * sk * hkv * d) * item \
-        + b * h * sq * 4
+    nbytes = (n_q * b * sq * h * d + n_k * b * sk * hkv * d) * item \
+        + n_rows * b * h * sq * 4
     if causal:  # query i sees keys [0, i + sk - sq]
         pairs = sum(max(0, min(sk, i + sk - sq + 1)) for i in range(sq))
     else:
         pairs = sq * sk
-    flops = 4.0 * d * pairs * b * h
+    flops = 2.0 * products * d * pairs * b * h
     return nbytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[dtype] * 1e3
 
 
-def profile_forward(model, label: str, ids, cache) -> None:
-    """Device time of one forward by operator (torch.profiler), top 6, and
-    the flash kernel's share."""
+def bound_fields(kernel, shape, dtype) -> dict:
+    t_bytes, t_ops = flash_bound(kernel, *shape, dtype)
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes_ms": t_bytes, "operations_ms": t_ops}
+
+
+def profile_device(label: str, fn, top: int = 6) -> float:
+    """Device time of one ``fn()`` by operator (torch.profiler), after a
+    warm-up call: prints the total and the ``top`` kernels; returns the
+    total in ms."""
     from torch.profiler import ProfilerActivity, profile
 
-    with torch.no_grad():
-        model(ids, cache=cache)          # warm
+    fn()                                  # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            model(ids, cache=cache)
-            torch.cuda.synchronize()
     # device kernels only: operator rows repeat their kernels' time
     events = [e for e in prof.key_averages()
               if str(e.device_type).endswith("CUDA")
               and e.self_device_time_total > 0]
     total = sum(e.self_device_time_total for e in events)
     log(f"profile {label}: device time {total / 1e3:.3f} ms")
-    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:6]:
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:top]:
         log(f"  {e.self_device_time_total / 1e3:9.3f} ms "
             f"{100 * e.self_device_time_total / max(total, 1):5.1f}% "
             f"x{e.count:<4d} {e.key[:90]}")
+    for e in events:
+        if "flash_" in e.key:
+            log(f"  ours: {e.self_device_time_total / 1e3:9.3f} ms "
+                f"{100 * e.self_device_time_total / max(total, 1):5.1f}% "
+                f"x{e.count:<4d} {e.key[:90]}")
+    groups: dict[str, float] = {}
+    for e in events:
+        group = kernel_group(e.key)
+        groups[group] = groups.get(group, 0.0) + e.self_device_time_total
+    log("  by kind: " + ", ".join(
+        f"{g} {t / 1e3:.3f} ms ({100 * t / max(total, 1):.1f}%)"
+        for g, t in sorted(groups.items(), key=lambda kv: -kv[1])))
+    return total / 1e3
+
+
+def kernel_group(key: str) -> str:
+    """A device kernel's kind, from its name."""
+    if "flash_" in key:
+        return "flash kernels"
+    if "f32f32" in key or "sgemm" in key:
+        return "float32 GEMM"
+    if "nvjet" in key or "gemm" in key or "cutlass" in key:
+        return "bf16 GEMM"
+    if "indexing" in key or "index_" in key or "scatter" in key:
+        return "gather/scatter"
+    if "reduce" in key or "softmax" in key or "norm" in key:
+        return "reductions"
+    if "elementwise" in key or "copy" in key or "foreach" in key:
+        return "elementwise"
+    return "other"
+
+
+def profile_forward(model, label: str, ids, cache) -> None:
+    """Device time of one forward by operator, top 6, and the flash
+    kernel's share."""
+    def forward():
+        with torch.no_grad():
+            model(ids, cache=cache)
+
+    profile_device(label, forward)
 
 
 def phase_profile() -> None:
@@ -458,36 +596,207 @@ def phase_profile() -> None:
     torch.cuda.empty_cache()
 
 
-def phase_numbers(fa) -> list[dict]:
-    """Kernel, plain and library times with the bound, at each main-path
-    shape; rows carry the shape's launches per layer."""
-    from torch.nn.attention.bias import causal_lower_right
-    from torch.nn.functional import scaled_dot_product_attention as sdpa
+KERNEL_NAMES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 
+
+def counters(fa) -> dict:
+    """Each kernel's launch counter, by kernel name."""
+    return {"flash_fwd": fa.flash_attention.launches,
+            "flash_bwd_dq": fa.flash_bwd_dq.launches,
+            "flash_bwd_dkv": fa.flash_bwd_dkv.launches}
+
+
+def set_counters(fa, values: dict) -> None:
+    fa.flash_attention.launches = values["flash_fwd"]
+    fa.flash_bwd_dq.launches = values["flash_bwd_dq"]
+    fa.flash_bwd_dkv.launches = values["flash_bwd_dkv"]
+
+
+def phase_training(fa) -> dict:
+    """Phase 4's counted run: the worker entrypoint in-process, BERT-large
+    at global batch 24, 10 steps, every step logged (a sync per step)."""
+    from kubeflow_tpu_torch.training import __main__ as worker
+
+    losses, stamps, per_step = [], [], []
+    seen = dict.fromkeys(KERNEL_NAMES, 0)
+
+    def hook(step, rec):
+        now = counters(fa)
+        per_step.append({n: now[n] - seen[n] for n in KERNEL_NAMES})
+        seen.update(now)
+        losses.append(rec["loss"])
+        stamps.append(time.perf_counter())
+
+    saved_env = os.environ.get("JAXJOB_TRAINER_CONFIG")
+    os.environ["JAXJOB_TRAINER_CONFIG"] = json.dumps(TRAIN_CONFIG)
+    try:
+        set_counters(fa, dict.fromkeys(KERNEL_NAMES, 0))  # the path starts
+        t0 = time.perf_counter()
+        rc = worker.main(["--device", "cuda"], metrics_hook=hook)
+        wall = time.perf_counter() - t0
+        launches = counters(fa)                           # the path ended
+    finally:
+        if saved_env is None:
+            os.environ.pop("JAXJOB_TRAINER_CONFIG", None)
+        else:
+            os.environ["JAXJOB_TRAINER_CONFIG"] = saved_env
+    check(rc == 0, f"training worker exited {rc}")
+    check(len(losses) == TRAIN_STEPS, f"{len(losses)} logged steps")
+    check(all(math.isfinite(x) for x in losses), f"losses {losses}")
+    log(f"BERT-large training, {TRAIN_STEPS} steps at batch {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ}: losses {' '.join(f'{x:.4f}' for x in losses)}")
+    expect = {n: TRAIN_LAUNCHES[n] for n in KERNEL_NAMES}
+    for i, got in enumerate(per_step):
+        check(got == expect, f"step {i + 1} launches {got}, expected "
+              f"{expect}")
+    log(f"launches per step {per_step[0]} in each of {len(per_step)} steps "
+        f"(expected {expect}); total {launches}")
+    steady = TRAIN_BATCH * (len(stamps) - 1) / (stamps[-1] - stamps[0])
+    log(f"BERT-large samples/s: {steady:.2f} over steps 2-{TRAIN_STEPS} "
+        f"({1e3 * TRAIN_BATCH / steady:.1f} ms per step), "
+        f"{TRAIN_BATCH * TRAIN_STEPS / wall:.2f} over the whole run "
+        f"including model build ({wall:.1f}s)")
+    return {"launches": launches, "losses": losses,
+            "samples_per_sec": steady, "wall_s": wall}
+
+
+@contextlib.contextmanager
+def backward_checked(fa, worst: dict):
+    """Route the flash Function's backward through a wrapper that runs it
+    (K2 and K3 launch as usual), then runs each kernel's plain version on
+    that call's inputs (q, k, v, dO, lse and the same delta) and keeps the
+    largest max|kernel - plain| / max|plain| per gradient."""
+    backward = fa.flash_attention_backward
+
+    def note(key, x, ref):
+        rel = ((x.float() - ref.float()).abs().max()
+               / ref.float().abs().max()).item()
+        check(math.isfinite(rel), (key, rel))
+        worst[key] = max(worst.get(key, 0.0), rel)
+
+    def checked(q, k, v, o, lse, do, *, causal=False):
+        dq, dk, dv = backward(q, k, v, o, lse, do, causal=causal)
+        do = do.to(q.dtype)
+        delta = fa.flash_bwd_delta(o, do)
+        note("dq", dq, fa.flash_bwd_dq_reference(q, k, v, do, lse, delta,
+                                                 causal=causal))
+        rdk, rdv = fa.flash_bwd_dkv_reference(q, k, v, do, lse, delta,
+                                              causal=causal)
+        note("dk", dk, rdk)
+        note("dv", dv, rdv)
+        worst["calls"] = worst.get("calls", 0) + 1
+        return dq, dk, dv
+
+    fa.flash_attention_backward = checked
+    try:
+        yield
+    finally:
+        fa.flash_attention_backward = backward
+
+
+def check_training_step(fa) -> None:
+    """One BERT-large train step through the kernels (every K2 and K3
+    call held against its plain version) against the same step through
+    the plain attention route; then the device time by operator of a
+    step with phase 4's optimizer."""
+    from kubeflow_tpu_torch.models import registry
+    from kubeflow_tpu_torch.parallel import train_step as ts
+    from kubeflow_tpu_torch.training.data import to_device
+    from kubeflow_tpu_torch.training.optim import make_optimizer
+
+    entry = registry.get("bert")
+    model = entry.make_model(size="large", device="cuda").init_weights(0)
+    # learning rate 0: each step computes loss, gradients and grad_norm and
+    # leaves the weights as they were, so both routes see the same ones
+    state = ts.init_train_state(model, make_optimizer(
+        {"name": "sgd", "learning_rate": 0.0, "momentum": 0.0}))
+    step = ts.build_train_step(entry.forward_loss, state.tx)
+    batch = to_device(entry.make_batch(
+        TRAIN_BATCH, torch.Generator().manual_seed(0), model),
+        torch.device("cuda"))
+
+    def run() -> dict:
+        _, metrics = step(state, batch)
+        return {k: v.item() for k, v in metrics.items()}
+
+    run()                                   # warm
+    worst: dict = {}
+    before = counters(fa)
+    with backward_checked(fa, worst):
+        kern = run()
+    launched = {n: counters(fa)[n] - before[n] for n in KERNEL_NAMES}
+    check(launched == TRAIN_LAUNCHES, f"checked step launched {launched}")
+    with plain_attention_route(model):
+        plain = run()
+    calls = worst.pop("calls")
+    ok_calls = (calls == model.config.num_layers
+                and max(worst.values()) <= BWD_TOL[torch.bfloat16])
+    log(f"in-step check: {calls} K2 and K3 calls of one BERT-large step vs "
+        f"plain: max|d|/max|ref| dQ {worst['dq']:.3e} dK {worst['dk']:.3e} "
+        f"dV {worst['dv']:.3e} (tol {BWD_TOL[torch.bfloat16]:g}) "
+        f"{'ok' if ok_calls else 'FAIL'}")
+    check(ok_calls, (calls, worst))
+    for key in ("loss", "grad_norm"):
+        rel = abs(kern[key] - plain[key]) / abs(plain[key])
+        ok = math.isfinite(rel) and rel <= STEP_TOL[key]
+        log(f"train step {key}: kernels {kern[key]:.6f}, plain route "
+            f"{plain[key]:.6f}, rel diff {rel:.3e} (tol {STEP_TOL[key]:g}) "
+            f"{'ok' if ok else 'FAIL'}")
+        check(ok, (key, kern, plain))
+
+    # the main path's step (adamw as phase 4 configures it), by operator
+    del state, step
+    state = ts.init_train_state(model, make_optimizer(
+        TRAIN_CONFIG["optimizer"]))
+    step = ts.build_train_step(entry.forward_loss, state.tx)
+    step(state, batch)                      # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step(state, batch)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    device = profile_device(
+        f"BERT-large adamw train step [{TRAIN_BATCH}, {TRAIN_SEQ}]",
+        lambda: step(state, batch), top=15)
+    log(f"train step wall {wall:.3f} ms, device busy {device:.3f} ms, "
+        f"idle share {max(0.0, 1 - device / wall):.3f}")
+    del model, state, step, batch
+    torch.cuda.empty_cache()
+
+
+def card_line() -> str:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=30)
-    log(smi.stdout.strip().splitlines()[0] if smi.stdout.strip()
-        else f"nvidia-smi: {smi.stderr.strip()}")
+    return (smi.stdout.strip().splitlines()[0] if smi.stdout.strip()
+            else f"nvidia-smi: {smi.stderr.strip()}")
+
+
+def phase_numbers(fa, num_layers: int) -> list[dict]:
+    """K1's kernel, plain and library times with the bound, at each
+    serving main-path shape; rows carry the shape's launches per layer and
+    in the whole serving run."""
+    from torch.nn.attention.bias import causal_lower_right
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
     rows = []
     for name, b, sq, sk, h, hkv, d, causal, count in main_path_shapes():
         dtype = torch.bfloat16
         q, k, v = make_qkv(b, sq, sk, h, hkv, d, dtype, seed=11)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         mask = causal_lower_right(sq, sk) if causal else None
-        launches = fa.flash_attention.launches
+        saved = counters(fa)
         ms = time_ms(lambda: fa.flash_attention(q, k, v, causal=causal))
-        fa.flash_attention.launches = launches   # timing is not the path
+        set_counters(fa, saved)                  # timing is not the path
         plain_ms = time_ms(
             lambda: fa.flash_attention_reference(q, k, v, causal=causal))
         library_ms = time_ms(lambda: sdpa(qt, kt, vt, attn_mask=mask))
-        t_bytes, t_ops = flash_bound(b, sq, sk, h, hkv, d, causal, dtype)
-        row = {"shape": name, "per_layer": count, "ms": ms,
-               "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
-               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-               "bytes_ms": t_bytes, "operations_ms": t_ops,
-               "library_ms": library_ms}
+        row = {"shape": name, "per_layer": count,
+               "launches": count * num_layers, "ms": ms,
+               "plain_ms": plain_ms, "library_ms": library_ms,
+               **bound_fields("flash_fwd", (b, sq, sk, h, hkv, d, causal),
+                              dtype)}
         log(f"flash_fwd {name} bf16 (x{count} per layer): kernel {ms:.4f} "
             f"ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}), plain "
             f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms")
@@ -495,11 +804,88 @@ def phase_numbers(fa) -> list[dict]:
     return rows
 
 
+def training_numbers(fa, launches: dict) -> dict[str, dict]:
+    """Each kernel's times at the BERT-large training shape: kernel,
+    plain version, bound, and the library yardstick (SDPA forward for K1;
+    SDPA's backward, which computes dQ, dK and dV in one call, for K2 and
+    K3)."""
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    name, b, sq, sk, h, hkv, d, causal = TRAIN_SHAPE
+    shape = (b, sq, sk, h, hkv, d, causal)
+    dtype = torch.bfloat16
+    q, k, v = make_qkv(b, sq, sk, h, hkv, d, dtype, seed=12)
+    g = torch.Generator(device="cuda").manual_seed(13)
+    do = torch.randn(q.shape, generator=g, device="cuda").to(dtype)
+    o, lse = fa.flash_attention_with_lse(q, k, v)
+    delta = fa.flash_bwd_delta(o, do)
+    saved = counters(fa)
+    ms = {"flash_fwd": time_ms(lambda: fa.flash_attention_with_lse(q, k, v)),
+          "flash_bwd_dq": time_ms(
+              lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta)),
+          "flash_bwd_dkv": time_ms(
+              lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta))}
+    set_counters(fa, saved)                      # timing is not the path
+    plain = {"flash_fwd": time_ms(
+                 lambda: fa.flash_attention_reference(q, k, v)),
+             "flash_bwd_dq": time_ms(lambda: fa.flash_bwd_dq_reference(
+                 q, k, v, do, lse, delta)),
+             "flash_bwd_dkv": time_ms(lambda: fa.flash_bwd_dkv_reference(
+                 q, k, v, do, lse, delta))}
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    sdpa_fwd = time_ms(lambda: sdpa(qt, kt, vt))
+    ot = sdpa(qt, kt, vt)
+    dot = do.transpose(1, 2)
+    sdpa_bwd = time_ms(lambda: torch.autograd.grad(
+        ot, (qt, kt, vt), dot, retain_graph=True))
+    library = {"flash_fwd": sdpa_fwd, "flash_bwd_dq": sdpa_bwd,
+               "flash_bwd_dkv": sdpa_bwd}
+    rows = {}
+    for kernel in KERNEL_NAMES:
+        rows[kernel] = row = {
+            "shape": name, "launches": launches[kernel], "ms": ms[kernel],
+            "plain_ms": plain[kernel], "library_ms": library[kernel],
+            **bound_fields(kernel, shape, dtype)}
+        log(f"{kernel} {name} bf16 (x{TRAIN_LAUNCHES[kernel]} per step): "
+            f"kernel {row['ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+            f"({row['bound_by']}), plain {row['plain_ms']:.4f} ms, "
+            f"library {row['library_ms']:.4f} ms")
+    log(f"sdpa {name} bf16: forward {sdpa_fwd:.4f} ms, backward (dQ, dK, "
+        f"dV) {sdpa_bwd:.4f} ms; flash kernels: forward "
+        f"{ms['flash_fwd']:.4f} ms, backward "
+        f"{ms['flash_bwd_dq'] + ms['flash_bwd_dkv']:.4f} ms")
+    return rows
+
+
 def per_launch(rows: list[dict], key: str) -> float:
-    """Mean over the main path's launches (each shape weighted by its
-    launches per layer)."""
-    n = sum(r["per_layer"] for r in rows)
-    return sum(r[key] * r["per_layer"] for r in rows) / n
+    """Mean over the main paths' launches (each shape weighted by its
+    launches)."""
+    n = sum(r["launches"] for r in rows)
+    return sum(r[key] * r["launches"] for r in rows) / n
+
+
+def kernel_entry(name: str, rows: list[dict], max_err: float) -> dict:
+    """One kernel's object of the ``kernels`` line; times per launch over
+    the main paths' mix of shapes."""
+    source, replaces = {
+        "flash_fwd": ("flash_fwd.cu", ":136"),
+        "flash_bwd_dq": ("flash_bwd.cu", ":264"),
+        "flash_bwd_dkv": ("flash_bwd.cu", ":282"),
+    }[name]
+    bytes_ms, ops_ms = (per_launch(rows, k) for k in ("bytes_ms",
+                                                       "operations_ms"))
+    ms = per_launch(rows, "ms")
+    return {
+        "name": name, "route": "cuda",
+        "source": f"kubeflow_tpu_torch/ops/csrc/{source}",
+        "replaces": f"kubeflow_tpu/ops/flash_attention.py{replaces}",
+        "launches": sum(r["launches"] for r in rows), "max_abs_err": max_err,
+        "ms": ms, "kernel_ms": ms, "plain_ms": per_launch(rows, "plain_ms"),
+        "bound_ms": per_launch(rows, "bound_ms"),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": per_launch(rows, "library_ms"), "shapes": rows,
+    }
 
 
 def main() -> int:
@@ -519,27 +905,30 @@ def main() -> int:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
     t_start = time.perf_counter()
-    max_err = phase_kernels(fa)
+    errs = phase_kernels(fa)
     serving = phase_serving(fa)
     phase_profile()
-    rows = phase_numbers(fa)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"before training: {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+        f"allocated on the card")
+    training = phase_training(fa)
+    check_training_step(fa)
+    log(card_line())
+    serving_rows = phase_numbers(fa, num_layers=32)
+    train_rows = training_numbers(fa, training["launches"])
     log(f"phase 2: TTFT mean {serving['ttft_mean_s'] * 1e3:.1f} ms over the "
         f"4 concurrent requests; decode "
-        f"{serving['decode_tok_per_s']:.1f} tok/s over 4 slots; total "
-        f"{time.perf_counter() - t_start:.1f}s")
-    ms, bytes_ms, ops_ms = (per_launch(rows, k) for k in
-                            ("ms", "bytes_ms", "operations_ms"))
-    kernels = [{
-        "name": "flash_fwd", "route": "cuda",
-        "source": "kubeflow_tpu_torch/ops/csrc/flash_fwd.cu",
-        "replaces": "kubeflow_tpu/ops/flash_attention.py:136",
-        "launches": serving["launches"], "max_abs_err": max_err,
-        # per launch, over the main path's mix of prefill shapes
-        "ms": ms, "kernel_ms": ms, "plain_ms": per_launch(rows, "plain_ms"),
-        "bound_ms": per_launch(rows, "bound_ms"),
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-        "library_ms": per_launch(rows, "library_ms"), "shapes": rows,
-    }]
+        f"{serving['decode_tok_per_s']:.1f} tok/s over 4 slots")
+    log(f"phase 4: BERT-large {training['samples_per_sec']:.2f} samples/s; "
+        f"total {time.perf_counter() - t_start:.1f}s")
+    check(serving["launches"] == sum(r["launches"] for r in serving_rows),
+          "serving launches")
+    kernels = [kernel_entry("flash_fwd",
+                            serving_rows + [train_rows["flash_fwd"]],
+                            errs["flash_fwd"])]
+    kernels += [kernel_entry(name, [train_rows[name]], errs[name])
+                for name in ("flash_bwd_dq", "flash_bwd_dkv")]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

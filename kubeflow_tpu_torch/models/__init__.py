@@ -1,1 +1,1 @@
-"""Model definitions of the port (Llama for this slice)."""
+"""Model definitions of the port (Llama and BERT)."""

@@ -2,10 +2,12 @@
 
 The port's modules keep the flax leaf names and layouts, so the mapping is
 by path alone: ``layer_3/attention/q/kernel`` becomes
-``layers.3.attention.q.kernel``.  The input is a nested dict of numpy
-arrays (what ``jax.tree.map(np.asarray, params)`` gives), so the port never
-imports JAX to read it.  bfloat16 arrays (numpy's ``bfloat16`` from
-ml_dtypes) are taken bit for bit.
+``layers.3.attention.q.kernel`` (Llama), ``layer_3/attention/query/kernel``
+becomes ``layers.3.attention.query.kernel`` (BERT).  The input is a nested
+dict of numpy arrays (what ``jax.tree.map(np.asarray, params)`` gives), so
+the port never imports JAX to read it.  bfloat16 arrays (numpy's
+``bfloat16`` from ml_dtypes) are taken bit for bit.  The same mapping
+carries any tree of that shape, gradients included.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import re
 import numpy as np
 import torch
 
+from kubeflow_tpu_torch.models.bert import BertConfig
 from kubeflow_tpu_torch.models.llama import LlamaConfig
 
 
@@ -36,15 +39,18 @@ def _to_tensor(arr: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(arr).copy())
 
 
-def from_jax_params(tree: dict, cfg: LlamaConfig) -> dict[str, torch.Tensor]:
-    """Map a Llama flax params tree onto a ``LlamaModel`` state dict
-    (CPU tensors; ``load_state_dict`` copies them to the model's device).
-    Raises on a missing, unexpected or misshapen leaf."""
+def from_jax_params(tree: dict, cfg: LlamaConfig | BertConfig
+                    ) -> dict[str, torch.Tensor]:
+    """Map a Llama or BERT flax params tree onto a ``LlamaModel`` /
+    ``BertModel`` state dict (CPU tensors; ``load_state_dict`` copies them
+    to the model's device).  Raises on a missing, unexpected or misshapen
+    leaf."""
     state: dict[str, torch.Tensor] = {}
     for path, arr in _flatten(tree).items():
         name = re.sub(r"^layer_(\d+)/", r"layers.\1/", path).replace("/", ".")
         state[name] = _to_tensor(arr)
-    expected = _expected_shapes(cfg)
+    expected = (_bert_expected_shapes(cfg) if isinstance(cfg, BertConfig)
+                else _expected_shapes(cfg))
     missing = sorted(set(expected) - set(state))
     extra = sorted(set(state) - set(expected))
     if missing or extra:
@@ -74,4 +80,35 @@ def _expected_shapes(cfg: LlamaConfig) -> dict[str, tuple]:
             p + "up.kernel": (h, f),
             p + "down.kernel": (f, h),
         })
+    return shapes
+
+
+def _bert_expected_shapes(cfg: BertConfig) -> dict[str, tuple]:
+    h, f, v = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+    heads = (cfg.num_heads, cfg.head_dim)
+
+    def dense(name, n_in, out):
+        out = (out,) if isinstance(out, int) else out
+        return {f"{name}.kernel": (n_in, *out), f"{name}.bias": out}
+
+    def norm(name):
+        return {f"{name}.scale": (h,), f"{name}.bias": (h,)}
+
+    shapes = {"word_embeddings.embedding": (v, h),
+              "position_embeddings": (cfg.max_position, h),
+              "mlm_bias": (v,),
+              **norm("embeddings_ln"), **norm("mlm_ln"),
+              **dense("pooler", h, h), **dense("mlm_transform", h, h),
+              **dense("nsp", h, 2)}
+    if cfg.type_vocab_size:
+        shapes["token_type_embeddings"] = (cfg.type_vocab_size, h)
+    for i in range(cfg.num_layers):
+        p = f"layers.{i}."
+        for name in ("query", "key", "value"):
+            shapes.update(dense(p + "attention." + name, h, heads))
+        shapes.update(dense(p + "attention.out", h, h))
+        shapes.update(dense(p + "intermediate", h, f))
+        shapes.update(dense(p + "output", f, h))
+        shapes.update(norm(p + "attention_ln"))
+        shapes.update(norm(p + "output_ln"))
     return shapes

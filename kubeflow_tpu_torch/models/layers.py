@@ -7,7 +7,12 @@ DenseGeneral kernel is ``[in, *out]``), so a flax params tree maps onto a
 in ``param_dtype`` (float32 masters by default, as in flax) and cast to the
 compute dtype at use; a serving model built with ``param_dtype`` equal to
 the compute dtype holds exactly the cast the reference makes at every use,
-so the cast is free.  ``LayerNorm`` comes with the BERT slice.
+so the cast is free.
+
+Parameters are created frozen (``requires_grad=False``): a served model
+never builds an autograd graph.  Training turns them on at build time
+(``parallel/train_step.py::init_train_state`` calls
+``requires_grad_(True)``).
 """
 
 from __future__ import annotations
@@ -21,7 +26,7 @@ from torch import nn
 from kubeflow_tpu_torch.ops.matmul import matmul_f32
 
 
-def _param(shape, dtype, device) -> nn.Parameter:
+def param(shape, dtype, device) -> nn.Parameter:
     return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
                         requires_grad=False)
 
@@ -41,27 +46,43 @@ def lecun_normal_(p: torch.Tensor, gen: torch.Generator) -> None:
     p.copy_(tmp)
 
 
+def embed_normal_(p: torch.Tensor, gen: torch.Generator) -> None:
+    """flax's ``normal(stddev=0.02)``, the embedding tables' init."""
+    tmp = torch.empty(p.shape, dtype=torch.float32, device=p.device)
+    nn.init.normal_(tmp, std=0.02, generator=gen)
+    p.copy_(tmp)
+
+
 class DenseGeneral(nn.Module):
     """Dense layer over the trailing axis with arbitrary output shape;
-    kernel ``[in, *features]``, output in the compute ``dtype``."""
+    kernel ``[in, *features]``, output in the compute ``dtype``.  With
+    ``use_bias`` (off by default, as every Llama projection is built), a
+    bias ``[*features]`` held like the kernel is cast to the compute dtype
+    and added after the product, as the reference's ``DenseGeneral``."""
 
     def __init__(self, in_features: int, features: int | Sequence[int], *,
-                 dtype=torch.bfloat16, param_dtype=torch.float32,
-                 device=None):
+                 use_bias: bool = False, dtype=torch.bfloat16,
+                 param_dtype=torch.float32, device=None):
         super().__init__()
         self.features = ((features,) if isinstance(features, int)
                          else tuple(features))
         self.dtype = dtype
-        self.kernel = _param((in_features,) + self.features, param_dtype,
-                             device)
+        self.kernel = param((in_features,) + self.features, param_dtype,
+                            device)
+        self.bias = (param(self.features, param_dtype, device) if use_bias
+                     else None)
 
     def init_weights(self, gen: torch.Generator) -> None:
         lecun_normal_(self.kernel, gen)
+        if self.bias is not None:
+            nn.init.zeros_(self.bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         w = self.kernel.to(self.dtype).reshape(self.kernel.shape[0], -1)
-        y = x.to(self.dtype) @ w
-        return y.reshape(x.shape[:-1] + self.features)
+        y = (x.to(self.dtype) @ w).reshape(x.shape[:-1] + self.features)
+        if self.bias is not None:
+            y = y + self.bias.to(self.dtype)
+        return y
 
 
 class Embed(nn.Module):
@@ -72,14 +93,11 @@ class Embed(nn.Module):
                  device=None):
         super().__init__()
         self.dtype = dtype
-        self.embedding = _param((num_embeddings, features), param_dtype,
-                                device)
+        self.embedding = param((num_embeddings, features), param_dtype,
+                               device)
 
     def init_weights(self, gen: torch.Generator) -> None:
-        tmp = torch.empty(self.embedding.shape, dtype=torch.float32,
-                          device=self.embedding.device)
-        nn.init.normal_(tmp, std=0.02, generator=gen)
-        self.embedding.copy_(tmp)
+        embed_normal_(self.embedding, gen)
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
         return self.embedding.to(self.dtype)[ids]
@@ -93,6 +111,30 @@ class Embed(nn.Module):
         return matmul_f32(x2, table.T).reshape(*x.shape[:-1], -1)
 
 
+class LayerNorm(nn.Module):
+    """Layer normalization with float32 mean and variance, float32 scale
+    and bias, cast back to the input dtype."""
+
+    def __init__(self, features: int, epsilon: float = 1e-12, *,
+                 param_dtype=torch.float32, device=None):
+        super().__init__()
+        self.epsilon = epsilon
+        self.scale = param((features,), param_dtype, device)
+        self.bias = param((features,), param_dtype, device)
+
+    def init_weights(self, gen: torch.Generator) -> None:
+        nn.init.ones_(self.scale)
+        nn.init.zeros_(self.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        orig = x.dtype
+        xf = x.float()
+        mean = xf.mean(dim=-1, keepdim=True)
+        var = (xf - mean).square().mean(dim=-1, keepdim=True)
+        y = (xf - mean) * torch.rsqrt(var + self.epsilon)
+        return (y * self.scale.float() + self.bias.float()).to(orig)
+
+
 class RMSNorm(nn.Module):
     """RMS normalization with float32 statistics, cast back to the input
     dtype."""
@@ -101,7 +143,7 @@ class RMSNorm(nn.Module):
                  param_dtype=torch.float32, device=None):
         super().__init__()
         self.epsilon = epsilon
-        self.scale = _param((features,), param_dtype, device)
+        self.scale = param((features,), param_dtype, device)
 
     def init_weights(self, gen: torch.Generator) -> None:
         nn.init.ones_(self.scale)

@@ -3,10 +3,10 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface (no PyTorch headers, so a build takes
 seconds), under ``kubeflow_tpu_torch/_build/`` (git-ignored).  The library
-file name carries a hash of the source and the flags, so an edited source is
-rebuilt and an unchanged one is loaded as it is.  ``build_all`` starts one
-``nvcc`` per source at once, so the build time of several kernels is that of
-the slowest.
+file name carries a hash of the source, the shared ``csrc/*.cuh`` headers
+and the flags, so an edited source is rebuilt and an unchanged one is
+loaded as it is.  ``build_all`` starts one ``nvcc`` per source at once, so
+the build time of several kernels is that of the slowest.
 """
 
 from __future__ import annotations
@@ -46,10 +46,11 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):   # shared by every source
+        digest.update(header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
 def _start(name: str):

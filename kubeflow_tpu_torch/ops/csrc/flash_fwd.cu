@@ -38,16 +38,11 @@
 // is requested with cudaFuncSetAttribute before each launch (the setting
 // is per device).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr int BQ = 64;        // query rows per block
-constexpr int BK = 64;        // keys per tile
-constexpr int THREADS = 256;
-constexpr float NEG_INF = -1e30f;
+constexpr int THREADS = 256;  // the float32 kernel
 
 struct Params {
   const void* q;
@@ -220,104 +215,10 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_f32(const Params p) {
 // is rounded to bf16 for that product (the running sum l uses the float32
 // values).
 
-using bf16 = __nv_bfloat16;
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// four 8x8 b16 matrices from shared memory; lanes 8i..8i+7 give the row
-// addresses of matrix i, whose fragment lands in r[i] (lane l holds row
-// l / 4, columns 2(l % 4) and 2(l % 4) + 1; transposed with trans)
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const bf16* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x = lo: low half
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-constexpr int MMA_THREADS = 128;
-
 // shared memory: the Q tile and two stages of (K, V) tiles, row pitch D + 8
 template <int D>
 constexpr size_t mma_smem_bytes() {
   return sizeof(bf16) * (size_t)((BQ + 4 * BK) * (D + 8));
-}
-
-// 16 bytes global -> shared without passing through registers; with
-// valid false nothing is read and the 16 bytes are zero-filled
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :
-               : "r"(d), "l"(src), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-// wait until at most N of this thread's committed groups are in flight
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Start copying rows [row0, row0 + 64) of a [S, D] bf16 slab with row
-// stride ld (elements) into dst (row pitch D + 8); rows at or past n are
-// zero.  With vec (16-byte aligned rows) every thread issues its cp.async
-// copies at once and returns; otherwise plain loads and stores.  Either way
-// the tile is complete after cp_async_wait and __syncthreads.
-template <int D>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
-                                          int64_t ld, int row0, int n,
-                                          bool vec) {
-  constexpr int CHUNKS = D / 8;  // 8 elements per chunk
-#pragma unroll
-  for (int it = 0; it < 64 * CHUNKS / MMA_THREADS; ++it) {
-    const int i = threadIdx.x + it * MMA_THREADS;
-    const int r = i / CHUNKS, c = (i % CHUNKS) * 8, row = row0 + r;
-    bf16* d = dst + r * (D + 8) + c;
-    if (vec) {
-      const bool ok = row < n;
-      cp_async16(d, ok ? src + (int64_t)row * ld + c : src, ok);
-    } else {
-#pragma unroll
-      for (int e = 0; e < 8; ++e)
-        d[e] = row < n ? src[(int64_t)row * ld + c + e]
-                       : __float2bfloat16(0.f);
-    }
-  }
-}
-
-__device__ __forceinline__ bool aligned16(const bf16* base, int64_t ld) {
-  return reinterpret_cast<uintptr_t>(base) % 16 == 0 && ld % 8 == 0;
 }
 
 template <int D>
@@ -359,13 +260,7 @@ __global__ void __launch_bounds__(MMA_THREADS)
   __syncthreads();
   const int r_lo = warp * 16 + g;  // this thread's rows: r_lo and r_lo + 8
   uint32_t qa[KSTEPS][4];
-#pragma unroll
-  for (int kk = 0; kk < KSTEPS; ++kk) {
-    qa[kk][0] = ld32(qs + r_lo * LDK + kk * 16 + 2 * t);
-    qa[kk][1] = ld32(qs + (r_lo + 8) * LDK + kk * 16 + 2 * t);
-    qa[kk][2] = ld32(qs + r_lo * LDK + kk * 16 + 8 + 2 * t);
-    qa[kk][3] = ld32(qs + (r_lo + 8) * LDK + kk * 16 + 8 + 2 * t);
-  }
+  load_a_frags<D>(qa, qs, r_lo, t);
   const int qpos[2] = {q0 + r_lo + offset, q0 + r_lo + 8 + offset};
 
   float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};

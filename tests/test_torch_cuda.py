@@ -60,3 +60,66 @@ def test_f32_accumulating_products(cuda_device):
     assert out.dtype == torch.float32
     assert (out - ref).abs().max().item() < 1e-4
     assert (matmul_f32(a[0], bt[0]) - ref[0]).abs().max().item() < 1e-4
+
+
+BWD_CASES = [  # (B, Sq, Sk, H, Hkv, D, causal)
+    (2, 200, 200, 4, 4, 64, False),     # ragged tails
+    (2, 256, 256, 4, 4, 64, True),
+    (1, 77, 130, 8, 2, 128, True),      # GQA, decode offset, ragged
+    (1, 128, 128, 4, 4, 128, False),
+    (2, 300, 100, 4, 2, 64, False),     # more queries than keys
+    (1, 40, 33, 2, 2, 64, True),        # less than one tile each way
+]
+# |kernel - plain| / max |plain| per gradient.  f32: summation order only.
+# bf16: the kernels round P and dS to bf16 for their products (2^-8
+# relative per weight) and the gradients to bf16 at the end (2^-8).
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("strided", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", BWD_CASES)
+def test_flash_backward_kernels_match_plain_version(cuda_device, dtype,
+                                                    case, strided):
+    b, sq, sk, h, hkv, d, causal = case
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device=cuda_device).to(dtype)
+
+    if strided:   # [B, H, S, D] tensors viewed as [B, S, H, D]
+        q, do = (randn(b, h, sq, d).transpose(1, 2) for _ in range(2))
+        k, v = (randn(b, hkv, sk, d).transpose(1, 2) for _ in range(2))
+    else:
+        q, k = randn(b, sq, h, d), randn(b, sk, hkv, d)
+        v, do = randn(b, sk, hkv, d), randn(b, sq, h, d)
+    o, lse = tfa.flash_attention_with_lse(q, k, v, causal=causal)
+    delta = tfa.flash_bwd_delta(o, do)
+    before = (tfa.flash_bwd_dq.launches, tfa.flash_bwd_dkv.launches)
+    got = (tfa.flash_bwd_dq(q, k, v, do, lse, delta, causal=causal),
+           *tfa.flash_bwd_dkv(q, k, v, do, lse, delta, causal=causal))
+    want = (tfa.flash_bwd_dq_reference(q, k, v, do, lse, delta,
+                                       causal=causal),
+            *tfa.flash_bwd_dkv_reference(q, k, v, do, lse, delta,
+                                         causal=causal))
+    torch.cuda.synchronize()
+    assert (tfa.flash_bwd_dq.launches, tfa.flash_bwd_dkv.launches) == (
+        before[0] + 1, before[1] + 1)
+    for name, x, ref in zip(("dq", "dk", "dv"), got, want):
+        assert x.dtype == dtype and x.shape == ref.shape
+        rel = ((x.float() - ref.float()).abs().max()
+               / ref.float().abs().max()).item()
+        assert rel < BWD_TOL[dtype], f"{name}: {rel:.3e}"
+
+
+@pytest.mark.cuda
+def test_flash_autograd_runs_the_backward_kernels(cuda_device):
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    q, k, v = (torch.randn(2, 96, 4, 64, generator=g, device=cuda_device)
+               .bfloat16().requires_grad_() for _ in range(3))
+    before = (tfa.flash_bwd_dq.launches, tfa.flash_bwd_dkv.launches)
+    tfa.flash_attention(q, k, v).float().square().sum().backward()
+    assert (tfa.flash_bwd_dq.launches, tfa.flash_bwd_dkv.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert all(torch.isfinite(t.grad.float()).all() for t in (q, k, v))

@@ -120,3 +120,85 @@ def test_seeded_init_follows_flax_statistics():
     norm = tl.RMSNorm(64, device="cpu")
     norm.init_weights(gen)
     assert torch.equal(norm.scale, torch.ones(64))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("features", [24, (3, 8)])
+def test_dense_general_with_bias(features, dtype):
+    # f32 bias [*features], cast to the compute dtype, added after the
+    # product; gradients of kernel and bias as jax.grad gives them
+    jdt, tdt = DT[dtype]
+    x = x_of((2, 5, 16), dtype)
+    n_out = 1 if isinstance(features, int) else len(features)
+    mod = jl.DenseGeneral(features, axis_names=("embed",) + (None,) * n_out,
+                          use_bias=True, dtype=jdt)
+    params = unbox_params(mod.init(jax.random.PRNGKey(0), x)["params"])
+    params["bias"] = np.linspace(-1, 1, np.prod(features), dtype=np.float32
+                                 ).reshape(params["bias"].shape)
+    w = np.random.default_rng(4).standard_normal(
+        (2, 5) + ((features,) if n_out == 1 else features)).astype(np.float32)
+
+    def jloss(p):
+        return jnp.sum(mod.apply({"params": p}, x).astype(jnp.float32) * w)
+
+    jgrads = jax.grad(jloss)(params)
+    ours = load(tl.DenseGeneral(16, features, use_bias=True, dtype=tdt,
+                                device="cpu"), params).requires_grad_(True)
+    out = ours(to_torch(x))
+    assert out.dtype == tdt
+    assert rel_err(out.detach(), mod.apply({"params": params}, x)) < TOL[dtype]
+    (out.float() * torch.from_numpy(w)).sum().backward()
+    for name in ("kernel", "bias"):
+        assert rel_err(getattr(ours, name).grad, jgrads[name]) < TOL[dtype]
+
+
+def test_dense_general_without_bias_keeps_its_state_dict_keys():
+    dense = tl.DenseGeneral(16, 8, device="cpu")
+    assert list(dense.state_dict()) == ["kernel"]
+    assert list(tl.DenseGeneral(16, 8, use_bias=True, device="cpu")
+                .state_dict()) == ["kernel", "bias"]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_layernorm(dtype):
+    jdt, tdt = DT[dtype]
+    x = x_of((2, 5, 16), dtype) * 3.0 + 1.0
+    mod = jl.LayerNorm(1e-12, jdt)
+    mod.init(jax.random.PRNGKey(0), x)
+    params = {"scale": np.linspace(0.5, 1.5, 16, dtype=np.float32),
+              "bias": np.linspace(-0.2, 0.2, 16, dtype=np.float32)}
+    ours = load(tl.LayerNorm(16, 1e-12, device="cpu"), params)
+    out = ours(to_torch(x))
+    assert out.dtype == tdt
+    assert rel_err(out, mod.apply({"params": params}, x)) < TOL[dtype]
+    gen = torch.Generator().manual_seed(0)
+    ours.init_weights(gen)
+    assert torch.equal(ours.scale, torch.ones(16))
+    assert torch.equal(ours.bias, torch.zeros(16))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_matmul_f32_gradients_match_jax(dtype):
+    # the tied decoder's product: operands in the compute dtype, float32
+    # result; gradients are the float32 cotangent times the other operand
+    # (float32 sums), rounded to the operand's dtype, as jax.grad gives
+    from kubeflow_tpu_torch.ops.matmul import matmul_f32
+
+    jdt, tdt = DT[dtype]
+    a, b = x_of((6, 16), dtype, seed=5), x_of((40, 16), dtype, seed=6)
+    w = np.random.default_rng(7).standard_normal((6, 40)).astype(np.float32)
+
+    def jloss(a, b):
+        y = jnp.einsum("...d,vd->...v", a, b,
+                       preferred_element_type=jnp.float32)
+        return jnp.sum(y * w)
+
+    ja, jb = jax.grad(jloss, argnums=(0, 1))(a, b)
+    ta, tb = (to_torch(t).requires_grad_() for t in (a, b))
+    out = matmul_f32(ta, tb.T)
+    assert out.dtype == torch.float32
+    (out * torch.from_numpy(w)).sum().backward()
+    assert ta.grad.dtype == tb.grad.dtype == tdt
+    # float32 sums in another order; bf16 gradients may round one ulp apart
+    tol = {"float32": 1e-5, "bfloat16": 2 ** -7}[dtype]
+    assert rel_err(ta.grad, ja) < tol and rel_err(tb.grad, jb) < tol
