@@ -6,10 +6,12 @@
 Phases, in order; any failure exits nonzero and prints no result:
 
 1. Build every CUDA kernel of the port from ``kubeflow_tpu_torch/ops/csrc``
-   (one nvcc per source, all at once).  Hold the flash-attention forward
-   kernel (K1) against its plain PyTorch version on O and lse, in bfloat16
-   and float32 (TF32 off for the plain version), at every shape the
-   serving run of phase 2 and the training run of phase 4 give it and at
+   (one nvcc per source, all at once); fail if ptxas reports a spill, or
+   if ``cuobjdump -sass`` finds no wgmma product (HGMMA) or no TMA load
+   (UTMALDG) in a bf16 K1 or K3 instantiation.  Hold the flash-attention
+   forward kernel (K1) against its plain PyTorch version on O and lse, in
+   bfloat16 and float32 (TF32 off for the plain version), at every shape
+   the serving run of phase 2 and the training run of phase 4 give it and at
    a GQA, a strided and a non-causal D=64 case; hold the backward kernels
    (K2 dQ, K3 dK/dV) against theirs at the training shape, a causal D=128,
    a ragged Sq = Sk = 200 and a GQA (32 over 8 heads) case.
@@ -53,6 +55,7 @@ import gc
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -77,6 +80,11 @@ KERNEL_WORK = {  # name: (q-like, k-like, rows, products)
     "flash_bwd_dq": (3, 2, 2, 3),     # Q, dO, dQ | K, V | lse, delta
     "flash_bwd_dkv": (2, 4, 2, 4),    # Q, dO | K, V, dK, dV | lse, delta
 }
+# the bf16 K1 and K3 instantiations, which must keep their wgmma products
+# and TMA loads in the built code
+WGMMA_KERNELS = ("flash_fwd_bf16_wgmma<64>", "flash_fwd_bf16_wgmma<128>",
+                 "flash_bwd_dkv_bf16_wgmma<64>",
+                 "flash_bwd_dkv_bf16_wgmma<128>")
 
 # phase 2's requests: prompt lengths and the engine settings
 PROMPT_LENS = (17, 300, 700, 1500)
@@ -214,6 +222,58 @@ def check_backward(fa, name, b, sq, sk, h, hkv, d, causal, dtype,
     return errs[0], max(errs[1:])
 
 
+def sass_counts(path: Path) -> dict[str, tuple[int, int]]:
+    """(HGMMA, UTMALDG) instructions per kernel of a built library, from
+    ``cuobjdump -sass``: the wgmma products and the TMA tile loads that
+    the compiler kept, by the kernel's short name (``name<D>``)."""
+    from kubeflow_tpu_torch.ops import _build
+
+    cuobjdump = Path(_build.nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(path)],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    counts: dict[str, list[int]] = {}
+    current = None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            mangled = line.split("Function :")[1].strip()
+            m = re.search(r"(?<=\d)(flash_\w+?)ILi(\d+)E", mangled)
+            current = f"{m.group(1)}<{m.group(2)}>" if m else mangled
+            counts[current] = [0, 0]
+        elif current is not None:
+            counts[current][0] += "HGMMA" in line
+            counts[current][1] += "UTMALDG" in line
+    return {k: (v[0], v[1]) for k, v in counts.items()}
+
+
+def check_build(libs: dict) -> None:
+    """Print what ptxas and cuobjdump say of each library; fail on a
+    spill, on wgmma products that ptxas serialises, or when a bf16 K1 or
+    K3 instantiation lost its wgmma products (HGMMA) or its TMA loads
+    (UTMALDG)."""
+    from kubeflow_tpu_torch.ops import _build
+
+    for name, path in libs.items():
+        for line in _build.build_log(name).splitlines():
+            if any(w in line for w in ("registers", "spill", "error",
+                                       "Performance Loss")):
+                log(f"  nvcc[{name}] {line.strip()}")
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            check(m is None or m.groups() == ("0", "0"),
+                  f"ptxas spills in {name}: {line.strip()}")
+            # ptxas runs the wgmma products of such a kernel one by one
+            check("Performance Loss" not in line,
+                  f"ptxas serialises wgmma in {name}: {line.strip()}")
+        for kernel, (hgmma, utmaldg) in sorted(sass_counts(path).items()):
+            log(f"  sass[{name}] {kernel}: HGMMA {hgmma} UTMALDG {utmaldg}")
+    wgmma = {**sass_counts(libs["flash_fwd"]), **sass_counts(libs["flash_bwd"])}
+    for kernel in WGMMA_KERNELS:
+        hgmma, utmaldg = wgmma.get(kernel, (0, 0))
+        check(hgmma > 0 and utmaldg > 0,
+              f"{kernel}: HGMMA {hgmma}, UTMALDG {utmaldg} (wanted > 0)")
+
+
 def phase_kernels(fa) -> dict:
     """Hold the kernels against their plain versions; returns each
     kernel's max abs error at the bf16 main-path shapes."""
@@ -222,10 +282,7 @@ def phase_kernels(fa) -> dict:
     t0 = time.perf_counter()
     libs = _build.build_all()
     log(f"built {sorted(libs)} in {time.perf_counter() - t0:.1f}s")
-    for name in libs:
-        for line in _build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
-                log(f"  nvcc[{name}] {line.strip()}")
+    check_build(libs)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     main_err = 0.0

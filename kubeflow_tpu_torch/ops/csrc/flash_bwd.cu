@@ -13,10 +13,12 @@
 // delta is one float32 reduction computed by the caller, as the reference
 // computes it outside its kernels (:259-261).
 //
-// The scores are recomputed exactly as flash_fwd.cu produced lse: bf16
-// products on mma.sync with the same k-step order, then the float32
-// multiply by the scale; in float32, Q pre-scaled and one fmaf per d in
-// order.  So P = exp(s - lse) stays <= 1 and rows sum to 1.
+// The scores are recomputed as flash_fwd.cu formed them, but not bit for
+// bit: K1 sums Q K^T on wgmma, K2 on mma.sync and K3 as K Q^T on wgmma,
+// each in its own order of float32 partial sums, so s may differ from K1's
+// by float32 rounding and P = exp(s - lse) may exceed 1 by ~1e-6 relative
+// (harmless at the stated tolerances).  In float32, Q pre-scaled and one
+// fmaf per d in order, as K1's float32 kernel: exact there.
 //
 // What bounds them on the H100.  At BERT-large's training shape (B 24,
 // S 512, H 16, D 64, non-causal, bf16) dq does 3 products (38.7 GFLOP over
@@ -24,33 +26,37 @@
 // bf16 tensor-core rate against 0.038 and 0.045 ms at 3.35 TB/s, so both
 // are operations-bound, barely.  The design keeps S, P, dP and dS in
 // registers (never in device memory), reads each K/V tile once per
-// 64-query tile (dq) and each Q/dO tile once per 64-key tile (dkv), and
+// 64-query tile (dq) and each Q/dO tile once per 128-key tile (dkv; 64 at
+// D = 128), and
 // puts every bf16 product on the tensor cores.  No atomics: each block owns
 // its output rows, which costs the second recompute of P (the price of two
 // kernels instead of one with atomic dQ; fusing them is later work).
 //
 // Two kernels per input dtype:
-// - bf16: mma.sync m16n8k16 (float32 accumulate), 4 warps of 16 rows.
-//   dq: warp rows are queries; Q and dO A fragments in registers; K/V tiles
+// - bf16, dq (K2): mma.sync m16n8k16 (float32 accumulate), 4 warps of 16
+//   query rows; Q and dO A fragments in registers; K/V tiles
 //   double-buffered with cp.async; per 16-key slice S and dP come from
 //   ldmatrix B fragments of K and V, dS is re-packed in registers as the A
 //   fragment of dS K, whose B fragments come from K by ldmatrix.trans.
-//   dkv: warp rows are keys; K and V A fragments in registers; Q/dO tiles
-//   (and their lse / delta rows) double-buffered; per 16-query slice S^T =
-//   K Q^T and dP^T = V dO^T, then P^T and dS^T are re-packed as the A
-//   fragments of P^T dO and dS^T Q (B fragments by ldmatrix.trans).  Under
-//   GQA the block loops over the G query heads of its kv head, so dK/dV sum
-//   over the group in registers.  P and dS are rounded to bf16 for their
-//   products, as every tensor-core flash backward does.
+// - bf16, dkv (K3): a warp-specialised kernel on wgmma fed by TMA
+//   (flash_bwd_dkv_bf16_wgmma below; flash_hopper.cuh).  Under GQA the
+//   block loops over the G query heads of its kv head, so dK/dV sum over
+//   the group in registers.
+//   P and dS are rounded to bf16 for their products, as every tensor-core
+//   flash backward does.
 // - float32: the same loops on the CUDA cores in float32 (no TF32).
 //
 // Causal: dq visits key tiles up to its last query's position, dkv starts
 // at the first query tile that sees its key tile (:213-217).  Ragged Sq/Sk
 // tails are masked in-kernel, tail rows are never written.  Inputs are
-// [B, S, H, D] views with any batch / sequence / head strides (innermost
-// stride 1); outputs are the caller's contiguous [B, S, H, D] tensors.
+// [B, S, H, D] views with a unit innermost stride; K3's TMA also needs a
+// 16-byte aligned base and batch / sequence / head strides that are
+// multiples of 8 elements (the wrapper checks, ops/flash_attention.py
+// _tma_compatible), K2 and the float32 kernels take any strides.  Outputs
+// are the caller's contiguous [B, S, H, D] tensors.
 
 #include "flash_common.cuh"
+#include "flash_hopper.cuh"
 
 namespace {
 
@@ -226,172 +232,293 @@ __global__ void __launch_bounds__(MMA_THREADS)
 }
 
 // ---------------------------------------------------------------------------
-// bf16, dK/dV: one block per (64-key tile, kv head, batch).
+// bf16, dK/dV: a warp-specialised kernel on wgmma fed by TMA (see
+// flash_hopper.cuh for the tile layout and the products).
+//
+// One block of 3 warpgroups per (128-key tile, kv head, batch).  Warpgroup
+// 0 is the producer (setmaxnreg.dec): one thread loads the K and V tiles
+// once, then streams tiles of 64 query rows of Q and dO, with their lse
+// and delta rows (flash_hopper.cuh, "Rows"), through a 2-stage ring with
+// `full` / `empty` mbarriers, in the order of the loop below.  Warpgroups 1
+// and 2 (setmaxnreg.inc) each own 64 keys, whose K and V rows stay in
+// shared memory; per query tile:
+//     S^T  = K Q^T     wgmma m64n64k16, A = K, B = Q (both K-major)
+//     dP^T = V dO^T    A = V, B = dO
+//     P^T  = exp(S^T scale - lse[col]),  dS^T = P^T o (dP^T - delta[col]) scale
+//     dK  += dS^T Q    A = dS^T (bf16, registers), B = Q MN-major
+//     dV  += P^T dO    A = P^T (bf16, registers), B = dO MN-major
+// then one lane per warp releases the stage.  dS^T is formed and its
+// product issued before P^T is packed, so S^T and dP^T die early: the
+// peak is the 64 accumulator registers of dK and dV plus the 64 of S^T
+// and dP^T (at D = 64; D = 128 splits, below).  The loop visits, for each of the G query heads of
+// the kv head, each query tile from the first that sees the key tile
+// (causal), so dK and dV sum over the group in registers, with no atomics;
+// a consumer skips the products of tiles that see none of its own keys.
+// Tail query columns past Sq are masked to a weight of 0 (their Q and dO
+// rows are zero); tail key rows are never written.  The epilogue writes dK
+// and dV in bf16 through the consumer's rows of the K and V tiles.
+//
+// A masked weight is exp(-1e30 - lse) in natural units, as the reference
+// forms it: 0, or 1 on a row that sees no key at all (its lse is -1e30).
+// It is computed as exp2((-1e30 - lse) log2 e): the difference first, so
+// no fused multiply-add can turn the two equal -1e30 log2 e terms into a
+// rounding residue of 1e22, whose exp2 is 0 or infinity.
+template <int D>
+struct DkvTiles {
+  // At D = 128 the two consumers split D instead of the keys: each owns
+  // all 64 keys of the block and half of dK's and dV's columns, and both
+  // form the same S^T and dP^T.  One consumer holding 128 accumulator
+  // registers of dK and dV next to the 64 of S^T and dP^T spills
+  // (ptxas), so D = 128 pays 1.5x the products for no spill.
+  static constexpr bool SPLIT = D == 128;
+  static constexpr int BKEY = SPLIT ? 64 : 128, BQR = 64, STAGES = 2;
+  static constexpr int DO = SPLIT ? D / 2 : D;      // dK / dV columns owned
+  static constexpr int KV_HALF = BKEY * BOX_BYTES;  // one 64-column box
+  static constexpr int Q_HALF = BQR * BOX_BYTES;
+  static constexpr int KV_BYTES = BKEY * D * 2, Q_BYTES = BQR * D * 2;
+  // lse or delta rows: a box of BQR + 4 values from the 16-byte aligned
+  // value at or before the tile's first row, in a slot of ROW_BYTES
+  static constexpr int ROW_BOX = BQR + 4, ROW_BYTES = 384;
+  static constexpr int OFF_V = KV_BYTES;
+  static constexpr int OFF_Q = 2 * KV_BYTES;        // stage s: Q, then dO
+  static constexpr int OFF_ROWS = OFF_Q + STAGES * 2 * Q_BYTES;  // lse, delta
+  static constexpr int OFF_BAR = OFF_ROWS + STAGES * 2 * ROW_BYTES;
+  // barriers: kv_full, full[STAGES], empty[STAGES]
+  static constexpr int SMEM = OFF_BAR + 8 * (1 + 2 * STAGES) + 1024;  // +align
+};
+
+struct DkvArgs {
+  CUtensorMap q, k, v, dout, lse, delta;  // 64-byte aligned members first
+  BwdParams p;
+};
 
 template <int D>
-constexpr size_t dkv_mma_smem_bytes() {  // K, V, two stages of (Q, dO)
-  return sizeof(bf16) * (size_t)((2 * BK + 4 * BQ) * (D + 8)) +
-         sizeof(float) * 4 * BQ;         // two stages of (lse, delta)
-}
+__global__ void __launch_bounds__(3 * WG, 1)
+    flash_bwd_dkv_bf16_wgmma(const __grid_constant__ DkvArgs a) {
+  using T = DkvTiles<D>;
+  constexpr int STAGES = T::STAGES;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;  // swizzle atoms: 1 KB
+  const uint32_t sk = base, sv = base + T::OFF_V;
+  auto sq_tile = [&](int s) { return base + T::OFF_Q + s * 2 * T::Q_BYTES; };
+  auto sdo_tile = [&](int s) { return sq_tile(s) + T::Q_BYTES; };
+  auto slse = [&](int s) { return base + T::OFF_ROWS + s * 2 * T::ROW_BYTES; };
+  const uint32_t kv_full = base + T::OFF_BAR;
+  auto full = [&](int s) { return kv_full + 8 + 8 * s; };
+  auto empty = [&](int s) { return kv_full + 8 + 8 * (STAGES + s); };
 
-template <int D>
-__global__ void __launch_bounds__(MMA_THREADS)
-    flash_bwd_dkv_bf16(const BwdParams p) {
-  constexpr int LD = D + 8, KSTEPS = D / 16, NT_O = D / 8;
-  constexpr int TILE = BQ * LD;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* ks = reinterpret_cast<bf16*>(smem_raw);  // [BK][LD]
-  bf16* vs = ks + BK * LD;                       // [BK][LD]
-  bf16* qd = vs + BK * LD;  // stage s: Q at qd + 2s*TILE, dO one TILE on
-  float* rows = reinterpret_cast<float*>(qd + 4 * TILE);  // stage s: lse at
-                                                // rows + 2s*BQ, delta BQ on
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int t = lane & 3;
-  const int k0 = blockIdx.x * BK;
+  const BwdParams& p = a.p;
+  const int k0 = blockIdx.x * T::BKEY;
   const int hk = blockIdx.y, b = blockIdx.z;
   const int offset = p.sk - p.sq;
-
-  const bf16* kg = static_cast<const bf16*>(p.k) + b * p.k_sb + hk * p.k_sh;
-  const bf16* vg = static_cast<const bf16*>(p.v) + b * p.v_sb + hk * p.v_sh;
-  const int64_t out_ss = (int64_t)p.hkv * D;
-  const int64_t out_base = ((int64_t)b * p.sk * p.hkv + hk) * D;
-  bf16* dkg = static_cast<bf16*>(p.dk) + out_base;
-  bf16* dvg = static_cast<bf16*>(p.dv) + out_base;
-
   // query tiles that see this key tile: from the first whose last query
   // reaches key k0 (causal), for each of the group's query heads
-  const int n_qt = (p.sq + BQ - 1) / BQ;
-  const int first = p.causal ? max(k0 - offset, 0) / BQ : 0;
+  const int n_qt = (p.sq + T::BQR - 1) / T::BQR;
+  const int first = p.causal ? max(k0 - offset, 0) / T::BQR : 0;
   const int per_head = max(n_qt - first, 0);
   const int n_iter = per_head * p.group;
 
-  auto load_stage = [&](int it, int stage) {
-    const int hq = hk * p.group + it / per_head;
-    const int q0 = (first + it % per_head) * BQ;
-    const bf16* qg =
-        static_cast<const bf16*>(p.q) + b * p.q_sb + hq * p.q_sh;
-    const bf16* dog =
-        static_cast<const bf16*>(p.dout) + b * p.do_sb + hq * p.do_sh;
-    bf16* dst = qd + 2 * stage * TILE;
-    load_tile<D>(dst, qg, p.q_ss, q0, p.sq, aligned16(qg, p.q_ss));
-    load_tile<D>(dst + TILE, dog, p.do_ss, q0, p.sq, aligned16(dog, p.do_ss));
-    // threads 0..63 stage the lse rows, 64..127 the delta rows
-    const int i = threadIdx.x % BQ, qi = q0 + i;
-    const float* src = threadIdx.x < BQ ? p.lse : p.delta;
-    rows[2 * stage * BQ + (threadIdx.x < BQ ? 0 : BQ) + i] =
-        qi < p.sq ? src[((int64_t)b * p.h + hq) * p.sq + qi] : 0.f;
-  };
-
-  const bool vec_kv = aligned16(kg, p.k_ss) && aligned16(vg, p.v_ss);
-  load_tile<D>(ks, kg, p.k_ss, k0, p.sk, vec_kv);
-  load_tile<D>(vs, vg, p.v_ss, k0, p.sk, vec_kv);
-  if (n_iter > 0) load_stage(0, 0);
-  cp_async_commit();
-  cp_async_wait<0>();
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 8);  // one lane of each consumer warp
+    }
+    fence_barrier_init();
+  }
   __syncthreads();
 
-  const int r_lo = warp * 16 + (lane >> 2);  // key rows r_lo and r_lo + 8
-  uint32_t ka[KSTEPS][4], va[KSTEPS][4];
-  load_a_frags<D>(ka, ks, r_lo, t);
-  load_a_frags<D>(va, vs, r_lo, t);
-  const int kpos[2] = {k0 + r_lo, k0 + r_lo + 8};
-
-  float dk[NT_O][4], dv[NT_O][4];
-#pragma unroll
-  for (int n = 0; n < NT_O; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
-
-  for (int it = 0; it < n_iter; ++it) {
-    const int stage = it & 1;
-    if (it + 1 < n_iter) load_stage(it + 1, stage ^ 1);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-
-    const bf16* qs = qd + 2 * stage * TILE;
-    const bf16* dos = qs + TILE;
-    const float* lse = rows + 2 * stage * BQ;
-    const float* delta = lse + BQ;
-    const int q0 = (first + it % per_head) * BQ;
-    const bool masked =
-        q0 + BQ > p.sq || (p.causal && k0 + BK - 1 > q0 + offset);
-    const int nt_row = (lane & 7), nt_col = (lane >> 3) * 8;
-    const bf16* qlane = qs + nt_row * LD + nt_col;
-    const bf16* dolane = dos + nt_row * LD + nt_col;
-    const int tr_row = ((lane >> 3) & 1) * 8 + (lane & 7);
-    const bf16* qtrans = qs + tr_row * LD + (lane >> 4) * 8;
-    const bf16* dotrans = dos + tr_row * LD + (lane >> 4) * 8;
-#pragma unroll
-    for (int kk = 0; kk < BQ / 16; ++kk) {  // queries 16kk .. 16kk + 15
-      float s[2][4], dp[2][4];
-#pragma unroll
-      for (int jj = 0; jj < 2; ++jj) {
-        const int j = 2 * kk + jj;
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[jj][e] = dp[jj][e] = 0.f;
-#pragma unroll
-        for (int d = 0; d < KSTEPS; d += 2) {
-          uint32_t qb[4], ob[4];
-          ldmatrix_x4(qb, qlane + 8 * j * LD + d * 16);
-          mma_bf16(s[jj], ka[d], qb[0], qb[1]);
-          mma_bf16(s[jj], ka[d + 1], qb[2], qb[3]);
-          ldmatrix_x4(ob, dolane + 8 * j * LD + d * 16);
-          mma_bf16(dp[jj], va[d], ob[0], ob[1]);
-          mma_bf16(dp[jj], va[d + 1], ob[2], ob[3]);
-        }
+  const int wg = threadIdx.x / WG;
+  if (wg == 0) {  // producer
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(kv_full, 2 * T::KV_BYTES);
+      for (int h = 0; h < D / 64; ++h) {
+        tma_load_4d(sk + h * T::KV_HALF, &a.k, kv_full, 64 * h, hk, k0, b);
+        tma_load_4d(sv + h * T::KV_HALF, &a.v, kv_full, 64 * h, hk, k0, b);
       }
-      // element e of s[jj]: key row r_lo + 8(e / 2), query column
-      // c = 16kk + 8jj + 2t + (e % 2) of the tile.  s becomes P^T and dp
-      // becomes dS^T in place.
-#pragma unroll
-      for (int jj = 0; jj < 2; ++jj)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int c = 16 * kk + 8 * jj + 2 * t + (e & 1), qi = q0 + c;
-          float sv = s[jj][e] * p.scale;
-          if (masked &&
-              (qi >= p.sq || (p.causal && kpos[e >> 1] > qi + offset)))
-            sv = NEG_INF;
-          const float pv = expf(sv - lse[c]);
-          s[jj][e] = pv;
-          dp[jj][e] = pv * (dp[jj][e] - delta[c]) * p.scale;
+      for (int it = 0; it < n_iter; ++it) {
+        const int s = it % STAGES;
+        if (it >= STAGES) mbar_wait(empty(s), ((it / STAGES) - 1) & 1);
+        const int hq = hk * p.group + it / per_head;
+        const int q0 = (first + it % per_head) * T::BQR;
+        const int row = (b * p.h + hq) * p.sq + q0;  // of lse and delta
+        mbar_expect_tx(full(s), 2 * T::Q_BYTES + 2 * T::ROW_BOX * 4);
+        for (int h = 0; h < D / 64; ++h) {
+          tma_load_4d(sq_tile(s) + h * T::Q_HALF, &a.q, full(s), 64 * h, hq,
+                      q0, b);
+          tma_load_4d(sdo_tile(s) + h * T::Q_HALF, &a.dout, full(s), 64 * h,
+                      hq, q0, b);
         }
-      const uint32_t pa[4] = {pack_bf16(s[0][0], s[0][1]),
-                              pack_bf16(s[0][2], s[0][3]),
-                              pack_bf16(s[1][0], s[1][1]),
-                              pack_bf16(s[1][2], s[1][3])};
-      const uint32_t dsa[4] = {pack_bf16(dp[0][0], dp[0][1]),
-                               pack_bf16(dp[0][2], dp[0][3]),
-                               pack_bf16(dp[1][0], dp[1][1]),
-                               pack_bf16(dp[1][2], dp[1][3])};
-#pragma unroll
-      for (int n = 0; n < NT_O; n += 2) {
-        uint32_t ob[4], qb[4];
-        ldmatrix_x4_trans(ob, dotrans + kk * 16 * LD + 8 * n);
-        mma_bf16(dv[n], pa, ob[0], ob[1]);
-        mma_bf16(dv[n + 1], pa, ob[2], ob[3]);
-        ldmatrix_x4_trans(qb, qtrans + kk * 16 * LD + 8 * n);
-        mma_bf16(dk[n], dsa, qb[0], qb[1]);
-        mma_bf16(dk[n + 1], dsa, qb[2], qb[3]);
+        tma_load_1d(slse(s), &a.lse, full(s), row & ~3);
+        tma_load_1d(slse(s) + T::ROW_BYTES, &a.delta, full(s), row & ~3);
       }
     }
-    __syncthreads();  // the next iteration refills the stage read here
-  }
+  } else {  // consumers
+    setmaxnreg_inc<CONSUMER_REGS>();
+    const int c = wg - 1, tid = threadIdx.x % WG;
+    const int warp = tid / 32, lane = tid % 32, g = lane / 4, t4 = lane % 4;
+    const int kc0 = k0 + (T::SPLIT ? 0 : 64 * c);  // first key owned
+    const int my_first = p.causal ? max(kc0 - offset, 0) / T::BQR : 0;
+    const float scale2 = p.scale * LOG2E;
+    const uint32_t kv_row = T::SPLIT ? 0 : c * 64 * BOX_BYTES;
+    const uint32_t k_rows = sk + kv_row, v_rows = sv + kv_row;  // A of S^T
+    const uint32_t b_col = T::SPLIT ? c * T::Q_HALF : 0;  // B of dK, dV
+    const int kpos[2] = {kc0 + 16 * warp + g, kc0 + 16 * warp + g + 8};
 
+    float dk[T::DO / 2], dv[T::DO / 2];
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    if (kpos[r] >= p.sk) continue;
-    const int64_t row = kpos[r] * out_ss;
+    for (int i = 0; i < T::DO / 2; ++i) dk[i] = dv[i] = 0.f;
+
+    mbar_wait(kv_full, 0);
+    for (int it = 0; it < n_iter; ++it) {
+      const int s = it % STAGES;
+      mbar_wait(full(s), (it / STAGES) & 1);
+      const int hq = hk * p.group + it / per_head;
+      const int qt = first + it % per_head, q0 = qt * T::BQR;
+      if (qt >= my_first && kc0 < p.sk) {
+        float st[32], dpt[32];
+        fence_regs(st);
+        fence_regs(dpt);
+        wgmma_fence();
 #pragma unroll
-    for (int n = 0; n < NT_O; ++n) {
-      *reinterpret_cast<__nv_bfloat162*>(dkg + row + 8 * n + 2 * t) =
-          __floats2bfloat162_rn(dk[n][2 * r], dk[n][2 * r + 1]);
-      *reinterpret_cast<__nv_bfloat162*>(dvg + row + 8 * n + 2 * t) =
-          __floats2bfloat162_rn(dv[n][2 * r], dv[n][2 * r + 1]);
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const uint32_t off = (kk % 4) * 32;  // 16 columns of a box row
+          const uint32_t kq = (kk / 4) * T::KV_HALF + off;
+          const uint32_t qq = (kk / 4) * T::Q_HALF + off;
+          wgmma_ss_n64(st, desc_sw128(k_rows + kq, 16, 1024),
+                       desc_sw128(sq_tile(s) + qq, 16, 1024), kk > 0);
+          wgmma_ss_n64(dpt, desc_sw128(v_rows + kq, 16, 1024),
+                       desc_sw128(sdo_tile(s) + qq, 16, 1024), kk > 0);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(st);
+        fence_regs(dpt);
+
+        // element 4j + 2r + e: key row kpos[r], query column 8j + 2t4 + e.
+        // P^T in st, dS^T / scale in dpt (the epilogue scales dK).  Only a
+        // tile that reaches past Sq or below the diagonal tests the mask.
+        const uint32_t rows =  // lse, then delta (flash_hopper.cuh, "Rows")
+            slse(s) + 4 * (((b * p.h + hq) * p.sq + q0) & 3);
+        auto weights = [&](auto masked) {
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int col = 8 * j + 2 * t4 + e, qi = q0 + col;
+              const float lse = lds_f32(rows + 4 * col);
+              const float dl = lds_f32(rows + T::ROW_BYTES + 4 * col);
+              const float l2 = lse * LOG2E;
+              float pm = 0.f;  // the weight of a masked entry
+              if constexpr (decltype(masked)::value)
+                if (qi < p.sq) pm = ex2((NEG_INF - lse) * LOG2E);
+#pragma unroll
+              for (int r = 0; r < 2; ++r) {
+                const int i = 4 * j + 2 * r + e;
+                float pv = ex2(st[i] * scale2 - l2);
+                if constexpr (decltype(masked)::value)
+                  if (qi >= p.sq || (p.causal && kpos[r] > qi + offset))
+                    pv = pm;
+                st[i] = pv;
+                dpt[i] = pv * (dpt[i] - dl);
+              }
+            }
+        };
+        if (q0 + T::BQR > p.sq || (p.causal && kc0 + 63 > q0 + offset))
+          weights(std::true_type{});
+        else
+          weights(std::false_type{});
+
+        uint32_t dsa[4][4];  // dS^T as the A fragments of dS^T Q
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            dsa[kk][i] = pack2_bf16(dpt[8 * kk + 2 * i], dpt[8 * kk + 2 * i + 1]);
+        fence_regs(dk);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {  // queries 16kk .. 16kk + 15
+          const uint64_t dq = desc_sw128(
+              sq_tile(s) + b_col + kk * 16 * BOX_BYTES, T::Q_HALF, 1024);
+          if constexpr (T::DO == 128) wgmma_rs_n128(dk, dsa[kk], dq, 1);
+          else wgmma_rs_n64(dk, dsa[kk], dq, 1);
+        }
+        wgmma_commit();
+        uint32_t pa[4][4];
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            pa[kk][i] = pack2_bf16(st[8 * kk + 2 * i], st[8 * kk + 2 * i + 1]);
+        fence_regs(dv);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const uint64_t ddo = desc_sw128(
+              sdo_tile(s) + b_col + kk * 16 * BOX_BYTES, T::Q_HALF, 1024);
+          if constexpr (T::DO == 128) wgmma_rs_n128(dv, pa[kk], ddo, 1);
+          else wgmma_rs_n64(dv, pa[kk], ddo, 1);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(dk);
+        fence_regs(dv);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty(s));  // the stage may be refilled
     }
+
+    // epilogue: dK (times the scale) and dV in bf16 through the consumer's
+    // part of the K and V tiles: its rows, or under SPLIT its box, once
+    // both consumers have done reading K and V
+    if constexpr (T::SPLIT) named_sync<2 * WG>(3);
+    const float scale[2] = {p.scale, p.scale}, one[2] = {1.f, 1.f};
+    const int64_t out_ss = (int64_t)p.hkv * D;
+    const int64_t out0 = (((int64_t)b * p.sk + kc0) * p.hkv + hk) * D +
+                         (T::SPLIT ? 64 * c : 0);
+    const uint32_t k_out = T::SPLIT ? sk + c * T::KV_HALF : k_rows;
+    const uint32_t v_out = T::SPLIT ? sv + c * T::KV_HALF : v_rows;
+    const int valid = min(64, p.sk - kc0);
+    store_tile_bf16<T::DO>(dk, scale, k_out, T::KV_HALF,
+                           static_cast<bf16*>(p.dk) + out0, out_ss, valid,
+                           1 + c);
+    store_tile_bf16<T::DO>(dv, one, v_out, T::KV_HALF,
+                           static_cast<bf16*>(p.dv) + out0, out_ss, valid,
+                           1 + c);
   }
+}
+
+template <int D>
+cudaError_t launch_dkv_wgmma(const BwdParams& p, int batch, int d,
+                             cudaStream_t stream) {
+  using T = DkvTiles<D>;
+  DkvArgs a;
+  a.p = p;
+  cudaError_t err = map_bshd(&a.q, p.q, batch, p.sq, p.h, d, p.q_sb, p.q_ss,
+                             p.q_sh, T::BQR);
+  if (err == cudaSuccess)
+    err = map_bshd(&a.dout, p.dout, batch, p.sq, p.h, d, p.do_sb, p.do_ss,
+                   p.do_sh, T::BQR);
+  if (err == cudaSuccess)
+    err = map_bshd(&a.k, p.k, batch, p.sk, p.hkv, d, p.k_sb, p.k_ss, p.k_sh,
+                   T::BKEY);
+  if (err == cudaSuccess)
+    err = map_bshd(&a.v, p.v, batch, p.sk, p.hkv, d, p.v_sb, p.v_ss, p.v_sh,
+                   T::BKEY);
+  const int64_t rows = (int64_t)batch * p.h * p.sq;
+  if (err == cudaSuccess) err = map_rows(&a.lse, p.lse, rows, T::ROW_BOX);
+  if (err == cudaSuccess) err = map_rows(&a.delta, p.delta, rows, T::ROW_BOX);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(flash_bwd_dkv_bf16_wgmma<D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               T::SMEM);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((p.sk + T::BKEY - 1) / T::BKEY, p.hkv, batch);
+  flash_bwd_dkv_bf16_wgmma<D><<<grid, 3 * WG, T::SMEM, stream>>>(a);
+  return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -763,12 +890,8 @@ extern "C" int kf_flash_bwd_dkv(const void* q, const void* k, const void* v,
   p.dv = dv;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid((sk + BK - 1) / BK, hkv, batch);
-  if (dtype == 1 && d == 64)
-    return launch(flash_bwd_dkv_bf16<64>, dkv_mma_smem_bytes<64>(), grid,
-                  MMA_THREADS, p, st);
-  if (dtype == 1 && d == 128)
-    return launch(flash_bwd_dkv_bf16<128>, dkv_mma_smem_bytes<128>(), grid,
-                  MMA_THREADS, p, st);
+  if (dtype == 1 && d == 64) return launch_dkv_wgmma<64>(p, batch, d, st);
+  if (dtype == 1 && d == 128) return launch_dkv_wgmma<128>(p, batch, d, st);
   if (dtype == 0 && d == 64)
     return launch(flash_bwd_dkv_f32<64>, dkv_f32_smem_bytes<64>(), grid,
                   F32_THREADS, p, st);

@@ -1,6 +1,8 @@
 // Helpers shared by the flash-attention kernels (flash_fwd.cu,
-// flash_bwd.cu): bf16 tensor-core products (mma.sync m16n8k16, float32
-// accumulate), ldmatrix fragment loads, and cp.async tile staging.
+// flash_bwd.cu): the float32 kernels' tile sizes and the -1e30 mask, and
+// for K2 (flash_bwd_dq_bf16) bf16 tensor-core products (mma.sync m16n8k16,
+// float32 accumulate), ldmatrix fragment loads and cp.async tile staging.
+// The wgmma kernels (K1 and K3 in bf16) use flash_hopper.cuh.
 //
 // Fragment layout of mma.m16n8k16.row.col with g = lane / 4, t = lane % 4:
 //   A (16x16):  a[0] = A[g][2t..2t+1]    a[1] = A[g+8][2t..2t+1]

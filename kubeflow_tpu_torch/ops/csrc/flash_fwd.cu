@@ -16,29 +16,32 @@
 // bounds are within 2x of each other (5 us bytes-bound at 512x512, 11 us
 // operations-bound at 512x1536).  So the design keeps every intermediate out
 // of device memory (S and P live in registers, K/V are read once per
-// 64-query tile, O and lse are written once) and puts the bf16 products on
+// 128-query tile, O and lse are written once) and puts the bf16 products on
 // the tensor cores.
 //
 // Two kernels, one per input dtype:
-// - bf16 (the serving path): flash_fwd_bf16_mma, QK^T and PV with
-//   mma.sync m16n8k16 (float32 accumulate), 4 warps of 16 query rows, P kept
-//   in registers and rounded to bf16 for PV (l sums the float32 values).
-//   K/V tiles are double-buffered with cp.async, so the next tile's copy
-//   overlaps this tile's products.  No TMA or wgmma yet: the next step
-//   (PERF.md).
+// - bf16 (the serving and training paths): flash_fwd_bf16_wgmma, a
+//   warp-specialised kernel with QK^T and PV on wgmma (float32 accumulate)
+//   and every tile loaded by TMA into a ring of mbarrier-guarded stages
+//   (below; flash_hopper.cuh).  P stays in registers, rounded to bf16 for
+//   PV (l sums the float32 values).  128-query work tiles, tiles of 128
+//   keys (64 at D = 128).
 // - float32: flash_fwd_f32, both products on the CUDA cores in float32, so
-//   the result is exact to float32 rounding (no TF32).
+//   the result is exact to float32 rounding (no TF32).  One block per
+//   (64-query tile, head, batch) and a loop over 64-key tiles.
 //
-// Both: one block per (batch, head, 64-row query tile) and a loop over
-// 64-key tiles staged in shared memory.  Inputs are [B, S, H, D] with
-// arbitrary batch / sequence / head strides (innermost stride 1): no
-// transpose copies.  GQA reads kv head h / (H / Hkv) instead of repeating.
-// Ragged Sq / Sk are masked in-kernel; tail query rows are never written.
-// Shared memory above 48 KB (f32 at D=128: 115 KB; bf16 at D=128: 85 KB)
-// is requested with cudaFuncSetAttribute before each launch (the setting
-// is per device).
+// Inputs are [B, S, H, D] views (innermost stride 1): no transpose copies.
+// The bf16 kernel's TMA needs a 16-byte aligned base and batch / sequence /
+// head strides that are multiples of 8 elements; the wrapper checks that
+// and raises (ops/flash_attention.py _tma_compatible); the float32 kernel
+// takes any strides.  GQA reads kv head h / (H / Hkv) instead of
+// repeating.  Ragged Sq / Sk are masked in-kernel; tail query rows are
+// never written.  Shared memory above 48 KB (f32 at D=128: 115 KB; bf16:
+// 129 KB at D=64, 161 KB at D=128) is requested with cudaFuncSetAttribute
+// before each launch (the setting is per device).
 
 #include "flash_common.cuh"
+#include "flash_hopper.cuh"
 
 namespace {
 
@@ -205,192 +208,376 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_f32(const Params p) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16 inputs: both products on the tensor cores (mma.sync m16n8k16, f32
-// accumulate).  128 threads; warp w owns query rows 16w..16w+15 of the
-// tile.  Q fragments stay in registers for the whole key loop; K and V are
-// staged row-major in shared memory (bf16, rows padded by 16 bytes so
-// fragment loads are free of bank conflicts) and the B fragments of PV come
-// from V through ldmatrix.trans.  The score fragment of QK^T is re-packed
-// in registers as the A fragment of PV, so P never leaves the registers; P
-// is rounded to bf16 for that product (the running sum l uses the float32
-// values).
-
-// shared memory: the Q tile and two stages of (K, V) tiles, row pitch D + 8
+// bf16 inputs: a warp-specialised kernel on wgmma fed by TMA (see
+// flash_hopper.cuh for the tile layout and the products).
+//
+// A persistent grid: at most one block of 3 warpgroups per SM, each
+// walking over work tiles (128-query tile, head, batch), so that a block's
+// next Q and K/V tiles load while its consumers finish the current one
+// (at BERT-large's shape, 12 waves of short blocks, a block's first load
+// and its epilogue are a large share of its time).  Warpgroup 0 is the
+// producer: it
+// gives up registers (setmaxnreg.dec) and one of its threads issues every
+// TMA load: a work tile's Q once the consumers are done with the previous
+// one (`q_full` / `q_empty`), then its K and V tiles of BK keys into a ring
+// of STAGES stages, each stage with a `k_full`, a `v_full` and an `empty`
+// mbarrier.  Warpgroups 1 and 2 are consumers (setmaxnreg.inc), each
+// owning 64 query rows.  Per key tile t a consumer issues S(t) = Q K^T
+// (wgmma m64nBKk16, both operands from shared memory) and then O += P(t-1)
+// V (wgmma with A = P rounded to bf16 from registers, B = V MN-major),
+// waits for S(t) only, and runs the scale, mask and online softmax of S(t)
+// (float32 m and l, exp2 with log2(e) folded into the scale) while that PV
+// product is in flight; once it retires, one lane per warp arrives on the
+// stage's `empty` barrier and O is rescaled to the new running max.  A
+// consumer skips the products of tiles past its own last visible key (it
+// still waits and releases them).  The two consumers take turns at
+// issuing their products (ping-pong), so one's softmax overlaps the
+// other's products.  The epilogue writes O / l in bf16 through the
+// consumer's rows of an O buffer with 16-byte stores, and lse = m ln 2 +
+// ln l (-1e30 + ln l on a row that saw no key).
 template <int D>
-constexpr size_t mma_smem_bytes() {
-  return sizeof(bf16) * (size_t)((BQ + 4 * BK) * (D + 8));
-}
+struct FwdTiles {
+  // keys per tile: at D = 128 the consumer holds O (64 registers) beside
+  // S (BK / 2) and P (BK / 4); 64-key tiles keep that within ptxas's 168.
+  // Three stages: a stage is released only when the PV product of the
+  // next tile's iteration retires, so two would starve the producer.
+  static constexpr int BQ = 128, BK = D == 128 ? 64 : 128, STAGES = 3;
+  static constexpr int Q_HALF = BQ * BOX_BYTES;   // one 64-column box
+  static constexpr int KV_HALF = BK * BOX_BYTES;
+  static constexpr int Q_BYTES = BQ * D * 2, KV_BYTES = BK * D * 2;
+  static constexpr int OFF_K = Q_BYTES;
+  static constexpr int OFF_V = OFF_K + STAGES * KV_BYTES;
+  static constexpr int OFF_O = OFF_V + STAGES * KV_BYTES;  // O, laid out as Q
+  static constexpr int OFF_BAR = OFF_O + Q_BYTES;
+  // barriers: q_full, q_empty, k_full[STAGES], v_full[STAGES], empty[STAGES]
+  static constexpr int SMEM = OFF_BAR + 8 * (2 + 3 * STAGES) + 1024;  // +align
+};
+
+struct FwdArgs {
+  CUtensorMap q, k, v;  // 64-byte aligned members first
+  Params p;
+  int n_qt, n_work;     // query tiles per head; work tiles (B x H x n_qt)
+};
 
 template <int D>
-__global__ void __launch_bounds__(MMA_THREADS)
-    flash_fwd_bf16_mma(const Params p) {
-  constexpr int LDK = D + 8;   // pitch of the Q, K and V tiles
-  constexpr int KSTEPS = D / 16, NT_S = BK / 8, NT_O = D / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // [BQ][LDK]
-  bf16* kv = qs + BQ * LDK;  // stage s: K at kv + 2s*TILE, V one TILE on
-  constexpr int TILE = BK * LDK;
+__global__ void __launch_bounds__(3 * WG, 1)
+    flash_fwd_bf16_wgmma(const __grid_constant__ FwdArgs a) {
+  using T = FwdTiles<D>;
+  constexpr int STAGES = T::STAGES;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;  // swizzle atoms: 1 KB
+  const uint32_t sq_tile = base, sk = base + T::OFF_K, sv = base + T::OFF_V;
+  const uint32_t so_tile = base + T::OFF_O;
+  const uint32_t q_full = base + T::OFF_BAR, q_empty = q_full + 8;
+  auto k_full = [&](int s) { return q_full + 16 + 8 * s; };
+  auto v_full = [&](int s) { return q_full + 16 + 8 * (STAGES + s); };
+  auto empty = [&](int s) { return q_full + 16 + 8 * (2 * STAGES + s); };
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;  // mma fragment coordinates
-  const int q0 = blockIdx.x * BQ;
-  const int hq = blockIdx.y, b = blockIdx.z, hk = hq / p.group;
-  const int offset = p.sk - p.sq;
+  const Params& p = a.p;
+  const int offset = p.sk - p.sq;  // query i sits at absolute i + offset
+  // Work tile w is query tile w % n_qt of head (w / n_qt) % H of batch
+  // w / (n_qt H); the block takes w = blockIdx.x, + gridDim.x, ... so the
+  // query tiles of one head run side by side and share K and V in L2.
+  struct Work {
+    int q0, hq, b, n_tiles;
+  };
+  auto work = [&](int w) {
+    Work x;
+    x.q0 = (w % a.n_qt) * T::BQ;
+    x.hq = (w / a.n_qt) % p.h;
+    x.b = w / (a.n_qt * p.h);
+    x.n_tiles = (p.sk + T::BK - 1) / T::BK;
+    if (p.causal) {  // only key tiles up to the tile's last query
+      const int last_key = min(x.q0 + T::BQ, p.sq) - 1 + offset;
+      x.n_tiles = min(x.n_tiles, last_key < 0 ? 0 : last_key / T::BK + 1);
+    }
+    return x;
+  };
 
-  const bf16* qg = static_cast<const bf16*>(p.q) + b * p.q_sb + hq * p.q_sh;
-  const bf16* kg = static_cast<const bf16*>(p.k) + b * p.k_sb + hk * p.k_sh;
-  const bf16* vg = static_cast<const bf16*>(p.v) + b * p.v_sb + hk * p.v_sh;
-  bf16* og = static_cast<bf16*>(p.o) + b * p.o_sb + hq * p.o_sh;
-
-  int n_tiles = (p.sk + BK - 1) / BK;
-  if (p.causal) {
-    const int last_key = min(q0 + BQ, p.sq) - 1 + offset;
-    n_tiles = min(n_tiles, last_key < 0 ? 0 : last_key / BK + 1);
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    mbar_init(q_empty, 8);  // one lane of each consumer warp
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(k_full(s), 1);
+      mbar_init(v_full(s), 1);
+      mbar_init(empty(s), 8);
+    }
+    fence_barrier_init();
   }
-  const bool vec_kv = aligned16(kg, p.k_ss) && aligned16(vg, p.v_ss);
-
-  // the Q tile and the first K/V stage, then Q's fragments into registers
-  load_tile<D>(qs, qg, p.q_ss, q0, p.sq, aligned16(qg, p.q_ss));
-  if (n_tiles > 0) {
-    load_tile<D>(kv, kg, p.k_ss, 0, p.sk, vec_kv);
-    load_tile<D>(kv + TILE, vg, p.v_ss, 0, p.sk, vec_kv);
-  }
-  cp_async_commit();
-  cp_async_wait<0>();
   __syncthreads();
-  const int r_lo = warp * 16 + g;  // this thread's rows: r_lo and r_lo + 8
-  uint32_t qa[KSTEPS][4];
-  load_a_frags<D>(qa, qs, r_lo, t);
-  const int qpos[2] = {q0 + r_lo + offset, q0 + r_lo + 8 + offset};
 
-  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
-  float acc[NT_O][4];
-#pragma unroll
-  for (int n = 0; n < NT_O; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-
-  for (int tile = 0; tile < n_tiles; ++tile) {
-    const int k0 = tile * BK;
-    const bf16* ks = kv + 2 * (tile & 1) * TILE;
-    const bf16* vs = ks + TILE;
-    if (tile + 1 < n_tiles) {  // the next stage loads while this one runs
-      bf16* next = kv + 2 * ((tile + 1) & 1) * TILE;
-      load_tile<D>(next, kg, p.k_ss, k0 + BK, p.sk, vec_kv);
-      load_tile<D>(next + TILE, vg, p.v_ss, k0 + BK, p.sk, vec_kv);
-    }
-    cp_async_commit();   // an empty group on the last tile keeps the count
-    cp_async_wait<1>();  // this tile's stage has landed (for this thread)
-    __syncthreads();     // ... and for every thread
-
-    // S = Q K^T.  One ldmatrix.x4 gives the B fragments of key steps kk
-    // and kk+1 for keys 8j..8j+7: matrix i covers columns 16kk + 8i .. +7
-    // of K.
-    const bf16* klane = ks + (lane & 7) * LDK + (lane >> 3) * 8;
-    float s[NT_S][4];
-#pragma unroll
-    for (int j = 0; j < NT_S; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < KSTEPS; kk += 2) {
-        uint32_t kb[4];
-        ldmatrix_x4(kb, klane + 8 * j * LDK + kk * 16);
-        mma_bf16(s[j], qa[kk], kb[0], kb[1]);
-        mma_bf16(s[j], qa[kk + 1], kb[2], kb[3]);
-      }
-    }
-
-    // scale, mask, online softmax; element e of s[j] sits at row
-    // r_lo + 8 * (e / 2), key k0 + 8j + 2t + (e % 2).  Only a tile that
-    // reaches past Sk or past the block's first query position is masked.
-    const bool masked =
-        k0 + BK > p.sk || (p.causal && k0 + BK - 1 > q0 + offset);
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      float mx = NEG_INF;
-#pragma unroll
-      for (int j = 0; j < NT_S; ++j)
-#pragma unroll
-        for (int e = 2 * r; e < 2 * r + 2; ++e) {
-          const int kj = k0 + 8 * j + 2 * t + (e & 1);
-          float v = s[j][e] * p.scale;
-          if (masked && (kj >= p.sk || (p.causal && kj > qpos[r])))
-            v = NEG_INF;
-          s[j][e] = v;
-          mx = fmaxf(mx, v);
+  const int wg = threadIdx.x / WG;
+  if (wg == 0) {  // producer
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (threadIdx.x == 0) {
+      int kv = 0;  // K/V tiles loaded so far, over the block's work tiles
+      for (int w = blockIdx.x, j = 0; w < a.n_work; w += gridDim.x, ++j) {
+        const Work x = work(w);
+        const int hk = x.hq / p.group;
+        if (j > 0) mbar_wait(q_empty, (j - 1) & 1);
+        mbar_expect_tx(q_full, T::Q_BYTES);
+        for (int h = 0; h < D / 64; ++h)
+          tma_load_4d(sq_tile + h * T::Q_HALF, &a.q, q_full, 64 * h, x.hq,
+                      x.q0, x.b);
+        for (int t = 0; t < x.n_tiles; ++t, ++kv) {
+          const int s = kv % STAGES;
+          if (kv >= STAGES) mbar_wait(empty(s), ((kv / STAGES) - 1) & 1);
+          mbar_expect_tx(k_full(s), T::KV_BYTES);
+          for (int h = 0; h < D / 64; ++h)
+            tma_load_4d(sk + s * T::KV_BYTES + h * T::KV_HALF, &a.k,
+                        k_full(s), 64 * h, hk, t * T::BK, x.b);
+          mbar_expect_tx(v_full(s), T::KV_BYTES);
+          for (int h = 0; h < D / 64; ++h)
+            tma_load_4d(sv + s * T::KV_BYTES + h * T::KV_HALF, &a.v,
+                        v_full(s), 64 * h, hk, t * T::BK, x.b);
         }
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_new = fmaxf(m[r], mx);
-      const float alpha = expf(m[r] - m_new);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < NT_S; ++j)
-#pragma unroll
-        for (int e = 2 * r; e < 2 * r + 2; ++e) {
-          s[j][e] = expf(s[j][e] - m_new);
-          rs += s[j][e];
+      }
+    }
+  } else {  // consumers
+    setmaxnreg_inc<CONSUMER_REGS>();
+    const int c = wg - 1, tid = threadIdx.x % WG;
+    const int warp = tid / 32, lane = tid % 32, g = lane / 4, t4 = lane % 4;
+    const float scale2 = p.scale * LOG2E;
+    const uint32_t q_rows = sq_tile + c * 64 * BOX_BYTES;  // A of Q K^T
+    const uint32_t o_rows = so_tile + c * 64 * BOX_BYTES;
+
+    float m[2], l[2], o[D / 2], alpha[2];
+    float sc[T::BK / 2];         // S(t), then P(t) in float32
+    uint32_t pa[T::BK / 16][4];  // P(t - 1) as the A fragments of P V
+    int kv = 0;  // K/V tiles consumed so far, over the block's work tiles
+    for (int w = blockIdx.x, j = 0; w < a.n_work; w += gridDim.x, ++j) {
+      const Work x = work(w);
+      const int row0 = x.q0 + 64 * c;  // this consumer's first query
+      auto tiles_of = [&](int first_row) {  // key tiles a consumer computes
+        int n = first_row < p.sq ? x.n_tiles : 0;
+        if (p.causal) {
+          const int last_key = min(first_row + 64, p.sq) - 1 + offset;
+          n = min(n, last_key < 0 ? 0 : last_key / T::BK + 1);
         }
-      rs += __shfl_xor_sync(0xffffffffu, rs, 1);
-      rs += __shfl_xor_sync(0xffffffffu, rs, 2);
-      l[r] = l[r] * alpha + rs;
-      m[r] = m_new;
+        return n;
+      };
+      const int my_tiles = tiles_of(row0);
+      // Ping-pong: in loop iterations 1 .. turns both consumers have, they
+      // take turns at issuing their products (consumer 0 first, named
+      // barriers 4 and 5 over both), so one's softmax runs while the
+      // other's products keep the tensor cores busy.  Every arrival is
+      // matched within the work tile.
+      const int turns = min(my_tiles, tiles_of(x.q0 + 64 * (1 - c))) - 1;
+      const int qpos[2] = {row0 + 16 * warp + g + offset,
+                           row0 + 16 * warp + g + 8 + offset};
+
+      // m in log2 units: m ln 2 is the natural running max
 #pragma unroll
-      for (int n = 0; n < NT_O; ++n) {
-        acc[n][2 * r] *= alpha;
-        acc[n][2 * r + 1] *= alpha;
+      for (int r = 0; r < 2; ++r) {
+        m[r] = NEG_INF * LOG2E;
+        l[r] = 0.f;
+      }
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+
+      // Tile t: S(t) = Q K_t^T is issued, then O += P(t-1) V_(t-1); the
+      // softmax of S(t) runs while that PV product is in flight, and O is
+      // rescaled to tile t's running max once it has retired.  The first
+      // tile is peeled, so no product sits in a branch of the loop (ptxas
+      // serialises the products of a divergent path).  Stage of tile t:
+      // (kv + t) % STAGES.
+      auto stage = [&](int t) { return (kv + t) % STAGES; };
+      auto parity = [&](int t) { return ((kv + t) / STAGES) & 1; };
+      auto issue_s = [&](int t) {  // S = Q K^T over D / 16 k-steps
+        const uint32_t kt = sk + stage(t) * T::KV_BYTES;
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const uint32_t off = (kk % 4) * 32;  // 16 columns of a box row
+          const uint64_t da =
+              desc_sw128(q_rows + (kk / 4) * T::Q_HALF + off, 16, 1024);
+          const uint64_t db =
+              desc_sw128(kt + (kk / 4) * T::KV_HALF + off, 16, 1024);
+          if constexpr (T::BK == 128) wgmma_ss_n128(sc, da, db, kk > 0);
+          else wgmma_ss_n64(sc, da, db, kk > 0);
+        }
+        wgmma_commit();
+      };
+      auto issue_pv = [&](int t) {
+        const uint32_t vt = sv + stage(t) * T::KV_BYTES;
+#pragma unroll
+        for (int kk = 0; kk < T::BK / 16; ++kk) {
+          const uint64_t db =
+              desc_sw128(vt + kk * 16 * BOX_BYTES, T::KV_HALF, 1024);
+          if constexpr (D == 128) wgmma_rs_n128(o, pa[kk], db, 1);
+          else wgmma_rs_n64(o, pa[kk], db, 1);
+        }
+        wgmma_commit();
+      };
+      // scale, mask, online softmax of S(t) (log2 domain): sc becomes
+      // P(t), m and l move to tile t, alpha rescales what O holds.  Only a
+      // tile that reaches past Sk or past this consumer's first query is
+      // masked.
+      auto softmax = [&](int t) {
+#pragma unroll
+        for (int i = 0; i < T::BK / 2; ++i) sc[i] *= scale2;
+        const int k0 = t * T::BK;
+        if (k0 + T::BK > p.sk ||
+            (p.causal && k0 + T::BK - 1 > row0 + offset)) {
+#pragma unroll
+          for (int jj = 0; jj < T::BK / 8; ++jj)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int kj = k0 + 8 * jj + 2 * t4 + e;
+#pragma unroll
+              for (int r = 0; r < 2; ++r)
+                if (kj >= p.sk || (p.causal && kj > qpos[r]))
+                  sc[4 * jj + 2 * r + e] = NEG_INF * LOG2E;  // -1e30, log2
+            }
+        }
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          float mx[4] = {m[r], m[r], m[r], m[r]};  // four chains, then one
+#pragma unroll
+          for (int jj = 0; jj < T::BK / 8; ++jj)
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+              mx[jj % 4] = fmaxf(mx[jj % 4], sc[4 * jj + 2 * r + e]);
+          float m_new = fmaxf(fmaxf(mx[0], mx[1]), fmaxf(mx[2], mx[3]));
+          m_new = fmaxf(m_new, __shfl_xor_sync(0xffffffffu, m_new, 1));
+          m_new = fmaxf(m_new, __shfl_xor_sync(0xffffffffu, m_new, 2));
+          alpha[r] = ex2(m[r] - m_new);
+          float rs[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+          for (int jj = 0; jj < T::BK / 8; ++jj)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const float pv = ex2(sc[4 * jj + 2 * r + e] - m_new);
+              sc[4 * jj + 2 * r + e] = pv;
+              rs[jj % 4] += pv;
+            }
+          float sum = (rs[0] + rs[1]) + (rs[2] + rs[3]);
+          sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+          sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+          l[r] = l[r] * alpha[r] + sum;
+          m[r] = m_new;
+        }
+      };
+      auto rescale_and_pack = [&]() {
+#pragma unroll
+        for (int jj = 0; jj < D / 8; ++jj)
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            o[4 * jj + 2 * r] *= alpha[r];
+            o[4 * jj + 2 * r + 1] *= alpha[r];
+          }
+#pragma unroll
+        for (int kk = 0; kk < T::BK / 16; ++kk)
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            pa[kk][i] = pack2_bf16(sc[8 * kk + 2 * i], sc[8 * kk + 2 * i + 1]);
+      };
+      auto arrive = [&](uint32_t bar) {  // one lane per consumer warp
+        __syncwarp();
+        if (lane == 0) mbar_arrive(bar);
+      };
+
+      mbar_wait(q_full, j & 1);
+      if (c == 1 && turns > 0) named_arrive<2 * WG>(4);  // consumer 0's turn 1
+      if (my_tiles > 0) {
+        mbar_wait(k_full(stage(0)), parity(0));
+        fence_regs(sc);
+        wgmma_fence();
+        issue_s(0);
+        wgmma_wait<0>();
+        fence_regs(sc);
+        softmax(0);
+        rescale_and_pack();
+        for (int t = 1; t < my_tiles; ++t) {
+          mbar_wait(k_full(stage(t)), parity(t));
+          mbar_wait(v_full(stage(t - 1)), parity(t - 1));
+          if (t <= turns) named_sync<2 * WG>(4 + c);  // this consumer's turn
+          fence_regs(sc);
+          fence_regs(o);
+          wgmma_fence();
+          issue_s(t);
+          issue_pv(t - 1);
+          if (t + c <= turns) named_arrive<2 * WG>(5 - c);  // the other's turn
+          wgmma_wait<1>();  // S(t) is done; PV(t - 1) may run on
+          fence_regs(sc);
+          softmax(t);
+          wgmma_wait<0>();  // PV(t - 1) has retired: O, pa and its V are free
+          fence_regs(o);
+          arrive(empty(stage(t - 1)));
+          rescale_and_pack();
+        }
+      }
+      arrive(q_empty);  // no more S products: the next Q may load
+      if (my_tiles > 0) {
+        const int last = my_tiles - 1;  // its P V
+        mbar_wait(v_full(stage(last)), parity(last));
+        fence_regs(o);
+        wgmma_fence();
+        issue_pv(last);
+        wgmma_wait<0>();
+        fence_regs(o);
+        arrive(empty(stage(last)));
+      }
+      for (int t = my_tiles; t < x.n_tiles; ++t) {  // past its last key
+        mbar_wait(k_full(stage(t)), parity(t));
+        arrive(empty(stage(t)));
+      }
+      kv += x.n_tiles;
+
+      // epilogue: O / l through this consumer's rows of the O buffer
+      float inv[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) inv[r] = 1.f / fmaxf(l[r], 1e-30f);
+      bf16* og = static_cast<bf16*>(p.o) + x.b * p.o_sb + x.hq * p.o_sh +
+                 (int64_t)row0 * p.o_ss;
+      store_tile_bf16<D>(o, inv, o_rows, T::Q_HALF, og, p.o_ss,
+                         min(64, p.sq - row0), 1 + c);
+      if (t4 == 0) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int qi = row0 + 16 * warp + g + 8 * r;
+          // a row that saw no key keeps m = -1e30 log2 e: its lse is the
+          // natural -1e30 + ln l = -1e30 exactly, as the reference's and
+          // the backward's masked scores (m ln 2 would round off by ~1e22)
+          const float m_ln = m[r] == NEG_INF * LOG2E ? NEG_INF : m[r] * LN2;
+          if (qi < p.sq)
+            p.lse[((int64_t)x.b * p.h + x.hq) * p.sq + qi] =
+                m_ln + logf(fmaxf(l[r], 1e-30f));
+        }
       }
     }
-
-    // O += P V: score tiles 2kk and 2kk+1 form the A fragment of key step
-    // kk.  One ldmatrix.x4.trans gives the B fragments of output columns
-    // 8n and 8(n+1): matrix i covers keys 16kk + 8(i & 1) .. +7 and
-    // columns 8(n + i / 2) .. +7 of V.
-    const bf16* vlane =
-        vs + (((lane >> 3) & 1) * 8 + (lane & 7)) * LDK + (lane >> 4) * 8;
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int n = 0; n < NT_O; n += 2) {
-        uint32_t vb[4];
-        ldmatrix_x4_trans(vb, vlane + kk * 16 * LDK + 8 * n);
-        mma_bf16(acc[n], pa, vb[0], vb[1]);
-        mma_bf16(acc[n + 1], pa, vb[2], vb[3]);
-      }
-    }
-    __syncthreads();  // the next iteration refills the stage read here
-  }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int qi = q0 + r_lo + 8 * r;
-    if (qi >= p.sq) continue;  // tail rows of the last tile
-    const float li = fmaxf(l[r], 1e-30f);
-#pragma unroll
-    for (int n = 0; n < NT_O; ++n) {
-      // O is the wrapper's contiguous allocation: 4-byte aligned pairs
-      *reinterpret_cast<__nv_bfloat162*>(og + (int64_t)qi * p.o_ss + 8 * n +
-                                         2 * t) =
-          __floats2bfloat162_rn(acc[n][2 * r] / li, acc[n][2 * r + 1] / li);
-    }
-    if (t == 0) p.lse[((int64_t)b * p.h + hq) * p.sq + qi] = m[r] + logf(li);
   }
 }
 
 template <int D>
-cudaError_t launch_mma(const Params& p, int batch, cudaStream_t stream) {
-  constexpr size_t smem = mma_smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_bf16_mma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+cudaError_t launch_wgmma(const Params& p, int batch, int hkv, int d,
+                         cudaStream_t stream) {
+  using T = FwdTiles<D>;
+  FwdArgs a;
+  a.p = p;
+  cudaError_t err = map_bshd(&a.q, p.q, batch, p.sq, p.h, d, p.q_sb, p.q_ss,
+                             p.q_sh, T::BQ);
+  if (err == cudaSuccess)
+    err = map_bshd(&a.k, p.k, batch, p.sk, hkv, d, p.k_sb, p.k_ss, p.k_sh,
+                   T::BK);
+  if (err == cudaSuccess)
+    err = map_bshd(&a.v, p.v, batch, p.sk, hkv, d, p.v_sb, p.v_ss, p.v_sh,
+                   T::BK);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(flash_fwd_bf16_wgmma<D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               T::SMEM);
+  int device = 0, sms = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return err;
-  const dim3 grid((p.sq + BQ - 1) / BQ, p.h, batch);
-  flash_fwd_bf16_mma<D><<<grid, MMA_THREADS, smem, stream>>>(p);
+  a.n_qt = (p.sq + T::BQ - 1) / T::BQ;
+  a.n_work = a.n_qt * p.h * batch;
+  // persistent: at most one block per SM (one fits), each walking over
+  // work tiles, so a block's next Q and K/V load under its current epilogue
+  const int grid = min(a.n_work, sms);
+  flash_fwd_bf16_wgmma<D><<<grid, 3 * WG, T::SMEM, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -436,7 +623,8 @@ extern "C" int kf_flash_fwd(const void* q, const void* k, const void* v,
   cudaError_t err = cudaErrorInvalidValue;
   if (dtype == 0 && d == 64) err = launch_f32<64>(p, batch, st);
   else if (dtype == 0 && d == 128) err = launch_f32<128>(p, batch, st);
-  else if (dtype == 1 && d == 64) err = launch_mma<64>(p, batch, st);
-  else if (dtype == 1 && d == 128) err = launch_mma<128>(p, batch, st);
+  else if (dtype == 1 && d == 64) err = launch_wgmma<64>(p, batch, hkv, d, st);
+  else if (dtype == 1 && d == 128)
+    err = launch_wgmma<128>(p, batch, hkv, d, st);
   return (int)err;
 }

@@ -19,7 +19,11 @@ offset by ``sk - sq`` (query i sits at absolute position i + sk - sq);
 K/V may carry fewer heads than Q (GQA, read in place, never repeated; dK
 and dV sum over each kv head's query heads); Sq and Sk are any lengths;
 outputs and gradients are in the input dtype and the log-sum-exp per
-query row is float32 ``[B, H, Sq]``.
+query row is float32 ``[B, H, Sq]``.  Inputs are [B, S, H, D] views with a
+unit innermost stride; the bf16 kernels load them with TMA, so a bf16
+input on the card must also pass ``_tma_compatible`` (16-byte aligned
+base, batch / sequence / head strides that are multiples of 8 elements),
+or the wrapper raises ``ValueError`` naming it.
 """
 
 from __future__ import annotations
@@ -50,6 +54,42 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError("q, k, v must share one dtype, float32 or bfloat16")
     if not (q.device == k.device == v.device):
         raise ValueError("q, k, v must lie on one device")
+
+
+def _tma_compatible(t: torch.Tensor) -> bool:
+    """Whether the bf16 kernels can load ``t`` ([B, S, H, D]) with TMA: a
+    bf16 tensor with a unit innermost stride, a 16-byte aligned base, and
+    batch / sequence / head strides that are positive multiples of 8
+    elements (16 bytes).  The stride of a dimension of size 1 is never
+    used and is not checked."""
+    if t.dtype != torch.bfloat16 or t.ndim != 4 or t.stride(3) != 1:
+        return False
+    if t.data_ptr() % 16:
+        return False
+    return all(n == 1 or (s > 0 and s % 8 == 0)
+               for n, s in zip(t.shape[:3], t.stride()[:3]))
+
+
+def _strides(t: torch.Tensor) -> list[int]:
+    """Batch, sequence and head strides of ``t`` as the kernels take them:
+    a dimension of size 1 gets its contiguous stride (TMA checks every
+    stride, even one that is never stepped)."""
+    contiguous = (t.shape[1] * t.shape[2] * t.shape[3],
+                  t.shape[2] * t.shape[3], t.shape[3])
+    return [s if n > 1 else c
+            for n, s, c in zip(t.shape[:3], t.stride()[:3], contiguous)]
+
+
+def _check_tma(dtype, **tensors) -> None:
+    if dtype != torch.bfloat16:
+        return
+    for name, t in tensors.items():
+        if not _tma_compatible(t):
+            raise ValueError(
+                f"{name} {tuple(t.shape)} with strides {t.stride()} at "
+                f"address {t.data_ptr():#x}: the bf16 kernels load it with "
+                "TMA, which needs a 16-byte aligned base and batch / "
+                "sequence / head strides that are multiples of 8 elements")
 
 
 def flash_attention_reference(q, k, v, *, causal: bool = False):
@@ -101,10 +141,11 @@ def _launch(q, k, v, causal: bool):
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(3) != 1:
             raise ValueError(f"{name} must have a unit innermost stride")
+    _check_tma(q.dtype, q=q, k=k, v=v)
     o = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     strides = (ctypes.c_int64 * 12)(*(
-        s for t in (q, k, v, o) for s in t.stride()[:3]))
+        s for t in (q, k, v, o) for s in _strides(t)))
     fn = _kernel()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -217,11 +258,14 @@ def _launch_bwd(name: str, q, k, v, do, lse, delta, outs, causal: bool):
             raise ValueError(f"{tname} must have a unit innermost stride")
     for tname, t in (("lse", lse), ("delta", delta)):
         if (t.shape != (b, h, sq) or t.dtype != torch.float32
-                or not t.is_contiguous() or t.device != q.device):
+                or not t.is_contiguous() or t.device != q.device
+                or t.data_ptr() % 16):
             raise ValueError(f"{tname} must be contiguous float32 "
-                             f"[{b}, {h}, {sq}] on {q.device}")
+                             f"[{b}, {h}, {sq}] on {q.device}, 16-byte "
+                             "aligned")
+    _check_tma(q.dtype, q=q, k=k, v=v, do=do)
     strides = (ctypes.c_int64 * 12)(*(
-        s for t in (q, k, v, do) for s in t.stride()[:3]))
+        s for t in (q, k, v, do) for s in _strides(t)))
     fn = _bwd_kernel(f"kf_{name}", 6 + len(outs))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -275,10 +319,13 @@ flash_bwd_dkv.launches = 0
 def flash_attention_backward(q, k, v, o, lse, do, *, causal: bool = False):
     """``(dQ, dK, dV)`` of ``flash_attention`` at cotangent ``do``: delta,
     then K2 and K3 (their plain versions on a CPU tensor).  ``do`` is
-    taken in the input dtype, as the reference rounds it (:280); a view
-    with a unit innermost stride goes in as it is."""
+    taken in the input dtype, as the reference rounds it (:280).  It is
+    the cotangent autograd hands over, in whatever layout: a view the
+    kernels can read (a unit innermost stride and, in bf16 on the card,
+    ``_tma_compatible``) goes in as it is, any other is made contiguous."""
     do = do.to(q.dtype)
-    if do.stride(3) != 1:
+    if do.stride(3) != 1 or (do.is_cuda and q.dtype == torch.bfloat16
+                             and not _tma_compatible(do)):
         do = do.contiguous()
     delta = flash_bwd_delta(o, do)
     dq = flash_bwd_dq(q, k, v, do, lse, delta, causal=causal)

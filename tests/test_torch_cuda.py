@@ -113,6 +113,96 @@ def test_flash_backward_kernels_match_plain_version(cuda_device, dtype,
         assert rel < BWD_TOL[dtype], f"{name}: {rel:.3e}"
 
 
+WGMMA_CASES = [  # (B, Sq, Sk, H, Hkv, D, causal): no length a multiple of 128
+    (1, 1, 63, 4, 2, 128, True),        # one query, decode offset
+    (2, 63, 129, 8, 8, 64, False),
+    (1, 129, 200, 32, 8, 128, True),    # GQA 32 over 8, Sk > Sq
+    (1, 200, 1500, 32, 8, 64, True),
+    (1, 1500, 1500, 4, 4, 128, True),
+    (2, 200, 63, 4, 2, 64, False),      # more queries than keys
+]
+
+
+def _bf16_inputs(device, b, sq, sk, h, hkv, d, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return [torch.randn(*shape, generator=g, device=device).bfloat16()
+            for shape in ((b, sq, h, d), (b, sk, hkv, d), (b, sk, hkv, d),
+                          (b, sq, h, d))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", WGMMA_CASES)
+def test_wgmma_forward_matches_plain_version(cuda_device, case):
+    # the tolerance of test_flash_kernel_matches_plain_version, bf16
+    b, sq, sk, h, hkv, d, causal = case
+    q, k, v, _ = _bf16_inputs(cuda_device, *case[:6], seed=3)
+    o, lse = tfa.flash_attention_with_lse(q, k, v, causal=causal)
+    ro, rlse = tfa.flash_attention_reference(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(o.float(), ro.float(), atol=1e-2, rtol=1e-2)
+    assert (lse - rlse).abs().max().item() < 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", WGMMA_CASES)
+def test_wgmma_dkv_matches_plain_version(cuda_device, case):
+    b, sq, sk, h, hkv, d, causal = case
+    q, k, v, do = _bf16_inputs(cuda_device, *case[:6], seed=4)
+    o, lse = tfa.flash_attention_with_lse(q, k, v, causal=causal)
+    delta = tfa.flash_bwd_delta(o, do)
+    got = tfa.flash_bwd_dkv(q, k, v, do, lse, delta, causal=causal)
+    want = tfa.flash_bwd_dkv_reference(q, k, v, do, lse, delta,
+                                       causal=causal)
+    torch.cuda.synchronize()
+    for name, x, ref in zip(("dk", "dv"), got, want):
+        rel = ((x.float() - ref.float()).abs().max()
+               / ref.float().abs().max()).item()
+        assert rel < BWD_TOL[torch.bfloat16], f"{name}: {rel:.3e}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad", ["base", "head_stride"])
+def test_misaligned_bf16_views_raise(cuda_device, bad):
+    # TMA takes 16-byte aligned bases and strides: such a view raises
+    # before any launch, naming the tensor
+    q, k, v, do = _bf16_inputs(cuda_device, 1, 64, 64, 2, 2, 64, seed=5)
+    if bad == "base":
+        flat = torch.zeros(q.numel() + 1, dtype=q.dtype, device=cuda_device)
+        k = flat[1:].view(q.shape).copy_(k)
+    else:
+        wide = torch.zeros(1, 64, 2, 68, dtype=q.dtype, device=cuda_device)
+        k = wide[..., :64].copy_(k)
+    o, lse = tfa.flash_attention_with_lse(q, q, v)
+    delta = tfa.flash_bwd_delta(o, do)
+    before = (tfa.flash_attention.launches, tfa.flash_bwd_dkv.launches)
+    with pytest.raises(ValueError, match="^k "):
+        tfa.flash_attention_with_lse(q, k, v)
+    with pytest.raises(ValueError, match="^k "):
+        tfa.flash_bwd_dkv(q, k, v, do, lse, delta)
+    assert (tfa.flash_attention.launches,
+            tfa.flash_bwd_dkv.launches) == before
+
+
+@pytest.mark.cuda
+def test_each_kernel_counts_its_launches(cuda_device):
+    q, k, v, do = _bf16_inputs(cuda_device, 1, 100, 100, 4, 4, 64, seed=6)
+    names = ("flash_attention", "flash_bwd_dq", "flash_bwd_dkv")
+
+    def counts():
+        return [getattr(tfa, n).launches for n in names]
+
+    start = counts()
+    o, lse = tfa.flash_attention_with_lse(q, k, v, causal=True)
+    assert counts() == [start[0] + 1, start[1], start[2]]
+    delta = tfa.flash_bwd_delta(o, do)
+    tfa.flash_bwd_dkv(q, k, v, do, lse, delta, causal=True)
+    assert counts() == [start[0] + 1, start[1], start[2] + 1]
+    tfa.flash_bwd_dq(q, k, v, do, lse, delta, causal=True)
+    assert counts() == [start[0] + 1, start[1] + 1, start[2] + 1]
+    tfa.flash_attention_reference(q, k, v, causal=True)   # plain: no launch
+    assert counts() == [start[0] + 1, start[1] + 1, start[2] + 1]
+
+
 @pytest.mark.cuda
 def test_flash_autograd_runs_the_backward_kernels(cuda_device):
     g = torch.Generator(device=cuda_device).manual_seed(2)

@@ -97,6 +97,34 @@ def test_kernel_rejects_unbuilt_head_dim_before_building():
         tfa._launch(q, q, q, causal=True)
 
 
+def _view(kind: str) -> torch.Tensor:
+    """A [B, S, H, D] CPU view of the given kind (see the cases below)."""
+    bf = torch.bfloat16
+    if kind == "contiguous":
+        return torch.zeros(2, 9, 4, 64, dtype=bf)
+    if kind == "bhsd_transposed":      # a [B, H, S, D] tensor seen [B, S, H, D]
+        return torch.zeros(2, 4, 9, 64, dtype=bf).transpose(1, 2)
+    if kind == "odd_row_offset":       # rows 1.. of a cache: 512-byte steps
+        return torch.zeros(2, 9, 4, 64, dtype=bf)[:, 1:]
+    if kind == "odd_element_offset":   # base 2 bytes past an aligned one
+        return torch.zeros(2, 9, 4, 72, dtype=bf)[..., 1:65]
+    if kind == "head_stride_68":       # heads 136 bytes apart
+        return torch.zeros(2, 9, 4, 68, dtype=bf)[..., :64]
+    if kind == "float32":
+        return torch.zeros(2, 9, 4, 64)
+    raise ValueError(kind)
+
+
+@pytest.mark.parametrize("kind,ok", [
+    ("contiguous", True), ("bhsd_transposed", True), ("odd_row_offset", True),
+    ("odd_element_offset", False), ("head_stride_68", False),
+    ("float32", False)])
+def test_tma_compatible(kind, ok):
+    # what the bf16 kernels' TMA loads take: a 16-byte aligned base and
+    # batch / sequence / head strides that are multiples of 8 elements
+    assert tfa._tma_compatible(_view(kind)) is ok
+
+
 @pytest.mark.parametrize("bad", ["shape", "dtype", "device"])
 def test_wrapper_validates_inputs(bad):
     q = torch.zeros(1, 8, 4, 64)
