@@ -6,13 +6,15 @@
 Phases, in order; any failure exits nonzero and prints no result:
 
 1. Build every CUDA kernel of the port from ``kubeflow_tpu_torch/ops/csrc``
-   (one nvcc per source, all at once); fail if ptxas reports a spill, or
-   if ``cuobjdump -sass`` finds no wgmma product (HGMMA) or no TMA load
-   (UTMALDG) in a bf16 K1 or K3 instantiation.  Hold the flash-attention
-   forward kernel (K1) against its plain PyTorch version on O and lse, in
-   bfloat16 and float32 (TF32 off for the plain version), at every shape
-   the serving run of phase 2 and the training run of phase 4 give it and at
-   a GQA, a strided and a non-causal D=64 case; hold the backward kernels
+   (one nvcc per source, all at once); fail if ptxas reports a spill or
+   serialised wgmma products, or if ``cuobjdump -sass`` finds no wgmma
+   product (HGMMA) or no TMA load (UTMALDG) in a bf16 K1, K2 or K3
+   instantiation (all three are wgmma kernels fed by TMA).  Hold the
+   flash-attention forward kernel (K1) against its plain PyTorch version
+   on O and lse, in bfloat16 and float32 (TF32 off for the plain
+   version), at every shape the serving run of phase 2 and the training
+   run of phase 4 give it and at a GQA, a strided and a non-causal D=64
+   case; hold the backward kernels
    (K2 dQ, K3 dK/dV) against theirs at the training shape, a causal D=128,
    a ragged Sq = Sk = 200 and a GQA (32 over 8 heads) case.
 2. Serving main path at full width: a Llama-2-7B ``GenerativePredictor``
@@ -40,8 +42,8 @@ Phases, in order; any failure exits nonzero and prints no result:
    its main-path shapes beside its bound, its plain version's time and a
    PyTorch call that computes the same function (``scaled_dot_product_
    attention`` forward, and its backward for K2 and K3: yardsticks the
-   port never calls); TTFT and decode tokens/s of phase 2; BERT-large
-   samples/s of phase 4.
+   port never calls); K2 beside its bound at a causal D=128 shape; TTFT
+   and decode tokens/s of phase 2; BERT-large samples/s of phase 4.
 
 The line before the last is the ``kernels`` JSON object; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -80,9 +82,10 @@ KERNEL_WORK = {  # name: (q-like, k-like, rows, products)
     "flash_bwd_dq": (3, 2, 2, 3),     # Q, dO, dQ | K, V | lse, delta
     "flash_bwd_dkv": (2, 4, 2, 4),    # Q, dO | K, V, dK, dV | lse, delta
 }
-# the bf16 K1 and K3 instantiations, which must keep their wgmma products
-# and TMA loads in the built code
+# the bf16 K1, K2 and K3 instantiations, which must keep their wgmma
+# products and TMA loads in the built code
 WGMMA_KERNELS = ("flash_fwd_bf16_wgmma<64>", "flash_fwd_bf16_wgmma<128>",
+                 "flash_bwd_dq_bf16_wgmma<64>", "flash_bwd_dq_bf16_wgmma<128>",
                  "flash_bwd_dkv_bf16_wgmma<64>",
                  "flash_bwd_dkv_bf16_wgmma<128>")
 
@@ -104,6 +107,7 @@ TRAIN_SHAPE = ("bert_large_train", TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 16, 16,
 # per step: K1 runs twice per layer (forward, and remat's recompute in the
 # backward), K2 and K3 once per layer
 TRAIN_LAUNCHES = {"flash_fwd": 48, "flash_bwd_dq": 24, "flash_bwd_dkv": 24}
+CAUSAL_DQ_SHAPE = (1, 2048, 2048, 32, 32, 128, True)  # B, Sq, Sk, H, Hkv, D
 BWD_SHAPES = [TRAIN_SHAPE,  # (name, B, Sq, Sk, H, Hkv, D, causal)
               ("causal_d128", 2, 384, 384, 8, 8, 128, True),
               ("ragged_200_causal", 2, 200, 200, 16, 16, 64, True),
@@ -248,8 +252,8 @@ def sass_counts(path: Path) -> dict[str, tuple[int, int]]:
 
 def check_build(libs: dict) -> None:
     """Print what ptxas and cuobjdump say of each library; fail on a
-    spill, on wgmma products that ptxas serialises, or when a bf16 K1 or
-    K3 instantiation lost its wgmma products (HGMMA) or its TMA loads
+    spill, on wgmma products that ptxas serialises, or when a bf16 K1, K2
+    or K3 instantiation lost its wgmma products (HGMMA) or its TMA loads
     (UTMALDG)."""
     from kubeflow_tpu_torch.ops import _build
 
@@ -915,6 +919,26 @@ def training_numbers(fa, launches: dict) -> dict[str, dict]:
     return rows
 
 
+def causal_dq_numbers(fa) -> None:
+    """K2 under the causal mask at D = 128 (Llama-2-7B's heads, one
+    sequence of 2048): off both main paths, the shape on which K2 runs one
+    block per work tile instead of its persistent grid."""
+    b, sq, sk, h, hkv, d, causal = CAUSAL_DQ_SHAPE
+    dtype = torch.bfloat16
+    q, k, v = make_qkv(b, sq, sk, h, hkv, d, dtype, seed=15)
+    g = torch.Generator(device="cuda").manual_seed(16)
+    do = torch.randn(q.shape, generator=g, device="cuda").to(dtype)
+    o, lse = fa.flash_attention_with_lse(q, k, v, causal=causal)
+    delta = fa.flash_bwd_delta(o, do)
+    saved = counters(fa)
+    ms = time_ms(lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta,
+                                         causal=causal))
+    set_counters(fa, saved)                      # timing is not the path
+    bound = bound_fields("flash_bwd_dq", CAUSAL_DQ_SHAPE, dtype)
+    log(f"flash_bwd_dq causal {CAUSAL_DQ_SHAPE} bf16: kernel {ms:.4f} ms, "
+        f"bound {bound['bound_ms']:.4f} ms ({bound['bound_by']})")
+
+
 def per_launch(rows: list[dict], key: str) -> float:
     """Mean over the main paths' launches (each shape weighted by its
     launches)."""
@@ -974,6 +998,7 @@ def main() -> int:
     log(card_line())
     serving_rows = phase_numbers(fa, num_layers=32)
     train_rows = training_numbers(fa, training["launches"])
+    causal_dq_numbers(fa)
     log(f"phase 2: TTFT mean {serving['ttft_mean_s'] * 1e3:.1f} ms over the "
         f"4 concurrent requests; decode "
         f"{serving['decode_tok_per_s']:.1f} tok/s over 4 slots")

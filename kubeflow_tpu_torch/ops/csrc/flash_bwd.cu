@@ -14,11 +14,12 @@
 // computes it outside its kernels (:259-261).
 //
 // The scores are recomputed as flash_fwd.cu formed them, but not bit for
-// bit: K1 sums Q K^T on wgmma, K2 on mma.sync and K3 as K Q^T on wgmma,
-// each in its own order of float32 partial sums, so s may differ from K1's
-// by float32 rounding and P = exp(s - lse) may exceed 1 by ~1e-6 relative
-// (harmless at the stated tolerances).  In float32, Q pre-scaled and one
-// fmaf per d in order, as K1's float32 kernel: exact there.
+// bit: K1 and K2 sum Q K^T on wgmma, K1 over 128-key tiles at D = 64, K2
+// over 64-key tiles, and K3 sums K Q^T, each in its own order of float32
+// partial sums, so s may differ from K1's by float32 rounding and
+// P = exp(s - lse) may exceed 1 by ~1e-6 relative (harmless at the stated
+// tolerances).  In float32, Q pre-scaled and one fmaf per d in order, as
+// K1's float32 kernel: exact there.
 //
 // What bounds them on the H100.  At BERT-large's training shape (B 24,
 // S 512, H 16, D 64, non-causal, bf16) dq does 3 products (38.7 GFLOP over
@@ -26,22 +27,22 @@
 // bf16 tensor-core rate against 0.038 and 0.045 ms at 3.35 TB/s, so both
 // are operations-bound, barely.  The design keeps S, P, dP and dS in
 // registers (never in device memory), reads each K/V tile once per
-// 64-query tile (dq) and each Q/dO tile once per 128-key tile (dkv; 64 at
-// D = 128), and
-// puts every bf16 product on the tensor cores.  No atomics: each block owns
-// its output rows, which costs the second recompute of P (the price of two
-// kernels instead of one with atomic dQ; fusing them is later work).
+// 128-query tile (dq) and each Q/dO tile once per 128-key tile (dkv; 64 at
+// D = 128), and puts every bf16 product on the tensor cores through wgmma.
+// No atomics: each block owns its output rows, so the gradients are the
+// same bits on every run, which costs the second recompute of P (the price
+// of two kernels instead of one with atomic dQ).
 //
 // Two kernels per input dtype:
-// - bf16, dq (K2): mma.sync m16n8k16 (float32 accumulate), 4 warps of 16
-//   query rows; Q and dO A fragments in registers; K/V tiles
-//   double-buffered with cp.async; per 16-key slice S and dP come from
-//   ldmatrix B fragments of K and V, dS is re-packed in registers as the A
-//   fragment of dS K, whose B fragments come from K by ldmatrix.trans.
-// - bf16, dkv (K3): a warp-specialised kernel on wgmma fed by TMA
-//   (flash_bwd_dkv_bf16_wgmma below; flash_hopper.cuh).  Under GQA the
-//   block loops over the G query heads of its kv head, so dK/dV sum over
-//   the group in registers.
+// - bf16, dq (K2): a warp-specialised kernel on wgmma fed by TMA, in K1's
+//   skeleton (flash_bwd_dq_bf16_wgmma below; flash_hopper.cuh): a producer
+//   warpgroup streams K/V tiles through an mbarrier ring, two consumer
+//   warpgroups of 64 query rows form S and dP, then dS in registers, and
+//   add dS K into dQ while the next tile's S and dP are formed.
+// - bf16, dkv (K3): the same structure with K and V resident and Q/dO
+//   streamed (flash_bwd_dkv_bf16_wgmma below).  Under GQA the block loops
+//   over the G query heads of its kv head, so dK/dV sum over the group in
+//   registers.
 //   P and dS are rounded to bf16 for their products, as every tensor-core
 //   flash backward does.
 // - float32: the same loops on the CUDA cores in float32 (no TF32).
@@ -49,11 +50,11 @@
 // Causal: dq visits key tiles up to its last query's position, dkv starts
 // at the first query tile that sees its key tile (:213-217).  Ragged Sq/Sk
 // tails are masked in-kernel, tail rows are never written.  Inputs are
-// [B, S, H, D] views with a unit innermost stride; K3's TMA also needs a
-// 16-byte aligned base and batch / sequence / head strides that are
-// multiples of 8 elements (the wrapper checks, ops/flash_attention.py
-// _tma_compatible), K2 and the float32 kernels take any strides.  Outputs
-// are the caller's contiguous [B, S, H, D] tensors.
+// [B, S, H, D] views with a unit innermost stride; the bf16 kernels' TMA
+// also needs a 16-byte aligned base and batch / sequence / head strides
+// that are multiples of 8 elements (the wrapper checks,
+// ops/flash_attention.py _tma_compatible), the float32 kernels take any
+// strides.  Outputs are the caller's contiguous [B, S, H, D] tensors.
 
 #include "flash_common.cuh"
 #include "flash_hopper.cuh"
@@ -81,154 +82,360 @@ struct BwdParams {
 };
 
 // ---------------------------------------------------------------------------
-// bf16, dQ: one block per (64-query tile, query head, batch).
+// bf16, dQ: a warp-specialised kernel on wgmma fed by TMA, in K1's skeleton
+// (flash_fwd.cu; flash_hopper.cuh for the tile layout and the products).
+//
+// One block of 3 warpgroups walks over work tiles (128-query tile, query
+// head, batch).  Without the causal mask the grid is persistent, at most
+// one block per SM, so that a block's next Q, dO and K/V tiles load while
+// its consumers finish the current one (at BERT-large's shape, 12 waves of
+// short work tiles).  Under the causal mask the work tiles differ in
+// length, and a fixed stride over them does not balance (at 12 query
+// tiles per head, block b of 132 would get query tile b % 12 every time),
+// so there is one block per work tile, the longest first, and the
+// hardware hands the next one to whichever SM frees up.
+//
+// Warpgroup 0 is the producer (setmaxnreg.dec): one thread loads a work
+// tile's Q and dO once the consumers are done with the previous ones
+// (`q_full` / `q_empty`), then its K and V tiles of BK keys
+// of kv head hq / group into a ring of STAGES stages (`full` / `empty`),
+// up to the last key tile that the tile's last query sees (causal).
+// Warpgroups 1 and 2 (setmaxnreg.inc) each own 64 query rows, whose lse
+// and delta each thread reads once per work tile.  Per key tile t:
+//     S  = Q K^T      wgmma m64nBKk16, A = Q, B = K (both K-major)
+//     dP = dO V^T     A = dO, B = V
+//     P  = exp(S scale - lse),  dS / scale = P o (dP - delta)  (in dP)
+//     dQ += dS K      A = dS (bf16, registers), B = K MN-major
+// S(t) and dP(t) are issued ahead of dQ(t-1), and dS(t) is formed while
+// that product is in flight; once it retires, one lane per warp releases
+// tile t-1's stage.  The two consumers take turns at issuing (ping-pong,
+// named barriers 4 and 5), so one's exponentials overlap the other's
+// products.  A consumer skips the products of tiles past its own last
+// visible key (it still waits for and releases them).  The epilogue
+// writes dQ times the scale in bf16 through the consumer's rows of a dQ
+// buffer; tail rows past Sq are never written, and no atomics are used:
+// each work tile owns its rows, so dQ is the same bits on every run.
+template <int D>
+struct DqTiles {
+  // keys per tile: a consumer holds dQ (D / 2 registers), S and dP (BK / 2
+  // each) and dS packed (BK / 4), all live while dQ(t-1) is in flight:
+  // 112 registers at D = 64 with 64-key tiles, 104 at D = 128 with 32-key
+  // tiles, within ptxas's 168 (64-key tiles at D = 128 would need 144).
+  static constexpr int BQ = 128, BK = D == 128 ? 32 : 64, STAGES = 4;
+  static constexpr int Q_HALF = BQ * BOX_BYTES;   // one 64-column box
+  static constexpr int KV_HALF = BK * BOX_BYTES;
+  static constexpr int Q_BYTES = BQ * D * 2, KV_BYTES = BK * D * 2;
+  static constexpr int OFF_DO = Q_BYTES;
+  static constexpr int OFF_K = 2 * Q_BYTES;
+  static constexpr int OFF_V = OFF_K + STAGES * KV_BYTES;
+  static constexpr int OFF_DQ = OFF_V + STAGES * KV_BYTES;  // laid out as Q
+  static constexpr int OFF_BAR = OFF_DQ + Q_BYTES;
+  // barriers: q_full, q_empty, full[STAGES], empty[STAGES]
+  static constexpr int SMEM = OFF_BAR + 8 * (2 + 2 * STAGES) + 1024;  // +align
+};
+
+struct DqArgs {
+  CUtensorMap q, k, v, dout;  // 64-byte aligned members first
+  BwdParams p;
+  int n_qt, n_work;           // query tiles per head; work tiles (B x H x n_qt)
+};
 
 template <int D>
-constexpr size_t dq_mma_smem_bytes() {  // Q, dO, two stages of (K, V)
-  return sizeof(bf16) * (size_t)((2 * BQ + 4 * BK) * (D + 8));
+__global__ void __launch_bounds__(3 * WG, 1)
+    flash_bwd_dq_bf16_wgmma(const __grid_constant__ DqArgs a) {
+  using T = DqTiles<D>;
+  constexpr int STAGES = T::STAGES, BK = T::BK;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;  // swizzle atoms: 1 KB
+  const uint32_t sq_tile = base, sdo_tile = base + T::OFF_DO;
+  const uint32_t sk = base + T::OFF_K, sv = base + T::OFF_V;
+  const uint32_t sdq_tile = base + T::OFF_DQ;
+  const uint32_t q_full = base + T::OFF_BAR, q_empty = q_full + 8;
+  auto full = [&](int s) { return q_full + 16 + 8 * s; };
+  auto empty = [&](int s) { return q_full + 16 + 8 * (STAGES + s); };
+
+  const BwdParams& p = a.p;
+  const int offset = p.sk - p.sq;  // query i sits at absolute i + offset
+  // work tile w: query tile n_qt - 1 - w % n_qt (the longest first under
+  // the causal mask) of head (w / n_qt) % H of batch w / (n_qt H); the
+  // query tiles of one head run side by side and share K and V in L2
+  struct Work {
+    int q0, hq, b, n_tiles;
+  };
+  auto work = [&](int w) {
+    Work x;
+    x.q0 = (a.n_qt - 1 - w % a.n_qt) * T::BQ;
+    x.hq = (w / a.n_qt) % p.h;
+    x.b = w / (a.n_qt * p.h);
+    x.n_tiles = (p.sk + BK - 1) / BK;
+    if (p.causal) {  // only key tiles up to the tile's last query
+      const int last_key = min(x.q0 + T::BQ, p.sq) - 1 + offset;
+      x.n_tiles = min(x.n_tiles, last_key < 0 ? 0 : last_key / BK + 1);
+    }
+    return x;
+  };
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    mbar_init(q_empty, 8);  // one lane of each consumer warp
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 8);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / WG;
+  if (wg == 0) {  // producer
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (threadIdx.x == 0) {
+      int kv = 0;  // K/V tiles loaded so far, over the block's work tiles
+      for (int w = blockIdx.x, j = 0; w < a.n_work; w += gridDim.x, ++j) {
+        const Work x = work(w);
+        const int hk = x.hq / p.group;
+        if (j > 0) mbar_wait(q_empty, (j - 1) & 1);
+        mbar_expect_tx(q_full, 2 * T::Q_BYTES);
+        for (int h = 0; h < D / 64; ++h) {
+          tma_load_4d(sq_tile + h * T::Q_HALF, &a.q, q_full, 64 * h, x.hq,
+                      x.q0, x.b);
+          tma_load_4d(sdo_tile + h * T::Q_HALF, &a.dout, q_full, 64 * h,
+                      x.hq, x.q0, x.b);
+        }
+        for (int t = 0; t < x.n_tiles; ++t, ++kv) {
+          const int s = kv % STAGES;
+          if (kv >= STAGES) mbar_wait(empty(s), ((kv / STAGES) - 1) & 1);
+          mbar_expect_tx(full(s), 2 * T::KV_BYTES);
+          for (int h = 0; h < D / 64; ++h) {
+            tma_load_4d(sk + s * T::KV_BYTES + h * T::KV_HALF, &a.k, full(s),
+                        64 * h, hk, t * BK, x.b);
+            tma_load_4d(sv + s * T::KV_BYTES + h * T::KV_HALF, &a.v, full(s),
+                        64 * h, hk, t * BK, x.b);
+          }
+        }
+      }
+    }
+  } else {  // consumers
+    setmaxnreg_inc<CONSUMER_REGS>();
+    const int c = wg - 1, tid = threadIdx.x % WG;
+    const int warp = tid / 32, lane = tid % 32, g = lane / 4, t4 = lane % 4;
+    const float scale2 = p.scale * LOG2E;
+    const uint32_t q_rows = sq_tile + c * 64 * BOX_BYTES;  // A of S
+    const uint32_t do_rows = sdo_tile + c * 64 * BOX_BYTES;  // A of dP
+    const uint32_t dq_rows = sdq_tile + c * 64 * BOX_BYTES;
+
+    float dq[D / 2];
+    float sc[BK / 2], dp[BK / 2];  // S(t); dP(t), then dS(t) / scale
+    uint32_t dsa[BK / 16][4];      // dS as the A fragments of dS K
+    int kv = 0;  // K/V tiles consumed so far, over the block's work tiles
+    for (int w = blockIdx.x, j = 0; w < a.n_work; w += gridDim.x, ++j) {
+      const Work x = work(w);
+      const int row0 = x.q0 + 64 * c;  // this consumer's first query
+      auto tiles_of = [&](int first_row) {  // key tiles a consumer computes
+        int n = first_row < p.sq ? x.n_tiles : 0;
+        if (p.causal) {
+          const int last_key = min(first_row + 64, p.sq) - 1 + offset;
+          n = min(n, last_key < 0 ? 0 : last_key / BK + 1);
+        }
+        return n;
+      };
+      const int my_tiles = tiles_of(row0);
+      // ping-pong in loop iterations 1 .. turns, as K1 takes turns
+      const int turns = min(my_tiles, tiles_of(x.q0 + 64 * (1 - c))) - 1;
+
+      // this thread's rows 16 warp + g + 8r: lse in log2 units, delta, the
+      // weight of a masked entry, and the absolute position.  A masked
+      // weight is exp(-1e30 - lse) in natural units, as the reference forms
+      // it (0, or 1 on a row that sees no key), computed as K3 computes it:
+      // the difference first, so no fused multiply-add turns two equal
+      // -1e30 log2 e terms into a residue whose exp2 is 0 or infinity.
+      float l2[2], dl[2], pm[2];
+      int qpos[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int qi = row0 + 16 * warp + g + 8 * r;
+        const int64_t at = ((int64_t)x.b * p.h + x.hq) * p.sq + qi;
+        const float lse = qi < p.sq ? p.lse[at] : 0.f;
+        dl[r] = qi < p.sq ? p.delta[at] : 0.f;
+        l2[r] = lse * LOG2E;
+        pm[r] = ex2((NEG_INF - lse) * LOG2E);
+        qpos[r] = qi + offset;
+      }
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+
+      // The first tile is peeled, so no product sits in a branch of the
+      // loop (ptxas serialises the products of a divergent path).  Stage of
+      // tile t: (kv + t) % STAGES.
+      auto stage = [&](int t) { return (kv + t) % STAGES; };
+      auto parity = [&](int t) { return ((kv + t) / STAGES) & 1; };
+      auto issue_s_dp = [&](int t) {  // S and dP over D / 16 k-steps
+        const uint32_t kt = sk + stage(t) * T::KV_BYTES;
+        const uint32_t vt = sv + stage(t) * T::KV_BYTES;
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const uint32_t off = (kk % 4) * 32;  // 16 columns of a box row
+          const uint32_t qo = (kk / 4) * T::Q_HALF + off;
+          const uint32_t ko = (kk / 4) * T::KV_HALF + off;
+          const uint64_t dqa = desc_sw128(q_rows + qo, 16, 1024);
+          const uint64_t dka = desc_sw128(kt + ko, 16, 1024);
+          const uint64_t doa = desc_sw128(do_rows + qo, 16, 1024);
+          const uint64_t dva = desc_sw128(vt + ko, 16, 1024);
+          if constexpr (BK == 64) {
+            wgmma_ss_n64(sc, dqa, dka, kk > 0);
+            wgmma_ss_n64(dp, doa, dva, kk > 0);
+          } else {
+            wgmma_ss_n32(sc, dqa, dka, kk > 0);
+            wgmma_ss_n32(dp, doa, dva, kk > 0);
+          }
+        }
+        wgmma_commit();
+      };
+      auto issue_dq = [&](int t) {  // dQ += dS K, K MN-major (K1's V)
+        const uint32_t kt = sk + stage(t) * T::KV_BYTES;
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk) {
+          const uint64_t db =
+              desc_sw128(kt + kk * 16 * BOX_BYTES, T::KV_HALF, 1024);
+          if constexpr (D == 128) wgmma_rs_n128(dq, dsa[kk], db, 1);
+          else wgmma_rs_n64(dq, dsa[kk], db, 1);
+        }
+        wgmma_commit();
+      };
+      // dS(t) / scale in dp, then packed as dsa.  Element 4jj + 2r + e:
+      // row 16 warp + g + 8r, key t BK + 8jj + 2t4 + e.  Only a tile that
+      // reaches past Sk or past this consumer's first query tests the mask.
+      auto weights = [&](int t, auto masked) {
+        const int k0 = t * BK;
+#pragma unroll
+        for (int jj = 0; jj < BK / 8; ++jj)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+              const int i = 4 * jj + 2 * r + e;
+              float pv = ex2(sc[i] * scale2 - l2[r]);
+              if constexpr (decltype(masked)::value) {
+                const int kj = k0 + 8 * jj + 2 * t4 + e;
+                if (kj >= p.sk || (p.causal && kj > qpos[r])) pv = pm[r];
+              }
+              dp[i] = pv * (dp[i] - dl[r]);
+            }
+      };
+      auto form_ds = [&](int t) {
+        const int k0 = t * BK;
+        if (k0 + BK > p.sk || (p.causal && k0 + BK - 1 > row0 + offset))
+          weights(t, std::true_type{});
+        else
+          weights(t, std::false_type{});
+      };
+      auto pack_ds = [&]() {
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            dsa[kk][i] = pack2_bf16(dp[8 * kk + 2 * i], dp[8 * kk + 2 * i + 1]);
+      };
+      auto arrive = [&](uint32_t bar) {  // one lane per consumer warp
+        __syncwarp();
+        if (lane == 0) mbar_arrive(bar);
+      };
+
+      mbar_wait(q_full, j & 1);
+      if (c == 1 && turns > 0) named_arrive<2 * WG>(4);  // consumer 0's turn 1
+      if (my_tiles > 0) {
+        mbar_wait(full(stage(0)), parity(0));
+        fence_regs(sc);
+        fence_regs(dp);
+        wgmma_fence();
+        issue_s_dp(0);
+        wgmma_wait<0>();
+        fence_regs(sc);
+        fence_regs(dp);
+        form_ds(0);
+        pack_ds();
+        for (int t = 1; t < my_tiles; ++t) {
+          mbar_wait(full(stage(t)), parity(t));
+          if (t <= turns) named_sync<2 * WG>(4 + c);  // this consumer's turn
+          fence_regs(sc);
+          fence_regs(dp);
+          fence_regs(dq);
+          wgmma_fence();
+          issue_s_dp(t);
+          issue_dq(t - 1);
+          if (t + c <= turns) named_arrive<2 * WG>(5 - c);  // the other's turn
+          wgmma_wait<1>();  // S(t) and dP(t) are done; dQ(t - 1) may run on
+          fence_regs(sc);
+          fence_regs(dp);
+          form_ds(t);
+          wgmma_wait<0>();  // dQ(t - 1) has retired: dsa and its K are free
+          fence_regs(dq);
+          arrive(empty(stage(t - 1)));
+          pack_ds();
+        }
+      }
+      arrive(q_empty);  // no more S or dP products: the next Q and dO may load
+      if (my_tiles > 0) {
+        const int last = my_tiles - 1;  // its dS K
+        fence_regs(dq);
+        wgmma_fence();
+        issue_dq(last);
+        wgmma_wait<0>();
+        fence_regs(dq);
+        arrive(empty(stage(last)));
+      }
+      for (int t = my_tiles; t < x.n_tiles; ++t) {  // past its last key
+        mbar_wait(full(stage(t)), parity(t));
+        arrive(empty(stage(t)));
+      }
+      kv += x.n_tiles;
+
+      // epilogue: dQ times the scale through this consumer's rows of the
+      // dQ buffer; dq is a contiguous [B, Sq, H, D] tensor
+      const float mul[2] = {p.scale, p.scale};
+      const int64_t ld = (int64_t)p.h * D;
+      bf16* dqg = static_cast<bf16*>(p.dq) +
+                  ((int64_t)x.b * p.sq + row0) * ld + (int64_t)x.hq * D;
+      store_tile_bf16<D>(dq, mul, dq_rows, T::Q_HALF, dqg, ld,
+                         min(64, p.sq - row0), 1 + c);
+    }
+  }
 }
 
 template <int D>
-__global__ void __launch_bounds__(MMA_THREADS)
-    flash_bwd_dq_bf16(const BwdParams p) {
-  constexpr int LD = D + 8, KSTEPS = D / 16, NT_O = D / 8;
-  constexpr int TILE = BK * LD;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // [BQ][LD]
-  bf16* dos = qs + BQ * LD;                      // [BQ][LD]
-  bf16* kv = dos + BQ * LD;  // stage s: K at kv + 2s*TILE, V one TILE on
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int t = lane & 3;
-  const int q0 = blockIdx.x * BQ;
-  const int hq = blockIdx.y, b = blockIdx.z, hk = hq / p.group;
-  const int offset = p.sk - p.sq;
-
-  const bf16* qg = static_cast<const bf16*>(p.q) + b * p.q_sb + hq * p.q_sh;
-  const bf16* dog =
-      static_cast<const bf16*>(p.dout) + b * p.do_sb + hq * p.do_sh;
-  const bf16* kg = static_cast<const bf16*>(p.k) + b * p.k_sb + hk * p.k_sh;
-  const bf16* vg = static_cast<const bf16*>(p.v) + b * p.v_sb + hk * p.v_sh;
-  bf16* dqg = static_cast<bf16*>(p.dq) + ((int64_t)b * p.sq * p.h + hq) * D;
-  const int64_t dq_ss = (int64_t)p.h * D;
-
-  int n_tiles = (p.sk + BK - 1) / BK;
-  if (p.causal) {  // only key tiles that some query of this tile sees
-    const int last_key = min(q0 + BQ, p.sq) - 1 + offset;
-    n_tiles = min(n_tiles, last_key < 0 ? 0 : last_key / BK + 1);
-  }
-  const bool vec_kv = aligned16(kg, p.k_ss) && aligned16(vg, p.v_ss);
-
-  load_tile<D>(qs, qg, p.q_ss, q0, p.sq, aligned16(qg, p.q_ss));
-  load_tile<D>(dos, dog, p.do_ss, q0, p.sq, aligned16(dog, p.do_ss));
-  if (n_tiles > 0) {
-    load_tile<D>(kv, kg, p.k_ss, 0, p.sk, vec_kv);
-    load_tile<D>(kv + TILE, vg, p.v_ss, 0, p.sk, vec_kv);
-  }
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-
-  const int r_lo = warp * 16 + (lane >> 2);  // rows r_lo and r_lo + 8
-  uint32_t qa[KSTEPS][4], da[KSTEPS][4];
-  load_a_frags<D>(qa, qs, r_lo, t);
-  load_a_frags<D>(da, dos, r_lo, t);
-  float lse[2], delta[2];
-  int qpos[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int qi = q0 + r_lo + 8 * r;
-    const int64_t at = ((int64_t)b * p.h + hq) * p.sq + qi;
-    lse[r] = qi < p.sq ? p.lse[at] : 0.f;
-    delta[r] = qi < p.sq ? p.delta[at] : 0.f;
-    qpos[r] = qi + offset;
-  }
-
-  float acc[NT_O][4];
-#pragma unroll
-  for (int n = 0; n < NT_O; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-
-  for (int tile = 0; tile < n_tiles; ++tile) {
-    const int k0 = tile * BK;
-    const bf16* ks = kv + 2 * (tile & 1) * TILE;
-    const bf16* vs = ks + TILE;
-    if (tile + 1 < n_tiles) {  // the next stage loads while this one runs
-      bf16* next = kv + 2 * ((tile + 1) & 1) * TILE;
-      load_tile<D>(next, kg, p.k_ss, k0 + BK, p.sk, vec_kv);
-      load_tile<D>(next + TILE, vg, p.v_ss, k0 + BK, p.sk, vec_kv);
-    }
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-
-    const bool masked =
-        k0 + BK > p.sk || (p.causal && k0 + BK - 1 > q0 + offset);
-    // B fragments of S = Q K^T and dP = dO V^T (as flash_fwd.cu's S), and
-    // of dS K (as flash_fwd.cu's PV, from K)
-    const int nt_row = (lane & 7), nt_col = (lane >> 3) * 8;
-    const bf16* klane = ks + nt_row * LD + nt_col;
-    const bf16* vlane = vs + nt_row * LD + nt_col;
-    const bf16* ktrans =
-        ks + (((lane >> 3) & 1) * 8 + (lane & 7)) * LD + (lane >> 4) * 8;
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {  // keys 16kk .. 16kk + 15
-      float s[2][4], dp[2][4];
-#pragma unroll
-      for (int jj = 0; jj < 2; ++jj) {
-        const int j = 2 * kk + jj;
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[jj][e] = dp[jj][e] = 0.f;
-#pragma unroll
-        for (int d = 0; d < KSTEPS; d += 2) {
-          uint32_t kb[4], vb[4];
-          ldmatrix_x4(kb, klane + 8 * j * LD + d * 16);
-          mma_bf16(s[jj], qa[d], kb[0], kb[1]);
-          mma_bf16(s[jj], qa[d + 1], kb[2], kb[3]);
-          ldmatrix_x4(vb, vlane + 8 * j * LD + d * 16);
-          mma_bf16(dp[jj], da[d], vb[0], vb[1]);
-          mma_bf16(dp[jj], da[d + 1], vb[2], vb[3]);
-        }
-      }
-      // element e of s[jj]: row r_lo + 8(e / 2), key k0 + 16kk + 8jj +
-      // 2t + (e % 2).  s becomes dS in place.
-#pragma unroll
-      for (int jj = 0; jj < 2; ++jj)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int r = e >> 1;
-          const int kj = k0 + 16 * kk + 8 * jj + 2 * t + (e & 1);
-          float sv = s[jj][e] * p.scale;
-          if (masked && (kj >= p.sk || (p.causal && kj > qpos[r])))
-            sv = NEG_INF;
-          const float pv = expf(sv - lse[r]);
-          s[jj][e] = pv * (dp[jj][e] - delta[r]) * p.scale;
-        }
-      const uint32_t dsa[4] = {pack_bf16(s[0][0], s[0][1]),
-                               pack_bf16(s[0][2], s[0][3]),
-                               pack_bf16(s[1][0], s[1][1]),
-                               pack_bf16(s[1][2], s[1][3])};
-#pragma unroll
-      for (int n = 0; n < NT_O; n += 2) {
-        uint32_t kb[4];
-        ldmatrix_x4_trans(kb, ktrans + kk * 16 * LD + 8 * n);
-        mma_bf16(acc[n], dsa, kb[0], kb[1]);
-        mma_bf16(acc[n + 1], dsa, kb[2], kb[3]);
-      }
-    }
-    __syncthreads();  // the next iteration refills the stage read here
-  }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int qi = q0 + r_lo + 8 * r;
-    if (qi >= p.sq) continue;
-#pragma unroll
-    for (int n = 0; n < NT_O; ++n)
-      *reinterpret_cast<__nv_bfloat162*>(dqg + qi * dq_ss + 8 * n + 2 * t) =
-          __floats2bfloat162_rn(acc[n][2 * r], acc[n][2 * r + 1]);
-  }
+cudaError_t launch_dq_wgmma(const BwdParams& p, int batch, int d,
+                            cudaStream_t stream) {
+  using T = DqTiles<D>;
+  DqArgs a;
+  a.p = p;
+  cudaError_t err = map_bshd(&a.q, p.q, batch, p.sq, p.h, d, p.q_sb, p.q_ss,
+                             p.q_sh, T::BQ);
+  if (err == cudaSuccess)
+    err = map_bshd(&a.dout, p.dout, batch, p.sq, p.h, d, p.do_sb, p.do_ss,
+                   p.do_sh, T::BQ);
+  if (err == cudaSuccess)
+    err = map_bshd(&a.k, p.k, batch, p.sk, p.hkv, d, p.k_sb, p.k_ss, p.k_sh,
+                   T::BK);
+  if (err == cudaSuccess)
+    err = map_bshd(&a.v, p.v, batch, p.sk, p.hkv, d, p.v_sb, p.v_ss, p.v_sh,
+                   T::BK);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(flash_bwd_dq_bf16_wgmma<D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               T::SMEM);
+  int device = 0, sms = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  a.n_qt = (p.sq + T::BQ - 1) / T::BQ;
+  a.n_work = a.n_qt * p.h * batch;
+  // persistent without the causal mask (one block fits on an SM); one
+  // block per work tile with it (see the kernel's note)
+  const int grid = p.causal ? a.n_work : min(a.n_work, sms);
+  flash_bwd_dq_bf16_wgmma<D><<<grid, 3 * WG, T::SMEM, stream>>>(a);
+  return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -861,12 +1068,8 @@ extern "C" int kf_flash_bwd_dq(const void* q, const void* k, const void* v,
   p.dq = dq;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid((sq + BQ - 1) / BQ, h, batch);
-  if (dtype == 1 && d == 64)
-    return launch(flash_bwd_dq_bf16<64>, dq_mma_smem_bytes<64>(), grid,
-                  MMA_THREADS, p, st);
-  if (dtype == 1 && d == 128)
-    return launch(flash_bwd_dq_bf16<128>, dq_mma_smem_bytes<128>(), grid,
-                  MMA_THREADS, p, st);
+  if (dtype == 1 && d == 64) return launch_dq_wgmma<64>(p, batch, d, st);
+  if (dtype == 1 && d == 128) return launch_dq_wgmma<128>(p, batch, d, st);
   if (dtype == 0 && d == 64)
     return launch(flash_bwd_dq_f32<64>, dq_f32_smem_bytes<64>(), grid,
                   F32_THREADS, p, st);

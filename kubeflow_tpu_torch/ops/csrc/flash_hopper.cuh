@@ -1,5 +1,5 @@
 // Hopper building blocks shared by the wgmma flash kernels (flash_fwd.cu's
-// K1 and flash_bwd.cu's K3): TMA tensor maps and loads, mbarrier rings,
+// K1, flash_bwd.cu's K2 and K3): TMA tensor maps and loads, mbarrier rings,
 // warpgroup products (wgmma) on 128-byte-swizzled tiles, and the register
 // hand-over between a producer warpgroup and consumer warpgroups.
 //
@@ -17,9 +17,10 @@
 // shared memory through a matrix descriptor, and A either from shared
 // memory (K-major: D contiguous) or from registers.  A K-major operand of
 // one box advances 32 bytes per 16-element k-step inside its swizzled row;
-// an MN-major operand (V or dO in a P V product: the product's N is D,
-// contiguous in memory) advances 16 rows (2048 bytes) per k-step, with the
-// two D halves one box apart (the descriptor's leading byte offset).
+// an MN-major operand (V or dO in a P V product, K in K2's dS K: the
+// product's N is D, contiguous in memory) advances 16 rows (2048 bytes) per
+// k-step, with the two D halves one box apart (the descriptor's leading
+// byte offset).
 //
 // Accumulator layout of m64nN (f32), thread lane l of warp w of the
 // warpgroup, g = l / 4, t = l % 4:  d[4j + 2r + e] sits at row 16w + g + 8r,
@@ -253,6 +254,21 @@ __device__ __forceinline__ void store_tile_bf16(const float (&acc)[D / 2],
 // wgmma m64nNk16, bf16 in, float32 accumulate.  ss: A and B from shared
 // memory, both K-major; acc 0 overwrites d.  rs: A from registers (the
 // m16n8k16 A fragment per warp), B MN-major (transposed).
+
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t a,
+                                            uint64_t b, uint32_t acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(acc));
+}
 
 __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a,
                                             uint64_t b, uint32_t acc) {

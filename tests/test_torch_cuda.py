@@ -161,8 +161,39 @@ def test_wgmma_dkv_matches_plain_version(cuda_device, case):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", WGMMA_CASES)
+def test_wgmma_dq_matches_plain_version(cuda_device, case):
+    b, sq, sk, h, hkv, d, causal = case
+    q, k, v, do = _bf16_inputs(cuda_device, *case[:6], seed=7)
+    o, lse = tfa.flash_attention_with_lse(q, k, v, causal=causal)
+    delta = tfa.flash_bwd_delta(o, do)
+    dq = tfa.flash_bwd_dq(q, k, v, do, lse, delta, causal=causal)
+    ref = tfa.flash_bwd_dq_reference(q, k, v, do, lse, delta, causal=causal)
+    torch.cuda.synchronize()
+    rel = ((dq.float() - ref.float()).abs().max()
+           / ref.float().abs().max()).item()
+    assert rel < BWD_TOL[torch.bfloat16], f"dq: {rel:.3e}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+def test_wgmma_dq_is_bitwise_reproducible(cuda_device, causal):
+    # each work tile owns its rows of dQ (no atomics), so two launches on
+    # the same inputs give the same bits
+    q, k, v, do = _bf16_inputs(cuda_device, 2, 300, 300, 8, 2, 64, seed=8)
+    o, lse = tfa.flash_attention_with_lse(q, k, v, causal=causal)
+    delta = tfa.flash_bwd_delta(o, do)
+    first = tfa.flash_bwd_dq(q, k, v, do, lse, delta, causal=causal)
+    second = tfa.flash_bwd_dq(q, k, v, do, lse, delta, causal=causal)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["flash_attention", "flash_bwd_dq",
+                                    "flash_bwd_dkv"])
 @pytest.mark.parametrize("bad", ["base", "head_stride"])
-def test_misaligned_bf16_views_raise(cuda_device, bad):
+def test_misaligned_bf16_views_raise(cuda_device, bad, kernel):
     # TMA takes 16-byte aligned bases and strides: such a view raises
     # before any launch, naming the tensor
     q, k, v, do = _bf16_inputs(cuda_device, 1, 64, 64, 2, 2, 64, seed=5)
@@ -174,13 +205,15 @@ def test_misaligned_bf16_views_raise(cuda_device, bad):
         k = wide[..., :64].copy_(k)
     o, lse = tfa.flash_attention_with_lse(q, q, v)
     delta = tfa.flash_bwd_delta(o, do)
-    before = (tfa.flash_attention.launches, tfa.flash_bwd_dkv.launches)
+    calls = {
+        "flash_attention": lambda: tfa.flash_attention_with_lse(q, k, v),
+        "flash_bwd_dq": lambda: tfa.flash_bwd_dq(q, k, v, do, lse, delta),
+        "flash_bwd_dkv": lambda: tfa.flash_bwd_dkv(q, k, v, do, lse, delta),
+    }
+    before = getattr(tfa, kernel).launches
     with pytest.raises(ValueError, match="^k "):
-        tfa.flash_attention_with_lse(q, k, v)
-    with pytest.raises(ValueError, match="^k "):
-        tfa.flash_bwd_dkv(q, k, v, do, lse, delta)
-    assert (tfa.flash_attention.launches,
-            tfa.flash_bwd_dkv.launches) == before
+        calls[kernel]()
+    assert getattr(tfa, kernel).launches == before
 
 
 @pytest.mark.cuda
