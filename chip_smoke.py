@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA card (an H100).
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                 # every phase below
+    python3 chip_smoke.py --kernel-times  # build, then K1-K3 times only
 
 Phases, in order; any failure exits nonzero and prints no result:
 
@@ -13,10 +14,10 @@ Phases, in order; any failure exits nonzero and prints no result:
    flash-attention forward kernel (K1) against its plain PyTorch version
    on O and lse, in bfloat16 and float32 (TF32 off for the plain
    version), at every shape the serving run of phase 2 and the training
-   run of phase 4 give it and at a GQA, a strided and a non-causal D=64
-   case; hold the backward kernels
-   (K2 dQ, K3 dK/dV) against theirs at the training shape, a causal D=128,
-   a ragged Sq = Sk = 200 and a GQA (32 over 8 heads) case.
+   runs of phases 4 and 5 give it and at a GQA, a strided and a non-causal
+   D=64 case; hold the backward kernels (K2 dQ, K3 dK/dV) against theirs
+   at both training shapes, a causal D=128, a ragged Sq = Sk = 200 and a
+   GQA (32 over 8 heads) case.
 2. Serving main path at full width: a Llama-2-7B ``GenerativePredictor``
    (32 layers, random weights from a seed) served through ``PredictorApp``
    on a local port answers 4 concurrent HTTP ``:generate`` requests
@@ -38,12 +39,21 @@ Phases, in order; any failure exits nonzero and prints no result:
    through the plain attention route (same weights and batch) in loss and
    grad_norm, with every K2 and K3 call of it held against its plain
    version on the same inputs; and the step's device time by operator.
-5. Numbers: the card's name and power limit; each kernel's device time at
+5. The same for Llama at Llama-2-7B's width (hidden 4096, 32 heads of 128,
+   FFN 11008, vocab 32000, float32 masters, bf16 compute, remat, causal
+   attention), ``LLAMA_LAYERS`` of its 32 layers, global batch 16 x 512:
+   10 adamw steps, each launching K1 2L times and K2 and K3 L times; the
+   in-step check; the step by operator; the peak memory of the phase.
+6. The vision models through the same worker: ``mnist_mlp`` and
+   ``cifar_convnet`` for 3 steps, ResNet-50 (224 x 224, batch 128) for 10
+   (finite losses, no flash launch), and a ResNet-50 step by operator.
+7. Numbers: the card's name and power limit; each kernel's device time at
    its main-path shapes beside its bound, its plain version's time and a
    PyTorch call that computes the same function (``scaled_dot_product_
    attention`` forward, and its backward for K2 and K3: yardsticks the
-   port never calls); K2 beside its bound at a causal D=128 shape; TTFT
-   and decode tokens/s of phase 2; BERT-large samples/s of phase 4.
+   port never calls); K1, K2 and K3 beside their bounds at a causal D=128
+   shape of one 2048-token sequence; TTFT and decode tokens/s of phase 2;
+   samples/s of every training run.
 
 The line before the last is the ``kernels`` JSON object; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -107,8 +117,27 @@ TRAIN_SHAPE = ("bert_large_train", TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 16, 16,
 # per step: K1 runs twice per layer (forward, and remat's recompute in the
 # backward), K2 and K3 once per layer
 TRAIN_LAUNCHES = {"flash_fwd": 48, "flash_bwd_dq": 24, "flash_bwd_dkv": 24}
+# phase 5: Llama training at Llama-2-7B's width (hidden 4096, 32 heads of
+# 128, FFN 11008, vocab 32000), float32 masters, bf16 compute, remat,
+# sequence 512 as the Trainer makes Llama batches; depth cut from 32 to 20
+# layers so masters, gradients and adamw moments (16 bytes per parameter,
+# 66.9 GB) fit one 80 GB card
+LLAMA_LAYERS, LLAMA_BATCH, LLAMA_SEQ = 20, 16, 512
+LLAMA_CONFIG = {"model": "llama",
+                "model_config": {"size": "7b", "num_layers": LLAMA_LAYERS},
+                "global_batch": LLAMA_BATCH, "steps": TRAIN_STEPS,
+                "log_every": 1, "seed": 0,
+                "optimizer": {"name": "adamw", "learning_rate": 1e-4}}
+LLAMA_SHAPE = ("llama7b_train", LLAMA_BATCH, LLAMA_SEQ, LLAMA_SEQ, 32, 32,
+               128, True)
+LLAMA_LAUNCHES = {"flash_fwd": 2 * LLAMA_LAYERS,
+                  "flash_bwd_dq": LLAMA_LAYERS, "flash_bwd_dkv": LLAMA_LAYERS}
+# phase 6: the vision models through the same Trainer (no flash kernel):
+# (model, steps), global batch 128; ResNet-50 at 224 x 224
+VISION_RUNS = (("mnist_mlp", 3), ("cifar_convnet", 3), ("resnet50", 10))
+VISION_BATCH = 128
 CAUSAL_DQ_SHAPE = (1, 2048, 2048, 32, 32, 128, True)  # B, Sq, Sk, H, Hkv, D
-BWD_SHAPES = [TRAIN_SHAPE,  # (name, B, Sq, Sk, H, Hkv, D, causal)
+BWD_SHAPES = [TRAIN_SHAPE, LLAMA_SHAPE,  # (name, B, Sq, Sk, H, Hkv, D, causal)
               ("causal_d128", 2, 384, 384, 8, 8, 128, True),
               ("ragged_200_causal", 2, 200, 200, 16, 16, 64, True),
               ("gqa_32_over_8", 2, 256, 256, 32, 8, 128, True)]
@@ -290,7 +319,8 @@ def phase_kernels(fa) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     main_err = 0.0
-    cases = [s[:8] for s in main_path_shapes()] + [TRAIN_SHAPE] + EXTRA_SHAPES
+    cases = ([s[:8] for s in main_path_shapes()] + [TRAIN_SHAPE, LLAMA_SHAPE]
+             + EXTRA_SHAPES)
     for i, (name, b, sq, sk, h, hkv, d, causal) in enumerate(cases):
         for dtype in (torch.bfloat16, torch.float32):
             q, k, v = make_qkv(b, sq, sk, h, hkv, d, dtype, seed=i,
@@ -310,14 +340,16 @@ def phase_kernels(fa) -> dict:
                 f"{e_l:.3e} (tol {tol['lse']:g}) {'ok' if ok else 'FAIL'}")
             check(ok, f"flash_fwd disagrees at {name} {dtype}")
             if dtype == torch.bfloat16 and name.startswith(
-                    ("7b_prefill", TRAIN_SHAPE[0])):
+                    ("7b_prefill", TRAIN_SHAPE[0], LLAMA_SHAPE[0])):
                 main_err = max(main_err, e_o)
-    errs = {"flash_fwd": main_err}
+    errs = {"flash_fwd": main_err, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
     for i, (name, *shape) in enumerate(BWD_SHAPES):
         for dtype in (torch.bfloat16, torch.float32):
             e_dq, e_dkv = check_backward(fa, name, *shape, dtype, seed=50 + i)
-            if dtype == torch.bfloat16 and name == TRAIN_SHAPE[0]:
-                errs.update(flash_bwd_dq=e_dq, flash_bwd_dkv=e_dkv)
+            if dtype == torch.bfloat16 and name in (TRAIN_SHAPE[0],
+                                                    LLAMA_SHAPE[0]):
+                errs["flash_bwd_dq"] = max(errs["flash_bwd_dq"], e_dq)
+                errs["flash_bwd_dkv"] = max(errs["flash_bwd_dkv"], e_dkv)
     return errs
 
 
@@ -611,6 +643,8 @@ def kernel_group(key: str) -> str:
     """A device kernel's kind, from its name."""
     if "flash_" in key:
         return "flash kernels"
+    if any(w in key for w in ("fprop", "dgrad", "wgrad", "conv")):
+        return "convolution"
     if "f32f32" in key or "sgemm" in key:
         return "float32 GEMM"
     if "nvjet" in key or "gemm" in key or "cutlass" in key:
@@ -639,7 +673,8 @@ def phase_profile() -> None:
     the 7B serving shapes (random weights, seed 0)."""
     from kubeflow_tpu_torch.models import llama, registry
 
-    model = registry.get("llama").make_model(size="7b").init_weights(0)
+    model = registry.get("llama").make_model(
+        size="7b", param_dtype="compute").init_weights(0)
     cfg = model.config
     scratch = llama.init_cache(cfg, 1, MAX_SEQ)
     for layer in scratch["layers"]:
@@ -673,13 +708,16 @@ def set_counters(fa, values: dict) -> None:
     fa.flash_bwd_dkv.launches = values["flash_bwd_dkv"]
 
 
-def phase_training(fa) -> dict:
-    """Phase 4's counted run: the worker entrypoint in-process, BERT-large
-    at global batch 24, 10 steps, every step logged (a sync per step)."""
+def phase_training(fa, config: dict, launches: dict, label: str) -> dict:
+    """A training main path: the worker entrypoint in-process with
+    ``config``, every step logged (a sync per step).  Every step must
+    launch each kernel ``launches[name]`` times and every loss must be
+    finite."""
     from kubeflow_tpu_torch.training import __main__ as worker
 
     losses, stamps, per_step = [], [], []
     seen = dict.fromkeys(KERNEL_NAMES, 0)
+    steps, batch = config["steps"], config["global_batch"]
 
     def hook(step, rec):
         now = counters(fa)
@@ -689,36 +727,35 @@ def phase_training(fa) -> dict:
         stamps.append(time.perf_counter())
 
     saved_env = os.environ.get("JAXJOB_TRAINER_CONFIG")
-    os.environ["JAXJOB_TRAINER_CONFIG"] = json.dumps(TRAIN_CONFIG)
+    os.environ["JAXJOB_TRAINER_CONFIG"] = json.dumps(config)
     try:
         set_counters(fa, dict.fromkeys(KERNEL_NAMES, 0))  # the path starts
         t0 = time.perf_counter()
         rc = worker.main(["--device", "cuda"], metrics_hook=hook)
         wall = time.perf_counter() - t0
-        launches = counters(fa)                           # the path ended
+        total = counters(fa)                              # the path ended
     finally:
         if saved_env is None:
             os.environ.pop("JAXJOB_TRAINER_CONFIG", None)
         else:
             os.environ["JAXJOB_TRAINER_CONFIG"] = saved_env
-    check(rc == 0, f"training worker exited {rc}")
-    check(len(losses) == TRAIN_STEPS, f"{len(losses)} logged steps")
-    check(all(math.isfinite(x) for x in losses), f"losses {losses}")
-    log(f"BERT-large training, {TRAIN_STEPS} steps at batch {TRAIN_BATCH} x "
-        f"{TRAIN_SEQ}: losses {' '.join(f'{x:.4f}' for x in losses)}")
-    expect = {n: TRAIN_LAUNCHES[n] for n in KERNEL_NAMES}
+    check(rc == 0, f"{label}: training worker exited {rc}")
+    check(len(losses) == steps, f"{label}: {len(losses)} logged steps")
+    check(all(math.isfinite(x) for x in losses), f"{label}: losses {losses}")
+    log(f"{label} training, {steps} steps at batch {batch}: losses "
+        f"{' '.join(f'{x:.4f}' for x in losses)}")
     for i, got in enumerate(per_step):
-        check(got == expect, f"step {i + 1} launches {got}, expected "
-              f"{expect}")
-    log(f"launches per step {per_step[0]} in each of {len(per_step)} steps "
-        f"(expected {expect}); total {launches}")
-    steady = TRAIN_BATCH * (len(stamps) - 1) / (stamps[-1] - stamps[0])
-    log(f"BERT-large samples/s: {steady:.2f} over steps 2-{TRAIN_STEPS} "
-        f"({1e3 * TRAIN_BATCH / steady:.1f} ms per step), "
-        f"{TRAIN_BATCH * TRAIN_STEPS / wall:.2f} over the whole run "
-        f"including model build ({wall:.1f}s)")
-    return {"launches": launches, "losses": losses,
-            "samples_per_sec": steady, "wall_s": wall}
+        check(got == launches, f"{label} step {i + 1} launches {got}, "
+              f"expected {launches}")
+    log(f"{label} launches per step {per_step[0]} in each of "
+        f"{len(per_step)} steps (expected {launches}); total {total}")
+    steady = batch * (len(stamps) - 1) / (stamps[-1] - stamps[0])
+    log(f"{label} samples/s: {steady:.2f} over steps 2-{steps} "
+        f"({1e3 * batch / steady:.1f} ms per step), "
+        f"{batch * steps / wall:.2f} over the whole run including model "
+        f"build ({wall:.1f}s)")
+    return {"launches": total, "losses": losses, "samples_per_sec": steady,
+            "wall_s": wall}
 
 
 @contextlib.contextmanager
@@ -755,26 +792,58 @@ def backward_checked(fa, worst: dict):
         fa.flash_attention_backward = backward
 
 
-def check_training_step(fa) -> None:
-    """One BERT-large train step through the kernels (every K2 and K3
-    call held against its plain version) against the same step through
-    the plain attention route; then the device time by operator of a
-    step with phase 4's optimizer."""
+def free_memory() -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def build_training(config: dict, optimizer: dict):
+    """(model, state, step, batch) of ``config``'s model on the card with
+    weights from seed 0 and the first synthetic batch."""
     from kubeflow_tpu_torch.models import registry
     from kubeflow_tpu_torch.parallel import train_step as ts
     from kubeflow_tpu_torch.training.data import to_device
     from kubeflow_tpu_torch.training.optim import make_optimizer
 
-    entry = registry.get("bert")
-    model = entry.make_model(size="large", device="cuda").init_weights(0)
-    # learning rate 0: each step computes loss, gradients and grad_norm and
-    # leaves the weights as they were, so both routes see the same ones
-    state = ts.init_train_state(model, make_optimizer(
-        {"name": "sgd", "learning_rate": 0.0, "momentum": 0.0}))
+    entry = registry.get(config["model"])
+    model = entry.make_model(device="cuda",
+                             **config["model_config"]).init_weights(0)
+    state = ts.init_train_state(model, make_optimizer(optimizer))
     step = ts.build_train_step(entry.forward_loss, state.tx)
     batch = to_device(entry.make_batch(
-        TRAIN_BATCH, torch.Generator().manual_seed(0), model),
+        config["global_batch"], torch.Generator().manual_seed(0), model),
         torch.device("cuda"))
+    return model, state, step, batch
+
+
+def profile_step(label: str, state, step, batch) -> None:
+    """Wall and device time of one train step, by operator, and the
+    device's idle share over it."""
+    step(state, batch)                      # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step(state, batch)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    device = profile_device(label, lambda: step(state, batch), top=15)
+    log(f"train step wall {wall:.3f} ms, device busy {device:.3f} ms, "
+        f"idle share {max(0.0, 1 - device / wall):.3f}")
+
+
+def check_training_step(fa, config: dict, launches: dict,
+                        label: str) -> None:
+    """One train step of ``config``'s model through the kernels (every K2
+    and K3 call held against its plain version) against the same step
+    through the plain attention route; then the device time by operator
+    of a step with the main path's optimizer."""
+    from kubeflow_tpu_torch.models import registry
+    from kubeflow_tpu_torch.parallel import train_step as ts
+    from kubeflow_tpu_torch.training.optim import make_optimizer
+
+    # learning rate 0: each step computes loss, gradients and grad_norm and
+    # leaves the weights as they were, so both routes see the same ones
+    model, state, step, batch = build_training(
+        config, {"name": "sgd", "learning_rate": 0.0, "momentum": 0.0})
 
     def run() -> dict:
         _, metrics = step(state, batch)
@@ -786,13 +855,13 @@ def check_training_step(fa) -> None:
     with backward_checked(fa, worst):
         kern = run()
     launched = {n: counters(fa)[n] - before[n] for n in KERNEL_NAMES}
-    check(launched == TRAIN_LAUNCHES, f"checked step launched {launched}")
+    check(launched == launches, f"checked step launched {launched}")
     with plain_attention_route(model):
         plain = run()
     calls = worst.pop("calls")
     ok_calls = (calls == model.config.num_layers
                 and max(worst.values()) <= BWD_TOL[torch.bfloat16])
-    log(f"in-step check: {calls} K2 and K3 calls of one BERT-large step vs "
+    log(f"in-step check: {calls} K2 and K3 calls of one {label} step vs "
         f"plain: max|d|/max|ref| dQ {worst['dq']:.3e} dK {worst['dk']:.3e} "
         f"dV {worst['dv']:.3e} (tol {BWD_TOL[torch.bfloat16]:g}) "
         f"{'ok' if ok_calls else 'FAIL'}")
@@ -800,29 +869,21 @@ def check_training_step(fa) -> None:
     for key in ("loss", "grad_norm"):
         rel = abs(kern[key] - plain[key]) / abs(plain[key])
         ok = math.isfinite(rel) and rel <= STEP_TOL[key]
-        log(f"train step {key}: kernels {kern[key]:.6f}, plain route "
-            f"{plain[key]:.6f}, rel diff {rel:.3e} (tol {STEP_TOL[key]:g}) "
-            f"{'ok' if ok else 'FAIL'}")
+        log(f"{label} train step {key}: kernels {kern[key]:.6f}, plain "
+            f"route {plain[key]:.6f}, rel diff {rel:.3e} (tol "
+            f"{STEP_TOL[key]:g}) {'ok' if ok else 'FAIL'}")
         check(ok, (key, kern, plain))
 
-    # the main path's step (adamw as phase 4 configures it), by operator
+    # the main path's step (its optimizer), by operator
     del state, step
-    state = ts.init_train_state(model, make_optimizer(
-        TRAIN_CONFIG["optimizer"]))
-    step = ts.build_train_step(entry.forward_loss, state.tx)
-    step(state, batch)                      # warm
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    step(state, batch)
-    torch.cuda.synchronize()
-    wall = (time.perf_counter() - t0) * 1e3
-    device = profile_device(
-        f"BERT-large adamw train step [{TRAIN_BATCH}, {TRAIN_SEQ}]",
-        lambda: step(state, batch), top=15)
-    log(f"train step wall {wall:.3f} ms, device busy {device:.3f} ms, "
-        f"idle share {max(0.0, 1 - device / wall):.3f}")
+    free_memory()
+    state = ts.init_train_state(model, make_optimizer(config["optimizer"]))
+    step = ts.build_train_step(registry.get(config["model"]).forward_loss,
+                               state.tx)
+    profile_step(f"{label} {config['optimizer']['name']} train step "
+                 f"{list(batch['input_ids'].shape)}", state, step, batch)
     del model, state, step, batch
-    torch.cuda.empty_cache()
+    free_memory()
 
 
 def card_line() -> str:
@@ -865,78 +926,83 @@ def phase_numbers(fa, num_layers: int) -> list[dict]:
     return rows
 
 
-def training_numbers(fa, launches: dict) -> dict[str, dict]:
-    """Each kernel's times at the BERT-large training shape: kernel,
-    plain version, bound, and the library yardstick (SDPA forward for K1;
-    SDPA's backward, which computes dQ, dK and dV in one call, for K2 and
-    K3)."""
-    from torch.nn.functional import scaled_dot_product_attention as sdpa
-
-    name, b, sq, sk, h, hkv, d, causal = TRAIN_SHAPE
+def training_numbers(fa, shape_row: tuple, launches: dict,
+                     per_step: dict) -> dict[str, dict]:
+    """Each kernel's times at a training shape: kernel, plain version,
+    bound, and the library yardstick (SDPA forward for K1; SDPA's
+    backward, which computes dQ, dK and dV in one call, for K2 and K3).
+    Rows carry the main path's ``launches`` of each kernel."""
+    name, b, sq, sk, h, hkv, d, causal = shape_row
     shape = (b, sq, sk, h, hkv, d, causal)
-    dtype = torch.bfloat16
-    q, k, v = make_qkv(b, sq, sk, h, hkv, d, dtype, seed=12)
-    g = torch.Generator(device="cuda").manual_seed(13)
-    do = torch.randn(q.shape, generator=g, device="cuda").to(dtype)
-    o, lse = fa.flash_attention_with_lse(q, k, v)
-    delta = fa.flash_bwd_delta(o, do)
-    saved = counters(fa)
-    ms = {"flash_fwd": time_ms(lambda: fa.flash_attention_with_lse(q, k, v)),
-          "flash_bwd_dq": time_ms(
-              lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta)),
-          "flash_bwd_dkv": time_ms(
-              lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta))}
-    set_counters(fa, saved)                      # timing is not the path
-    plain = {"flash_fwd": time_ms(
-                 lambda: fa.flash_attention_reference(q, k, v)),
-             "flash_bwd_dq": time_ms(lambda: fa.flash_bwd_dq_reference(
-                 q, k, v, do, lse, delta)),
-             "flash_bwd_dkv": time_ms(lambda: fa.flash_bwd_dkv_reference(
-                 q, k, v, do, lse, delta))}
-    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
-                  for t in (q, k, v))
-    sdpa_fwd = time_ms(lambda: sdpa(qt, kt, vt))
-    ot = sdpa(qt, kt, vt)
-    dot = do.transpose(1, 2)
-    sdpa_bwd = time_ms(lambda: torch.autograd.grad(
-        ot, (qt, kt, vt), dot, retain_graph=True))
-    library = {"flash_fwd": sdpa_fwd, "flash_bwd_dq": sdpa_bwd,
-               "flash_bwd_dkv": sdpa_bwd}
+    ms, plain, library = kernel_times(fa, shape, seed=12)
     rows = {}
     for kernel in KERNEL_NAMES:
         rows[kernel] = row = {
             "shape": name, "launches": launches[kernel], "ms": ms[kernel],
             "plain_ms": plain[kernel], "library_ms": library[kernel],
-            **bound_fields(kernel, shape, dtype)}
-        log(f"{kernel} {name} bf16 (x{TRAIN_LAUNCHES[kernel]} per step): "
-            f"kernel {row['ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
-            f"({row['bound_by']}), plain {row['plain_ms']:.4f} ms, "
-            f"library {row['library_ms']:.4f} ms")
-    log(f"sdpa {name} bf16: forward {sdpa_fwd:.4f} ms, backward (dQ, dK, "
-        f"dV) {sdpa_bwd:.4f} ms; flash kernels: forward "
-        f"{ms['flash_fwd']:.4f} ms, backward "
-        f"{ms['flash_bwd_dq'] + ms['flash_bwd_dkv']:.4f} ms")
+            **bound_fields(kernel, shape, torch.bfloat16)}
+        log(f"{kernel} {name} bf16 (x{per_step[kernel]} per step): "
+            f"kernel {row['ms']:.5f} ms, bound {row['bound_ms']:.5f} ms "
+            f"({row['bound_by']}), plain {row['plain_ms']:.5f} ms, "
+            f"library {row['library_ms']:.5f} ms")
+    log(f"sdpa {name} bf16: forward {library['flash_fwd']:.5f} ms, backward "
+        f"(dQ, dK, dV) {library['flash_bwd_dq']:.5f} ms; flash kernels: "
+        f"forward {ms['flash_fwd']:.5f} ms, backward "
+        f"{ms['flash_bwd_dq'] + ms['flash_bwd_dkv']:.5f} ms")
     return rows
 
 
-def causal_dq_numbers(fa) -> None:
-    """K2 under the causal mask at D = 128 (Llama-2-7B's heads, one
-    sequence of 2048): off both main paths, the shape on which K2 runs one
-    block per work tile instead of its persistent grid."""
-    b, sq, sk, h, hkv, d, causal = CAUSAL_DQ_SHAPE
+def kernel_times(fa, shape: tuple, seed: int, plain_too: bool = True):
+    """({kernel: ms}, {kernel: plain ms}, {kernel: SDPA ms}) of K1, K2 and
+    K3 on bf16 inputs of ``shape`` (B, Sq, Sk, H, Hkv, D, causal); the
+    launches made here are not counted."""
+    from torch.nn.attention.bias import causal_lower_right
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    b, sq, sk, h, hkv, d, causal = shape
     dtype = torch.bfloat16
-    q, k, v = make_qkv(b, sq, sk, h, hkv, d, dtype, seed=15)
-    g = torch.Generator(device="cuda").manual_seed(16)
+    q, k, v = make_qkv(b, sq, sk, h, hkv, d, dtype, seed=seed)
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
     do = torch.randn(q.shape, generator=g, device="cuda").to(dtype)
     o, lse = fa.flash_attention_with_lse(q, k, v, causal=causal)
     delta = fa.flash_bwd_delta(o, do)
     saved = counters(fa)
-    ms = time_ms(lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta,
-                                         causal=causal))
+    ms = {"flash_fwd": time_ms(
+              lambda: fa.flash_attention_with_lse(q, k, v, causal=causal)),
+          "flash_bwd_dq": time_ms(lambda: fa.flash_bwd_dq(
+              q, k, v, do, lse, delta, causal=causal)),
+          "flash_bwd_dkv": time_ms(lambda: fa.flash_bwd_dkv(
+              q, k, v, do, lse, delta, causal=causal))}
     set_counters(fa, saved)                      # timing is not the path
-    bound = bound_fields("flash_bwd_dq", CAUSAL_DQ_SHAPE, dtype)
-    log(f"flash_bwd_dq causal {CAUSAL_DQ_SHAPE} bf16: kernel {ms:.4f} ms, "
-        f"bound {bound['bound_ms']:.4f} ms ({bound['bound_by']})")
+    if not plain_too:
+        return ms, {}, {}
+    plain = {"flash_fwd": time_ms(
+                 lambda: fa.flash_attention_reference(q, k, v, causal=causal)),
+             "flash_bwd_dq": time_ms(lambda: fa.flash_bwd_dq_reference(
+                 q, k, v, do, lse, delta, causal=causal)),
+             "flash_bwd_dkv": time_ms(lambda: fa.flash_bwd_dkv_reference(
+                 q, k, v, do, lse, delta, causal=causal))}
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    mask = causal_lower_right(sq, sk) if causal else None
+    sdpa_fwd = time_ms(lambda: sdpa(qt, kt, vt, attn_mask=mask))
+    ot = sdpa(qt, kt, vt, attn_mask=mask)
+    dot = do.transpose(1, 2)
+    sdpa_bwd = time_ms(lambda: torch.autograd.grad(
+        ot, (qt, kt, vt), dot, retain_graph=True))
+    return ms, plain, {"flash_fwd": sdpa_fwd, "flash_bwd_dq": sdpa_bwd,
+                       "flash_bwd_dkv": sdpa_bwd}
+
+
+def causal_numbers(fa) -> None:
+    """K1, K2 and K3 under the causal mask at D = 128 (Llama-2-7B's heads,
+    one sequence of 2048), off the main paths, beside their bounds."""
+    ms, _, _ = kernel_times(fa, CAUSAL_DQ_SHAPE, seed=15, plain_too=False)
+    for kernel in KERNEL_NAMES:
+        bound = bound_fields(kernel, CAUSAL_DQ_SHAPE, torch.bfloat16)
+        log(f"{kernel} causal {CAUSAL_DQ_SHAPE} bf16: kernel "
+            f"{ms[kernel]:.5f} ms, bound {bound['bound_ms']:.5f} ms "
+            f"({bound['bound_by']})")
 
 
 def per_launch(rows: list[dict], key: str) -> float:
@@ -969,7 +1035,46 @@ def kernel_entry(name: str, rows: list[dict], max_err: float) -> dict:
     }
 
 
-def main() -> int:
+def phase_vision(fa) -> dict:
+    """Phase 6: ``VISION_RUNS`` through the worker entrypoint (no flash
+    kernel: every step must launch none), then one ResNet-50 adamw step by
+    operator."""
+    results = {}
+    for model, steps in VISION_RUNS:
+        config = {"model": model, "model_config": {},
+                  "global_batch": VISION_BATCH, "steps": steps,
+                  "log_every": 1, "seed": 0, "prefetch": 2,
+                  "optimizer": {"name": "adamw", "learning_rate": 1e-3}}
+        results[model] = phase_training(
+            fa, config, dict.fromkeys(KERNEL_NAMES, 0), model)
+        free_memory()
+    model, state, step, batch = build_training(config, config["optimizer"])
+    profile_step(f"ResNet-50 adamw train step {list(batch['image'].shape)}",
+                 state, step, batch)
+    del model, state, step, batch
+    free_memory()
+    return results
+
+
+def kernel_times_only(fa) -> int:
+    """``--kernel-times``: build the kernels and time K1, K2 and K3 at the
+    Llama training shape and at the causal 2048 shape (for an A/B of two
+    trees' kernels in one call); prints no result line."""
+    from kubeflow_tpu_torch.ops import _build
+
+    check_build(_build.build_all())
+    log(card_line())
+    name, *shape = LLAMA_SHAPE
+    ms, _, _ = kernel_times(fa, tuple(shape), seed=12, plain_too=False)
+    for kernel in KERNEL_NAMES:
+        bound = bound_fields(kernel, tuple(shape), torch.bfloat16)
+        log(f"{kernel} {name} bf16: kernel {ms[kernel]:.5f} ms, bound "
+            f"{bound['bound_ms']:.5f} ms ({bound['bound_by']})")
+    causal_numbers(fa)
+    return 0
+
+
+def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
               "run needs a CUDA card", file=sys.stderr)
@@ -985,31 +1090,54 @@ def main() -> int:
         return 2
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
+    if argv == ["--kernel-times"]:
+        return kernel_times_only(fa)
+    if argv:
+        print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
+        return 2
     t_start = time.perf_counter()
     errs = phase_kernels(fa)
     serving = phase_serving(fa)
     phase_profile()
-    gc.collect()
-    torch.cuda.empty_cache()
+    free_memory()
     log(f"before training: {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
         f"allocated on the card")
-    training = phase_training(fa)
-    check_training_step(fa)
+    bert = phase_training(fa, TRAIN_CONFIG, TRAIN_LAUNCHES, "BERT-large")
+    check_training_step(fa, TRAIN_CONFIG, TRAIN_LAUNCHES, "BERT-large")
+    free_memory()
+    torch.cuda.reset_peak_memory_stats()
+    llama = phase_training(fa, LLAMA_CONFIG, LLAMA_LAUNCHES,
+                           f"Llama-7B-width x{LLAMA_LAYERS} layers")
+    free_memory()
+    check_training_step(fa, LLAMA_CONFIG, LLAMA_LAUNCHES,
+                        f"Llama-7B-width x{LLAMA_LAYERS} layers")
+    peak = torch.cuda.max_memory_allocated()
+    card = torch.cuda.get_device_properties(0).total_memory
+    log(f"Llama phase peak memory (max_memory_allocated over the counted run "
+        f"and its checks): {peak / 1e9:.2f} GB, {100 * peak / card:.1f}% of "
+        f"the card's {card / 1e9:.2f} GB")
+    vision = phase_vision(fa)
     log(card_line())
     serving_rows = phase_numbers(fa, num_layers=32)
-    train_rows = training_numbers(fa, training["launches"])
-    causal_dq_numbers(fa)
+    bert_rows = training_numbers(fa, TRAIN_SHAPE, bert["launches"],
+                                 TRAIN_LAUNCHES)
+    llama_rows = training_numbers(fa, LLAMA_SHAPE, llama["launches"],
+                                  LLAMA_LAUNCHES)
+    causal_numbers(fa)
     log(f"phase 2: TTFT mean {serving['ttft_mean_s'] * 1e3:.1f} ms over the "
         f"4 concurrent requests; decode "
         f"{serving['decode_tok_per_s']:.1f} tok/s over 4 slots")
-    log(f"phase 4: BERT-large {training['samples_per_sec']:.2f} samples/s; "
-        f"total {time.perf_counter() - t_start:.1f}s")
+    log(f"training samples/s: BERT-large {bert['samples_per_sec']:.2f}, "
+        f"Llama-7B-width x{LLAMA_LAYERS} {llama['samples_per_sec']:.3f}, "
+        + ", ".join(f"{m} {r['samples_per_sec']:.1f}"
+                    for m, r in vision.items())
+        + f"; total {time.perf_counter() - t_start:.1f}s")
     check(serving["launches"] == sum(r["launches"] for r in serving_rows),
           "serving launches")
-    kernels = [kernel_entry("flash_fwd",
-                            serving_rows + [train_rows["flash_fwd"]],
-                            errs["flash_fwd"])]
-    kernels += [kernel_entry(name, [train_rows[name]], errs[name])
+    kernels = [kernel_entry("flash_fwd", serving_rows + [
+        bert_rows["flash_fwd"], llama_rows["flash_fwd"]], errs["flash_fwd"])]
+    kernels += [kernel_entry(name, [bert_rows[name], llama_rows[name]],
+                             errs[name])
                 for name in ("flash_bwd_dq", "flash_bwd_dkv")]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -1019,4 +1147,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

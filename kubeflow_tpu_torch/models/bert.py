@@ -146,10 +146,7 @@ class BertModel(nn.Module):
         """Seeded random init on the model's device (flax's initializers:
         lecun-normal kernels, normal(0.02) embedding tables, zero biases,
         unit LayerNorm scales)."""
-        gen = torch.Generator(device=self.device).manual_seed(seed)
-        for m in self.modules():
-            if m is not self and hasattr(m, "init_weights"):
-                m.init_weights(gen)
+        gen = kl.init_submodules(self, seed)
         kl.embed_normal_(self.position_embeddings, gen)
         if self.token_type_embeddings is not None:
             kl.embed_normal_(self.token_type_embeddings, gen)

@@ -3,7 +3,10 @@
 The port's modules keep the flax leaf names and layouts, so the mapping is
 by path alone: ``layer_3/attention/q/kernel`` becomes
 ``layers.3.attention.q.kernel`` (Llama), ``layer_3/attention/query/kernel``
-becomes ``layers.3.attention.query.kernel`` (BERT).  The input is a nested
+becomes ``layers.3.attention.query.kernel`` (BERT), and
+``stage1_block0/conv2/kernel`` becomes ``stage1_block0.conv2.kernel``
+(ResNet; MLP and ConvNet likewise).  ResNet's ``batch_stats`` tree maps
+onto its BatchNorm buffers (``stage1_block0.bn2.mean``).  The input is a nested
 dict of numpy arrays (what ``jax.tree.map(np.asarray, params)`` gives), so
 the port never imports JAX to read it.  bfloat16 arrays (numpy's
 ``bfloat16`` from ml_dtypes) are taken bit for bit.  The same mapping
@@ -18,7 +21,13 @@ import numpy as np
 import torch
 
 from kubeflow_tpu_torch.models.bert import BertConfig
+from kubeflow_tpu_torch.models.convnet import ConvNet, ConvNetConfig
 from kubeflow_tpu_torch.models.llama import LlamaConfig
+from kubeflow_tpu_torch.models.mlp import MLP, MLPConfig
+from kubeflow_tpu_torch.models.resnet import ResNet, ResNetConfig
+
+# the vision models' expected leaves are read off a model built on the CPU
+_VISION = {MLPConfig: MLP, ConvNetConfig: ConvNet, ResNetConfig: ResNet}
 
 
 def _flatten(tree: dict, prefix: str = "") -> dict[str, np.ndarray]:
@@ -39,18 +48,29 @@ def _to_tensor(arr: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(arr).copy())
 
 
-def from_jax_params(tree: dict, cfg: LlamaConfig | BertConfig
+def from_jax_params(tree: dict, cfg, *, batch_stats: dict | None = None
                     ) -> dict[str, torch.Tensor]:
-    """Map a Llama or BERT flax params tree onto a ``LlamaModel`` /
-    ``BertModel`` state dict (CPU tensors; ``load_state_dict`` copies them
-    to the model's device).  Raises on a missing, unexpected or misshapen
-    leaf."""
-    state: dict[str, torch.Tensor] = {}
-    for path, arr in _flatten(tree).items():
-        name = re.sub(r"^layer_(\d+)/", r"layers.\1/", path).replace("/", ".")
-        state[name] = _to_tensor(arr)
-    expected = (_bert_expected_shapes(cfg) if isinstance(cfg, BertConfig)
-                else _expected_shapes(cfg))
+    """Map a flax params tree of any registry model (``cfg`` is its port
+    config) onto the port module's state dict (CPU tensors;
+    ``load_state_dict`` copies them to the model's device).  For ResNet,
+    ``batch_stats`` (flax's running averages) adds the BatchNorm buffers.
+    Raises on a missing, unexpected or misshapen leaf."""
+    state = _named(tree)
+    expected, buffers = _expected(cfg)
+    _check_leaves(state, expected, cfg)
+    if batch_stats is not None:
+        stats = _named(batch_stats)
+        _check_leaves(stats, buffers, cfg)
+        state.update(stats)
+    return state
+
+
+def _named(tree: dict) -> dict[str, torch.Tensor]:
+    return {re.sub(r"^layer_(\d+)/", r"layers.\1/", path).replace("/", "."):
+            _to_tensor(arr) for path, arr in _flatten(tree).items()}
+
+
+def _check_leaves(state: dict, expected: dict, cfg) -> None:
     missing = sorted(set(expected) - set(state))
     extra = sorted(set(state) - set(expected))
     if missing or extra:
@@ -60,7 +80,19 @@ def from_jax_params(tree: dict, cfg: LlamaConfig | BertConfig
         if tuple(state[name].shape) != shape:
             raise ValueError(f"{name}: shape {tuple(state[name].shape)}, "
                              f"expected {shape}")
-    return state
+
+
+def _expected(cfg) -> tuple[dict[str, tuple], dict[str, tuple]]:
+    """(parameter shapes, buffer shapes) by state-dict name."""
+    if isinstance(cfg, BertConfig):
+        return _bert_expected_shapes(cfg), {}
+    if isinstance(cfg, LlamaConfig):
+        return _expected_shapes(cfg), {}
+    if type(cfg) not in _VISION:
+        raise TypeError(f"no weight mapping for {type(cfg).__name__}")
+    model = _VISION[type(cfg)](cfg, device="cpu")
+    return ({n: tuple(p.shape) for n, p in model.named_parameters()},
+            {n: tuple(b.shape) for n, b in model.named_buffers()})
 
 
 def _expected_shapes(cfg: LlamaConfig) -> dict[str, tuple]:

@@ -9,6 +9,13 @@ compute dtype at use; a serving model built with ``param_dtype`` equal to
 the compute dtype holds exactly the cast the reference makes at every use,
 so the cast is free.
 
+The vision layers (``Conv``, ``max_pool``, ``BatchNorm``) take NHWC
+tensors, as flax does, and hand PyTorch the NCHW view of them
+(``permute(0, 3, 1, 2)``: channels-last strides, no copy).  Their padding
+is flax's: ``"SAME"`` pads ``total // 2`` before and the rest after, so a
+stride-2 window over an even size pads ``(0, 1)``, where PyTorch's
+symmetric padding would take ``(1, 1)``.
+
 Parameters are created frozen (``requires_grad=False``): a served model
 never builds an autograd graph.  Training turns them on at build time
 (``parallel/train_step.py::init_train_state`` calls
@@ -23,7 +30,20 @@ from typing import Sequence
 import torch
 from torch import nn
 
+from torch.nn import functional as F
+
 from kubeflow_tpu_torch.ops.matmul import matmul_f32
+
+
+def init_submodules(model: nn.Module, seed: int) -> torch.Generator:
+    """Run every submodule's ``init_weights`` from one generator seeded
+    with ``seed`` on the model's device; returns the generator."""
+    device = next(model.parameters()).device
+    gen = torch.Generator(device=device).manual_seed(seed)
+    for m in model.modules():
+        if m is not model and hasattr(m, "init_weights"):
+            m.init_weights(gen)
+    return gen
 
 
 def param(shape, dtype, device) -> nn.Parameter:
@@ -173,3 +193,120 @@ def rotary_embedding(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = x[..., :half], x[..., half:]
     rotated = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return rotated.to(x.dtype)
+
+
+# --- vision layers (NHWC) ----------------------------------------------------
+
+Pads = tuple[tuple[int, int], tuple[int, int]]
+
+
+def same_padding(size: int, window: int, stride: int) -> tuple[int, int]:
+    """(before, after) of XLA's ``"SAME"`` padding along one axis: the
+    output has ``ceil(size / stride)`` positions and the total padding is
+    split with the smaller half before."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + window - size, 0)
+    return total // 2, total - total // 2
+
+
+def _pads(padding: str | Pads, hw: tuple[int, int], window, strides) -> Pads:
+    if padding == "SAME":
+        return tuple(same_padding(n, k, s)
+                     for n, k, s in zip(hw, window, strides))
+    if padding == "VALID":
+        return (0, 0), (0, 0)
+    return tuple(tuple(p) for p in padding)
+
+
+def _nchw_padded(x: torch.Tensor, pads: Pads, value: float = 0.0):
+    """NHWC ``x`` as an NCHW view, and the padding left for the op itself:
+    symmetric padding is the op's (no copy), asymmetric is applied here
+    with ``value``."""
+    xc = x.permute(0, 3, 1, 2)
+    (hl, hh), (wl, wh) = pads
+    if hl == hh and wl == wh:
+        return xc, (hl, wl)
+    return F.pad(xc, (wl, wh, hl, hh), value=value), (0, 0)
+
+
+class Conv(nn.Module):
+    """flax ``nn.Conv`` over NHWC: kernel ``[kh, kw, in, out]``, optional
+    bias ``[out]``, products in the compute ``dtype``; ``padding`` is
+    ``"SAME"``, ``"VALID"`` or explicit ``((top, bottom), (left,
+    right))``."""
+
+    def __init__(self, in_features: int, features: int,
+                 kernel_size: tuple[int, int], *,
+                 strides: tuple[int, int] = (1, 1),
+                 padding: str | Pads = "SAME", use_bias: bool = True,
+                 dtype=torch.float32, device=None):
+        super().__init__()
+        self.kernel_size, self.strides = tuple(kernel_size), tuple(strides)
+        self.padding, self.dtype = padding, dtype
+        self.kernel = param(self.kernel_size + (in_features, features),
+                            torch.float32, device)
+        self.bias = (param((features,), torch.float32, device) if use_bias
+                     else None)
+
+    def init_weights(self, gen: torch.Generator) -> None:
+        lecun_normal_(self.kernel, gen)
+        if self.bias is not None:
+            nn.init.zeros_(self.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        pads = _pads(self.padding, x.shape[1:3], self.kernel_size,
+                     self.strides)
+        xc, pad = _nchw_padded(x.to(self.dtype), pads)
+        weight = self.kernel.to(self.dtype).permute(3, 2, 0, 1)
+        y = F.conv2d(xc, weight, stride=self.strides, padding=pad)
+        y = y.permute(0, 2, 3, 1)
+        if self.bias is not None:
+            y = y + self.bias.to(self.dtype)
+        return y
+
+
+def max_pool(x: torch.Tensor, window: tuple[int, int],
+             strides: tuple[int, int], padding: str | Pads = "VALID"
+             ) -> torch.Tensor:
+    """flax ``nn.max_pool`` over NHWC; padded positions hold -inf, as in
+    XLA's ``reduce_window``."""
+    pads = _pads(padding, x.shape[1:3], window, strides)
+    xc, pad = _nchw_padded(x, pads, value=float("-inf"))
+    return F.max_pool2d(xc, window, strides, padding=pad).permute(0, 2, 3, 1)
+
+
+class BatchNorm(nn.Module):
+    """flax ``nn.BatchNorm`` over the channel (last) axis with
+    ``dtype=float32``: float32 statistics over every other axis, the
+    biased variance ``mean(x^2) - mean(x)^2`` clipped at 0, output
+    ``(x - mean) * (rsqrt(var + eps) * scale) + bias`` in float32.  With
+    ``train`` the batch statistics are used; without, the running averages
+    (buffers ``mean`` and ``var``, flax's ``batch_stats``).  Training never
+    updates the running averages: the reference's training loss discards
+    that update."""
+
+    def __init__(self, features: int, epsilon: float = 1e-5, *,
+                 scale_init: float = 1.0, device=None):
+        super().__init__()
+        self.epsilon, self.scale_init = epsilon, scale_init
+        self.scale = param((features,), torch.float32, device)
+        self.bias = param((features,), torch.float32, device)
+        self.register_buffer("mean", torch.zeros(features, device=device))
+        self.register_buffer("var", torch.ones(features, device=device))
+
+    def init_weights(self, gen: torch.Generator) -> None:
+        nn.init.constant_(self.scale, self.scale_init)
+        nn.init.zeros_(self.bias)
+        self.mean.zero_()
+        self.var.fill_(1.0)
+
+    def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
+        xf = x.float()
+        if train:
+            dims = tuple(range(x.ndim - 1))
+            mean = xf.mean(dims)
+            var = (xf.square().mean(dims) - mean.square()).clamp_min(0.0)
+        else:
+            mean, var = self.mean, self.var
+        mul = torch.rsqrt(var + self.epsilon) * self.scale
+        return (xf - mean) * mul + self.bias

@@ -18,6 +18,11 @@ The cache is updated IN PLACE (the reference's functional update returns
 a new array; here the returned cache holds the same tensors), which keeps
 the serving engine's KV view and prefill scratch from being copied per
 step.  The paged branch and MoE layers are not yet ported and raise.
+
+Training (no cache, grad enabled) runs each block under
+``torch.utils.checkpoint`` (non-reentrant) when ``remat`` is on, as the
+reference's ``nn.remat``: a block's forward, the flash kernel's included,
+runs again in the backward pass.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ import dataclasses
 import torch
 from torch import nn
 from torch.nn import functional as F
+from torch.utils.checkpoint import checkpoint
 
 from kubeflow_tpu_torch.device import dtype_of, resolve
 from kubeflow_tpu_torch.models import layers as kl
@@ -45,8 +51,10 @@ class LlamaConfig:
     rope_base: float = 10000.0
     rms_eps: float = 1e-5
     dtype: str = "bfloat16"
+    remat: bool = True
     use_flash: bool = True
     moe_experts: int = 0    # MoE layers: not yet ported (raises)
+    moe_every: int = 2
 
     @property
     def head_dim(self) -> int:
@@ -203,10 +211,7 @@ class LlamaModel(nn.Module):
     def init_weights(self, seed: int = 0) -> "LlamaModel":
         """Seeded random init on the model's device (flax's initializers:
         lecun-normal kernels, normal(0.02) embedding, unit norm scales)."""
-        gen = torch.Generator(device=self.device).manual_seed(seed)
-        for m in self.modules():
-            if m is not self and hasattr(m, "init_weights"):
-                m.init_weights(gen)
+        kl.init_submodules(self, seed)
         return self
 
     def forward(self, input_ids, positions=None, cache=None, attn_mask=None):
@@ -219,10 +224,16 @@ class LlamaModel(nn.Module):
             else:  # [B] per-sequence positions
                 positions = start[:, None] + steps[None, :]
         x = self.tok_embeddings(input_ids)
+        remat = (self.config.remat and cache is None
+                 and torch.is_grad_enabled())
         new_cache = []
         for i, block in enumerate(self.layers):
             layer_cache = None if cache is None else cache["layers"][i]
-            x, layer_cache = block(x, positions, layer_cache, attn_mask)
+            if remat:
+                x, layer_cache = checkpoint(block, x, positions, None,
+                                            attn_mask, use_reentrant=False)
+            else:
+                x, layer_cache = block(x, positions, layer_cache, attn_mask)
             new_cache.append(layer_cache)
         x = self.final_norm(x)
         out = {"logits": self.tok_embeddings.attend(x)}

@@ -211,12 +211,13 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_f32(const Params p) {
 // bf16 inputs: a warp-specialised kernel on wgmma fed by TMA (see
 // flash_hopper.cuh for the tile layout and the products).
 //
-// A persistent grid: at most one block of 3 warpgroups per SM, each
-// walking over work tiles (128-query tile, head, batch), so that a block's
-// next Q and K/V tiles load while its consumers finish the current one
-// (at BERT-large's shape, 12 waves of short blocks, a block's first load
-// and its epilogue are a large share of its time).  Warpgroup 0 is the
-// producer: it
+// Without the causal mask, a persistent grid: at most one block of 3
+// warpgroups per SM, each walking over work tiles (128-query tile, head,
+// batch), so that a block's next Q and K/V tiles load while its consumers
+// finish the current one (at BERT-large's shape, 12 waves of short blocks,
+// a block's first load and its epilogue are a large share of its time).
+// Under the causal mask, one block per work tile, the longest first (see
+// `launch_wgmma`).  Warpgroup 0 is the producer: it
 // gives up registers (setmaxnreg.dec) and one of its threads issues every
 // TMA load: a work tile's Q once the consumers are done with the previous
 // one (`q_full` / `q_empty`), then its K and V tiles of BK keys into a ring
@@ -277,14 +278,16 @@ __global__ void __launch_bounds__(3 * WG, 1)
   const Params& p = a.p;
   const int offset = p.sk - p.sq;  // query i sits at absolute i + offset
   // Work tile w is query tile w % n_qt of head (w / n_qt) % H of batch
-  // w / (n_qt H); the block takes w = blockIdx.x, + gridDim.x, ... so the
-  // query tiles of one head run side by side and share K and V in L2.
+  // w / (n_qt H), counted from the last under the causal mask (the longest
+  // first); the block takes w = blockIdx.x, + gridDim.x, ... so the query
+  // tiles of one head run side by side and share K and V in L2.
   struct Work {
     int q0, hq, b, n_tiles;
   };
   auto work = [&](int w) {
     Work x;
-    x.q0 = (w % a.n_qt) * T::BQ;
+    const int qt = w % a.n_qt;
+    x.q0 = (p.causal ? a.n_qt - 1 - qt : qt) * T::BQ;
     x.hq = (w / a.n_qt) % p.h;
     x.b = w / (a.n_qt * p.h);
     x.n_tiles = (p.sk + T::BK - 1) / T::BK;
@@ -574,9 +577,14 @@ cudaError_t launch_wgmma(const Params& p, int batch, int hkv, int d,
   if (err != cudaSuccess) return err;
   a.n_qt = (p.sq + T::BQ - 1) / T::BQ;
   a.n_work = a.n_qt * p.h * batch;
-  // persistent: at most one block per SM (one fits), each walking over
-  // work tiles, so a block's next Q and K/V load under its current epilogue
-  const int grid = min(a.n_work, sms);
+  // Without the causal mask the grid is persistent: at most one block per
+  // SM (one fits), each walking over work tiles, so a block's next Q and
+  // K/V load under its current epilogue.  Under the mask the work tiles
+  // differ in length and a fixed stride does not balance them (at 4 query
+  // tiles per head, block b of 132 would get query tile b % 4 every time),
+  // so there is one block per work tile, the longest first, and the
+  // hardware hands the next one to whichever SM frees up (K2's rule).
+  const int grid = p.causal ? a.n_work : min(a.n_work, sms);
   flash_fwd_bf16_wgmma<D><<<grid, 3 * WG, T::SMEM, stream>>>(a);
   return cudaGetLastError();
 }

@@ -58,6 +58,7 @@ class GenerativePredictor:
             raise ValueError(f"{model_name} is not a generative model")
         with torch.no_grad():
             self.module = entry.make_model(size=size, device=device,
+                                           param_dtype="compute",
                                            **(model_config or {}))
             if state is not None:
                 self.module.load_state_dict(state)

@@ -15,8 +15,13 @@ their gradients, as ``optax.apply_updates(params, tx.update(...))`` would:
 - ``grad_clip_norm``: ``clip_by_global_norm`` before the optimizer (the
   gradients are scaled by ``max_norm / |g|`` where ``|g| >= max_norm``).
 
-Updates run as PyTorch ``_foreach`` ops over all tensors at once and never
-read a value back to the host.
+Updates run as PyTorch ``_foreach`` ops over chunks of the parameter list
+and never read a value back to the host.  A chunk holds at most as many
+elements as the largest parameter (``_chunks``), so the temporaries an
+update makes (the clipped gradients, adam's denominator and update) are
+each one such chunk, not a model-sized copy; each element goes through the
+same operations in the same order as over the whole list, so the result
+is the same bits.
 """
 
 from __future__ import annotations
@@ -75,6 +80,22 @@ def global_norm(tensors: list[torch.Tensor]) -> torch.Tensor:
     return torch.linalg.vector_norm(torch.stack(norms))
 
 
+def _chunks(n_elements: list[int]) -> list[range]:
+    """Consecutive index ranges of the parameter list, each holding at most
+    ``max(n_elements)`` elements (a tensor larger than that bound is a
+    chunk of its own)."""
+    bound = max(n_elements, default=0)
+    chunks, start, total = [], 0, 0
+    for i, n in enumerate(n_elements):
+        if i > start and total + n > bound:
+            chunks.append(range(start, i))
+            start, total = i, 0
+        total += n
+    if start < len(n_elements):
+        chunks.append(range(start, len(n_elements)))
+    return chunks
+
+
 def _bias_correction(decay: float, count: int) -> float:
     """``1 - decay ** count`` in float32, as optax computes it (for b2 =
     0.999 at count 1 that is 1.3e-5 off the exact 0.001)."""
@@ -112,30 +133,45 @@ class Optimizer:
                grad_norm: torch.Tensor | None = None) -> None:
         """Apply one update in place.  ``grads`` are not modified;
         ``grad_norm`` (their global norm) is computed when not given."""
+        scale = None
         if self.clip_norm:
             g_norm = global_norm(grads) if grad_norm is None else grad_norm
             scale = torch.where(g_norm < self.clip_norm,
                                 torch.ones_like(g_norm),
                                 self.clip_norm / g_norm)
-            grads = torch._foreach_mul(grads, scale)
         lr = self.schedule(self.count)
         self.count += 1
-        if self.name == "sgd":
-            trace = self.moments["trace"]
-            torch._foreach_mul_(trace, self.momentum)
-            torch._foreach_add_(trace, grads)
-            torch._foreach_add_(params, trace, alpha=-lr)
-            return
-        mu, nu = self.moments["mu"], self.moments["nu"]
+        bc1 = _bias_correction(self.b1, self.count)
+        bc2 = _bias_correction(self.b2, self.count)
+        for idx in _chunks([p.numel() for p in params]):
+            p = [params[i] for i in idx]
+            g = [grads[i] for i in idx]
+            if scale is not None:
+                g = torch._foreach_mul(g, scale)
+            if self.name == "sgd":
+                self._sgd(p, g, [self.moments["trace"][i] for i in idx], lr)
+            else:
+                self._adam(p, g, [self.moments["mu"][i] for i in idx],
+                           [self.moments["nu"][i] for i in idx], lr, bc1, bc2)
+
+    def _sgd(self, params, grads, trace, lr: float) -> None:
+        torch._foreach_mul_(trace, self.momentum)
+        torch._foreach_add_(trace, grads)
+        torch._foreach_add_(params, trace, alpha=-lr)
+
+    def _adam(self, params, grads, mu, nu, lr: float, bc1: float,
+              bc2: float) -> None:
+        """adam / adamw / lamb over one chunk (bias corrections given)."""
         torch._foreach_mul_(mu, self.b1)
         torch._foreach_add_(mu, grads, alpha=1 - self.b1)
         torch._foreach_mul_(nu, self.b2)
         torch._foreach_addcmul_(nu, grads, grads, value=1 - self.b2)
-        denom = torch._foreach_div(nu, _bias_correction(self.b2, self.count))
+        denom = torch._foreach_div(nu, bc2)
         torch._foreach_sqrt_(denom)
         torch._foreach_add_(denom, self.eps)
-        upd = torch._foreach_div(mu, _bias_correction(self.b1, self.count))
+        upd = torch._foreach_div(mu, bc1)
         torch._foreach_div_(upd, denom)
+        del denom
         if self.weight_decay and self.name in ("adamw", "lamb"):
             torch._foreach_add_(upd, params, alpha=self.weight_decay)
         if self.name == "lamb":

@@ -246,3 +246,80 @@ def test_flash_autograd_runs_the_backward_kernels(cuda_device):
     assert (tfa.flash_bwd_dq.launches, tfa.flash_bwd_dkv.launches) == (
         before[0] + 1, before[1] + 1)
     assert all(torch.isfinite(t.grad.float()).all() for t in (q, k, v))
+
+
+@pytest.mark.cuda
+def test_k1_causal_multi_wave_matches_plain_version(cuda_device):
+    # Llama training's attention shape: 2048 causal work tiles of unequal
+    # length, one block each (15.5 waves over 132 SMs); tolerances as
+    # test_flash_kernel_matches_plain_version's bf16 case
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    q, k, v = (torch.randn(16, 512, 32, 128, generator=g, device=cuda_device)
+               .bfloat16() for _ in range(3))
+    o, lse = tfa.flash_attention_with_lse(q, k, v, causal=True)
+    ro, rlse = tfa.flash_attention_reference(q, k, v, causal=True)
+    torch.testing.assert_close(o.float(), ro.float(), atol=1e-2, rtol=1e-2)
+    assert (lse - rlse).abs().max().item() < 1e-3
+
+
+@pytest.mark.cuda
+def test_llama_width_train_step_kernels_match_plain_route(cuda_device):
+    # two layers at Llama-2-7B width, bf16 compute, float32 masters: one
+    # step's loss and grad_norm through K1-K3 against the plain masked
+    # attention route on the same weights and batch (learning rate 0), to
+    # chip_smoke.py's STEP_TOL (1e-3, 5e-3 relative)
+    import dataclasses
+
+    from kubeflow_tpu_torch.models import registry
+    from kubeflow_tpu_torch.parallel import train_step as ts
+    from kubeflow_tpu_torch.training.optim import make_optimizer
+
+    entry = registry.get("llama")
+    model = entry.make_model(size="7b", num_layers=2,
+                             device=cuda_device).init_weights(0)
+    assert model.tok_embeddings.embedding.dtype == torch.float32
+    state = ts.init_train_state(model, make_optimizer(
+        {"name": "sgd", "learning_rate": 0.0, "momentum": 0.0}))
+    step = ts.build_train_step(entry.forward_loss, state.tx)
+    batch = {k: v.to(cuda_device) for k, v in entry.make_batch(
+        2, torch.Generator().manual_seed(0), model).items()}
+    names = ("flash_attention", "flash_bwd_dq", "flash_bwd_dkv")
+    before = [getattr(tfa, n).launches for n in names]
+    _, kern = step(state, batch)
+    kern = {k: v.item() for k, v in kern.items()}
+    assert [getattr(tfa, n).launches - b
+            for n, b in zip(names, before)] == [4, 2, 2]
+    flash_cfg = model.layers[0].attention.cfg
+    for blk in model.layers:
+        blk.attention.cfg = dataclasses.replace(flash_cfg, use_flash=False)
+    _, plain = step(state, batch)
+    for key, tol in (("loss", 1e-3), ("grad_norm", 5e-3)):
+        assert abs(kern[key] - plain[key].item()) <= tol * abs(
+            plain[key].item()), (key, kern, plain)
+
+
+@pytest.mark.cuda
+def test_adamw_update_holds_one_chunk_of_temporaries(cuda_device):
+    # 1 B float32 parameters in 64 tensors: a list-wide update made two
+    # model-sized temporaries (8 bytes per parameter); chunked, the update
+    # raises the peak by its temporaries over one tensor's worth of
+    # elements (adam's denominator and update: 2 tensors)
+    from kubeflow_tpu_torch.training.optim import global_norm, make_optimizer
+
+    n, count = 15_625_000, 64
+    params = [torch.zeros(n, device=cuda_device) for _ in range(count)]
+    grads = [torch.full((n,), 1e-3, device=cuda_device)
+             for _ in range(count)]
+    tx = make_optimizer({"name": "adamw", "learning_rate": 1e-3,
+                         "weight_decay": 0.01})
+    tx.init(params)
+    norm = global_norm(grads)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    tx.update(params, grads, norm)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() - base < 3 * n * 4
+    assert torch.isfinite(params[-1]).all()
+    del params, grads, tx
+    torch.cuda.empty_cache()

@@ -134,3 +134,71 @@ def test_global_norm():
     assert toptim.global_norm(ts).item() == 5.0
     assert jax.numpy.isclose(optax.global_norm([jnp.asarray(t.numpy())
                                                 for t in ts]), 5.0)
+
+
+def list_wide_update(opt, params, grads, grad_norm):
+    """The update as ``Optimizer.update`` made it before it was chunked:
+    every ``_foreach`` op over the whole parameter list, with model-sized
+    temporaries (the clipped gradients, adam's denominator and update)."""
+    if opt.clip_norm:
+        scale = torch.where(grad_norm < opt.clip_norm,
+                            torch.ones_like(grad_norm),
+                            opt.clip_norm / grad_norm)
+        grads = torch._foreach_mul(grads, scale)
+    lr = opt.schedule(opt.count)
+    opt.count += 1
+    mu, nu = opt.moments["mu"], opt.moments["nu"]
+    torch._foreach_mul_(mu, opt.b1)
+    torch._foreach_add_(mu, grads, alpha=1 - opt.b1)
+    torch._foreach_mul_(nu, opt.b2)
+    torch._foreach_addcmul_(nu, grads, grads, value=1 - opt.b2)
+    denom = torch._foreach_div(nu, toptim._bias_correction(opt.b2,
+                                                           opt.count))
+    torch._foreach_sqrt_(denom)
+    torch._foreach_add_(denom, opt.eps)
+    upd = torch._foreach_div(mu, toptim._bias_correction(opt.b1, opt.count))
+    torch._foreach_div_(upd, denom)
+    if opt.weight_decay and opt.name in ("adamw", "lamb"):
+        torch._foreach_add_(upd, params, alpha=opt.weight_decay)
+    if opt.name == "lamb":
+        p_norm = torch._foreach_norm(params)
+        u_norm = torch._foreach_norm(upd)
+        for u, pn, un in zip(upd, p_norm, u_norm):
+            u.mul_(torch.where((pn == 0) | (un == 0), torch.ones_like(pn),
+                               pn / un))
+    torch._foreach_add_(params, upd, alpha=-lr)
+
+
+@pytest.mark.parametrize("cfg", [
+    {"name": "adamw", "weight_decay": 0.01},
+    {"name": "lamb", "weight_decay": 0.01},
+    {"name": "adamw", "weight_decay": 0.01, "grad_clip_norm": 1.0},
+    {"name": "lamb", "grad_clip_norm": 0.5},
+])
+def test_chunked_update_is_bitwise_the_list_wide_formula(cfg):
+    # sizes that make chunks of one and of three tensors (the bound is the
+    # largest tensor, 60 elements), and a zero gradient
+    shapes = [(60,), (10, 3), (20,), (5, 2), (7,), (4, 4), (3,)]
+    rng = np.random.default_rng(4)
+    params = [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+              for s in shapes]
+    cfg = {"learning_rate": 0.05, **cfg}
+    chunked, wide = toptim.make_optimizer(cfg), toptim.make_optimizer(cfg)
+    p_chunked = [p.clone() for p in params]
+    p_wide = [p.clone() for p in params]
+    chunked.init(p_chunked)
+    wide.init(p_wide)
+    assert [list(c) for c in toptim._chunks([p.numel() for p in params])] \
+        == [[0], [1, 2, 3], [4, 5, 6]]
+    for i in range(4):
+        grads = [torch.from_numpy(rng.standard_normal(s).astype(np.float32)
+                                  * (i + 1)) for s in shapes]
+        grads[-1].zero_()
+        norm = toptim.global_norm(grads)
+        chunked.update(p_chunked, grads, norm)
+        list_wide_update(wide, p_wide, grads, norm)
+        for a, b in zip(p_chunked, p_wide):
+            assert torch.equal(a, b)
+        for key in ("mu", "nu"):
+            for a, b in zip(chunked.moments[key], wide.moments[key]):
+                assert torch.equal(a, b)

@@ -187,9 +187,16 @@ def test_multi_process_worlds_are_refused_by_the_trainer(monkeypatch):
         Trainer(tiny(steps=1), device="cpu").run()
 
 
-def test_models_without_a_training_loss_are_refused():
-    with pytest.raises(NotImplementedError, match="llama"):
-        Trainer(TrainerConfig(model="llama", steps=1), device="cpu").run()
+def test_models_without_a_training_loss_are_refused(monkeypatch):
+    # every registry model trains now: a serving-only entry made here
+    from kubeflow_tpu_torch.models import registry
+
+    entry = registry.ModelEntry(
+        "serving_only", registry.get("llama").make_model, generative=True)
+    monkeypatch.setitem(registry._REGISTRY, entry.name, entry)
+    with pytest.raises(NotImplementedError, match="serving_only"):
+        Trainer(TrainerConfig(model="serving_only", steps=1),
+                device="cpu").run()
 
 
 def test_fault_kill_needs_a_checkpoint_before_it():
