@@ -4,7 +4,9 @@
     python3 chip_smoke.py                 # every phase below
     python3 chip_smoke.py --kernel-times  # build, then K1-K3 times only
 
-Phases, in order; any failure exits nonzero and prints no result:
+Phases, numbered as PERF.md cites them, run in the order 1, 2, 3, 7, 4,
+5, 6, 8 (phase 7's pages are freed before training); any failure exits
+nonzero and prints no result:
 
 1. Build every CUDA kernel of the port from ``kubeflow_tpu_torch/ops/csrc``
    (one nvcc per source, all at once); fail if ptxas reports a spill or
@@ -47,13 +49,34 @@ Phases, in order; any failure exits nonzero and prints no result:
 6. The vision models through the same worker: ``mnist_mlp`` and
    ``cifar_convnet`` for 3 steps, ResNet-50 (224 x 224, batch 128) for 10
    (finite losses, no flash launch), and a ResNet-50 step by operator.
-7. Numbers: the card's name and power limit; each kernel's device time at
-   its main-path shapes beside its bound, its plain version's time and a
-   PyTorch call that computes the same function (``scaled_dot_product_
-   attention`` forward, and its backward for K2 and K3: yardsticks the
-   port never calls); K1, K2 and K3 beside their bounds at a causal D=128
-   shape of one 2048-token sequence; TTFT and decode tokens/s of phase 2;
-   samples/s of every training run.
+7. Prefix-cached serving at phase 2's 7B width and settings, through a
+   ``GenerativePredictor`` with ``prefix_cache_mb`` 2048 (256 pages of 16
+   positions) and a cache-less ``ContinuousBatcher`` on the same weights
+   as the cold reference.  (a) A 1024-token system prompt with user turns
+   of 64, 200 and 700 tokens (a miss, two hits that seed 64 pages and
+   prefill only the suffix through K1 at a causal offset of 1024), then
+   the first turn again (a full-prefix hit: one prefill dispatch of one
+   token).  Before the counted run, as a warm-up at its shapes, the same
+   traffic on other system prompts runs through both engines, and on the
+   warm one every K1 call is held against the plain version.  In the
+   counted run K1 must launch 32 x the prefill chunks; the seeded scratch
+   must equal the cold run's rows and every committed page the scratch
+   rows it was cut from, bitwise; the warm first-token logits must agree
+   with the cold ones within 1e-1 of max |logit|; at idle no page is
+   orphaned and no node pinned; TTFT cold and warm per request.  Then
+   the seed and commit copies are timed.  (b) A second engine with a
+   256 MB cache (32 pages) and a 64-page host arena: a 384-token prompt
+   twice (cold, then a full hit), another 384-token prompt that makes the
+   budget sweep spill the first one's 24 pages, then the first again: its
+   pages fault back bitwise equal and its stream repeats the earlier
+   hit's.
+8. Numbers: the card's name and power limit; each kernel's device time at
+   its main-path shapes (phases 2, 4, 5 and 7) beside its bound, its plain
+   version's time and a PyTorch call that computes the same function
+   (``scaled_dot_product_attention`` forward, and its backward for K2 and
+   K3: yardsticks the port never calls); K1, K2 and K3 beside their bounds
+   at a causal D=128 shape of one 2048-token sequence; TTFT and decode
+   tokens/s of phase 2; samples/s of every training run.
 
 The line before the last is the ``kernels`` JSON object; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -106,6 +129,17 @@ EXTRA_SHAPES = [  # (name, B, Sq, Sk, H, Hkv, D, causal)
     ("gqa_ragged_strided", 2, 200, 700, 32, 8, 128, True),
     ("noncausal_d64", 2, 100, 300, 4, 4, 64, False),
 ]
+# phase 7: prefix-cached serving at phase 2's settings.  (a) a system
+# prompt shared by three user turns, then the first turn again; (b) a
+# 32-page cache over a 64-page host arena and two prompts of 24 pages
+PC_SYSTEM, PC_SUFFIXES = 1024, (64, 200, 700)
+PC_CACHE_MB, PC_PAGE = 2048, 16
+PC_TIER_CACHE_MB, PC_TIER_HOST_PAGES, PC_TIER_PROMPT = 256, 64, 384
+# warm first-token logits against the cold ones, relative to max |logit|:
+# cold and warm run their GEMMs at other M (a 256-token suffix bucket
+# against 512-token chunks), and 32 random-weight bf16 layers amplify the
+# rounding (LOGITS_REL_TOL's reasoning)
+WARM_LOGITS_REL_TOL = 1e-1
 # phase 4: BERT-large pretraining through the port's worker entrypoint
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 10, 24, 512
 TRAIN_CONFIG = {"model": "bert", "model_config": {"size": "large"},
@@ -187,31 +221,62 @@ def check(ok, what) -> None:
         raise AssertionError(f"chip_smoke check failed: {what}")
 
 
-def prefill_shapes() -> list[tuple[int, int]]:
-    """(Sq, Sk) of every flash call per layer in phase 2: the engine's
-    chunking of each prompt, each chunk padded to a prefill bucket."""
+def chunk_shapes(n: int, pos: int = 0) -> list[tuple[int, int]]:
+    """(Sq, Sk) of each flash call per layer of the engine's prefill of an
+    ``n``-token prompt from position ``pos`` (a reused prefix): chunks of
+    ``PREFILL_CHUNK``, each padded to a prefill bucket that stays inside
+    ``MAX_SEQ``."""
     from kubeflow_tpu_torch.serving.engine import PREFILL_BUCKETS
 
     shapes = []
-    for n in PROMPT_LENS:
-        pos = 0
-        while pos < n:
-            take = min(n - pos, PREFILL_CHUNK)
-            cb = next((b for b in PREFILL_BUCKETS
-                       if take <= b <= MAX_SEQ - pos), take)
-            shapes.append((cb, pos + cb))
-            pos += take
+    while pos < n:
+        take = min(n - pos, PREFILL_CHUNK)
+        cb = next((b for b in PREFILL_BUCKETS
+                   if take <= b <= MAX_SEQ - pos), take)
+        shapes.append((cb, pos + cb))
+        pos += take
     return shapes
 
 
-def main_path_shapes() -> list[tuple]:
-    """Distinct 7B prefill shapes of phase 2 with their launch counts per
-    layer: (name, B, Sq, Sk, H, Hkv, D, causal, count)."""
+def prefill_shapes() -> list[tuple[int, int]]:
+    """(Sq, Sk) of every flash call per layer in phase 2."""
+    return [s for n in PROMPT_LENS for s in chunk_shapes(n)]
+
+
+def prefix_plan() -> list[tuple[int, int]]:
+    """(prompt length, reused prefix) of phase 7(a)'s counted requests: a
+    miss, two hits on the system prompt, and a full-prefix hit, which
+    reuses all but the last token."""
+    lens = [PC_SYSTEM + n for n in PC_SUFFIXES]
+    return [(lens[0], 0), (lens[1], PC_SYSTEM), (lens[2], PC_SYSTEM),
+            (lens[0], lens[0] - 1)]
+
+
+def prefix_shapes() -> list[tuple[int, int]]:
+    """(Sq, Sk) of every flash call per layer in phase 7(a)'s counted run:
+    a warm suffix runs K1 causally at offset Sk - Sq >= the reused
+    prefix."""
+    return [s for n, pos in prefix_plan() for s in chunk_shapes(n, pos)]
+
+
+def path_shapes(shapes: list[tuple[int, int]], label: str) -> list[tuple]:
+    """Distinct 7B prefill shapes with their launch counts per layer:
+    (name, B, Sq, Sk, H, Hkv, D, causal, count)."""
     counts: dict[tuple[int, int], int] = {}
-    for s in prefill_shapes():
+    for s in shapes:
         counts[s] = counts.get(s, 0) + 1
-    return [(f"7b_prefill_{sq}x{sk}", 1, sq, sk, 32, 32, 128, True, c)
+    return [(f"7b_{label}_{sq}x{sk}", 1, sq, sk, 32, 32, 128, True, c)
             for (sq, sk), c in sorted(counts.items())]
+
+
+def main_path_shapes() -> list[tuple]:
+    """Phase 2's distinct prefill shapes (``path_shapes``)."""
+    return path_shapes(prefill_shapes(), "prefill")
+
+
+def prefix_path_shapes() -> list[tuple]:
+    """Phase 7(a)'s distinct prefill shapes (``path_shapes``)."""
+    return path_shapes(prefix_shapes(), "prefix")
 
 
 def make_qkv(b, sq, sk, h, hkv, d, dtype, seed, strided=False):
@@ -319,8 +384,8 @@ def phase_kernels(fa) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     main_err = 0.0
-    cases = ([s[:8] for s in main_path_shapes()] + [TRAIN_SHAPE, LLAMA_SHAPE]
-             + EXTRA_SHAPES)
+    cases = ([s[:8] for s in main_path_shapes() + prefix_path_shapes()]
+             + [TRAIN_SHAPE, LLAMA_SHAPE] + EXTRA_SHAPES)
     for i, (name, b, sq, sk, h, hkv, d, causal) in enumerate(cases):
         for dtype in (torch.bfloat16, torch.float32):
             q, k, v = make_qkv(b, sq, sk, h, hkv, d, dtype, seed=i,
@@ -340,7 +405,8 @@ def phase_kernels(fa) -> dict:
                 f"{e_l:.3e} (tol {tol['lse']:g}) {'ok' if ok else 'FAIL'}")
             check(ok, f"flash_fwd disagrees at {name} {dtype}")
             if dtype == torch.bfloat16 and name.startswith(
-                    ("7b_prefill", TRAIN_SHAPE[0], LLAMA_SHAPE[0])):
+                    ("7b_prefill", "7b_prefix", TRAIN_SHAPE[0],
+                     LLAMA_SHAPE[0])):
                 main_err = max(main_err, e_o)
     errs = {"flash_fwd": main_err, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
     for i, (name, *shape) in enumerate(BWD_SHAPES):
@@ -396,15 +462,11 @@ def plain_attention_route(model):
             a.cfg = flash_cfg
 
 
-def check_in_model(fa, model, prompt: list[int]) -> None:
-    """Chunked prefill of ``prompt`` through a batch-1 cache, as the engine
-    runs it, with every flash call held against the plain version on the
-    same q, k, v (the kernel's output goes on)."""
-    from kubeflow_tpu_torch.models import llama
-
-    worst = {"o": 0.0, "lse": 0.0}
-    shapes = set()
-
+def checked_flash(fa, worst: dict, shapes: set):
+    """A stand-in for ``flash_attention`` that runs the kernel, holds each
+    call against the plain version on the same q, k, v, and passes the
+    kernel's output on; the worst ratios go to ``worst`` ("o", "lse") and
+    each call's (Sq, Sk) to ``shapes``."""
     def checked(q, k, v, *, causal=False):
         o, lse = fa.flash_attention_with_lse(q, k, v, causal=causal)
         ro, rlse = fa.flash_attention_reference(q, k, v, causal=causal)
@@ -419,15 +481,30 @@ def check_in_model(fa, model, prompt: list[int]) -> None:
         shapes.add((q.shape[1], k.shape[1]))
         return o
 
+    return checked
+
+
+def in_model_ok(worst: dict) -> bool:
+    return (worst["o"] <= IN_MODEL_TOL["o"]
+            and worst["lse"] <= IN_MODEL_TOL["lse"])
+
+
+def check_in_model(fa, model, prompt: list[int]) -> None:
+    """Chunked prefill of ``prompt`` through a batch-1 cache, as the engine
+    runs it, with every flash call held against the plain version on the
+    same q, k, v (the kernel's output goes on)."""
+    from kubeflow_tpu_torch.models import llama
+
+    worst = {"o": 0.0, "lse": 0.0}
+    shapes = set()
     cache = llama.init_cache(model.config, 1, MAX_SEQ)
-    with torch.no_grad(), flash_route(checked):
+    with torch.no_grad(), flash_route(checked_flash(fa, worst, shapes)):
         for pos in range(0, len(prompt), PREFILL_CHUNK):
             chunk = prompt[pos:pos + PREFILL_CHUNK]
             for layer in cache["layers"]:
                 layer["index"] = pos
             model(torch.tensor([chunk], device="cuda"), cache=cache)
-    ok = (worst["o"] <= IN_MODEL_TOL["o"]
-          and worst["lse"] <= IN_MODEL_TOL["lse"])
+    ok = in_model_ok(worst)
     log(f"in-model check, {len(prompt)}-token prefill (Sq, Sk) "
         f"{sorted(shapes)} x {model.config.num_layers} layers: max "
         f"|dO|/(2^-7 (|O| + P|V|)) {worst['o']:.3e} (tol "
@@ -452,6 +529,9 @@ def phase_serving(fa) -> dict:
     log(f"llama 7b built in {time.perf_counter() - t0:.1f}s: "
         f"{cfg.num_layers} layers, hidden {cfg.hidden_size}, "
         f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card")
+    # the default path keeps no prefix cache and holds no page rows
+    check(pred.engine.prefix_cache is None and pred.engine.pool.kv is None,
+          "the default engine allocated page rows")
     httpd, thread = serve(PredictorApp({"llama": pred}), 0)
     port = httpd.server_port
     try:
@@ -552,6 +632,262 @@ def phase_serving(fa) -> dict:
         httpd.server_close()
         thread.join(timeout=10)
         pred.stop(timeout=60)
+
+
+@contextlib.contextmanager
+def first_token_logits(store: list):
+    """Record the float32 logits the engine samples each first token from
+    (its batch-1 prefill calls of ``sample_rows``) into ``store``."""
+    from kubeflow_tpu_torch.serving import engine
+
+    original = engine.sample_rows
+
+    def capture(logits, reqs, gens):
+        if logits.shape[0] == 1:
+            store.append(logits[0].float().clone())
+        return original(logits, reqs, gens)
+
+    engine.sample_rows = capture
+    try:
+        yield
+    finally:
+        engine.sample_rows = original
+
+
+def serve_one(engine, prompt: list[int], store: list, **kw) -> dict:
+    """One request through ``engine`` alone: its tokens, TTFT, prefill
+    dispatches and tokens, and first-token logits (from ``store``)."""
+    from kubeflow_tpu_torch.serving.engine import (PREFILL_DISPATCHES,
+                                                   PREFILL_TOKENS)
+
+    d0, t0, n0 = PREFILL_DISPATCHES.get(), PREFILL_TOKENS.get(), len(store)
+    req = engine.submit(prompt, NEW_TOKENS, **kw)
+    ids = req.result(timeout=600)
+    check(len(store) == n0 + 1, "one first-token sample per request")
+    return {"ids": ids, "ttft": req.first_token_at - req.submitted_at,
+            "dispatches": int(PREFILL_DISPATCHES.get() - d0),
+            "tokens": int(PREFILL_TOKENS.get() - t0), "logits": store[-1]}
+
+
+def scratch_rows(engine) -> list:
+    """The engine's batch-1 prefill scratch, (k, v) [max_seq, Hkv, D] per
+    layer (views)."""
+    return [(l["k"][0], l["v"][0]) for l in engine._scratch()]
+
+
+def same_rows(rows: list, ref: list, n: int) -> bool:
+    """Whether two lists of (k, v) per layer agree bitwise on their first
+    ``n`` positions in every layer."""
+    return all(torch.equal(k[:n], rk[:n]) and torch.equal(v[:n], rv[:n])
+               for (k, v), (rk, rv) in zip(rows, ref))
+
+
+def page_rows(pool, pages: list[int]) -> list:
+    """The pages' KV as contiguous positions, (k, v) per layer."""
+    trees = [pool.get(p)["layers"] for p in pages]
+    return [tuple(torch.cat([t[li][name] for t in trees])
+                  for name in ("k", "v")) for li in range(len(trees[0]))]
+
+
+def idle_state(engine) -> dict:
+    """The pool's stats at idle; fails on an orphaned page or a pin."""
+    check(engine.drained(timeout=60), "engine idle")
+    st = engine.stats()
+    log(f"  kv_pool {json.dumps(st['kv_pool'])}")
+    log(f"  prefix_cache {json.dumps(st['prefix_cache'])}")
+    check(st["kv_pool"]["orphan_pages"] == 0, st["kv_pool"])
+    check(st["prefix_cache"]["pinned"] == 0, st["prefix_cache"])
+    return st
+
+
+def phase_prefix_cache(fa) -> dict:
+    """Phase 7: prefix-cached serving (module docstring)."""
+    from kubeflow_tpu_torch.serving.engine import (PREFIX_HITS,
+                                                   PREFIX_MISSES,
+                                                   ContinuousBatcher)
+    from kubeflow_tpu_torch.serving.page_pool import pages_for
+    from kubeflow_tpu_torch.serving.predictor import GenerativePredictor
+
+    pred = GenerativePredictor("llama", size="7b", max_seq=MAX_SEQ,
+                               prefill_chunk=PREFILL_CHUNK, max_batch=4,
+                               seed=0, prefix_cache_mb=PC_CACHE_MB,
+                               kv_page_size=PC_PAGE)
+    warm, cfg = pred.engine, pred.cfg
+    cold = ContinuousBatcher(pred.module, cfg, max_batch=4, max_seq=MAX_SEQ,
+                             prefill_chunk=PREFILL_CHUNK)
+    rows = warm.pool.kv["layers"][0]["k"].shape[0]
+    log(f"phase 7: page pool {rows} rows x {warm.page_nbytes / 2**20:.1f} "
+        f"MiB = {rows * warm.page_nbytes / 2**30:.2f} GiB, cache budget "
+        f"{warm.prefix_cache.max_pages} pages; "
+        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated")
+
+    def turns(seed):
+        rng = np.random.default_rng(seed)
+        system = rng.integers(1, cfg.vocab_size, PC_SYSTEM).tolist()
+        users = [rng.integers(1, cfg.vocab_size, n).tolist()
+                 for n in PC_SUFFIXES]
+        check(len({u[0] for u in users}) == len(users), "distinct turns")
+        return [system + u for u in users] + [system + users[0]]
+
+    prompts = turns(70)
+    plan = prefix_plan()
+    check([len(p) for p in prompts] == [n for n, _ in plan], "plan")
+    store: list = []
+    with torch.no_grad(), first_token_logits(store):
+        # warm-up at the counted run's shapes on both engines, off it: on
+        # the cache-less engine, the same traffic on another system
+        # prompt; on the warm engine, the same again with every K1 call
+        # held against the plain version on the same inputs
+        for prompt in turns(69):
+            serve_one(cold, prompt, store)
+        worst, shapes = {"o": 0.0, "lse": 0.0}, set()
+        saved = counters(fa)
+        with flash_route(checked_flash(fa, worst, shapes)):
+            for prompt in turns(71):
+                serve_one(warm, prompt, store)
+        set_counters(fa, saved)
+        ok = in_model_ok(worst) and shapes == set(prefix_shapes())
+        log(f"phase 7(a) in-model check, (Sq, Sk) {sorted(shapes)} x "
+            f"{cfg.num_layers} layers: max |dO|/(2^-7 (|O| + P|V|)) "
+            f"{worst['o']:.3e} (tol {IN_MODEL_TOL['o']:g}), max|dlse|/"
+            f"max|lse| {worst['lse']:.3e} {'ok' if ok else 'FAIL'}")
+        check(ok, (worst, sorted(shapes)))
+
+        colds = [serve_one(cold, p, store) for p in prompts]
+        h0, m0 = PREFIX_HITS.get(), PREFIX_MISSES.get()
+        saved = counters(fa)
+        set_counters(fa, dict.fromkeys(KERNEL_NAMES, 0))  # the path starts
+        warms, cold_rows = [], None
+        for i, ((n, usable), prompt) in enumerate(zip(plan, prompts)):
+            warms.append(serve_one(warm, prompt, store))
+            if i == 0:
+                cold_rows = [(k[:n].clone(), v[:n].clone())
+                             for k, v in scratch_rows(warm)]
+            else:   # the seeded head: the cold run's rows, bitwise
+                check(same_rows(scratch_rows(warm), cold_rows, usable),
+                      f"seeded scratch of request {i}")
+            if usable < n - 1:   # committed: pages equal their scratch rows
+                node, _ = warm.prefix_cache.match(prompt)
+                want = pages_for(n, PC_PAGE)
+                check(len(node.pages) == want, (i, len(node.pages), want))
+                span = want * PC_PAGE
+                check(same_rows(page_rows(warm.pool, node.pages),
+                                scratch_rows(warm), span),
+                      f"committed pages of request {i}")
+        launches = counters(fa)                         # the path ended
+        set_counters(fa, {k: saved[k] + launches[k] for k in saved})
+        hits, misses = PREFIX_HITS.get() - h0, PREFIX_MISSES.get() - m0
+        chunks = len(prefix_shapes())
+        log(f"phase 7(a): flash_fwd launches {launches['flash_fwd']} "
+            f"(expected {cfg.num_layers} x {chunks} chunks); prefix hits "
+            f"{hits:.0f}, misses {misses:.0f}")
+        check(launches == {"flash_fwd": cfg.num_layers * chunks,
+                           "flash_bwd_dq": 0, "flash_bwd_dkv": 0}, launches)
+        check((hits, misses) == (3, 1), (hits, misses))
+        log(f"  {card_line()}")
+        same = 0
+        for i, (c, w, (n, usable)) in enumerate(zip(colds, warms, plan)):
+            rel = ((w["logits"] - c["logits"]).abs().max()
+                   / c["logits"].abs().max()).item()
+            same += w["ids"] == c["ids"]
+            log(f"  request {i}: {n} tokens, reused {usable}: TTFT cold "
+                f"{c['ttft'] * 1e3:.2f} ms ({c['dispatches']} dispatches, "
+                f"{c['tokens']} tokens), warm {w['ttft'] * 1e3:.2f} ms "
+                f"({w['dispatches']} dispatches, {w['tokens']} tokens); "
+                f"first-token logits max rel err {rel:.3e} (tol "
+                f"{WARM_LOGITS_REL_TOL:g})")
+            check(math.isfinite(rel) and rel <= WARM_LOGITS_REL_TOL, (i, rel))
+            check(w["tokens"] == n - usable, (i, w["tokens"], n - usable))
+        check((warms[3]["dispatches"], warms[3]["tokens"]) == (1, 1),
+              "a full-prefix hit is one prefill dispatch of one token")
+        log(f"  warm streams token-identical to their cold streams: "
+            f"{same} of {len(warms)}")
+        idle_state(warm)
+
+        # the seed (gather of the system prompt's pages into the scratch)
+        # and a commit (scatter of a turn's new pages), off the path
+        node, _ = warm.prefix_cache.match(prompts[1])
+        seed_pages = node.pages[:PC_SYSTEM // PC_PAGE]
+        new_pages = node.pages[PC_SYSTEM // PC_PAGE:]
+        span = len(seed_pages) * PC_PAGE
+        scratch = warm._scratch()
+        dst = [(torch.empty_like(l["k"][0, :span]),
+                torch.empty_like(l["v"][0, :span])) for l in scratch]
+        fresh = warm.pool.alloc(len(new_pages))
+        check(fresh is not None, "pages for the commit timing")
+        src = [(l["k"][0, span:span + len(fresh) * PC_PAGE],
+                l["v"][0, span:span + len(fresh) * PC_PAGE])
+               for l in scratch]
+        seed_ms = time_ms(lambda: warm.pool.gather(seed_pages, dst), reps=5)
+        commit_ms = time_ms(lambda: warm.pool.put_many(fresh, src), reps=5)
+        warm.pool.decref(fresh)
+        seed_bytes = 2 * len(seed_pages) * warm.page_nbytes
+        commit_bytes = 2 * len(fresh) * warm.page_nbytes
+        log(f"  seed of {len(seed_pages)} pages ({warm.pool.page_nbytes} B "
+            f"each, {cfg.num_layers} layers): {seed_ms:.4f} ms, bound "
+            f"{seed_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms (bytes); commit of "
+            f"{len(fresh)} pages: {commit_ms:.4f} ms, bound "
+            f"{commit_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms (bytes)")
+        del dst, src, cold_rows, scratch
+    tier = phase_host_tier(pred.module, cfg)
+    pred.stop(timeout=60)
+    cold.shutdown()
+    del pred, cold, warm
+    free_memory()
+    return {"launches": launches["flash_fwd"], "seed_ms": seed_ms,
+            "commit_ms": commit_ms, "same_streams": same,
+            "ttft_cold_ms": [c["ttft"] * 1e3 for c in colds],
+            "ttft_warm_ms": [w["ttft"] * 1e3 for w in warms], **tier}
+
+
+def phase_host_tier(model, cfg) -> dict:
+    """Phase 7(b): spill to the host arena under the cache budget, and a
+    fault back on the next hit, on ``model``'s weights."""
+    from kubeflow_tpu_torch.serving.engine import ContinuousBatcher
+
+    eng = ContinuousBatcher(model, cfg, max_batch=4, max_seq=MAX_SEQ,
+                            prefill_chunk=PREFILL_CHUNK,
+                            prefix_cache_bytes=int(PC_TIER_CACHE_MB
+                                                   * (1 << 20)),
+                            page_size=PC_PAGE,
+                            host_kv_pages=PC_TIER_HOST_PAGES)
+    rng = np.random.default_rng(72)
+    p1, p2 = (rng.integers(1, cfg.vocab_size, PC_TIER_PROMPT).tolist()
+              for _ in range(2))
+    store: list = []
+    with torch.no_grad(), first_token_logits(store):
+        serve_one(eng, p1, store)
+        hit = serve_one(eng, p1, store)
+        node, _ = eng.prefix_cache.match(p1)
+        pages = list(node.pages)
+        snapshot = [tuple(t.clone() for t in layer)
+                    for layer in page_rows(eng.pool, pages)]
+        serve_one(eng, p2, store)
+        st = eng.stats()
+        spilled = [eng.pool.tier(p) for p in pages].count("host")
+        log(f"phase 7(b): cache budget {eng.prefix_cache.max_pages} pages, "
+            f"host arena {eng.pool.host_pages}; after a second "
+            f"{PC_TIER_PROMPT}-token prompt: spills_total "
+            f"{st['kv_pool']['spills_total']}, {spilled} of the first "
+            f"prompt's {len(pages)} pages in the host tier")
+        check(st["kv_pool"]["spills_total"] > 0 and spilled == len(pages),
+              st["kv_pool"])
+        again = serve_one(eng, p1, store)
+        st = idle_state(eng)
+        faulted = same_rows(page_rows(eng.pool, pages), snapshot,
+                            len(pages) * PC_PAGE)
+        log(f"  the first prompt again: faults_total "
+            f"{st['kv_pool']['faults_total']}, pages bitwise equal to the "
+            f"snapshot {faulted}, stream identical to the earlier hit "
+            f"{again['ids'] == hit['ids']}, TTFT after the fault "
+            f"{again['ttft'] * 1e3:.2f} ms (hit before the spill "
+            f"{hit['ttft'] * 1e3:.2f} ms)")
+        check(st["kv_pool"]["faults_total"] > 0 and faulted
+              and again["ids"] == hit["ids"], "spill and fault")
+    eng.shutdown()
+    del eng, snapshot
+    return {"spills": st["kv_pool"]["spills_total"],
+            "faults": st["kv_pool"]["faults_total"]}
 
 
 def time_ms(fn, reps: int = 20, windows: int = 7) -> float:
@@ -895,15 +1231,15 @@ def card_line() -> str:
             else f"nvidia-smi: {smi.stderr.strip()}")
 
 
-def phase_numbers(fa, num_layers: int) -> list[dict]:
-    """K1's kernel, plain and library times with the bound, at each
-    serving main-path shape; rows carry the shape's launches per layer and
-    in the whole serving run."""
+def phase_numbers(fa, shapes: list[tuple], num_layers: int) -> list[dict]:
+    """K1's kernel, plain and library times with the bound, at each of a
+    serving path's ``shapes`` (``path_shapes``); rows carry the shape's
+    launches per layer and in the whole run of the path."""
     from torch.nn.attention.bias import causal_lower_right
     from torch.nn.functional import scaled_dot_product_attention as sdpa
 
     rows = []
-    for name, b, sq, sk, h, hkv, d, causal, count in main_path_shapes():
+    for name, b, sq, sk, h, hkv, d, causal, count in shapes:
         dtype = torch.bfloat16
         q, k, v = make_qkv(b, sq, sk, h, hkv, d, dtype, seed=11)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
@@ -1100,6 +1436,7 @@ def main(argv: list[str]) -> int:
     serving = phase_serving(fa)
     phase_profile()
     free_memory()
+    prefix = phase_prefix_cache(fa)
     log(f"before training: {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
         f"allocated on the card")
     bert = phase_training(fa, TRAIN_CONFIG, TRAIN_LAUNCHES, "BERT-large")
@@ -1118,7 +1455,8 @@ def main(argv: list[str]) -> int:
         f"the card's {card / 1e9:.2f} GB")
     vision = phase_vision(fa)
     log(card_line())
-    serving_rows = phase_numbers(fa, num_layers=32)
+    serving_rows = phase_numbers(fa, main_path_shapes(), num_layers=32)
+    prefix_rows = phase_numbers(fa, prefix_path_shapes(), num_layers=32)
     bert_rows = training_numbers(fa, TRAIN_SHAPE, bert["launches"],
                                  TRAIN_LAUNCHES)
     llama_rows = training_numbers(fa, LLAMA_SHAPE, llama["launches"],
@@ -1127,6 +1465,13 @@ def main(argv: list[str]) -> int:
     log(f"phase 2: TTFT mean {serving['ttft_mean_s'] * 1e3:.1f} ms over the "
         f"4 concurrent requests; decode "
         f"{serving['decode_tok_per_s']:.1f} tok/s over 4 slots")
+    log("phase 7: TTFT ms cold " + " ".join(
+        f"{t:.2f}" for t in prefix["ttft_cold_ms"]) + ", warm " + " ".join(
+        f"{t:.2f}" for t in prefix["ttft_warm_ms"])
+        + f"; seed {prefix['seed_ms']:.4f} ms, commit "
+        f"{prefix['commit_ms']:.4f} ms; spills {prefix['spills']}, faults "
+        f"{prefix['faults']}; {prefix['same_streams']} of 4 warm streams "
+        f"token-identical to cold")
     log(f"training samples/s: BERT-large {bert['samples_per_sec']:.2f}, "
         f"Llama-7B-width x{LLAMA_LAYERS} {llama['samples_per_sec']:.3f}, "
         + ", ".join(f"{m} {r['samples_per_sec']:.1f}"
@@ -1134,7 +1479,9 @@ def main(argv: list[str]) -> int:
         + f"; total {time.perf_counter() - t_start:.1f}s")
     check(serving["launches"] == sum(r["launches"] for r in serving_rows),
           "serving launches")
-    kernels = [kernel_entry("flash_fwd", serving_rows + [
+    check(prefix["launches"] == sum(r["launches"] for r in prefix_rows),
+          "prefix-cached serving launches")
+    kernels = [kernel_entry("flash_fwd", serving_rows + prefix_rows + [
         bert_rows["flash_fwd"], llama_rows["flash_fwd"]], errs["flash_fwd"])]
     kernels += [kernel_entry(name, [bert_rows[name], llama_rows[name]],
                              errs[name])

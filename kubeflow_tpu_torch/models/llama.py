@@ -2,7 +2,7 @@
 
 Counterpart of ``kubeflow_tpu/models/llama.py`` (Llama-2-7B is
 BASELINE.json configs[4]): RoPE, GQA, SwiGLU, RMSNorm, a tied LM head,
-and a contiguous KV cache.  Three attention branches:
+a contiguous KV cache and a paged one.  Four attention branches:
 
 - no cache: causal self-attention, through the flash kernel when
   ``use_flash``;
@@ -12,12 +12,19 @@ and a contiguous KV cache.  Three attention branches:
   kernel's contract (offset ``sk - sq = start``).  Padded tail queries sit
   after every real one, so causality hides them from the real rows;
 - cache with a ``[B]`` index (decode, ragged rows): each row writes at its
-  own position and attends through a position mask (plain attention).
+  own position and attends through a position mask (plain attention);
+- paged cache (``pool_k``/``pool_v`` ``[N, page, Hkv, D]`` per layer from
+  ``init_kv_pool``, a ``[B, P]`` page table ``pages`` and a ``[B]``
+  ``index``): each token's k/v is scattered into (page, offset) of its
+  absolute position clamped to the table's span, and the queries attend
+  over the logical ``[B, P * page]`` view gathered through the table,
+  under a position mask (plain attention).  Pages shared between rows are
+  read in place.
 
-The cache is updated IN PLACE (the reference's functional update returns
-a new array; here the returned cache holds the same tensors), which keeps
-the serving engine's KV view and prefill scratch from being copied per
-step.  The paged branch and MoE layers are not yet ported and raise.
+Every cache is updated IN PLACE (the reference's functional update
+returns a new array; here the returned cache holds the same tensors),
+which keeps the serving engine's KV view, prefill scratch and page pool
+from being copied per step.  MoE layers are not yet ported and raise.
 
 Training (no cache, grad enabled) runs each block under
 ``torch.utils.checkpoint`` (non-reentrant) when ``remat`` is on, as the
@@ -76,7 +83,8 @@ def llama2_13b(**kw) -> LlamaConfig:
 
 def llama_3b(**kw) -> LlamaConfig:
     """OpenLLaMA-3B shape (head_dim 100: the flash kernel is not built for
-    it, so its prefill raises on CUDA until a kernel instantiation lands)."""
+    it, so the attention dispatcher runs its prefill and training on the
+    plain route)."""
     return LlamaConfig(hidden_size=3200, num_layers=26, num_heads=32,
                        num_kv_heads=32, intermediate_size=8640, **kw)
 
@@ -108,9 +116,8 @@ class LlamaAttention(nn.Module):
         k = kl.rotary_embedding(self.k(x), positions, cfg.rope_base)
         v = self.v(x)
         if cache is not None and "pages" in cache:
-            raise NotImplementedError(
-                "the paged KV cache branch is not yet ported")
-        if cache is not None:
+            out, cache = self._paged(q, k, v, positions, cache)
+        elif cache is not None:
             ck, cv, idx = cache["k"], cache["v"], cache["index"]
             s = x.shape[1]
             k = k.to(ck.dtype)
@@ -152,6 +159,32 @@ class LlamaAttention(nn.Module):
                                         use_flash=cfg.use_flash)
         out = out.reshape(out.shape[:-2] + (cfg.num_heads * cfg.head_dim,))
         return self.o(out), cache
+
+    @staticmethod
+    def _paged(q, k, v, positions, cache):
+        """The paged branch: writes this step's k/v into the pool IN PLACE
+        and attends over the page table's logical view."""
+        pool_k, pool_v = cache["pool_k"], cache["pool_v"]
+        pages, idx = cache["pages"], cache["index"]
+        page = pool_k.shape[1]
+        b, s = q.shape[0], q.shape[1]
+        span = pages.shape[1] * page
+        # absolute positions, clamped so frozen or overshooting rows stay
+        # in their table; such writes are re-written before any query
+        # attends to them
+        pos = (idx[:, None] + torch.arange(s, device=q.device)[None, :]
+               ).clamp(0, span - 1)
+        pg = torch.gather(pages, 1, pos // page)
+        off = pos % page
+        pool_k[pg, off] = k.to(pool_k.dtype)
+        pool_v[pg, off] = v.to(pool_v.dtype)
+        ck = pool_k[pages].reshape(b, span, *pool_k.shape[2:])
+        cv = pool_v[pages].reshape(b, span, *pool_v.shape[2:])
+        pos_k = torch.arange(span, device=q.device)
+        valid = pos_k[None, None, None, :] <= positions[:, None, :, None]
+        out = dot_product_attention(q, ck, cv, mask=valid)
+        return out, {"pool_k": pool_k, "pool_v": pool_v, "pages": pages,
+                     "index": idx + s}
 
 
 class LlamaBlock(nn.Module):
@@ -240,6 +273,28 @@ class LlamaModel(nn.Module):
         if cache is not None:
             out["cache"] = {"layers": new_cache}
         return out
+
+
+def init_kv_pool(cfg: LlamaConfig, num_pages: int, page_size: int, *,
+                 device=None):
+    """Per-layer paged KV pool: ``[num_pages, page_size, Hkv, D]`` k and v
+    tensors in the model dtype, addressed through page tables (page 0 is
+    the null page).  Callers attach ``pages``/``index`` per layer at
+    dispatch time, as ``init_cache`` callers attach ``index``."""
+    device = resolve(device)
+    shape = (num_pages, page_size, cfg.num_kv_heads, cfg.head_dim)
+    dt = cfg.torch_dtype
+    return {"layers": [
+        {"k": torch.zeros(shape, dtype=dt, device=device),
+         "v": torch.zeros(shape, dtype=dt, device=device)}
+        for _ in range(cfg.num_layers)]}
+
+
+def kv_page_nbytes(cfg: LlamaConfig, page_size: int) -> int:
+    """Device bytes one page id covers across every layer (k and v)."""
+    itemsize = torch.empty((), dtype=cfg.torch_dtype).element_size()
+    return (2 * cfg.num_layers * page_size * cfg.num_kv_heads
+            * cfg.head_dim * itemsize)
 
 
 def init_cache(cfg: LlamaConfig, batch: int, max_len: int | None = None,

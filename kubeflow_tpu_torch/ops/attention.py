@@ -1,19 +1,21 @@
 """Multi-head attention core over [B, S, H, D]: the dispatcher.
 
 Counterpart of ``kubeflow_tpu/ops/attention.py``.  Unmasked calls with
-``use_flash`` go to the flash kernel (``ops/flash_attention.py``: the
-Hopper kernel on CUDA, its plain version on the CPU) at every sequence
-length: the reference's ``FLASH_MIN_SEQ`` gate was measured on a TPU and
-is not inherited.  Everything else runs ``plain_attention``, the
-counterpart of ``_xla_attention``.  Ring attention waits for the
-multi-device slice.
+``use_flash`` whose head_dim the kernel is built for (``HEAD_DIMS``) go to
+the flash kernel (``ops/flash_attention.py``: the Hopper kernel on CUDA,
+its plain version on the CPU) at every sequence length, as the
+reference's ``_flash_or_xla`` takes its kernel only when ``supported()``
+holds; the reference's ``FLASH_MIN_SEQ`` gate was measured on a TPU and
+is not inherited.  Everything else (a mask, another head_dim such as
+OpenLLaMA-3B's 100) runs ``plain_attention``, the counterpart of
+``_xla_attention``.  Ring attention waits for the multi-device slice.
 """
 
 from __future__ import annotations
 
 import torch
 
-from kubeflow_tpu_torch.ops.flash_attention import flash_attention
+from kubeflow_tpu_torch.ops.flash_attention import HEAD_DIMS, flash_attention
 from kubeflow_tpu_torch.ops.matmul import matmul_f32
 
 
@@ -67,8 +69,9 @@ def dot_product_attention(q, k, v, *, causal: bool = False, mask=None,
       q, k, v: [B, S, H, D]; K/V may have fewer heads (GQA).
       causal: causal masking, decode-aware when Sq < Sk.
       mask: optional boolean mask broadcastable to [B, H, Sq, Sk].
-      use_flash: route an unmasked call through the flash kernel.
+      use_flash: route an unmasked call through the flash kernel when the
+        kernel is built for its head_dim.
     """
-    if use_flash and mask is None:
+    if use_flash and mask is None and q.shape[-1] in HEAD_DIMS:
         return flash_attention(q, k, v, causal=causal)
     return plain_attention(q, k, v, causal=causal, mask=mask)

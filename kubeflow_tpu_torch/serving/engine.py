@@ -2,9 +2,9 @@
 scheduling), on one CUDA card.
 
 Counterpart of ``kubeflow_tpu/serving/engine.py``'s ``ContinuousBatcher``,
-trimmed to the colocated path with no prefix cache, pages, speculation,
-disaggregation, KV quantization, tenant fair queueing or tracing (ROADMAP
-queue A lists them).  What it keeps:
+trimmed to the colocated path with no speculation, disaggregation, KV
+quantization, cluster prefix directory, weight-residency pressure, tenant
+fair queueing or tracing (ROADMAP queue A lists them).  What it keeps:
 
 - ``max_batch`` slots over one RESIDENT KV view ``[max_batch, max_seq]``
   per layer, held in the model dtype and updated in place; each slot sits
@@ -15,6 +15,15 @@ queue A lists them).  What it keeps:
   seated into the slot's view row.  Padded positions hold garbage that no
   real query reads (causality in prefill, and decode overwrites a position
   before any query attends to it), so the scratch is reused unzeroed;
+- with ``prefix_cache_bytes`` > 0, the radix prefix cache over a
+  refcounted page pool (``serving/prefix_cache.py``,
+  ``serving/page_pool.py``): admission matches the prompt's longest
+  cached prefix, seeds the scratch head from its pages (one gather per
+  layer), prefills only the suffix (the flash kernel with causal offset
+  ``sk - sq`` = the matched length), and commits the prompt's new full
+  pages (one scatter per layer) into the tree.  Decode never reads pages:
+  it stays on the resident view, as in the reference.  Without a prefix
+  cache the pool is bookkeeping only and holds no device rows;
 - decode runs in chunks of ``DECODE_CHUNKS`` steps between host syncs,
   sized as the reference sizes them (overshoot of up to 25% beats a second
   sync; overshoot tokens are dropped and the index restored from host
@@ -34,6 +43,9 @@ from dataclasses import dataclass, field
 
 import torch
 
+from kubeflow_tpu_torch.models.llama import init_kv_pool, kv_page_nbytes
+from kubeflow_tpu_torch.serving.page_pool import PagePool, pages_for
+from kubeflow_tpu_torch.serving.prefix_cache import PrefixCache
 from kubeflow_tpu_torch.utils.logging import get_logger
 from kubeflow_tpu_torch.utils.metrics import REGISTRY
 
@@ -61,6 +73,12 @@ PREFILL_DISPATCHES = REGISTRY.counter(
 PREFILL_TOKENS = REGISTRY.counter(
     "serving_prefill_tokens_total",
     "real prompt tokens run through prefill compute")
+PREFIX_HITS = REGISTRY.counter(
+    "serving_prefix_cache_hits_total",
+    "admissions that reused a cached prompt prefix")
+PREFIX_MISSES = REGISTRY.counter(
+    "serving_prefix_cache_misses_total",
+    "admissions with no reusable cached prefix")
 ADMISSION_WAIT = REGISTRY.histogram(
     "serving_admission_wait_seconds",
     "queue wait from submit() to slot admission",
@@ -145,7 +163,9 @@ class ContinuousBatcher:
 
     def __init__(self, model, cfg, *, max_batch: int = 4,
                  max_seq: int = 512, prefill_chunk: int = 512,
-                 max_queue: int = 0):
+                 max_queue: int = 0, prefix_cache_bytes: int = 0,
+                 page_size: int = 16, kv_pages: int = 0,
+                 host_kv_pages: int = 0):
         self.model = model
         self.cfg = cfg
         self.device = model.device
@@ -154,6 +174,26 @@ class ContinuousBatcher:
         self.prefill_chunk = max(1, min(prefill_chunk, self.max_seq))
         self.max_queue = max_queue
         self.log = get_logger("serving.batcher")
+        # clamped like prefill_chunk: a page longer than max_seq could
+        # never be committed
+        self.page_size = max(1, min(int(page_size), self.max_seq))
+        self.pages_per_seq = pages_for(self.max_seq, self.page_size)
+        self.page_nbytes = kv_page_nbytes(cfg, self.page_size)
+        cache_pages = 0
+        if prefix_cache_bytes > 0:
+            cache_pages = max(1, int(prefix_cache_bytes) // self.page_nbytes)
+        if kv_pages <= 0:
+            # the cache's allowance plus every slot's in-flight prompt
+            # pages (an upper bound: they become cache entries)
+            kv_pages = 1 + cache_pages + max_batch * self.pages_per_seq
+        # device rows only for a prefix cache: without one nothing ever
+        # commits a page, and the default engine's memory stays as it was
+        kv = (init_kv_pool(cfg, kv_pages, self.page_size, device=self.device)
+              if cache_pages else None)
+        self.pool = PagePool(kv_pages, self.page_size, self.page_nbytes,
+                             host_pages=max(0, int(host_kv_pages)), kv=kv)
+        self.prefix_cache = (PrefixCache(self.pool, cache_pages)
+                             if cache_pages else None)
         shape = (max_batch, self.max_seq, cfg.num_kv_heads, cfg.head_dim)
         dt = cfg.torch_dtype
         self.view = [{"k": torch.zeros(shape, dtype=dt, device=self.device),
@@ -250,6 +290,8 @@ class ContinuousBatcher:
         """Load snapshot: requests decoding, queued, slot capacity, plus
         this engine's TTFT and decode tallies."""
         with self._work:
+            live_tokens = sum(len(s.ids) + len(s.generated)
+                              for s in self.slots if s is not None)
             out = {"active": sum(1 for s in self.slots if s is not None),
                    "queued": len(self.queue),
                    "max_batch": self.max_batch,
@@ -258,6 +300,17 @@ class ContinuousBatcher:
                 out["max_queue"] = self.max_queue
             if self._draining:
                 out["draining"] = True
+        pool = self.pool.stats()
+        pool["live_tokens"] = live_tokens
+        cache = (self.prefix_cache.stats() if self.prefix_cache is not None
+                 else None)
+        # pages held by nobody but an in-flight admission: 0 whenever the
+        # engine is idle (every committed page is cache-owned or freed)
+        pool["orphan_pages"] = pool["in_use"] - (cache["pages"] if cache
+                                                 else 0)
+        out["kv_pool"] = pool
+        if cache is not None:
+            out["prefix_cache"] = cache
         return out
 
     def _estimated_wait_locked(self) -> float:
@@ -435,31 +488,101 @@ class ContinuousBatcher:
     def _run_prefill(self, req: GenRequest) -> int | None:
         """Prefill the prompt into the batch-1 scratch in chunks and sample
         the first token at the last real position; None when the request
-        died between chunks."""
+        died between chunks (the pin is still released).
+
+        With a prefix cache, a longest-prefix HIT seeds the scratch head
+        from the cached pages and prefills only the suffix; the prompt's
+        new pages are then committed and inserted into the radix tree
+        inside the pin window.  The per-position KV and the last
+        position's logits do not depend on how the prompt is split, so
+        warm and cold streams are the same."""
         prompt_len = len(req.ids)
         scratch = self._scratch()
-        pos = 0
-        while True:
-            if self._dead_outcome(req) is not None:
-                return None
-            take = min(prompt_len - pos, self.prefill_chunk)
-            # pad to a bucket, never past max_seq
-            room = self.max_seq - pos
-            cb = next((b for b in PREFILL_BUCKETS if take <= b <= room),
-                      take)
-            chunk = req.ids[pos:pos + take] + [0] * (cb - take)
-            ids = torch.tensor([chunk], dtype=torch.int64,
-                               device=self.device)
-            cache = {"layers": [dict(l, index=pos) for l in scratch]}
-            out = self.model(ids, cache=cache)
-            PREFILL_DISPATCHES.inc()
-            PREFILL_TOKENS.inc(take)
-            with self._work:
-                self._timing["prefill_chunks"] += 1
-            pos += take
-            if pos >= prompt_len:
-                logits = out["logits"][0, take - 1][None]
-                return int(sample_rows(logits, [req], [req._gen])[0])
+        node, usable = None, 0
+        if self.prefix_cache is not None:
+            node, matched = self.prefix_cache.match(req.ids, pin=True)
+            # always leave >= 1 suffix token: the first token's logits
+            # come from the suffix prefill (pages hold KV, not logits)
+            usable = min(matched, prompt_len - 1)
+            if node is not None and usable <= 0:
+                self.prefix_cache.release(node)
+                node, usable = None, 0
+            (PREFIX_HITS if node is not None else PREFIX_MISSES).inc()
+        try:
+            if node is not None:
+                # spilled pages fault back before the gather reads them
+                # (same stream); the tail page's positions past ``usable``
+                # and the scratch beyond the seed hold garbage that the
+                # suffix prefill overwrites before any query reads it.
+                # Cached pages lie inside max_seq, so the seed fits.
+                n_seed = pages_for(usable, self.page_size)
+                span = n_seed * self.page_size
+                self.prefix_cache.fault(node)
+                self.pool.gather(node.pages[:n_seed],
+                                 [(l["k"][0, :span], l["v"][0, :span])
+                                  for l in scratch])
+            pos = usable
+            while True:
+                if self._dead_outcome(req) is not None:
+                    return None
+                take = min(prompt_len - pos, self.prefill_chunk)
+                # pad to a bucket, never past max_seq
+                room = self.max_seq - pos
+                cb = next((b for b in PREFILL_BUCKETS if take <= b <= room),
+                          take)
+                chunk = req.ids[pos:pos + take] + [0] * (cb - take)
+                ids = torch.tensor([chunk], dtype=torch.int64,
+                                   device=self.device)
+                cache = {"layers": [dict(l, index=pos) for l in scratch]}
+                out = self.model(ids, cache=cache)
+                PREFILL_DISPATCHES.inc()
+                PREFILL_TOKENS.inc(take)
+                with self._work:
+                    self._timing["prefill_chunks"] += 1
+                pos += take
+                if pos >= prompt_len:
+                    break
+            logits = out["logits"][0, take - 1][None]
+            tok = int(sample_rows(logits, [req], [req._gen])[0])
+            fully_cached = node is not None and usable >= prompt_len - 1
+            if self.prefix_cache is not None and not fully_cached:
+                # cache the whole prompt: shared pages by reference, only
+                # the pages past the match are committed
+                self._commit_and_insert(req.ids, usable, node, scratch)
+            return tok
+        finally:
+            if node is not None:
+                self.prefix_cache.release(node)
+
+    def _commit_and_insert(self, ids: list[int], usable: int, node,
+                           scratch: list[dict]) -> None:
+        """Commit the prompt's new pages (past the shared prefix) from the
+        prefill scratch into the pool and insert the prompt into the radix
+        tree.  Pool pressure evicts LRU cache entries; if the pool still
+        cannot host the pages the prompt is not cached: admission never
+        blocks on cache capacity."""
+        ps = self.page_size
+        # only pages that lie FULLY inside the scratch: a page straddling
+        # max_seq would hold positions the scratch does not have.  The
+        # uncovered prompt tail is not cached.
+        needed = min(pages_for(len(ids), ps), self.max_seq // ps)
+        ids = ids[:needed * ps]
+        shared = usable // ps if node is not None else 0
+        n_new = needed - shared
+        if n_new <= 0 or not ids:
+            return
+        fresh = self.pool.alloc(n_new)
+        while fresh is None:
+            if not self.prefix_cache.evict_lru():
+                return
+            fresh = self.pool.alloc(n_new)
+        first, end = shared * ps, needed * ps
+        self.pool.put_many(fresh, [(l["k"][0, first:end],
+                                    l["v"][0, first:end]) for l in scratch])
+        shared_ids = list(node.pages[:shared]) if shared else []
+        self.prefix_cache.insert(ids, shared_ids + fresh)
+        # the tree holds its own references now; drop the alloc's
+        self.pool.decref(fresh)
 
     def _seat(self, free: int, req: GenRequest) -> None:
         """Install the prefilled scratch as slot ``free``'s view row and

@@ -1,9 +1,11 @@
 """Predictor runtime on one CUDA card: the process behind an
 InferenceService.
 
-Counterpart of ``kubeflow_tpu/serving/predictor.py``, trimmed to this
-slice: a generative Llama predictor in the default configuration
-(colocated, no prefix cache, no speculation, no quantization, one card).
+Counterpart of ``kubeflow_tpu/serving/predictor.py``, trimmed to the
+port's slices: a generative Llama predictor, colocated on one card, with
+the radix prefix cache over paged KV when ``--prefix-cache-mb`` > 0
+(``--kv-page-size``, ``--host-kv-pages``); no speculation, no
+quantization, no disaggregation.
 Routes, as the reference serves them:
 
     GET  /healthz                          ready / draining
@@ -16,7 +18,8 @@ Routes, as the reference serves them:
 
 Overload maps as in the reference: queue full 429 (+ Retry-After),
 draining 503, deadline 504, bad request 422.  Run it with
-``python -m kubeflow_tpu_torch.serving.predictor --model llama:size=7b``.
+``python -m kubeflow_tpu_torch.serving.predictor --model llama:size=7b``
+(add ``--prefix-cache-mb 2048`` to reuse shared prompt prefixes).
 """
 
 from __future__ import annotations
@@ -40,13 +43,18 @@ class GenerativePredictor:
     Weights come from ``state`` (a state dict, e.g. from
     ``models.convert.from_jax_params``) or, without one, from a seeded
     random init made on the device.  The model holds its weights in the
-    compute dtype."""
+    compute dtype.  ``prefix_cache_mb`` > 0 opts into radix-tree KV prefix
+    reuse over shared refcounted pages of ``kv_page_size`` positions (a
+    budget in MB of device memory); ``host_kv_pages`` > 0 opens a host-RAM
+    arena of that many pages that the cache spills to before it drops."""
 
     def __init__(self, model_name: str = "llama", size: str = "tiny",
                  model_config: dict | None = None,
                  state: dict[str, torch.Tensor] | None = None,
                  max_batch: int = 4, max_seq: int = 512, seed: int = 0,
                  prefill_chunk: int = 512, max_queue: int = 0,
+                 prefix_cache_mb: float = 0.0, kv_page_size: int = 16,
+                 host_kv_pages: int = 0,
                  device: str | torch.device | None = None):
         from kubeflow_tpu_torch.models import registry
 
@@ -71,7 +79,11 @@ class GenerativePredictor:
                                         max_batch=max_batch,
                                         max_seq=self.max_seq,
                                         prefill_chunk=prefill_chunk,
-                                        max_queue=max_queue)
+                                        max_queue=max_queue,
+                                        prefix_cache_bytes=int(
+                                            prefix_cache_mb * (1 << 20)),
+                                        page_size=kv_page_size,
+                                        host_kv_pages=host_kv_pages)
         self.log.info("predictor ready", device=str(device),
                       params=sum(p.numel() for p in self.module.parameters()))
 
@@ -225,15 +237,13 @@ class PredictorApp:
 # flags of the reference predictor this slice does not serve yet, with the
 # default that means "off"; setting one away from it is an error
 _UNSUPPORTED_FLAGS = {
-    "checkpoint_dir": None, "prefix_cache_mb": 0.0, "kv_page_size": 16,
-    "host_kv_pages": 0, "speculative_tokens": 0, "draft_layers": 0,
+    "checkpoint_dir": None, "speculative_tokens": 0, "draft_layers": 0,
     "role": "colocated", "kv_quant": False, "weight_budget_mb": 0.0,
     "staging_mb": 64.0,
 }
 # per-model options (``--model name:k=v``) likewise unsupported when set
 _UNSUPPORTED_OPTS = {
     "checkpoint_dir": "", "quantize": "", "tp": "1", "ep": "1",
-    "prefix_cache_mb": "0", "kv_page_size": "16", "host_kv_pages": "0",
     "speculative_tokens": "0", "draft_layers": "0", "role": "colocated",
     "kv_quant": "", "staging_mb": "64", "parked": "", "moe_experts": "0",
 }
@@ -247,6 +257,7 @@ def _parse_model_spec(spec: str, args) -> tuple[str, dict]:
             raise SystemExit(f"--model option {key}={opts[key]} is not yet "
                              "supported by the PyTorch predictor")
     known = {"size", "max_batch", "max_seq", "prefill_chunk", "max_queue",
+             "prefix_cache_mb", "kv_page_size", "host_kv_pages",
              *_UNSUPPORTED_OPTS}
     unknown = sorted(set(opts) - known)
     if unknown:
@@ -255,7 +266,12 @@ def _parse_model_spec(spec: str, args) -> tuple[str, dict]:
           "max_batch": int(opts.get("max_batch", args.max_batch)),
           "max_seq": int(opts.get("max_seq", args.max_seq)),
           "prefill_chunk": int(opts.get("prefill_chunk", args.prefill_chunk)),
-          "max_queue": int(opts.get("max_queue", args.max_queue))}
+          "max_queue": int(opts.get("max_queue", args.max_queue)),
+          "prefix_cache_mb": float(opts.get("prefix_cache_mb",
+                                            args.prefix_cache_mb)),
+          "kv_page_size": int(opts.get("kv_page_size", args.kv_page_size)),
+          "host_kv_pages": int(opts.get("host_kv_pages",
+                                        args.host_kv_pages))}
     return name, kw
 
 

@@ -48,6 +48,9 @@ class BoundLogger:
     def info(self, msg: str, **kv: Any) -> None:
         self._log(logging.INFO, msg, kv)
 
+    def warning(self, msg: str, exc_info=None, **kv: Any) -> None:
+        self._log(logging.WARNING, msg, kv, exc_info=exc_info)
+
     def error(self, msg: str, exc_info=None, **kv: Any) -> None:
         self._log(logging.ERROR, msg, kv, exc_info=exc_info)
 

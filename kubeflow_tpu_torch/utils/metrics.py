@@ -1,8 +1,9 @@
 """Prometheus-style metrics registry (text exposition format).
 
 The port's own copy of ``kubeflow_tpu/utils/metrics.py``, trimmed to what
-the serving engine and the predictor's ``/metrics`` use: labelled
-counters, gauges and cumulative-bucket histograms.
+the serving engine, the page pool, the prefix cache and the predictor's
+``/metrics`` use: labelled counters and gauges (readable with ``get``)
+and cumulative-bucket histograms.
 """
 
 from __future__ import annotations
@@ -34,6 +35,12 @@ class _Metric:
     def _set(self, key: tuple, value: float) -> None:
         with self._lock:
             self._values[key] = value
+
+    def get(self, *label_values: str) -> float:
+        """The current value of one label set (0 before its first write)."""
+        with self._lock:
+            return self._values.get(tuple(str(v) for v in label_values),
+                                    0.0)
 
     def expose(self, kind: str) -> str:
         lines = [f"# HELP {self.name} {self.help}",

@@ -70,7 +70,9 @@ def test_wider_value_dtype_promotes_like_the_reference():
 
 
 def test_dispatch_flash_only_when_unmasked():
-    (jq, jk, jv), mask = inputs(2, 1, 7, 7, 4, 2, 16, "float32", 1)
+    # head_dim 64: one the kernel is built for, so the unmasked call is
+    # the flash route's
+    (jq, jk, jv), mask = inputs(2, 1, 7, 7, 4, 2, 64, "float32", 1)
     q, k, v = to_torch(jq), to_torch(jk), to_torch(jv)
     plain = plain_attention(q, k, v, causal=True)
     flash = dot_product_attention(q, k, v, causal=True, use_flash=True)
@@ -80,3 +82,32 @@ def test_dispatch_flash_only_when_unmasked():
         dot_product_attention(q, k, v, mask=m, use_flash=True),
         plain_attention(q, k, v, causal=False, mask=m))
 
+
+
+@pytest.mark.parametrize("d,route", [(100, "plain"), (64, "flash"),
+                                     (128, "flash")])
+def test_dispatch_gates_flash_on_built_head_dims(d, route, monkeypatch):
+    # as the reference takes its kernel only where supported() holds, a
+    # head_dim the kernel is not built for (OpenLLaMA-3B's 100) runs the
+    # plain route instead of reaching a kernel wrapper that would raise
+    from kubeflow_tpu_torch.ops import attention
+
+    calls = []
+
+    def recorder(name, fn):
+        def wrapped(*a, **kw):
+            calls.append(name)
+            return fn(*a, **kw)
+        return wrapped
+
+    monkeypatch.setattr(attention, "flash_attention",
+                        recorder("flash", attention.flash_attention))
+    monkeypatch.setattr(attention, "plain_attention",
+                        recorder("plain", attention.plain_attention))
+    (jq, jk, jv), _ = inputs(3, 1, 9, 9, 4, 2, d, "float32", 0)
+    q, k, v = to_torch(jq), to_torch(jk), to_torch(jv)
+    out = dot_product_attention(q, k, v, causal=True, use_flash=True)
+    assert calls == [route]
+    ref = _xla_attention(jq, jk, jv, causal=True, mask=None,
+                         softmax_dtype=jnp.float32)
+    assert np.max(np.abs(out.numpy() - np.asarray(ref))) < TOL["float32"]

@@ -30,8 +30,19 @@ from kubeflow_tpu.parallel.sharding import unbox_params
 from kubeflow_tpu_torch.models import bert as tbert
 from kubeflow_tpu_torch.models import convert
 from kubeflow_tpu_torch.models import registry as treg
+from kubeflow_tpu_torch.ops import attention as tattention
 
 B, S, P = 2, 32, 5
+
+
+@pytest.fixture(autouse=True)
+def flash_route_at_head_dim_16(monkeypatch):
+    """The dispatcher takes the flash route only at the head dims the
+    kernel is built for; the tiny models' head_dim is 16, so it joins them
+    here and the ``use_flash`` cases run the flash Function's plain
+    versions through the model."""
+    monkeypatch.setattr(tattention, "HEAD_DIMS",
+                        tattention.HEAD_DIMS + (16,))
 
 
 @pytest.fixture(scope="module")

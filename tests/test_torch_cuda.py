@@ -323,3 +323,78 @@ def test_adamw_update_holds_one_chunk_of_temporaries(cuda_device):
     assert torch.isfinite(params[-1]).all()
     del params, grads, tx
     torch.cuda.empty_cache()
+
+
+@pytest.mark.cuda
+def test_unbuilt_head_dim_runs_the_plain_route(cuda_device):
+    # OpenLLaMA-3B's head_dim 100: the dispatcher takes the plain route
+    # (no launch, no raise) and gives plain_attention's output exactly
+    from kubeflow_tpu_torch.ops.attention import (dot_product_attention,
+                                                  plain_attention)
+
+    g = torch.Generator(device=cuda_device).manual_seed(8)
+    q, k, v = (torch.randn(1, 300, 32, 100, generator=g, device=cuda_device)
+               .bfloat16() for _ in range(3))
+    before = tfa.flash_attention.launches
+    out = dot_product_attention(q, k, v, causal=True, use_flash=True)
+    assert tfa.flash_attention.launches == before
+    assert torch.equal(out, plain_attention(q, k, v, causal=True))
+
+
+@pytest.mark.cuda
+def test_pool_seed_and_commit_are_bitwise_page_copies(cuda_device):
+    # the engine's commit (one scatter per layer) and seed (one gather per
+    # layer) at bf16 against a plain loop over pages
+    from kubeflow_tpu_torch.models import llama
+    from kubeflow_tpu_torch.serving.page_pool import PagePool
+
+    cfg = llama.llama_tiny()
+    ps, n = 16, 5
+    pool = PagePool(12, ps, host_pages=4,
+                    kv=llama.init_kv_pool(cfg, 12, ps, device=cuda_device))
+    g = torch.Generator(device=cuda_device).manual_seed(9)
+    scratch = [tuple(torch.randn(n * ps, cfg.num_kv_heads, cfg.head_dim,
+                                 generator=g, device=cuda_device).bfloat16()
+                     for _ in range(2)) for _ in range(cfg.num_layers)]
+    ids = pool.alloc(n)
+    pool.put_many(ids, scratch)
+    for i, p in enumerate(ids):
+        for layer, (k, v) in zip(pool.get(p)["layers"], scratch):
+            assert torch.equal(layer["k"], k[i * ps:(i + 1) * ps])
+            assert torch.equal(layer["v"], v[i * ps:(i + 1) * ps])
+    # spill two pages to the pinned arena and fault them back first
+    assert pool.spill(ids[:2]) == ids[:2]
+    assert pool.fault(ids[:2]) == 2
+    order = ids[::-1]
+    out = [tuple(torch.empty_like(t) for t in layer) for layer in scratch]
+    pool.gather(order, out)
+    for (k, v), (sk, sv) in zip(out, scratch):
+        for i, p in enumerate(order):
+            j = ids.index(p)
+            assert torch.equal(k[i * ps:(i + 1) * ps], sk[j * ps:(j + 1) * ps])
+            assert torch.equal(v[i * ps:(i + 1) * ps], sv[j * ps:(j + 1) * ps])
+
+
+@pytest.mark.cuda
+def test_paged_branch_matches_contiguous_on_the_card(cuda_device):
+    # tiny Llama in bf16 on the card, both caches through the plain masked
+    # route over the same 64 key positions: the same products on the same
+    # values, so the logits agree to 1e-6 of max |logit| (bitwise expected)
+    from kubeflow_tpu_torch.models import llama
+
+    model = llama.LlamaModel(llama.llama_tiny(),
+                             device=cuda_device).init_weights(0)
+    cfg = model.config
+    ids = torch.randint(1, 512, (2, 20), generator=torch.Generator()
+                        .manual_seed(0)).to(cuda_device)
+    with torch.no_grad():
+        ref = model(ids, cache=llama.init_cache(cfg, 2, 64, per_sequence=True,
+                                                device=cuda_device))
+        pool = llama.init_kv_pool(cfg, 9, 16, device=cuda_device)
+        tables = torch.tensor([[1, 2, 3, 4], [5, 6, 7, 8]], device=cuda_device)
+        out = model(ids, cache={"layers": [
+            dict(pool_k=l["k"], pool_v=l["v"], pages=tables,
+                 index=torch.zeros(2, dtype=torch.long, device=cuda_device))
+            for l in pool["layers"]]})
+    scale = ref["logits"].abs().max().item()
+    assert (out["logits"] - ref["logits"]).abs().max().item() <= 1e-6 * scale

@@ -58,6 +58,8 @@ def test_imports_load_no_jax_and_no_reference_package(which):
                else ["chip_smoke"] + smoke_imports())
     assert set(port_modules()) >= {
         "kubeflow_tpu_torch.serving.engine",
+        "kubeflow_tpu_torch.serving.page_pool",
+        "kubeflow_tpu_torch.serving.prefix_cache",
         "kubeflow_tpu_torch.models.bert",
         "kubeflow_tpu_torch.parallel.train_step",
         "kubeflow_tpu_torch.parallel.distributed",

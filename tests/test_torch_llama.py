@@ -23,8 +23,19 @@ from kubeflow_tpu.parallel.sharding import unbox_params
 from kubeflow_tpu_torch import device as tdevice
 from kubeflow_tpu_torch.models import convert
 from kubeflow_tpu_torch.models import llama as tl
+from kubeflow_tpu_torch.ops import attention as tattention
 
 TOL = {"float32": 1e-5, "bfloat16": 3e-2}
+
+
+@pytest.fixture(autouse=True)
+def flash_route_at_head_dim_16(monkeypatch):
+    """The dispatcher takes the flash route only at the head dims the
+    kernel is built for; the tiny models' head_dim is 16, so it joins them
+    here and the ``use_flash`` cases run the flash Function's plain
+    versions through the model."""
+    monkeypatch.setattr(tattention, "HEAD_DIMS",
+                        tattention.HEAD_DIMS + (16,))
 
 
 @pytest.fixture(scope="module")
@@ -143,11 +154,15 @@ def test_per_sequence_ragged_prefill_and_decode(jax_params):
 def test_unported_branches_raise():
     with pytest.raises(NotImplementedError, match="MoE"):
         tl.LlamaModel(tl.llama_tiny(moe_experts=2), device="cpu")
+    # the paged branch is ported: a page-table cache runs and advances
     tm = tl.LlamaModel(tl.llama_tiny(), device="cpu").init_weights(0)
-    cache = tl.init_cache(tm.config, 1, 16, device="cpu")
-    cache["layers"] = [dict(l, pages=None) for l in cache["layers"]]
-    with pytest.raises(NotImplementedError, match="paged"):
-        tm(torch.zeros((1, 2), dtype=torch.long), cache=cache)
+    pool = tl.init_kv_pool(tm.config, 4, 8, device="cpu")
+    cache = {"layers": [dict(pool_k=l["k"], pool_v=l["v"],
+                             pages=torch.tensor([[1, 2]]),
+                             index=torch.zeros(1, dtype=torch.long))
+                        for l in pool["layers"]]}
+    out = tm(torch.zeros((1, 2), dtype=torch.long), cache=cache)
+    assert out["cache"]["layers"][0]["index"].tolist() == [2]
 
 
 def test_device_defaults_to_cuda_and_never_falls_back(monkeypatch):

@@ -38,6 +38,7 @@ from kubeflow_tpu.training import optim as joptim
 from kubeflow_tpu_torch.models import convert
 from kubeflow_tpu_torch.models import llama as tl
 from kubeflow_tpu_torch.models import registry as treg
+from kubeflow_tpu_torch.ops import attention as tattention
 from kubeflow_tpu_torch.parallel import train_step as tts
 from kubeflow_tpu_torch.training import optim as toptim
 from kubeflow_tpu_torch.training.trainer import Trainer, TrainerConfig
@@ -45,6 +46,16 @@ from kubeflow_tpu_torch.training.trainer import Trainer, TrainerConfig
 B, S, STEPS, VOCAB = 4, 32, 5, 512
 OPT = {"name": "adamw", "learning_rate": 3e-3, "weight_decay": 0.01,
        "schedule": "linear", "warmup_steps": 2, "total_steps": 10}
+
+
+@pytest.fixture(autouse=True)
+def flash_route_at_head_dim_16(monkeypatch):
+    """The dispatcher takes the flash route only at the head dims the
+    kernel is built for; the tiny models' head_dim is 16, so it joins them
+    here and the ``use_flash`` cases run the flash Function's plain
+    versions through the model."""
+    monkeypatch.setattr(tattention, "HEAD_DIMS",
+                        tattention.HEAD_DIMS + (16,))
 
 
 def numpy_batch(seed=0):

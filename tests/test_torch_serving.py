@@ -24,10 +24,21 @@ from kubeflow_tpu.serving.engine import ContinuousBatcher as JaxBatcher
 from kubeflow_tpu.serving.engine import _filter_logits
 from kubeflow_tpu_torch.models import convert
 from kubeflow_tpu_torch.models import llama as tl
+from kubeflow_tpu_torch.ops import attention as tattention
 from kubeflow_tpu_torch.serving import engine as teng
 from kubeflow_tpu_torch.serving import predictor as tpred
 
 MAX_SEQ, CHUNK = 128, 16
+
+
+@pytest.fixture(autouse=True)
+def flash_route_at_head_dim_16(monkeypatch):
+    """The dispatcher takes the flash route only at the head dims the
+    kernel is built for; the tiny models' head_dim is 16, so it joins them
+    here and the ``use_flash`` cases run the flash Function's plain
+    versions through the model."""
+    monkeypatch.setattr(tattention, "HEAD_DIMS",
+                        tattention.HEAD_DIMS + (16,))
 
 
 @pytest.fixture(scope="module")
@@ -198,7 +209,7 @@ def test_bounded_queue_sheds_and_drain_rejects(jax_side):
 
 
 @pytest.mark.parametrize("argv,flag", [
-    (["--prefix-cache-mb", "8"], "--prefix-cache-mb"),
+    (["--kv-quant"], "--kv-quant"),
     (["--speculative-tokens", "4"], "--speculative-tokens"),
     (["--role", "prefill"], "--role"),
     (["--checkpoint-dir", "/ckpt"], "--checkpoint-dir"),
@@ -207,6 +218,56 @@ def test_main_refuses_unported_flags(argv, flag, capsys):
     with pytest.raises(SystemExit):
         tpred.main(argv + ["--device", "cpu"])
     assert flag in capsys.readouterr().err
+
+
+class _Built(Exception):
+    """Raised by the predictor stand-in once main() has built its args."""
+
+
+@pytest.mark.parametrize("argv,want", [
+    (["--prefix-cache-mb", "8"], {"prefix_cache_mb": 8.0}),
+    (["--kv-page-size", "32"], {"kv_page_size": 32}),
+    (["--host-kv-pages", "64"], {"host_kv_pages": 64}),
+    (["--model", "llama:prefix_cache_mb=4,kv_page_size=8,host_kv_pages=2"],
+     {"prefix_cache_mb": 4.0, "kv_page_size": 8, "host_kv_pages": 2}),
+])
+def test_main_accepts_prefix_cache_flags(argv, want, monkeypatch):
+    seen = {}
+
+    def built(name, **kw):
+        seen.update(kw)
+        raise _Built
+
+    monkeypatch.setattr(tpred, "GenerativePredictor", built)
+    with pytest.raises(_Built):
+        tpred.main(argv + ["--device", "cpu"])
+    defaults = {"prefix_cache_mb": 0.0, "kv_page_size": 16,
+                "host_kv_pages": 0}
+    assert {k: seen[k] for k in defaults} == {**defaults, **want}
+
+
+def test_prefix_cache_options_reach_the_engine(jax_side):
+    _, _, params = jax_side
+    tcfg = tl.llama_tiny(dtype="float32")
+    pred = tpred.GenerativePredictor(
+        "llama", size="tiny", model_config={"dtype": "float32"},
+        state=convert.from_jax_params(jax.tree.map(np.asarray, params),
+                                      tcfg),
+        max_seq=MAX_SEQ, device="cpu", prefix_cache_mb=0.5,
+        kv_page_size=32, host_kv_pages=3)
+    try:
+        eng = pred.engine
+        page = tl.kv_page_nbytes(tcfg, 32)
+        assert eng.page_size == 32 and eng.pool.host_pages == 3
+        assert eng.prefix_cache.max_pages == (1 << 19) // page
+        status, meta, _ = wsgi(tpred.PredictorApp({"llama": pred}), "GET",
+                               "/v1/models/llama")
+        assert status == 200
+        assert meta["stats"]["prefix_cache"]["max_pages"] == (1 << 19) // page
+        assert meta["stats"]["kv_pool"]["host_capacity"] == 3
+        assert meta["stats"]["kv_pool"]["orphan_pages"] == 0
+    finally:
+        pred.stop(timeout=10)
 
 
 def test_main_refuses_unported_model_options():
