@@ -3,10 +3,12 @@
 
     python3 chip_smoke.py                 # every phase below
     python3 chip_smoke.py --kernel-times  # build, then K1-K3 times only
+    python3 chip_smoke.py --phases 9,11   # build, then those phases only
+                                          # (9, 10, 11; no result line)
 
-Phases, numbered as PERF.md cites them, run in the order 1, 2, 3, 7, 4,
-5, 6, 8 (phase 7's pages are freed before training); any failure exits
-nonzero and prints no result:
+Phases, numbered as PERF.md cites them, run in the order 1, 2, 3, 7, 11,
+9, 4, 5, 10, 6, 8 (each phase frees its models before the next); any
+failure exits nonzero and prints no result:
 
 1. Build every CUDA kernel of the port from ``kubeflow_tpu_torch/ops/csrc``
    (one nvcc per source, all at once); fail if ptxas reports a spill or
@@ -71,12 +73,56 @@ nonzero and prints no result:
    pages fault back bitwise equal and its stream repeats the earlier
    hit's.
 8. Numbers: the card's name and power limit; each kernel's device time at
-   its main-path shapes (phases 2, 4, 5 and 7) beside its bound, its plain
-   version's time and a PyTorch call that computes the same function
-   (``scaled_dot_product_attention`` forward, and its backward for K2 and
-   K3: yardsticks the port never calls); K1, K2 and K3 beside their bounds
-   at a causal D=128 shape of one 2048-token sequence; TTFT and decode
-   tokens/s of phase 2; samples/s of every training run.
+   its main-path shapes (phases 2, 4, 5, 7, 9, 10 and 11) beside its
+   bound, its plain version's time and a PyTorch call that computes the
+   same function (``scaled_dot_product_attention`` forward, and its
+   backward for K2 and K3: yardsticks the port never calls); K1, K2 and K3
+   beside their bounds at a causal D=128 shape of one 2048-token sequence;
+   TTFT and decode tokens/s of phases 2 and 9; samples/s of every training
+   run; phase 11's tokens/s per mode.  Phase 9 runs K1 at phase 2's
+   shapes and phase 10 at phase 5's, so their rows carry those shapes'
+   times with their own launches.  Phase 11's K1 calls are timed per
+   distinct (Sq, Sk), except that the drafter's short calls (Sq <= 16) are
+   timed at Sk rounded up to a multiple of 256; their bounds are computed
+   from each call's own shape.
+9. MoE serving at full width: phase 2's requests through a
+   ``GenerativePredictor`` of Llama-2-7B's width and depth with
+   ``moe_experts`` 8 on every second layer (16 MoE layers of 8 GELU
+   experts, top-2; 15.98 B parameters in bf16, the routers in float32),
+   random weights from seed 0, over HTTP.  K1 must launch 32 x the prefill
+   chunks; re-sent requests reproduce their tokens; every K1 call of a
+   chunked 1500-token prefill is held against the plain version; one
+   prompt's prefill logits (dropless, through a cache) through the kernel
+   and through the plain routes agree within 1e-1 of max |logit|; every
+   router parameter is float32.  Then one MoE block at hidden 512 with 8
+   experts, float32, in both modes, on the card against the same block on
+   the CPU (1e-5 relative; the capacity drops printed and equal), and the
+   device time by operator of one 512-token chunk and one 4-row decode
+   step.
+10. MoE training: Llama-2-7B's width with ``moe_experts`` 8,
+   ``MOE_LAYERS`` of its 32 layers (half of them MoE), float32 masters,
+   bf16 compute, remat, batch 16 x 512, adamw at lr 1e-4, 5 steps through
+   the worker entrypoint:
+   finite losses, every step's ``moe_aux`` above 0, K1 2L, K2 and K3 L
+   launches per step; the in-step check; the step by operator; peak memory
+   under 90% of the card.
+11. Speculative decoding: phase 2's 7B model and settings with
+   ``speculative_tokens`` 4 and ``draft_layers`` 4 (a ``GenerativePredictor``
+   over HTTP: the target's first 4 blocks draft), and on the same weights
+   an engine without speculation, an n-gram engine, and an engine whose
+   drafter proposes the stream without speculation (the oracle: the
+   ceiling of speculation on this traffic).  Each serves phase 2's four
+   prompts and a 512-token prompt of one 64-token block repeated 8 times,
+   one request at a time, 64 greedy tokens each.  Every token a verify
+   round keeps must be that round's own choice; one verify forward's
+   logits must agree with sequential decode's within 1e-1 of max |logit|;
+   each speculative stream must equal the stream without speculation up to
+   the first position whose top-1/top-2 margin is below twice that
+   measured difference (bf16 GEMMs of other M round differently, so exact
+   identity is held on the CPU only); K1 must launch 32 x the prefill
+   chunks plus 4 per drafter forward.  Rounds, proposed and accepted
+   drafts, accept rate and tokens/s per mode, and the memory the drafter
+   adds.
 
 The line before the last is the ``kernels`` JSON object; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -170,6 +216,38 @@ LLAMA_LAUNCHES = {"flash_fwd": 2 * LLAMA_LAYERS,
 # (model, steps), global batch 128; ResNet-50 at 224 x 224
 VISION_RUNS = (("mnist_mlp", 3), ("cifar_convnet", 3), ("resnet50", 10))
 VISION_BATCH = 128
+# phase 9: MoE serving at phase 2's settings; the MoE block check's size
+MOE_EXPERTS = 8
+MOE_BLOCK = {"hidden_size": 512, "ffn_size": 1376, "tokens": (2, 256)}
+# phase 10: MoE training at Llama-2-7B's width, depth cut from 32 to 8
+# layers (4 MoE): 4.09 B parameters, 65.5 GB of masters, gradients and
+# adamw moments, and the experts' float32 copies and [E, C, f] buffers
+# under remat on top (6 layers peaked at 55.57 GB, 65.4% of the card, on
+# an H100 80GB HBM3)
+MOE_LAYERS, MOE_TRAIN_STEPS = 8, 5
+MOE_TRAIN_CONFIG = {"model": "llama",
+                    "model_config": {"size": "7b", "num_layers": MOE_LAYERS,
+                                     "moe_experts": MOE_EXPERTS},
+                    "global_batch": LLAMA_BATCH, "steps": MOE_TRAIN_STEPS,
+                    "log_every": 1, "seed": 0,
+                    "optimizer": {"name": "adamw", "learning_rate": 1e-4}}
+MOE_LAUNCHES = {"flash_fwd": 2 * MOE_LAYERS, "flash_bwd_dq": MOE_LAYERS,
+                "flash_bwd_dkv": MOE_LAYERS}
+# phase 11: speculation at phase 2's settings
+SPEC_TOKENS, DRAFT_LAYERS, SPEC_NEW = 4, 4, 64
+SPEC_BLOCK, SPEC_REPEATS = 64, 8
+# off first: the oracle drafts the off streams (speculation's ceiling)
+SPEC_MODES = ("off", "ngram", "draft", "oracle")
+# verify logits against sequential decode logits, relative to max |logit|
+# (LOGITS_REL_TOL's reasoning: other GEMM shapes, 32 bf16 layers)
+VERIFY_REL_TOL = 1e-1
+# K1 at phase 11's own shapes (the drafter's 1-token steps and 8-token
+# extensions, a whole 512-token prompt), held in phase 1
+SPEC_SHAPES = [  # (name, B, Sq, Sk, H, Hkv, D, causal)
+    ("7b_spec_draft_step_1x301", 1, 1, 301, 32, 32, 128, True),
+    ("7b_spec_draft_extend_8x1509", 1, 8, 1509, 32, 32, 128, True),
+    ("7b_spec_prefill_512x512", 1, 512, 512, 32, 32, 128, True),
+]
 CAUSAL_DQ_SHAPE = (1, 2048, 2048, 32, 32, 128, True)  # B, Sq, Sk, H, Hkv, D
 BWD_SHAPES = [TRAIN_SHAPE, LLAMA_SHAPE,  # (name, B, Sq, Sk, H, Hkv, D, causal)
               ("causal_d128", 2, 384, 384, 8, 8, 128, True),
@@ -385,7 +463,7 @@ def phase_kernels(fa) -> dict:
     torch.backends.cudnn.allow_tf32 = False
     main_err = 0.0
     cases = ([s[:8] for s in main_path_shapes() + prefix_path_shapes()]
-             + [TRAIN_SHAPE, LLAMA_SHAPE] + EXTRA_SHAPES)
+             + [TRAIN_SHAPE, LLAMA_SHAPE] + SPEC_SHAPES + EXTRA_SHAPES)
     for i, (name, b, sq, sk, h, hkv, d, causal) in enumerate(cases):
         for dtype in (torch.bfloat16, torch.float32):
             q, k, v = make_qkv(b, sq, sk, h, hkv, d, dtype, seed=i,
@@ -405,7 +483,7 @@ def phase_kernels(fa) -> dict:
                 f"{e_l:.3e} (tol {tol['lse']:g}) {'ok' if ok else 'FAIL'}")
             check(ok, f"flash_fwd disagrees at {name} {dtype}")
             if dtype == torch.bfloat16 and name.startswith(
-                    ("7b_prefill", "7b_prefix", TRAIN_SHAPE[0],
+                    ("7b_prefill", "7b_prefix", "7b_spec", TRAIN_SHAPE[0],
                      LLAMA_SHAPE[0])):
                 main_err = max(main_err, e_o)
     errs = {"flash_fwd": main_err, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
@@ -515,7 +593,59 @@ def check_in_model(fa, model, prompt: list[int]) -> None:
     del cache
 
 
-def phase_serving(fa) -> dict:
+@contextlib.contextmanager
+def moe_routing(record: list, replay: list | None = None):
+    """Record every MoE block call's top-2 experts ``[B, S, 2]`` into
+    ``record`` (the choices the router makes); with ``replay``, route each
+    call to the experts of the same call in ``replay`` instead, the gates
+    taken from this call's own probabilities at those experts.  Holding
+    the routing fixed lets two attention routes be compared without a
+    rounding-level difference flipping a discrete expert choice."""
+    from kubeflow_tpu_torch.models import moe
+
+    original = moe.route
+    pinned = iter(replay) if replay is not None else None
+
+    def routed(probs):
+        gates, experts = original(probs)
+        record.append(experts)
+        if pinned is not None:
+            experts = next(pinned)
+            g = probs.gather(-1, experts)
+            gates = g / g.sum(dim=-1, keepdim=True).clamp_min(1e-9)
+        return gates, experts
+
+    moe.route = routed
+    try:
+        yield
+    finally:
+        moe.route = original
+
+
+def routing_flips(a: list, b: list) -> int:
+    """(layer, token) pairs whose top-2 expert sets differ between two
+    recorded runs."""
+    return sum(int((x.sort(dim=-1).values != y.sort(dim=-1).values)
+                   .any(dim=-1).sum()) for x, y in zip(a, b))
+
+
+def prefill_logits(model, ids, cached: bool):
+    """Logits of one prompt: a cacheless forward, or (``cached``) the
+    serving path's batch-1 prefill through a cache (an MoE model routes
+    dropless only there)."""
+    from kubeflow_tpu_torch.models import llama
+
+    if not cached:
+        return model(ids)["logits"]
+    cache = llama.init_cache(model.config, 1, ids.shape[1])
+    return model(ids, cache=cache)["logits"]
+
+
+def phase_serving(fa, model_config: dict | None = None,
+                  label: str = "llama 7b", extra=None) -> dict:
+    """Phase 2 (and, with an MoE ``model_config``, phase 9): the 7B
+    predictor over HTTP.  ``extra(pred)`` runs further checks on the
+    predictor before it stops; its dict joins the result."""
     from kubeflow_tpu_torch.serving.httpserve import serve
     from kubeflow_tpu_torch.serving.predictor import (GenerativePredictor,
                                                       PredictorApp)
@@ -523,11 +653,13 @@ def phase_serving(fa) -> dict:
     t0 = time.perf_counter()
     pred = GenerativePredictor("llama", size="7b", max_seq=MAX_SEQ,
                                prefill_chunk=PREFILL_CHUNK, max_batch=4,
-                               seed=0)
+                               seed=0, model_config=model_config)
     torch.cuda.synchronize()
     cfg = pred.cfg
-    log(f"llama 7b built in {time.perf_counter() - t0:.1f}s: "
+    n_params = sum(p.numel() for p in pred.module.parameters())
+    log(f"{label} built in {time.perf_counter() - t0:.1f}s: "
         f"{cfg.num_layers} layers, hidden {cfg.hidden_size}, "
+        f"{n_params / 1e9:.2f} B parameters, "
         f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card")
     # the default path keeps no prefix cache and holds no page rows
     check(pred.engine.prefix_cache is None and pred.engine.pool.kv is None,
@@ -602,31 +734,57 @@ def phase_serving(fa) -> dict:
         def plain_version(q, k, v, *, causal=False):
             return fa.flash_attention_reference(q, k, v, causal=causal)[0]
 
+        cached = bool(model_config)
+        moe = cached and cfg.moe_experts > 0
+        kernel_routes: list = []
         with torch.no_grad():
-            k_logits = model(ids)["logits"]
-            check(torch.equal(model(ids)["logits"], k_logits),
+            with moe_routing(kernel_routes):
+                k_logits = prefill_logits(model, ids, cached)
+            check(torch.equal(prefill_logits(model, ids, cached), k_logits),
                   "the kernel route is not deterministic")
-            with flash_route(plain_version):
-                v_logits = model(ids)["logits"]
-            with plain_attention_route(model):
-                p_logits = model(ids)["logits"]
+            refs = {}
+            for name, route in (("kernel_plain_version",
+                                 flash_route(plain_version)),
+                                ("plain_route", plain_attention_route(model))):
+                with route:
+                    if moe:
+                        # unpinned: each route takes its own routing
+                        # decisions; pinned: the kernel run's experts
+                        own: list = []
+                        with moe_routing(own):
+                            free = prefill_logits(model, ids, cached)
+                        flips = routing_flips(kernel_routes, own)
+                        rel = ((k_logits - free).abs().max()
+                               / free.abs().max()).item()
+                        log(f"prefill logits kernel vs {name}, each route "
+                            f"routing for itself: max rel err {rel:.3e}; "
+                            f"{flips} of {len(own) * own[0].shape[1]} "
+                            f"(layer, token) top-2 expert sets differ")
+                        with moe_routing([], replay=kernel_routes):
+                            refs[name] = prefill_logits(model, ids, cached)
+                    else:
+                        refs[name] = prefill_logits(model, ids, cached)
         check(bool(torch.isfinite(k_logits).all()), "finite logits")
-        for name, ref in (("kernel_plain_version", v_logits),
-                          ("plain_route", p_logits)):
+        for name, ref in refs.items():
             rel = ((k_logits - ref).abs().max() / ref.abs().max()).item()
             tol = LOGITS_REL_TOL[name]
+            pinned = ", experts pinned to the kernel run's" if moe else ""
             log(f"prefill logits [1, {len(prompts[1])}, {cfg.vocab_size}] "
-                f"kernel vs {name}: max rel err {rel:.3e} (tol {tol:g})")
+                f"kernel vs {name}{pinned}: max rel err {rel:.3e} (tol "
+                f"{tol:g})")
             check(rel <= tol, (name, rel))
 
         n_ttft = after["ttft_count"] - before["ttft_count"]
         dec_tok = after["decode_tokens"] - before["decode_tokens"]
         dec_s = after["decode_seconds"] - before["decode_seconds"]
-        return {"launches": launches,
-                "ttft_mean_s": (after["ttft_sum"] - before["ttft_sum"])
-                / max(n_ttft, 1),
-                "decode_tok_per_s": dec_tok / dec_s if dec_s else 0.0,
-                "wall_s": wall}
+        out = {"launches": launches,
+               "ttft_mean_s": (after["ttft_sum"] - before["ttft_sum"])
+               / max(n_ttft, 1),
+               "decode_tok_per_s": dec_tok / dec_s if dec_s else 0.0,
+               "wall_s": wall}
+        if extra is not None:
+            out.update(extra(pred))
+        return out
     finally:
         httpd.shutdown()
         httpd.server_close()
@@ -994,38 +1152,44 @@ def kernel_group(key: str) -> str:
     return "other"
 
 
-def profile_forward(model, label: str, ids, cache) -> None:
+def profile_forward(model, label: str, ids, cache) -> float:
     """Device time of one forward by operator, top 6, and the flash
-    kernel's share."""
+    kernel's share; returns the total in ms."""
     def forward():
         with torch.no_grad():
             model(ids, cache=cache)
 
-    profile_device(label, forward)
+    return profile_device(label, forward)
 
 
-def phase_profile() -> None:
+def phase_profile(model=None, label: str = "") -> dict:
     """Where a prefill chunk's and a decode step's device time goes, at
-    the 7B serving shapes (random weights, seed 0)."""
+    the 7B serving shapes (random weights, seed 0), on ``model`` or a
+    dense 7B built here; returns both totals in ms."""
     from kubeflow_tpu_torch.models import llama, registry
 
-    model = registry.get("llama").make_model(
-        size="7b", param_dtype="compute").init_weights(0)
+    built = model is None
+    if built:
+        model = registry.get("llama").make_model(
+            size="7b", param_dtype="compute").init_weights(0)
     cfg = model.config
     scratch = llama.init_cache(cfg, 1, MAX_SEQ)
     for layer in scratch["layers"]:
         layer["index"] = 512
     ids = torch.randint(1, cfg.vocab_size, (1, 512), device="cuda")
-    profile_forward(model, "prefill chunk [1, 512] at offset 512", ids,
-                    scratch)
+    chunk_ms = profile_forward(
+        model, f"{label}prefill chunk [1, 512] at offset 512", ids, scratch)
     view = llama.init_cache(cfg, 4, MAX_SEQ, per_sequence=True)
     for layer in view["layers"]:
         layer["index"] = torch.tensor([16, 300, 700, 1500], device="cuda")
     tok = torch.randint(1, cfg.vocab_size, (4, 1), device="cuda")
-    profile_forward(model, "decode step [4, 1] over a 4 x 2048 view", tok,
-                    view)
-    del model, scratch, view
+    decode_ms = profile_forward(
+        model, f"{label}decode step [4, 1] over a 4 x 2048 view", tok, view)
+    del scratch, view
+    if built:
+        del model
     torch.cuda.empty_cache()
+    return {"chunk_ms": chunk_ms, "decode_ms": decode_ms}
 
 
 KERNEL_NAMES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
@@ -1235,21 +1399,10 @@ def phase_numbers(fa, shapes: list[tuple], num_layers: int) -> list[dict]:
     """K1's kernel, plain and library times with the bound, at each of a
     serving path's ``shapes`` (``path_shapes``); rows carry the shape's
     launches per layer and in the whole run of the path."""
-    from torch.nn.attention.bias import causal_lower_right
-    from torch.nn.functional import scaled_dot_product_attention as sdpa
-
     rows = []
     for name, b, sq, sk, h, hkv, d, causal, count in shapes:
         dtype = torch.bfloat16
-        q, k, v = make_qkv(b, sq, sk, h, hkv, d, dtype, seed=11)
-        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        mask = causal_lower_right(sq, sk) if causal else None
-        saved = counters(fa)
-        ms = time_ms(lambda: fa.flash_attention(q, k, v, causal=causal))
-        set_counters(fa, saved)                  # timing is not the path
-        plain_ms = time_ms(
-            lambda: fa.flash_attention_reference(q, k, v, causal=causal))
-        library_ms = time_ms(lambda: sdpa(qt, kt, vt, attn_mask=mask))
+        ms, plain_ms, library_ms = k1_times(fa, b, sq, sk, h, hkv, d, causal)
         row = {"shape": name, "per_layer": count,
                "launches": count * num_layers, "ms": ms,
                "plain_ms": plain_ms, "library_ms": library_ms,
@@ -1371,6 +1524,469 @@ def kernel_entry(name: str, rows: list[dict], max_err: float) -> dict:
     }
 
 
+def check_moe_block() -> dict:
+    """One MoE block (``MOE_BLOCK``, ``MOE_EXPERTS`` experts, float32,
+    a router bias that overflows expert 0) on the card against the same
+    block on the CPU, in both modes: y and aux within 1e-5 relative, and
+    the capacity drops equal (TF32 is off)."""
+    from kubeflow_tpu_torch.models import moe
+
+    cfg = moe.MoEConfig(hidden_size=MOE_BLOCK["hidden_size"],
+                        ffn_size=MOE_BLOCK["ffn_size"],
+                        num_experts=MOE_EXPERTS, dtype="float32")
+    cpu = moe.MoEBlock(cfg, device="cpu")
+    cpu.init_weights(torch.Generator().manual_seed(0))
+    cpu.router.init_weights(torch.Generator().manual_seed(1))
+    with torch.no_grad():   # favour expert 0, so its capacity overflows
+        cpu.router.bias[0] = 1.5
+    card = moe.MoEBlock(cfg, device="cuda")
+    card.load_state_dict(cpu.state_dict())
+    x = torch.randn(*MOE_BLOCK["tokens"], cfg.hidden_size,
+                    generator=torch.Generator().manual_seed(2))
+    out = {}
+    for dropless in (True, False):
+        with torch.no_grad():
+            y, aux = cpu(x, dropless=dropless)
+            yc, auxc = card(x.cuda(), dropless=dropless)
+        rel_y = ((yc.cpu() - y).abs().max() / y.abs().max()).item()
+        rel_aux = abs(auxc.item() - aux.item()) / aux.item()
+        mode = "dropless" if dropless else "capacity"
+        drops = ("" if dropless else
+                 f"; capacity drops card {int(card.dropped)}, cpu "
+                 f"{int(cpu.dropped)} of {2 * x.shape[0] * x.shape[1]} "
+                 f"(capacity {moe.capacity(cfg, x.shape[0] * x.shape[1])})")
+        ok = rel_y <= 1e-5 and rel_aux <= 1e-5 and (
+            dropless or int(card.dropped) == int(cpu.dropped))
+        log(f"MoE block hidden {cfg.hidden_size} x {MOE_EXPERTS} experts "
+            f"{mode}, card vs cpu (f32): y rel {rel_y:.3e}, aux rel "
+            f"{rel_aux:.3e} (tol 1e-5){drops} {'ok' if ok else 'FAIL'}")
+        check(ok, (mode, rel_y, rel_aux))
+        if not dropless:
+            check(int(card.dropped) > 0, "the block check dropped nothing")
+            out["moe_block_drops"] = int(card.dropped)
+    return out
+
+
+def moe_serving_extras(pred) -> dict:
+    """Phase 9's checks beyond phase 2's: float32 routers, the block check,
+    and the device time of a chunk and a decode step on the MoE model."""
+    routers = {n: p.dtype for n, p in pred.module.named_parameters()
+               if ".moe.router." in n}
+    n_moe = sum(1 for blk in pred.module.layers if blk.use_moe)
+    log(f"phase 9: {n_moe} MoE layers x {MOE_EXPERTS} experts; router "
+        f"parameters {sorted(set(map(str, routers.values())))}")
+    check(len(routers) == 2 * n_moe and set(routers.values())
+          == {torch.float32}, routers)
+    out = check_moe_block()
+    out.update(phase_profile(pred.module, "MoE "))
+    return out
+
+
+def phase_moe_training(fa) -> dict:
+    """Phase 10: MoE Llama training through the worker entrypoint, the
+    in-step check and the step profile; peak memory under 90%."""
+    auxes: list = []
+
+    def note_aux(module, args, output):
+        if isinstance(output, dict) and "moe_aux" in output \
+                and torch.is_grad_enabled():
+            auxes.append(output["moe_aux"].detach())
+
+    label = f"MoE Llama-7B-width x{MOE_LAYERS} layers"
+    torch.cuda.reset_peak_memory_stats()
+    handle = torch.nn.modules.module.register_module_forward_hook(note_aux)
+    try:
+        run = phase_training(fa, MOE_TRAIN_CONFIG, MOE_LAUNCHES, label)
+    finally:
+        handle.remove()
+    values = [a.item() for a in auxes]
+    log(f"{label} moe_aux per step: {' '.join(f'{a:.4f}' for a in values)}")
+    check(len(values) == MOE_TRAIN_STEPS
+          and all(math.isfinite(a) and a > 0 for a in values), values)
+    free_memory()
+    check_training_step(fa, MOE_TRAIN_CONFIG, MOE_LAUNCHES, label)
+    peak = torch.cuda.max_memory_allocated()
+    card = torch.cuda.get_device_properties(0).total_memory
+    log(f"MoE phase peak memory (max_memory_allocated over the counted run "
+        f"and its checks): {peak / 1e9:.2f} GB, {100 * peak / card:.1f}% of "
+        f"the card's {card / 1e9:.2f} GB")
+    check(peak < 0.9 * card, "MoE training peak memory over 90% of the card")
+    return {**run, "moe_aux": values, "peak_gb": peak / 1e9,
+            "peak_share": peak / card}
+
+
+def spec_prompts(vocab: int) -> list[list[int]]:
+    """Phase 2's four prompts (the same seed) and one 64-token block
+    repeated ``SPEC_REPEATS`` times."""
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, vocab, n).tolist() for n in PROMPT_LENS]
+    block = np.random.default_rng(11).integers(1, vocab, SPEC_BLOCK).tolist()
+    return prompts + [block * SPEC_REPEATS]
+
+
+def capture_rounds(engine, rounds: list) -> None:
+    """Record each verify round of ``engine``: the rows, their generated
+    lengths before and after the round, the verified tokens and the
+    round's choices ``[s][B]``."""
+    verify, step = engine._verify, engine._spec_step
+    last: dict = {}
+
+    def verify_and_note(reqs, toks):
+        out = verify(reqs, toks)
+        last["round"] = (toks, out[0])
+        return out
+
+    def step_and_note():
+        reqs = list(engine.slots)
+        before = [len(r.generated) if r else 0 for r in reqs]
+        ran = step()
+        if ran:
+            after = [len(r.generated) if r else 0 for r in reqs]
+            rounds.append((reqs, before, after, *last.pop("round")))
+        return ran
+
+    engine._verify, engine._spec_step = verify_and_note, step_and_note
+
+
+def check_rounds(rounds: list) -> tuple[int, int]:
+    """Every token a round kept is that round's own choice at its
+    position, and every accepted draft token equals it; returns (rows
+    checked, tokens kept)."""
+    rows = kept = 0
+    for reqs, before, after, toks, choices in rounds:
+        for i, req in enumerate(reqs):
+            if req is None:
+                continue
+            k = after[i] - before[i]
+            start = len(req.ids) + before[i]
+            col = [choices[j][i] for j in range(len(toks[i]))]
+            stream = req.ids + req.generated
+            check(k >= 1 and stream[start:start + k] == col[:k]
+                  and toks[i][1:k] == col[:k - 1], ("round", i, k))
+            rows += 1
+            kept += k
+    return rows, kept
+
+
+def verify_vs_sequential(model, prompt: list[int], stream: list[int],
+                         rows: int = 4) -> tuple[float, float]:
+    """Verify forwards of ``s`` tokens (the prompt's first generated token
+    and the ones after it) at index ``n`` against ``s`` sequential decode
+    steps from the same cache, at the engine's shapes: ``rows`` rows (the
+    engine's ``max_batch``; every row holds the prompt) and each ``s`` a
+    verify round can have (gamma + 1 for gamma in the buckets 1, 2 and
+    ``SPEC_TOKENS``).  Returns (max abs logit difference, max |sequential
+    logit|) over them."""
+    from kubeflow_tpu_torch.models import llama
+
+    n = len(prompt)
+    cache = llama.init_cache(model.config, rows, MAX_SEQ, per_sequence=True)
+    diff = scale = 0.0
+    with torch.no_grad():
+        model(torch.tensor([prompt] * rows, device="cuda"), cache=cache)
+        start = torch.full((rows,), n, device="cuda")
+        for s in sorted({2, 3, SPEC_TOKENS + 1}):
+            toks = torch.tensor([stream[n:n + s]] * rows, device="cuda")
+            copy = {"layers": [dict(k=l["k"].clone(), v=l["v"].clone())
+                               for l in cache["layers"]]}
+            for layer in cache["layers"]:
+                layer["index"] = start
+            verify = model(toks, cache=cache)["logits"]
+            steps = []
+            for j in range(s):
+                for layer in copy["layers"]:
+                    layer["index"] = start + j
+                steps.append(model(toks[:, j:j + 1], cache=copy)["logits"])
+            seq = torch.cat(steps, dim=1)
+            diff = max(diff, (verify - seq).abs().max().item())
+            scale = max(scale, seq.abs().max().item())
+            del copy
+    return diff, scale
+
+
+def top2_margins(model, stream: list[int], n: int) -> list[float]:
+    """Top-1 minus top-2 logit at each generated position of ``stream``
+    (prompt of ``n`` tokens), from one forward over the whole stream."""
+    with torch.no_grad():
+        logits = model(torch.tensor([stream[:-1]], device="cuda"))["logits"]
+    top = logits[0, n - 1:].topk(2, dim=-1).values
+    return (top[:, 0] - top[:, 1]).tolist()
+
+
+def serve_mode(engine, prompts, post_fn=None) -> dict:
+    """The prompts one at a time (speculation's case: a stream decoding
+    alone), SPEC_NEW greedy tokens each, through ``post_fn`` (one HTTP
+    request) or the engine; the streams and the engine's deltas."""
+    before = engine.stats()
+    t0 = time.perf_counter()
+    streams = [post_fn(p) if post_fn is not None
+               else engine.submit(p, SPEC_NEW).result(timeout=600)
+               for p in prompts]
+    wall = time.perf_counter() - t0
+    after = engine.stats()
+    tb, ta = before["timing"], after["timing"]
+    dec_s = ta["decode_seconds"] - tb["decode_seconds"]
+    out = {"streams": streams, "wall_s": wall,
+           "prefill_chunks": ta["prefill_chunks"] - tb["prefill_chunks"],
+           "tok_per_s": len(prompts) * SPEC_NEW / wall,
+           "decode_tok_per_s": ((ta["decode_tokens"] - tb["decode_tokens"])
+                                / dec_s if dec_s else 0.0)}
+    if "speculative" in after:
+        sb, sa = before["speculative"], after["speculative"]
+        out.update({k: sa[k] - sb[k] for k in ("rounds", "proposed",
+                                                "accepted")})
+        out["accept_rate"] = (out["accepted"] / out["proposed"]
+                              if out["proposed"] else 0.0)
+    return out
+
+
+def oracle_drafter(streams: list[list[int]]):
+    """A drafter that proposes the continuation of whichever of
+    ``streams`` the tokens are a prefix of (the ceiling of speculation on
+    this traffic: every draft is the stream without speculation)."""
+    def draft(tokens, n):
+        for st in streams:
+            if len(st) > len(tokens) and st[:len(tokens)] == tokens:
+                return st[len(tokens):len(tokens) + n]
+        return []
+
+    return draft
+
+
+def draft_cache_bytes(draft) -> int:
+    return sum(t.nbytes for cache, _ in draft._ctx.values()
+               for l in cache["layers"] for t in (l["k"], l["v"]))
+
+
+def phase_speculation(fa) -> dict:
+    """Phase 11 (module docstring)."""
+    from kubeflow_tpu_torch.serving.draft_model import DraftModel
+    from kubeflow_tpu_torch.serving.engine import ContinuousBatcher
+    from kubeflow_tpu_torch.serving.httpserve import serve
+    from kubeflow_tpu_torch.serving.predictor import (GenerativePredictor,
+                                                      PredictorApp)
+
+    pred = GenerativePredictor("llama", size="7b", max_seq=MAX_SEQ,
+                               prefill_chunk=PREFILL_CHUNK, max_batch=4,
+                               seed=0, speculative_tokens=SPEC_TOKENS,
+                               draft_layers=DRAFT_LAYERS)
+    model, cfg, draft = pred.module, pred.cfg, pred.engine.draft_fn
+    check(isinstance(draft, DraftModel), "the predictor built no drafter")
+    m0 = torch.cuda.memory_allocated()
+    probe = DraftModel(model, DRAFT_LAYERS)
+    added = torch.cuda.memory_allocated() - m0
+    shared = all(any(p is q for q in model.parameters())
+                 for p in probe.model.parameters())
+    del probe
+    check(shared, "the drafter holds parameters of its own")
+    off_streams: list = []         # the oracle drafts the off streams
+    engines = {"draft": pred.engine}
+    for m, kw in (("off", {}), ("ngram", {"speculative_tokens": SPEC_TOKENS}),
+                  ("oracle", {"speculative_tokens": SPEC_TOKENS,
+                              "draft_fn": oracle_drafter(off_streams)})):
+        engines[m] = ContinuousBatcher(model, cfg, max_batch=4,
+                                       max_seq=MAX_SEQ,
+                                       prefill_chunk=PREFILL_CHUNK, **kw)
+    httpd, thread = serve(PredictorApp({"llama": pred}), 0)
+
+    def over_http(prompt):
+        status, body = post(httpd.server_port, "/v1/models/llama:generate",
+                            {"ids": [prompt], "max_new_tokens": SPEC_NEW})
+        check(status == 200, (status, body))
+        return body["ids"][0]
+
+    forwards = [0]
+    hook = draft.model.register_forward_pre_hook(
+        lambda *_: forwards.__setitem__(0, forwards[0] + 1))
+    prompts = spec_prompts(cfg.vocab_size)
+    rounds = {m: [] for m in SPEC_MODES[1:]}
+    try:
+        with torch.no_grad():
+            # warm-up at the counted run's shapes, other prompts, off it
+            warm = [np.random.default_rng(12).integers(
+                1, cfg.vocab_size, n).tolist() for n in PROMPT_LENS[:2]]
+            saved = counters(fa)
+            for eng in engines.values():
+                eng.generate_sync(warm, max_new_tokens=16)
+            set_counters(fa, saved)
+            draft.reset()
+            for m, rs in rounds.items():
+                capture_rounds(engines[m], rs)
+            shapes: list = []
+            forwards[0] = 0
+            saved = counters(fa)
+            set_counters(fa, dict.fromkeys(KERNEL_NAMES, 0))  # path starts
+            # two passes in turns (off, ngram, draft, oracle, then back):
+            # host-timed rates move between minutes of one call
+            runs = {m: [] for m in SPEC_MODES}
+            with flash_route(recording_flash(fa, shapes)):
+                for m in SPEC_MODES + SPEC_MODES[::-1]:
+                    runs[m].append(serve_mode(
+                        engines[m], prompts,
+                        over_http if m == "draft" else None))
+                    if m == "off" and not off_streams:
+                        off_streams.extend(runs[m][0]["streams"])
+            launches = counters(fa)                          # path ended
+            set_counters(fa, {k: saved[k] + launches[k] for k in saved})
+        chunks = sum(r["prefill_chunks"] for rs in runs.values() for r in rs)
+        total = {m: {k: sum(r.get(k, 0) for r in rs)
+                     for k in ("rounds", "proposed", "accepted")}
+                 for m, rs in runs.items()}
+        expect = cfg.num_layers * chunks + DRAFT_LAYERS * forwards[0]
+        log(f"phase 11: flash_fwd launches {launches['flash_fwd']} (expected "
+            f"{cfg.num_layers} x {chunks} prefill chunks + {DRAFT_LAYERS} x "
+            f"{forwards[0]} drafter forwards = {expect})")
+        check(launches == {"flash_fwd": expect, "flash_bwd_dq": 0,
+                           "flash_bwd_dkv": 0}, launches)
+        check(len(shapes) == expect, (len(shapes), expect))
+        for m, rs in rounds.items():
+            n_rows, kept = check_rounds(rs)
+            log(f"  {m}: {len(rs)} verify rounds, {n_rows} row-rounds, "
+                f"{kept} kept tokens, each the round's own choice")
+            check(len(rs) == total[m]["rounds"], (m, len(rs)))
+        # the costed drafter's exploration runs every 4th declined round,
+        # so the draft model's path verifies whatever its accept rate; the
+        # oracle's drafts are the off streams, so its rounds accept
+        check(total["draft"]["rounds"] > 0, "no draft-model round ran")
+        check(total["oracle"]["accepted"] > 0, "no oracle draft accepted")
+        off = off_streams
+        for i, (p, stream) in enumerate(zip(prompts, off)):
+            check(len(stream) == len(p) + SPEC_NEW and stream[:len(p)] == p,
+                  ("off stream", i))
+        check(runs["off"][1]["streams"] == off, "off streams repeat")
+        # verify logits against sequential decode, on the repeated prompt
+        with torch.no_grad():
+            diff, scale = verify_vs_sequential(model, prompts[-1], off[-1])
+        rel = diff / scale
+        log(f"verify forwards [4, 2|3|{SPEC_TOKENS + 1}] vs sequential "
+            f"decode steps [4, 1]: max|d logits| {diff:.4f}, rel {rel:.3e} "
+            f"(tol {VERIFY_REL_TOL:g})")
+        check(rel <= VERIFY_REL_TOL, rel)
+        saved = counters(fa)
+        margins = [top2_margins(model, st, len(p))
+                   for p, st in zip(prompts, off)]
+        set_counters(fa, saved)
+        same = {}
+        for m, k in ((m, k) for m in SPEC_MODES[1:] for k in range(2)):
+            same[m] = same.get(m, 0)
+            for i, (p, ref, got, mg) in enumerate(zip(
+                    prompts, off, runs[m][k]["streams"], margins)):
+                n = len(p)
+                first = next((g for g, x in enumerate(mg) if x < 2 * diff),
+                             SPEC_NEW)
+                differ = next((g for g in range(SPEC_NEW)
+                               if got[n + g] != ref[n + g]), None)
+                same[m] += differ is None
+                where = ("identical to the off stream" if differ is None
+                         else f"first differs at generated position "
+                         f"{differ}, where the margin is {mg[differ]:.4f}")
+                log(f"  {m} pass {k + 1} prompt {i} ({n} tokens): first "
+                    f"top-1/top-2 margin under {2 * diff:.4f} at generated "
+                    f"position {first}; {where}")
+                check(differ is None or differ >= first,
+                      (m, i, "stream before the first small margin", first))
+        log(f"  {card_line()}")
+        for m in SPEC_MODES:
+            t = total[m]
+            t["accept_rate"] = (t["accepted"] / t["proposed"]
+                                if t["proposed"] else 0.0)
+            spec = ("" if m == "off" else
+                    f"rounds {t['rounds']}, proposed {t['proposed']}, "
+                    f"accepted {t['accepted']}, accept rate "
+                    f"{t['accept_rate']:.3f}; ")
+            rates = " and ".join(
+                f"{r['tok_per_s']:.2f} ({r['wall_s']:.2f} s wall; decode "
+                f"{r['decode_tok_per_s']:.2f})" for r in runs[m])
+            log(f"phase 11 {m}: {spec}tok/s over the {len(prompts)} requests "
+                f"one at a time, passes 1 and 2: {rates}; streams identical "
+                f"to off {same.get(m, 2 * len(prompts))} of "
+                f"{2 * len(prompts)}")
+        cache_bytes = draft_cache_bytes(draft)
+        log(f"draft model: {DRAFT_LAYERS} of {cfg.num_layers} layers, "
+            f"parameters shared with the target; memory added by building "
+            f"one {added} bytes; its {len(draft._ctx)} cached contexts "
+            f"{cache_bytes / 2**20:.1f} MiB")
+    finally:
+        hook.remove()
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=10)
+        pred.stop(timeout=60)
+        for m, eng in engines.items():
+            if m != "draft":
+                eng.shutdown()
+    return {"launches": launches["flash_fwd"], "shapes": shapes,
+            "draft_added_bytes": added, "draft_cache_bytes": cache_bytes,
+            **{m: {**total[m], "tok_per_s": [r["tok_per_s"] for r in rs]}
+               for m, rs in runs.items()}}
+
+
+def recording_flash(fa, shapes: list):
+    """A stand-in for ``flash_attention`` that launches the kernel through
+    its wrapper (which counts the launch) and records (Sq, Sk, causal)."""
+    def recorded(q, k, v, *, causal=False):
+        shapes.append((q.shape[1], k.shape[1], causal))
+        return fa.flash_attention(q, k, v, causal=causal)
+
+    return recorded
+
+
+def k1_times(fa, b, sq, sk, h, hkv, d, causal) -> tuple[float, float, float]:
+    """(kernel, plain version, SDPA) ms of K1 at one bf16 shape; the
+    launches made here are not counted."""
+    from torch.nn.attention.bias import causal_lower_right
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    q, k, v = make_qkv(b, sq, sk, h, hkv, d, torch.bfloat16, seed=11)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    mask = causal_lower_right(sq, sk) if causal else None
+    saved = counters(fa)
+    ms = time_ms(lambda: fa.flash_attention(q, k, v, causal=causal))
+    set_counters(fa, saved)                      # timing is not the path
+    plain_ms = time_ms(
+        lambda: fa.flash_attention_reference(q, k, v, causal=causal))
+    library_ms = time_ms(lambda: sdpa(qt, kt, vt, attn_mask=mask))
+    return ms, plain_ms, library_ms
+
+
+def spec_numbers(fa, shapes: list) -> list[dict]:
+    """K1 rows of phase 11's counted run: launches grouped by (Sq, Sk),
+    with the drafter's short calls (Sq <= 16) grouped at Sk rounded up to
+    a multiple of 256 and timed there; bounds from each call's shape."""
+    groups: dict[tuple[int, int], list] = {}
+    for sq, sk, causal in shapes:
+        check(causal, "phase 11 runs K1 causal only")
+        key = (sq, sk if sq > 16 else min(-(-sk // 256) * 256, MAX_SEQ))
+        groups.setdefault(key, []).append(sk)
+    rows = []
+    for (sq, sk_t), sks in sorted(groups.items()):
+        ms, plain_ms, library_ms = k1_times(fa, 1, sq, sk_t, 32, 32, 128,
+                                            True)
+        bounds = {}
+        for sk in set(sks):
+            bounds[sk] = flash_bound("flash_fwd", 1, sq, sk, 32, 32, 128,
+                                     True, torch.bfloat16)
+        bytes_ms = sum(bounds[sk][0] for sk in sks) / len(sks)
+        ops_ms = sum(bounds[sk][1] for sk in sks) / len(sks)
+        bound = sum(max(bounds[sk]) for sk in sks) / len(sks)
+        row = {"shape": f"7b_spec_{sq}x{sk_t}", "launches": len(sks),
+               "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+               "bound_ms": bound,
+               "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+               "bytes_ms": bytes_ms, "operations_ms": ops_ms}
+        log(f"flash_fwd {row['shape']} bf16 (x{len(sks)} in phase 11, Sk "
+            f"{min(sks)}-{max(sks)}): kernel {ms:.4f} ms, bound "
+            f"{bound:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
+            f"{library_ms:.4f} ms")
+        rows.append(row)
+    return rows
+
+
+def with_launches(row: dict, launches: int, label: str) -> dict:
+    """``row``'s shape and times, carrying another path's launches."""
+    return {**row, "shape": f"{row['shape']} ({label})", "launches": launches}
+
+
 def phase_vision(fa) -> dict:
     """Phase 6: ``VISION_RUNS`` through the worker entrypoint (no flash
     kernel: every step must launch none), then one ResNet-50 adamw step by
@@ -1410,6 +2026,28 @@ def kernel_times_only(fa) -> int:
     return 0
 
 
+def some_phases(fa, which: str) -> int:
+    """``--phases 9,10,11``: build and check the kernels (phase 1), then
+    the named phases of this slice; prints no result line."""
+    wanted = {int(w) for w in which.split(",") if w}
+    if not wanted <= {9, 10, 11}:
+        print(f"chip_smoke: --phases takes 9, 10 and 11, not {which}",
+              file=sys.stderr)
+        return 2
+    phase_kernels(fa)
+    if 11 in wanted:
+        phase_speculation(fa)
+        free_memory()
+    if 9 in wanted:
+        phase_serving(fa, {"moe_experts": MOE_EXPERTS}, "MoE llama 7b",
+                      extra=moe_serving_extras)
+        free_memory()
+    if 10 in wanted:
+        phase_moe_training(fa)
+    log(card_line())
+    return 0
+
+
 def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
@@ -1428,6 +2066,8 @@ def main(argv: list[str]) -> int:
         f"{torch.cuda.get_device_name(0)}")
     if argv == ["--kernel-times"]:
         return kernel_times_only(fa)
+    if len(argv) == 2 and argv[0] == "--phases":
+        return some_phases(fa, argv[1])
     if argv:
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
@@ -1437,6 +2077,11 @@ def main(argv: list[str]) -> int:
     phase_profile()
     free_memory()
     prefix = phase_prefix_cache(fa)
+    spec = phase_speculation(fa)
+    free_memory()      # the phase's engines, reachable until it returned
+    moe = phase_serving(fa, {"moe_experts": MOE_EXPERTS}, "MoE llama 7b",
+                        extra=moe_serving_extras)
+    free_memory()
     log(f"before training: {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
         f"allocated on the card")
     bert = phase_training(fa, TRAIN_CONFIG, TRAIN_LAUNCHES, "BERT-large")
@@ -1453,6 +2098,8 @@ def main(argv: list[str]) -> int:
     log(f"Llama phase peak memory (max_memory_allocated over the counted run "
         f"and its checks): {peak / 1e9:.2f} GB, {100 * peak / card:.1f}% of "
         f"the card's {card / 1e9:.2f} GB")
+    free_memory()
+    moe_train = phase_moe_training(fa)
     vision = phase_vision(fa)
     log(card_line())
     serving_rows = phase_numbers(fa, main_path_shapes(), num_layers=32)
@@ -1461,6 +2108,7 @@ def main(argv: list[str]) -> int:
                                  TRAIN_LAUNCHES)
     llama_rows = training_numbers(fa, LLAMA_SHAPE, llama["launches"],
                                   LLAMA_LAUNCHES)
+    spec_rows = spec_numbers(fa, spec["shapes"])
     causal_numbers(fa)
     log(f"phase 2: TTFT mean {serving['ttft_mean_s'] * 1e3:.1f} ms over the "
         f"4 concurrent requests; decode "
@@ -1472,8 +2120,23 @@ def main(argv: list[str]) -> int:
         f"{prefix['commit_ms']:.4f} ms; spills {prefix['spills']}, faults "
         f"{prefix['faults']}; {prefix['same_streams']} of 4 warm streams "
         f"token-identical to cold")
+    log(f"phase 9 (MoE): TTFT mean {moe['ttft_mean_s'] * 1e3:.1f} ms over "
+        f"the 4 concurrent requests; decode {moe['decode_tok_per_s']:.1f} "
+        f"tok/s over 4 slots; device time of a 512-token chunk "
+        f"{moe['chunk_ms']:.3f} ms, of a 4-row decode step "
+        f"{moe['decode_ms']:.3f} ms; capacity drops of the block check "
+        f"{moe['moe_block_drops']}")
+    log("phase 11 (tok/s, passes 1 and 2): " + "; ".join(
+        f"{m} " + " and ".join(f"{x:.2f}" for x in spec[m]["tok_per_s"])
+        + (f", accept rate {spec[m]['accept_rate']:.3f} ({spec[m]['accepted']}"
+           f" of {spec[m]['proposed']} in {spec[m]['rounds']} rounds)"
+           if m != "off" else "")
+        for m in SPEC_MODES))
     log(f"training samples/s: BERT-large {bert['samples_per_sec']:.2f}, "
         f"Llama-7B-width x{LLAMA_LAYERS} {llama['samples_per_sec']:.3f}, "
+        f"MoE Llama-7B-width x{MOE_LAYERS} "
+        f"{moe_train['samples_per_sec']:.3f} (peak "
+        f"{moe_train['peak_gb']:.2f} GB), "
         + ", ".join(f"{m} {r['samples_per_sec']:.1f}"
                     for m, r in vision.items())
         + f"; total {time.perf_counter() - t_start:.1f}s")
@@ -1481,10 +2144,21 @@ def main(argv: list[str]) -> int:
           "serving launches")
     check(prefix["launches"] == sum(r["launches"] for r in prefix_rows),
           "prefix-cached serving launches")
-    kernels = [kernel_entry("flash_fwd", serving_rows + prefix_rows + [
-        bert_rows["flash_fwd"], llama_rows["flash_fwd"]], errs["flash_fwd"])]
-    kernels += [kernel_entry(name, [bert_rows[name], llama_rows[name]],
-                             errs[name])
+    check(moe["launches"] == serving["launches"], "MoE serving launches")
+    check(spec["launches"] == sum(r["launches"] for r in spec_rows),
+          "speculative serving launches")
+    # phase 9 runs K1 at phase 2's shapes, phase 10 at phase 5's
+    moe_rows = [with_launches(r, r["launches"], "MoE") for r in serving_rows]
+    moe_train_rows = {name: with_launches(
+        llama_rows[name], moe_train["launches"][name], "MoE")
+        for name in KERNEL_NAMES}
+    kernels = [kernel_entry("flash_fwd", serving_rows + prefix_rows
+                            + moe_rows + spec_rows
+                            + [bert_rows["flash_fwd"], llama_rows["flash_fwd"],
+                               moe_train_rows["flash_fwd"]],
+                            errs["flash_fwd"])]
+    kernels += [kernel_entry(name, [bert_rows[name], llama_rows[name],
+                                    moe_train_rows[name]], errs[name])
                 for name in ("flash_bwd_dq", "flash_bwd_dkv")]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,7 +2,9 @@
 
 The port's modules keep the flax leaf names and layouts, so the mapping is
 by path alone: ``layer_3/attention/q/kernel`` becomes
-``layers.3.attention.q.kernel`` (Llama), ``layer_3/attention/query/kernel``
+``layers.3.attention.q.kernel`` (Llama; an MoE block's
+``layer_2/moe/router/kernel``, ``.../router/bias``, ``moe/w_in`` and
+``moe/w_out`` likewise), ``layer_3/attention/query/kernel``
 becomes ``layers.3.attention.query.kernel`` (BERT), and
 ``stage1_block0/conv2/kernel`` becomes ``stage1_block0.conv2.kernel``
 (ResNet; MLP and ConvNet likewise).  ResNet's ``batch_stats`` tree maps
@@ -22,7 +24,7 @@ import torch
 
 from kubeflow_tpu_torch.models.bert import BertConfig
 from kubeflow_tpu_torch.models.convnet import ConvNet, ConvNetConfig
-from kubeflow_tpu_torch.models.llama import LlamaConfig
+from kubeflow_tpu_torch.models.llama import LlamaConfig, moe_layers
 from kubeflow_tpu_torch.models.mlp import MLP, MLPConfig
 from kubeflow_tpu_torch.models.resnet import ResNet, ResNetConfig
 
@@ -97,8 +99,10 @@ def _expected(cfg) -> tuple[dict[str, tuple], dict[str, tuple]]:
 
 def _expected_shapes(cfg: LlamaConfig) -> dict[str, tuple]:
     h, hd, f = cfg.hidden_size, cfg.head_dim, cfg.intermediate_size
+    e = cfg.moe_experts
     shapes = {"tok_embeddings.embedding": (cfg.vocab_size, h),
               "final_norm.scale": (h,)}
+    moe = moe_layers(cfg)
     for i in range(cfg.num_layers):
         p = f"layers.{i}."
         shapes.update({
@@ -108,10 +112,15 @@ def _expected_shapes(cfg: LlamaConfig) -> dict[str, tuple]:
             p + "attention.k.kernel": (h, cfg.num_kv_heads, hd),
             p + "attention.v.kernel": (h, cfg.num_kv_heads, hd),
             p + "attention.o.kernel": (cfg.num_heads * hd, h),
-            p + "gate.kernel": (h, f),
-            p + "up.kernel": (h, f),
-            p + "down.kernel": (f, h),
         })
+        if i in moe:   # an MoE block has no gate/up/down
+            shapes.update({p + "moe.router.kernel": (h, e),
+                           p + "moe.router.bias": (e,),
+                           p + "moe.w_in": (e, h, f),
+                           p + "moe.w_out": (e, f, h)})
+        else:
+            shapes.update({p + "gate.kernel": (h, f), p + "up.kernel": (h, f),
+                           p + "down.kernel": (f, h)})
     return shapes
 
 

@@ -24,7 +24,14 @@ a contiguous KV cache and a paged one.  Four attention branches:
 Every cache is updated IN PLACE (the reference's functional update
 returns a new array; here the returned cache holds the same tensors),
 which keeps the serving engine's KV view, prefill scratch and page pool
-from being copied per step.  MoE layers are not yet ported and raise.
+from being copied per step.
+
+With ``moe_experts`` > 0, every ``moe_every``-th block (``i % moe_every ==
+0``) replaces its SwiGLU FFN with a top-2 ``MoEBlock``
+(``models/moe.py``): dropless when a cache is present (serving), the
+capacity formulation otherwise (training).  The output gains
+``moe_aux``, the blocks' load-balance losses averaged over the MoE
+layers.
 
 Training (no cache, grad enabled) runs each block under
 ``torch.utils.checkpoint`` (non-reentrant) when ``remat`` is on, as the
@@ -43,6 +50,7 @@ from torch.utils.checkpoint import checkpoint
 
 from kubeflow_tpu_torch.device import dtype_of, resolve
 from kubeflow_tpu_torch.models import layers as kl
+from kubeflow_tpu_torch.models.moe import MoEBlock, MoEConfig
 from kubeflow_tpu_torch.ops.attention import dot_product_attention
 
 
@@ -60,7 +68,7 @@ class LlamaConfig:
     dtype: str = "bfloat16"
     remat: bool = True
     use_flash: bool = True
-    moe_experts: int = 0    # MoE layers: not yet ported (raises)
+    moe_experts: int = 0    # > 0: every moe_every-th block is an MoE block
     moe_every: int = 2
 
     @property
@@ -142,11 +150,12 @@ class LlamaAttention(nn.Module):
                     cv[rows, write] = v[:, 0]
                 else:
                     # ragged multi-token write: row b's block at its own
-                    # index (start clamped like dynamic_update_slice)
-                    starts = idx.clamp(0, ck.shape[1] - s).tolist()
-                    for b, st in enumerate(starts):
-                        ck[b, st:st + s] = k[b]
-                        cv[b, st:st + s] = v[b]
+                    # index (start clamped like dynamic_update_slice), one
+                    # scatter for every row
+                    start = idx.clamp(0, ck.shape[1] - s)
+                    cols = start[:, None] + torch.arange(s, device=x.device)
+                    ck[rows[:, None], cols] = k
+                    cv[rows[:, None], cols] = v
                 # key slot j is visible to the query at absolute position
                 # p iff j <= p (also hides never-written slots)
                 pos_k = torch.arange(ck.shape[1], device=x.device)
@@ -188,29 +197,47 @@ class LlamaAttention(nn.Module):
 
 
 class LlamaBlock(nn.Module):
-    def __init__(self, cfg: LlamaConfig, *, param_dtype, device):
+    """Attention and FFN with pre-norms; ``use_moe`` swaps the SwiGLU FFN
+    for a top-2 ``MoEBlock``.  Returns ``(x, cache, aux)``: ``aux`` is the
+    MoE block's load-balance loss, None for a dense block."""
+
+    def __init__(self, cfg: LlamaConfig, *, use_moe: bool = False,
+                 param_dtype, device):
         super().__init__()
         dt = cfg.torch_dtype
         kw = dict(dtype=dt, param_dtype=param_dtype, device=device)
         nkw = dict(param_dtype=param_dtype, device=device)
+        self.use_moe = use_moe
         self.attention_norm = kl.RMSNorm(cfg.hidden_size, cfg.rms_eps, **nkw)
         self.attention = LlamaAttention(cfg, param_dtype=param_dtype,
                                         device=device)
         self.ffn_norm = kl.RMSNorm(cfg.hidden_size, cfg.rms_eps, **nkw)
-        self.gate = kl.DenseGeneral(cfg.hidden_size, cfg.intermediate_size,
-                                    **kw)
-        self.up = kl.DenseGeneral(cfg.hidden_size, cfg.intermediate_size,
-                                  **kw)
-        self.down = kl.DenseGeneral(cfg.intermediate_size, cfg.hidden_size,
-                                    **kw)
+        if use_moe:
+            self.moe = MoEBlock(MoEConfig(
+                hidden_size=cfg.hidden_size, ffn_size=cfg.intermediate_size,
+                num_experts=cfg.moe_experts, dtype=cfg.dtype),
+                param_dtype=param_dtype, device=device)
+        else:
+            self.gate = kl.DenseGeneral(cfg.hidden_size,
+                                        cfg.intermediate_size, **kw)
+            self.up = kl.DenseGeneral(cfg.hidden_size, cfg.intermediate_size,
+                                      **kw)
+            self.down = kl.DenseGeneral(cfg.intermediate_size,
+                                        cfg.hidden_size, **kw)
 
     def forward(self, x, positions, cache=None, attn_mask=None):
         h, cache = self.attention(self.attention_norm(x), positions, cache,
                                   attn_mask)
         x = x + h
         y = self.ffn_norm(x)
+        if self.use_moe:
+            # serving (a cache) routes dropless, so a request's logits do
+            # not depend on padding or co-batched rows; training keeps the
+            # capacity formulation
+            y, aux = self.moe(y, dropless=cache is not None)
+            return x + y, cache, aux
         y = self.down(F.silu(self.gate(y)) * self.up(y))
-        return x + y, cache
+        return x + y, cache, None
 
 
 class LlamaModel(nn.Module):
@@ -223,16 +250,15 @@ class LlamaModel(nn.Module):
     def __init__(self, config: LlamaConfig, *, device=None,
                  param_dtype=torch.float32):
         super().__init__()
-        if config.moe_experts > 0:
-            raise NotImplementedError("MoE llama layers are not yet ported")
         self.config = config
         device = resolve(device)
         self.tok_embeddings = kl.Embed(config.vocab_size, config.hidden_size,
                                        dtype=config.torch_dtype,
                                        param_dtype=param_dtype, device=device)
         self.layers = nn.ModuleList(
-            LlamaBlock(config, param_dtype=param_dtype, device=device)
-            for _ in range(config.num_layers))
+            LlamaBlock(config, use_moe=i in moe_layers(config),
+                       param_dtype=param_dtype, device=device)
+            for i in range(config.num_layers))
         self.final_norm = kl.RMSNorm(config.hidden_size, config.rms_eps,
                                      param_dtype=param_dtype, device=device)
 
@@ -259,20 +285,36 @@ class LlamaModel(nn.Module):
         x = self.tok_embeddings(input_ids)
         remat = (self.config.remat and cache is None
                  and torch.is_grad_enabled())
-        new_cache = []
+        new_cache, auxes = [], []
         for i, block in enumerate(self.layers):
             layer_cache = None if cache is None else cache["layers"][i]
             if remat:
-                x, layer_cache = checkpoint(block, x, positions, None,
-                                            attn_mask, use_reentrant=False)
+                # the recomputed forward routes exactly as the first did
+                x, layer_cache, aux = checkpoint(
+                    block, x, positions, None, attn_mask, use_reentrant=False)
             else:
-                x, layer_cache = block(x, positions, layer_cache, attn_mask)
+                x, layer_cache, aux = block(x, positions, layer_cache,
+                                            attn_mask)
             new_cache.append(layer_cache)
+            if aux is not None:
+                auxes.append(aux)
         x = self.final_norm(x)
         out = {"logits": self.tok_embeddings.attend(x)}
+        if self.config.moe_experts > 0:
+            # depth-normalised, so the loss coefficient does not depend on
+            # how many layers are MoE
+            out["moe_aux"] = sum(auxes) / len(auxes)
         if cache is not None:
             out["cache"] = {"layers": new_cache}
         return out
+
+
+def moe_layers(cfg: LlamaConfig) -> set[int]:
+    """Indices of the MoE blocks: every ``moe_every``-th from layer 0."""
+    if cfg.moe_experts <= 0:
+        return set()
+    every = max(cfg.moe_every, 1)
+    return {i for i in range(cfg.num_layers) if i % every == 0}
 
 
 def init_kv_pool(cfg: LlamaConfig, num_pages: int, page_size: int, *,

@@ -183,10 +183,11 @@ def _llama_batch(batch_size, gen, module, seq_len: int | None = None):
 def _llama_loss(module, batch):
     from kubeflow_tpu_torch.models.mlp import softmax_cross_entropy
 
-    if module.config.moe_experts > 0:   # the load-balance term's layers
-        raise NotImplementedError("MoE llama layers are not yet ported")
     out = module(batch["input_ids"])
-    return softmax_cross_entropy(out["logits"], batch["labels"])
+    loss = softmax_cross_entropy(out["logits"], batch["labels"])
+    if "moe_aux" in out:   # the Switch load-balance regulariser
+        loss = loss + 0.01 * out["moe_aux"]
+    return loss
 
 
 register(ModelEntry("llama", _make_llama, make_batch=_llama_batch,

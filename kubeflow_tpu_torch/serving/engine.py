@@ -2,9 +2,9 @@
 scheduling), on one CUDA card.
 
 Counterpart of ``kubeflow_tpu/serving/engine.py``'s ``ContinuousBatcher``,
-trimmed to the colocated path with no speculation, disaggregation, KV
-quantization, cluster prefix directory, weight-residency pressure, tenant
-fair queueing or tracing (ROADMAP queue A lists them).  What it keeps:
+trimmed to the colocated path with no disaggregation, KV quantization,
+cluster prefix directory, weight-residency pressure, tenant fair queueing
+or tracing (ROADMAP queue A lists them).  What it keeps:
 
 - ``max_batch`` slots over one RESIDENT KV view ``[max_batch, max_seq]``
   per layer, held in the model dtype and updated in place; each slot sits
@@ -32,7 +32,19 @@ fair queueing or tracing (ROADMAP queue A lists them).  What it keeps:
   and shutdown;
 - sampling with one ``torch.Generator`` per request, seeded from its seed:
   a request's draws depend only on its own seed and step, never on
-  co-batched traffic.
+  co-batched traffic;
+- with ``speculative_tokens`` > 0, speculative decoding (Leviathan et al.,
+  ICML 2023): a drafter (n-gram prompt lookup by default, or ``draft_fn``,
+  e.g. ``serving/draft_model.py``) proposes up to that many tokens per
+  row, and ONE forward of ``[last, draft..., 0-pad]`` per row over the
+  resident view verifies them.  Position j's logits are those sequential
+  decode computes once drafts 0..j-1 are accepted, and position j of a
+  row samples with its generator after j draws, so each row keeps its
+  longest agreeing prefix plus the model's own next token and the stream
+  is the one decode without speculation gives.  A cost model
+  (``SPEC_COST_BASE``, ``SPEC_COST_SLOPE``, the drafter's
+  ``cost_per_token``) runs a round only when its expected tokens beat the
+  decode chunk it displaces.
 """
 
 from __future__ import annotations
@@ -46,6 +58,9 @@ import torch
 from kubeflow_tpu_torch.models.llama import init_kv_pool, kv_page_nbytes
 from kubeflow_tpu_torch.serving.page_pool import PagePool, pages_for
 from kubeflow_tpu_torch.serving.prefix_cache import PrefixCache
+from kubeflow_tpu_torch.serving.speculative import (MIN_DRAFT,
+                                                    SpeculationState,
+                                                    ngram_draft)
 from kubeflow_tpu_torch.utils.logging import get_logger
 from kubeflow_tpu_torch.utils.metrics import REGISTRY
 
@@ -79,6 +94,15 @@ PREFIX_HITS = REGISTRY.counter(
 PREFIX_MISSES = REGISTRY.counter(
     "serving_prefix_cache_misses_total",
     "admissions with no reusable cached prefix")
+SPEC_PROPOSED = REGISTRY.counter(
+    "serving_spec_tokens_proposed_total",
+    "draft tokens proposed to speculative verification")
+SPEC_ACCEPTED = REGISTRY.counter(
+    "serving_spec_tokens_accepted_total",
+    "draft tokens accepted by speculative verification")
+SPEC_ROUNDS = REGISTRY.counter(
+    "serving_spec_rounds_total",
+    "speculative verify dispatches")
 ADMISSION_WAIT = REGISTRY.histogram(
     "serving_admission_wait_seconds",
     "queue wait from submit() to slot admission",
@@ -87,6 +111,13 @@ ADMISSION_WAIT = REGISTRY.histogram(
 
 PREFILL_BUCKETS = (16, 32, 64, 128, 256, 512, 1024, 2048)
 DECODE_CHUNKS = (8, 16, 32, 64, 128)
+
+# verify-round cost model, in decode-step units: a round costs about BASE
+# steps of fixed overhead plus SLOPE steps per verified token (the
+# reference's calibration, deliberately pessimistic so the policy errs
+# toward plain decode)
+SPEC_COST_BASE = 1.8
+SPEC_COST_SLOPE = 0.15
 
 
 class QueueFull(RuntimeError):
@@ -131,6 +162,7 @@ class GenRequest:
     _cancel_requested: bool = False
     _engine: object | None = field(default=None, repr=False)
     _gen: torch.Generator | None = field(default=None, repr=False)
+    _spec: SpeculationState | None = field(default=None, repr=False)
 
     def expired(self, now: float | None = None) -> bool:
         return (self.deadline is not None
@@ -165,7 +197,8 @@ class ContinuousBatcher:
                  max_seq: int = 512, prefill_chunk: int = 512,
                  max_queue: int = 0, prefix_cache_bytes: int = 0,
                  page_size: int = 16, kv_pages: int = 0,
-                 host_kv_pages: int = 0):
+                 host_kv_pages: int = 0, speculative_tokens: int = 0,
+                 draft_fn=None):
         self.model = model
         self.cfg = cfg
         self.device = model.device
@@ -174,6 +207,19 @@ class ContinuousBatcher:
         self.prefill_chunk = max(1, min(prefill_chunk, self.max_seq))
         self.max_queue = max_queue
         self.log = get_logger("serving.batcher")
+        # speculative decoding: max draft tokens per verify round (0 =
+        # plain chunked decode); the drafter defaults to n-gram lookup
+        self.spec_max = max(0, int(speculative_tokens))
+        self.draft_fn = ngram_draft if draft_fn is None else draft_fn
+        # a model drafter pays real forwards (cost_per_token decode-step
+        # units per drafted token), so the arbiter prices it BEFORE
+        # drafting; an n-gram draft is free and priced after
+        self.draft_cost = max(0.0, float(getattr(self.draft_fn,
+                                                 "cost_per_token", 0.0)))
+        self._spec_buckets = tuple(
+            b for b in (1, 2, 4, 8, 16, 32) if b < self.spec_max
+        ) + ((self.spec_max,) if self.spec_max else ())
+        self._spec_declines = 0
         # clamped like prefill_chunk: a page longer than max_seq could
         # never be committed
         self.page_size = max(1, min(int(page_size), self.max_seq))
@@ -214,6 +260,7 @@ class ContinuousBatcher:
         self._timing = {"ttft_sum": 0.0, "ttft_count": 0,
                         "decode_tokens": 0, "decode_seconds": 0.0,
                         "prefill_chunks": 0}
+        self._spec_tally = {"proposed": 0, "accepted": 0, "rounds": 0}
 
     # -- public ----------------------------------------------------------------
     def submit(self, ids: list[int], max_new_tokens: int = 32,
@@ -238,6 +285,8 @@ class ContinuousBatcher:
             raise ValueError("deadline_s must be > 0")
         req = GenRequest(list(ids), max_new_tokens, temperature, eos_id,
                          top_k=top_k, top_p=top_p)
+        if self.spec_max:
+            req._spec = SpeculationState(self.spec_max)
         with self._work:
             if self._closed:
                 raise RuntimeError("serving engine is shut down")
@@ -300,6 +349,12 @@ class ContinuousBatcher:
                 out["max_queue"] = self.max_queue
             if self._draining:
                 out["draining"] = True
+            if self.spec_max:
+                tally = dict(self._spec_tally)
+                out["speculative"] = {
+                    "max_tokens": self.spec_max, **tally,
+                    "accept_rate": (tally["accepted"] / tally["proposed"]
+                                    if tally["proposed"] else 0.0)}
         pool = self.pool.stats()
         pool["live_tokens"] = live_tokens
         cache = (self.prefix_cache.stats() if self.prefix_cache is not None
@@ -432,7 +487,8 @@ class ContinuousBatcher:
         with self._work:
             queue_empty = not self.queue
         if any(self.slots):
-            self._decode_chunk(queue_empty)
+            if not (self.spec_max and self._spec_step()):
+                self._decode_chunk(queue_empty)
         return True
 
     def _admit(self) -> None:
@@ -616,6 +672,15 @@ class ContinuousBatcher:
 
     def _decode_chunk(self, queue_empty: bool) -> None:
         chunk = self._chunk_len(queue_empty)
+        if self.spec_max:
+            # speculation re-probes at dispatch boundaries: a slot whose
+            # drafts have been landing (or a lone stream) gets the tight
+            # cadence, every other a moderate cap (the 0.65 bar sits above
+            # note_skip's optimistic reset of 0.6)
+            hot = any(s is not None and s._spec.accept_ewma > 0.65
+                      for s in self.slots)
+            solo = sum(1 for s in self.slots if s) == 1
+            chunk = min(chunk, 32 if hot or solo else 64)
         reqs = list(self.slots)
         gens = [r._gen if r is not None else None for r in reqs]
         # host truth: next write slot = prompt + generated - 1 (the last
@@ -639,6 +704,10 @@ class ContinuousBatcher:
         for i, req in enumerate(reqs):
             if req is None:
                 continue
+            if req._spec is not None:
+                # the drafter sat out a whole chunk: let it re-probe soon,
+                # weighted by how much of the stream went by
+                req._spec.note_skip(weight=chunk // 32)
             want = req.max_new_tokens - len(req.generated)
             for step in range(min(chunk, want)):
                 t = host[step][i]
@@ -657,6 +726,136 @@ class ContinuousBatcher:
             self._timing["decode_seconds"] += dt
         for i in range(self.max_batch):
             self._finish_if_done(i)
+
+    def _spec_step(self) -> bool:
+        """One speculative round, if the cost model approves: draft each
+        active row, verify every draft in ONE batched forward, keep each
+        row's accepted prefix plus the model's own next token.  Returns
+        False (having run nothing on the card) when the expected tokens
+        do not beat the decode chunk; the caller then runs the chunk."""
+        active = [(i, s) for i, s in enumerate(self.slots) if s]
+        if not active:
+            return False
+        allowed = self.max_seq - 1 - max(
+            len(s.ids) + len(s.generated) - 1 for _, s in active)
+        # planned lengths bound what drafting returns; a costed drafter
+        # must clear the bar before any draft compute is spent
+        plans: dict[int, int] = {}
+        for i, s in active:
+            want = s.max_new_tokens - len(s.generated)
+            plans[i] = max(0, min(s._spec.next_len, want - 1, allowed))
+        if self.draft_cost > 0.0:
+            planned = max(plans.values(), default=0)
+            if planned <= 0:
+                return False
+            gamma_plan = min(next(b for b in self._spec_buckets
+                                  if b >= planned), allowed)
+            expected = sum(1.0 + s._spec.accept_ewma
+                           * min(plans[i], gamma_plan) for i, s in active)
+            cost = (len(active) * (SPEC_COST_BASE
+                                   + SPEC_COST_SLOPE * gamma_plan)
+                    + self.draft_cost * sum(plans.values()))
+            if expected < cost:
+                # the gate learns accept rates only by drafting: every 4th
+                # declined round runs anyway at the MIN_DRAFT probe width
+                # (the decode chunk a decline falls back to records the
+                # skip)
+                self._spec_declines += 1
+                if self._spec_declines % 4 != 0:
+                    return False
+                plans = {i: min(p, MIN_DRAFT) for i, p in plans.items()}
+        drafts: dict[int, list[int]] = {}
+        for i, s in active:
+            limit = plans[i]
+            d = self.draft_fn(s.ids + s.generated, limit) if limit > 0 else []
+            drafts[i] = list(d[:limit])
+        desired = max(len(d) for d in drafts.values())
+        if desired <= 0:
+            return False
+        gamma = min(next(b for b in self._spec_buckets if b >= desired),
+                    allowed)
+        expected = sum(1.0 + s._spec.accept_ewma * len(drafts[i])
+                       for i, s in active)
+        if expected < len(active) * (SPEC_COST_BASE
+                                     + SPEC_COST_SLOPE * gamma):
+            return False
+        reqs = list(self.slots)
+        toks = []
+        for i, req in enumerate(reqs):
+            d = drafts.get(i, [])[:gamma]
+            toks.append([req.generated[-1] if req else 0] + d
+                        + [0] * (gamma - len(d)))
+        t0 = time.perf_counter()
+        choices, states = self._verify(reqs, toks)
+        dt = time.perf_counter() - t0
+        SPEC_ROUNDS.inc()
+        taken_total, proposed, accepted_total = 0, 0, 0
+        for i, req in active:
+            draft = drafts[i][:gamma]
+            col = [choices[j][i] for j in range(gamma + 1)]
+            accepted = 0
+            while accepted < len(draft) and draft[accepted] == col[accepted]:
+                accepted += 1
+            want = req.max_new_tokens - len(req.generated)
+            taken = 0
+            for tok in col[:accepted + 1][:want]:
+                req.generated.append(tok)
+                taken += 1
+                if req.eos_id is not None and tok == req.eos_id:
+                    break
+            taken_total += taken
+            if draft:
+                proposed += len(draft)
+                accepted_total += accepted
+            req._spec.observe(len(draft), accepted)
+            if taken < len(states[i]):
+                # the generator's state after the draws of the tokens
+                # actually kept (the rest were drawn for rejected
+                # positions)
+                req._gen.set_state(states[i][taken])
+        # counters before completion events: a woken caller sees them
+        SPEC_PROPOSED.inc(proposed)
+        SPEC_ACCEPTED.inc(accepted_total)
+        TOKENS_TOTAL.inc(taken_total)
+        DECODE_TOKENS.inc(taken_total)
+        DECODE_SECONDS.inc(dt)
+        if dt > 0:
+            TOKS_PER_SEC.set(taken_total / dt)
+        with self._work:
+            self._timing["decode_tokens"] += taken_total
+            self._timing["decode_seconds"] += dt
+            tally = self._spec_tally
+            tally["proposed"] += proposed
+            tally["accepted"] += accepted_total
+            tally["rounds"] += 1
+        for i, _ in active:
+            self._finish_if_done(i)
+        return True
+
+    def _verify(self, reqs: list, toks: list[list[int]]):
+        """ONE forward of ``s = len(toks[0])`` tokens per row (``[last,
+        draft..., 0-pad]``) at each row's host-truth index over the
+        resident view, then each position's choice as sequential decode
+        would make it.  Returns ``(choices [s][B], states)``: ``states[b]``
+        holds row b's generator state before each of its draws (empty for
+        a greedy row).  Rejected positions leave garbage KV behind; the
+        next dispatch's index comes from host truth, so each such position
+        is rewritten before any query attends to it."""
+        index = torch.tensor(
+            [len(r.ids) + len(r.generated) - 1 if r else 0 for r in reqs],
+            dtype=torch.int64, device=self.device)
+        ids = torch.tensor(toks, dtype=torch.int64, device=self.device)
+        cache = {"layers": [dict(l, index=index) for l in self.view]}
+        logits = self.model(ids, cache=cache)["logits"]        # [B, s, V]
+        gens = [r._gen if r is not None else None for r in reqs]
+        states: list[list] = [[] for _ in reqs]
+        choices = []
+        for j in range(ids.shape[1]):
+            for i, r in enumerate(reqs):
+                if r is not None and r.temperature > 0.0:
+                    states[i].append(r._gen.get_state())
+            choices.append(sample_rows(logits[:, j], reqs, gens))
+        return torch.stack(choices).tolist(), states   # the sync
 
     def _finish_if_done(self, slot: int) -> None:
         req = self.slots[slot]

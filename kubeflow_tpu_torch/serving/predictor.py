@@ -2,10 +2,13 @@
 InferenceService.
 
 Counterpart of ``kubeflow_tpu/serving/predictor.py``, trimmed to the
-port's slices: a generative Llama predictor, colocated on one card, with
+port's slices: a generative Llama predictor (dense, or MoE with the
+``moe_experts``/``moe_every`` model options), colocated on one card, with
 the radix prefix cache over paged KV when ``--prefix-cache-mb`` > 0
-(``--kv-page-size``, ``--host-kv-pages``); no speculation, no
-quantization, no disaggregation.
+(``--kv-page-size``, ``--host-kv-pages``) and speculative decoding when
+``--speculative-tokens`` > 0 (n-gram drafts, or a truncated-target draft
+model with ``--draft-layers``); no quantization, no disaggregation, no
+expert parallelism.
 Routes, as the reference serves them:
 
     GET  /healthz                          ready / draining
@@ -19,7 +22,9 @@ Routes, as the reference serves them:
 Overload maps as in the reference: queue full 429 (+ Retry-After),
 draining 503, deadline 504, bad request 422.  Run it with
 ``python -m kubeflow_tpu_torch.serving.predictor --model llama:size=7b``
-(add ``--prefix-cache-mb 2048`` to reuse shared prompt prefixes).
+(add ``--prefix-cache-mb 2048`` to reuse shared prompt prefixes,
+``--speculative-tokens 4`` to speculate; serve the MoE variant with
+``--model 'llama:size=7b,moe_experts=8'``).
 """
 
 from __future__ import annotations
@@ -46,7 +51,12 @@ class GenerativePredictor:
     compute dtype.  ``prefix_cache_mb`` > 0 opts into radix-tree KV prefix
     reuse over shared refcounted pages of ``kv_page_size`` positions (a
     budget in MB of device memory); ``host_kv_pages`` > 0 opens a host-RAM
-    arena of that many pages that the cache spills to before it drops."""
+    arena of that many pages that the cache spills to before it drops.
+    ``speculative_tokens`` > 0 turns on speculative decoding with n-gram
+    drafts, or with ``draft_layers`` > 0 a draft model made of the
+    target's first ``draft_layers`` blocks (shared weights).  A draft
+    depth the target does not have logs and falls back to n-gram; any
+    other error while building the drafter propagates."""
 
     def __init__(self, model_name: str = "llama", size: str = "tiny",
                  model_config: dict | None = None,
@@ -54,7 +64,8 @@ class GenerativePredictor:
                  max_batch: int = 4, max_seq: int = 512, seed: int = 0,
                  prefill_chunk: int = 512, max_queue: int = 0,
                  prefix_cache_mb: float = 0.0, kv_page_size: int = 16,
-                 host_kv_pages: int = 0,
+                 host_kv_pages: int = 0, speculative_tokens: int = 0,
+                 draft_layers: int = 0,
                  device: str | torch.device | None = None):
         from kubeflow_tpu_torch.models import registry
 
@@ -75,6 +86,19 @@ class GenerativePredictor:
         self.module.eval()
         self.cfg = self.module.config
         self.max_seq = min(max_seq, self.cfg.max_seq_len)
+        draft_fn = None
+        if draft_layers > 0 and speculative_tokens > 0:
+            from kubeflow_tpu_torch.serving.draft_model import DraftModel
+
+            try:
+                draft_fn = DraftModel(self.module,
+                                      num_layers=int(draft_layers))
+                self.log.info("draft model enabled",
+                              draft_layers=int(draft_layers),
+                              target_layers=self.cfg.num_layers)
+            except ValueError as e:   # the depth: fall back to n-gram
+                self.log.warning("draft model unavailable; using n-gram",
+                                 error=str(e))
         self.engine = ContinuousBatcher(self.module, self.cfg,
                                         max_batch=max_batch,
                                         max_seq=self.max_seq,
@@ -83,7 +107,9 @@ class GenerativePredictor:
                                         prefix_cache_bytes=int(
                                             prefix_cache_mb * (1 << 20)),
                                         page_size=kv_page_size,
-                                        host_kv_pages=host_kv_pages)
+                                        host_kv_pages=host_kv_pages,
+                                        speculative_tokens=speculative_tokens,
+                                        draft_fn=draft_fn)
         self.log.info("predictor ready", device=str(device),
                       params=sum(p.numel() for p in self.module.parameters()))
 
@@ -237,16 +263,16 @@ class PredictorApp:
 # flags of the reference predictor this slice does not serve yet, with the
 # default that means "off"; setting one away from it is an error
 _UNSUPPORTED_FLAGS = {
-    "checkpoint_dir": None, "speculative_tokens": 0, "draft_layers": 0,
-    "role": "colocated", "kv_quant": False, "weight_budget_mb": 0.0,
-    "staging_mb": 64.0,
+    "checkpoint_dir": None, "role": "colocated", "kv_quant": False,
+    "weight_budget_mb": 0.0, "staging_mb": 64.0,
 }
 # per-model options (``--model name:k=v``) likewise unsupported when set
 _UNSUPPORTED_OPTS = {
     "checkpoint_dir": "", "quantize": "", "tp": "1", "ep": "1",
-    "speculative_tokens": "0", "draft_layers": "0", "role": "colocated",
-    "kv_quant": "", "staging_mb": "64", "parked": "", "moe_experts": "0",
+    "role": "colocated", "kv_quant": "", "staging_mb": "64", "parked": "",
 }
+# per-model options that configure the model itself (the MoE variant)
+_MODEL_CONFIG_OPTS = ("moe_experts", "moe_every")
 
 
 def _parse_model_spec(spec: str, args) -> tuple[str, dict]:
@@ -258,6 +284,7 @@ def _parse_model_spec(spec: str, args) -> tuple[str, dict]:
                              "supported by the PyTorch predictor")
     known = {"size", "max_batch", "max_seq", "prefill_chunk", "max_queue",
              "prefix_cache_mb", "kv_page_size", "host_kv_pages",
+             "speculative_tokens", "draft_layers", *_MODEL_CONFIG_OPTS,
              *_UNSUPPORTED_OPTS}
     unknown = sorted(set(opts) - known)
     if unknown:
@@ -271,7 +298,12 @@ def _parse_model_spec(spec: str, args) -> tuple[str, dict]:
                                             args.prefix_cache_mb)),
           "kv_page_size": int(opts.get("kv_page_size", args.kv_page_size)),
           "host_kv_pages": int(opts.get("host_kv_pages",
-                                        args.host_kv_pages))}
+                                        args.host_kv_pages)),
+          "speculative_tokens": int(opts.get("speculative_tokens",
+                                             args.speculative_tokens)),
+          "draft_layers": int(opts.get("draft_layers", args.draft_layers)),
+          "model_config": {k: int(opts[k]) for k in _MODEL_CONFIG_OPTS
+                           if k in opts} or None}
     return name, kw
 
 
@@ -301,8 +333,13 @@ def main(argv=None) -> int:
     parser.add_argument("--max-queue", type=int, default=0)
     parser.add_argument("--kv-page-size", type=int, default=16)
     parser.add_argument("--host-kv-pages", type=int, default=0)
-    parser.add_argument("--speculative-tokens", type=int, default=0)
-    parser.add_argument("--draft-layers", type=int, default=0)
+    parser.add_argument("--speculative-tokens", type=int, default=0,
+                        help="max draft tokens per speculative-decoding "
+                             "round (0 = off); streams are unchanged")
+    parser.add_argument("--draft-layers", type=int, default=0,
+                        help="draft with the target's first N blocks "
+                             "instead of n-gram lookup (needs "
+                             "--speculative-tokens)")
     parser.add_argument("--role", default="colocated",
                         choices=("colocated", "prefill", "decode"))
     parser.add_argument("--kv-quant", action="store_true")

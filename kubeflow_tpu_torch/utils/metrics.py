@@ -1,9 +1,11 @@
 """Prometheus-style metrics registry (text exposition format).
 
 The port's own copy of ``kubeflow_tpu/utils/metrics.py``, trimmed to what
-the serving engine, the page pool, the prefix cache and the predictor's
-``/metrics`` use: labelled counters and gauges (readable with ``get``)
-and cumulative-bucket histograms.
+the serving engine (its speculation counters
+``serving_spec_tokens_proposed_total``, ``..._accepted_total`` and
+``serving_spec_rounds_total`` included), the page pool, the prefix cache
+and the predictor's ``/metrics`` use: labelled counters and gauges
+(readable with ``get``) and cumulative-bucket histograms.
 """
 
 from __future__ import annotations

@@ -398,3 +398,118 @@ def test_paged_branch_matches_contiguous_on_the_card(cuda_device):
             for l in pool["layers"]]})
     scale = ref["logits"].abs().max().item()
     assert (out["logits"] - ref["logits"]).abs().max().item() <= 1e-6 * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dropless", [True, False])
+def test_moe_block_on_the_card_matches_the_cpu(cuda_device, dropless):
+    # float32, TF32 off: the same products in another summation order, so
+    # y and aux agree to 1e-5 relative and routing (argmax of the same
+    # router logits) is the same, drops included
+    from kubeflow_tpu_torch.models import moe
+
+    cfg = moe.MoEConfig(hidden_size=128, ffn_size=256, num_experts=8,
+                        dtype="float32")
+    cpu = moe.MoEBlock(cfg, dropless=dropless, device="cpu")
+    cpu.init_weights(torch.Generator().manual_seed(0))
+    cpu.router.init_weights(torch.Generator().manual_seed(1))
+    card = moe.MoEBlock(cfg, dropless=dropless, device=cuda_device)
+    card.load_state_dict(cpu.state_dict())
+    x = torch.randn(2, 64, 128, generator=torch.Generator().manual_seed(2))
+    with torch.no_grad():
+        y, aux = cpu(x)
+        yc, auxc = card(x.to(cuda_device))
+    scale = y.abs().max().item()
+    assert (yc.cpu() - y).abs().max().item() <= 1e-5 * scale
+    assert abs(auxc.item() - aux.item()) <= 1e-5 * aux.item()
+    if not dropless:
+        assert int(card.dropped) == int(cpu.dropped)
+
+
+@pytest.mark.cuda
+def test_verify_round_matches_sequential_decode_on_the_card(cuda_device):
+    # tiny float32 Llama on the card: one verify forward of 5 tokens per
+    # row over a per-row cache gives the logits of 5 sequential decode
+    # steps (1e-5 of max |logit|), and an engine whose drafter proposes
+    # the true stream with one wrong token gives the stream of an engine
+    # without speculation
+    from kubeflow_tpu_torch.models import llama
+    from kubeflow_tpu_torch.serving.engine import ContinuousBatcher
+
+    model = llama.LlamaModel(llama.llama_tiny(dtype="float32"),
+                             device=cuda_device).init_weights(0)
+    cfg = model.config
+    g = torch.Generator().manual_seed(0)
+    ids = torch.randint(1, 512, (2, 12), generator=g).to(cuda_device)
+    toks = torch.randint(1, 512, (2, 5), generator=g).to(cuda_device)
+    caches = [llama.init_cache(cfg, 2, 64, per_sequence=True,
+                               device=cuda_device) for _ in range(2)]
+    start = torch.tensor([12, 9], device=cuda_device)
+    with torch.no_grad():
+        for cache in caches:
+            model(ids, cache=cache)
+            for layer in cache["layers"]:
+                layer["index"] = start
+        verify = model(toks, cache=caches[0])["logits"]
+        steps = []
+        for j in range(5):
+            for layer in caches[1]["layers"]:
+                layer["index"] = start + j
+            steps.append(model(toks[:, j:j + 1], cache=caches[1])["logits"])
+    seq = torch.cat(steps, dim=1)
+    assert (verify - seq).abs().max().item() <= 1e-5 * seq.abs().max().item()
+
+    plain = ContinuousBatcher(model, cfg, max_batch=2, max_seq=64)
+    prompt = ids[0].tolist()
+    want = plain.generate_sync([prompt], max_new_tokens=24)[0]
+
+    def partial(tokens, n):
+        d = list(want[len(tokens):len(tokens) + n])
+        return d[:1] + [d[1] % 511 + 1] if len(d) > 1 else d
+
+    spec = ContinuousBatcher(model, cfg, max_batch=2, max_seq=64,
+                             speculative_tokens=4, draft_fn=partial)
+    try:
+        assert spec.generate_sync([prompt], max_new_tokens=24)[0] == want
+        assert spec.stats()["speculative"]["accepted"] > 0
+    finally:
+        plain.shutdown()
+        spec.shutdown()
+
+
+@pytest.mark.cuda
+def test_ragged_multi_token_write_on_the_card(cuda_device):
+    # the one-scatter write of a [B] index equals per-row slice writes,
+    # bitwise, including a start clamped to S - s
+    from kubeflow_tpu_torch.models import llama
+
+    model = llama.LlamaModel(llama.llama_tiny(),
+                             device=cuda_device).init_weights(0)
+    cache = llama.init_cache(model.config, 3, 24, per_sequence=True,
+                             device=cuda_device)
+    index = torch.tensor([0, 7, 22], device=cuda_device)
+    for layer in cache["layers"]:
+        layer["index"] = index
+    ids = torch.randint(1, 512, (3, 5), generator=torch.Generator()
+                        .manual_seed(0)).to(cuda_device)
+    new_kv = []
+
+    def capture(module, args, output):
+        x, pos = args[0], args[1]
+        new_kv.append((llama.kl.rotary_embedding(module.k(x), pos, 10000.0),
+                       module.v(x)))
+
+    hooks = [blk.attention.register_forward_hook(capture)
+             for blk in model.layers]
+    with torch.no_grad():
+        model(ids, cache=cache)
+    for h in hooks:
+        h.remove()
+    for layer, (k_new, v_new) in zip(cache["layers"], new_kv):
+        want_k = torch.zeros_like(layer["k"])
+        want_v = torch.zeros_like(layer["v"])
+        for b, st in enumerate([0, 7, 19]):
+            want_k[b, st:st + 5] = k_new[b]
+            want_v[b, st:st + 5] = v_new[b]
+        assert torch.equal(layer["k"], want_k)
+        assert torch.equal(layer["v"], want_v)

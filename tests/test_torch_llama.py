@@ -152,9 +152,18 @@ def test_per_sequence_ragged_prefill_and_decode(jax_params):
 
 
 def test_unported_branches_raise():
-    with pytest.raises(NotImplementedError, match="MoE"):
-        tl.LlamaModel(tl.llama_tiny(moe_experts=2), device="cpu")
-    # the paged branch is ported: a page-table cache runs and advances
+    """Every branch that once raised is ported now: an MoE model runs
+    (with and without a cache) and a page-table cache runs and advances
+    its index."""
+    moe = tl.LlamaModel(tl.llama_tiny(moe_experts=2), device="cpu")
+    moe.init_weights(0)
+    ids = torch.zeros((1, 4), dtype=torch.long)
+    with torch.no_grad():
+        out = moe(ids)
+        cached = moe(ids, cache=tl.init_cache(moe.config, 1, 16,
+                                              device="cpu"))
+    assert out["logits"].shape == cached["logits"].shape == (1, 4, 512)
+    assert torch.isfinite(out["moe_aux"]) and out["moe_aux"] > 0
     tm = tl.LlamaModel(tl.llama_tiny(), device="cpu").init_weights(0)
     pool = tl.init_kv_pool(tm.config, 4, 8, device="cpu")
     cache = {"layers": [dict(pool_k=l["k"], pool_v=l["v"],
@@ -163,6 +172,49 @@ def test_unported_branches_raise():
                         for l in pool["layers"]]}
     out = tm(torch.zeros((1, 2), dtype=torch.long), cache=cache)
     assert out["cache"]["layers"][0]["index"].tolist() == [2]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ragged_multi_token_write_is_one_scatter(dtype):
+    """The per-row multi-token cache write (one index scatter) equals a
+    loop of slice writes bitwise, including a row whose start is clamped
+    to ``S - s`` as ``dynamic_update_slice`` clamps it."""
+    cfg = tl.llama_tiny(dtype="float32" if dtype == torch.float32
+                        else "bfloat16")
+    model = tl.LlamaModel(cfg, device="cpu").init_weights(3)
+    s, max_len = 5, 24
+    index = torch.tensor([0, 7, 22])             # row 2 clamps to 19
+    cache = tl.init_cache(cfg, 3, max_len, per_sequence=True, device="cpu")
+    for layer in cache["layers"]:
+        layer["k"].normal_(generator=torch.Generator().manual_seed(1))
+        layer["v"].normal_(generator=torch.Generator().manual_seed(2))
+        layer["index"] = index
+    before = [(l["k"].clone(), l["v"].clone()) for l in cache["layers"]]
+    ids = torch.from_numpy(ids_of((3, s), seed=4)).long()
+    # each attention's new k/v, recomputed from its input by the same ops
+    new_kv = []
+
+    def capture(module, args, output):
+        x, pos = args[0], args[1]
+        k = tl.kl.rotary_embedding(module.k(x), pos, cfg.rope_base)
+        new_kv.append((k, module.v(x)))
+
+    hooks = [blk.attention.register_forward_hook(capture)
+             for blk in model.layers]
+    with torch.no_grad():
+        model(ids, cache=cache)
+    for h in hooks:
+        h.remove()
+    starts = index.clamp(0, max_len - s).tolist()
+    assert starts == [0, 7, 19]
+    for layer, (k0, v0), (k_new, v_new) in zip(cache["layers"], before,
+                                               new_kv):
+        # the per-row loop of slice writes that the scatter replaced
+        for b, st in enumerate(starts):
+            k0[b, st:st + s] = k_new[b].to(k0.dtype)
+            v0[b, st:st + s] = v_new[b].to(v0.dtype)
+        assert torch.equal(layer["k"], k0)
+        assert torch.equal(layer["v"], v0)
 
 
 def test_device_defaults_to_cuda_and_never_falls_back(monkeypatch):

@@ -220,6 +220,24 @@ def test_trainer_builds_float32_masters_and_serving_keeps_bf16(monkeypatch):
 
 
 def test_moe_configs_are_refused_by_the_loss_and_the_model():
-    with pytest.raises(NotImplementedError, match="MoE"):
-        treg.get("llama").make_model(size="tiny", moe_experts=2,
-                                     device="cpu")
+    """MoE configurations are built and trained now: the registry's
+    Llama loss is the cross-entropy plus ``0.01 * moe_aux``, and a dense
+    model's loss carries no such term (``tests/test_torch_moe.py`` holds
+    both against the reference)."""
+    from kubeflow_tpu_torch.models.mlp import softmax_cross_entropy
+
+    entry = treg.get("llama")
+    batch = torch_batch(numpy_batch(1))
+    for experts in (2, 0):
+        model = entry.make_model(size="tiny", moe_experts=experts,
+                                 dtype="float32", device="cpu")
+        model.init_weights(0)
+        with torch.no_grad():
+            out = model(batch["input_ids"])
+            loss = entry.forward_loss(model, batch)
+        ce = softmax_cross_entropy(out["logits"], batch["labels"])
+        if experts:
+            assert out["moe_aux"] > 0
+            assert torch.equal(loss, ce + 0.01 * out["moe_aux"])
+        else:
+            assert "moe_aux" not in out and torch.equal(loss, ce)

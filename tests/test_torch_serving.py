@@ -210,7 +210,7 @@ def test_bounded_queue_sheds_and_drain_rejects(jax_side):
 
 @pytest.mark.parametrize("argv,flag", [
     (["--kv-quant"], "--kv-quant"),
-    (["--speculative-tokens", "4"], "--speculative-tokens"),
+    (["--weight-budget-mb", "64"], "--weight-budget-mb"),
     (["--role", "prefill"], "--role"),
     (["--checkpoint-dir", "/ckpt"], "--checkpoint-dir"),
 ])
@@ -246,6 +246,50 @@ def test_main_accepts_prefix_cache_flags(argv, want, monkeypatch):
     assert {k: seen[k] for k in defaults} == {**defaults, **want}
 
 
+@pytest.mark.parametrize("argv,want", [
+    (["--speculative-tokens", "4"], {"speculative_tokens": 4}),
+    (["--speculative-tokens", "4", "--draft-layers", "2"],
+     {"speculative_tokens": 4, "draft_layers": 2}),
+    (["--model", "llama:speculative_tokens=3,draft_layers=1"],
+     {"speculative_tokens": 3, "draft_layers": 1}),
+    (["--model", "llama:size=7b,moe_experts=8"],
+     {"model_config": {"moe_experts": 8}, "size": "7b"}),
+    (["--model", "llama:moe_experts=4,moe_every=1"],
+     {"model_config": {"moe_experts": 4, "moe_every": 1}}),
+])
+def test_main_accepts_speculation_and_moe_options(argv, want, monkeypatch):
+    seen = {}
+
+    def built(name, **kw):
+        seen.update(kw)
+        raise _Built
+
+    monkeypatch.setattr(tpred, "GenerativePredictor", built)
+    with pytest.raises(_Built):
+        tpred.main(argv + ["--device", "cpu"])
+    defaults = {"speculative_tokens": 0, "draft_layers": 0,
+                "model_config": None, "size": "tiny"}
+    assert {k: seen[k] for k in defaults} == {**defaults, **want}
+
+
+def test_moe_predictor_serves_with_a_float32_router():
+    pred = tpred.GenerativePredictor(
+        "llama", size="tiny", model_config={"moe_experts": 2}, max_seq=64,
+        device="cpu", speculative_tokens=2)
+    try:
+        dtypes = {n: p.dtype for n, p in pred.module.named_parameters()}
+        assert dtypes["layers.0.moe.router.kernel"] == torch.float32
+        assert dtypes["layers.0.moe.w_in"] == torch.bfloat16
+        app = tpred.PredictorApp({"llama": pred})
+        status, body, _ = wsgi(app, "POST", "/v1/models/llama:generate",
+                               {"ids": [prompts()[1]], "max_new_tokens": 6})
+        assert status == 200 and body["tokens_generated"] == 6
+        stats = wsgi(app, "GET", "/v1/models/llama")[1]["stats"]
+        assert stats["speculative"]["max_tokens"] == 2
+    finally:
+        pred.stop(timeout=10)
+
+
 def test_prefix_cache_options_reach_the_engine(jax_side):
     _, _, params = jax_side
     tcfg = tl.llama_tiny(dtype="float32")
@@ -273,3 +317,7 @@ def test_prefix_cache_options_reach_the_engine(jax_side):
 def test_main_refuses_unported_model_options():
     with pytest.raises(SystemExit, match="quantize"):
         tpred.main(["--model", "llama:quantize=int8", "--device", "cpu"])
+    # expert parallelism waits for the multi-device slice
+    with pytest.raises(SystemExit, match="ep=2"):
+        tpred.main(["--model", "llama:moe_experts=8,ep=2", "--device",
+                    "cpu"])
