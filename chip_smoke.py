@@ -3,12 +3,12 @@
 
     python3 chip_smoke.py                 # every phase below
     python3 chip_smoke.py --kernel-times  # build, then K1-K3 times only
-    python3 chip_smoke.py --phases 9,11   # build, then those phases only
-                                          # (9, 10, 11; no result line)
+    python3 chip_smoke.py --phases 12,13  # build, then those phases only
+                                          # (9 to 13; no result line)
 
 Phases, numbered as PERF.md cites them, run in the order 1, 2, 3, 7, 11,
-9, 4, 5, 10, 6, 8 (each phase frees its models before the next); any
-failure exits nonzero and prints no result:
+9, 12, 13, 4, 5, 10, 6, 8 (each phase frees its models before the next);
+any failure exits nonzero and prints no result:
 
 1. Build every CUDA kernel of the port from ``kubeflow_tpu_torch/ops/csrc``
    (one nvcc per source, all at once); fail if ptxas reports a spill or
@@ -73,15 +73,18 @@ failure exits nonzero and prints no result:
    pages fault back bitwise equal and its stream repeats the earlier
    hit's.
 8. Numbers: the card's name and power limit; each kernel's device time at
-   its main-path shapes (phases 2, 4, 5, 7, 9, 10 and 11) beside its
+   its main-path shapes (phases 2, 4, 5, 7 and 9 to 13) beside its
    bound, its plain version's time and a PyTorch call that computes the
    same function (``scaled_dot_product_attention`` forward, and its
    backward for K2 and K3: yardsticks the port never calls); K1, K2 and K3
    beside their bounds at a causal D=128 shape of one 2048-token sequence;
-   TTFT and decode tokens/s of phases 2 and 9; samples/s of every training
-   run; phase 11's tokens/s per mode.  Phase 9 runs K1 at phase 2's
-   shapes and phase 10 at phase 5's, so their rows carry those shapes'
-   times with their own launches.  Phase 11's K1 calls are timed per
+   TTFT and decode tokens/s of phases 2, 9 and 12; samples/s of every
+   training run; phase 11's tokens/s per mode; phase 12's chunk and
+   decode-step device times, dequantization time and weight bytes; phase
+   13's per-handoff bytes and times, TTFT and decode tokens/s.  Phases 9,
+   12 and 13 run K1 at phase 2's shapes (phase 12's int8 KV traffic at
+   phase 7's) and phase 10 at phase 5's, so their rows carry those
+   shapes' times with their own launches.  Phase 11's K1 calls are timed per
    distinct (Sq, Sk), except that the drafter's short calls (Sq <= 16) are
    timed at Sk rounded up to a multiple of 256; their bounds are computed
    from each call's own shape.
@@ -123,6 +126,38 @@ failure exits nonzero and prints no result:
    chunks plus 4 per drafter forward.  Rounds, proposed and accepted
    drafts, accept rate and tokens/s per mode, and the memory the drafter
    adds.
+12. int8 serving at full width and depth: phase 2's model, seed, settings
+   and requests through a ``GenerativePredictor`` with ``quantize`` (every
+   matmul weight int8 with per-channel scales, dequantized to bf16 at use)
+   over HTTP: K1 launches 32 x the prefill chunks, re-sent requests
+   reproduce their tokens, every K1 call of a chunked 1500-token prefill
+   is held against the plain version, and the kernel and plain routes'
+   logits agree (phase 2's checks).  The int8 q and scale of layers 0 and
+   31 made on the card equal ``quantize_array`` on the CPU over the same
+   bf16 weights, bitwise; ``weight_bytes`` against bf16; one prompt's
+   prefill-logit drift and top-1 agreement against the bf16 model of the
+   same seed; a chunk and a decode step by operator, and every weight's
+   dequantization alone.  Then int8 KV pages (``kv_quant``, a 2048 MB
+   cache of 16-position pages) on the int8 model take phase 7(a)'s
+   traffic: at least 1.9x phase 7's pages, every committed page equal to
+   ``quantize_kv`` of the scratch rows it was cut from (bitwise), warm
+   hits seeded through the dequantization, K1 32 x the chunks, no orphan
+   page or pin at idle; and the perplexity of a continuation over int8
+   prompt KV within ``KV_QUANT_PPL_TOL`` of bf16's.
+13. Disaggregated prefill/decode at full width.  (a) A ``--role decode``
+   predictor as a child process through the CLI (phase 2's model, seed and
+   settings, this card) and an in-process ``--role prefill`` predictor
+   over HTTP take phase 2's four requests with ``X-KF-Decode-Peer`` naming
+   the child: every stream (the sampled one included) equals phase 2's
+   colocated stream, the child counts 4 resumed handoffs and the prefill
+   side none resumed locally, K1 launches here 32 x the chunks; per
+   request the handoff's JSON bytes, serialize, POST and deserialize
+   times and TTFT.  Then the child stops and one more request completes
+   through the colocated fallback with the colocated stream.  (b) A
+   ``DisaggCoordinator`` (1 prefill and 1 decode engine over one int8
+   pool) takes the same requests: every stream completes, K1 32 x the
+   chunks, no orphan page at idle; the decode role's tokens/s beside phase
+   2's.
 
 The line before the last is the ``kernels`` JSON object; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -233,6 +268,20 @@ MOE_TRAIN_CONFIG = {"model": "llama",
                     "optimizer": {"name": "adamw", "learning_rate": 1e-4}}
 MOE_LAUNCHES = {"flash_fwd": 2 * MOE_LAYERS, "flash_bwd_dq": MOE_LAYERS,
                 "flash_bwd_dkv": MOE_LAYERS}
+# phase 12: int8 serving.  The layers whose q/scale made on the card are
+# held bitwise against quantize_array on the CPU; the perplexity of a
+# continuation over int8 prompt KV against bf16 prompt KV (head and tail
+# lengths): within KV_QUANT_PPL_TOL, the reference's bound (its
+# test_kv_quant_perplexity_neutral), since symmetric int8 with one scale
+# per (page, head) moves each KV value by at most half a step (1/254 of
+# the head's amax), which random-weight logits barely feel; a wrong scale
+# axis or a stale tail moves KV by O(1)
+INT8_CHECK_LAYERS = (0, 31)
+PPL_HEAD, PPL_TAIL = 1024, 64
+KV_QUANT_PPL_TOL = 0.02
+# phase 13: the decode child's start-up budget (a fresh interpreter,
+# CUDA, the 7B init) and its HTTP port's polling
+CHILD_START_S = 240
 # phase 11: speculation at phase 2's settings
 SPEC_TOKENS, DRAFT_LAYERS, SPEC_NEW = 4, 4, 64
 SPEC_BLOCK, SPEC_REPEATS = 64, 8
@@ -497,17 +546,48 @@ def phase_kernels(fa) -> dict:
     return errs
 
 
-def post(port: int, path: str, body: dict) -> tuple[int, dict]:
+def post(port: int, path: str, body: dict,
+         headers: dict | None = None) -> tuple[int, dict]:
     import http.client
 
     conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
     try:
         conn.request("POST", path, json.dumps(body),
-                     {"Content-Type": "application/json"})
+                     {"Content-Type": "application/json", **(headers or {})})
         resp = conn.getresponse()
         return resp.status, json.loads(resp.read())
     finally:
         conn.close()
+
+
+def serving_bodies(vocab: int, seed: int) -> list[dict]:
+    """Phase 2's four ``:generate`` bodies: prompts of ``PROMPT_LENS``
+    tokens drawn from ``seed``, ``NEW_TOKENS`` each, the last one
+    sampled."""
+    rng = np.random.default_rng(seed)
+    bodies = [{"ids": [rng.integers(1, vocab, n).tolist()],
+               "max_new_tokens": NEW_TOKENS} for n in PROMPT_LENS]
+    bodies[3].update(temperature=0.8, seed=7)
+    return bodies
+
+
+def concurrent_round(port: int, bodies: list[dict],
+                     headers: dict | None = None) -> list:
+    """The bodies as concurrent ``:generate`` requests: (status, body)
+    each."""
+    results: list = [None] * len(bodies)
+
+    def call(i):
+        results[i] = post(port, "/v1/models/llama:generate", bodies[i],
+                          headers)
+
+    threads = [threading.Thread(target=call, args=(i,))
+               for i in range(len(bodies))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    return results
 
 
 @contextlib.contextmanager
@@ -642,10 +722,11 @@ def prefill_logits(model, ids, cached: bool):
 
 
 def phase_serving(fa, model_config: dict | None = None,
-                  label: str = "llama 7b", extra=None) -> dict:
-    """Phase 2 (and, with an MoE ``model_config``, phase 9): the 7B
-    predictor over HTTP.  ``extra(pred)`` runs further checks on the
-    predictor before it stops; its dict joins the result."""
+                  label: str = "llama 7b", extra=None, **pred_kw) -> dict:
+    """Phase 2 (with an MoE ``model_config``, phase 9; with ``quantize``,
+    phase 12): the 7B predictor over HTTP.  ``extra(pred)`` runs further
+    checks on the predictor before it stops; its dict joins the result,
+    which holds the counted run's streams."""
     from kubeflow_tpu_torch.serving.httpserve import serve
     from kubeflow_tpu_torch.serving.predictor import (GenerativePredictor,
                                                       PredictorApp)
@@ -653,10 +734,11 @@ def phase_serving(fa, model_config: dict | None = None,
     t0 = time.perf_counter()
     pred = GenerativePredictor("llama", size="7b", max_seq=MAX_SEQ,
                                prefill_chunk=PREFILL_CHUNK, max_batch=4,
-                               seed=0, model_config=model_config)
+                               seed=0, model_config=model_config, **pred_kw)
     torch.cuda.synchronize()
     cfg = pred.cfg
-    n_params = sum(p.numel() for p in pred.module.parameters())
+    n_params = sum(t.numel() for t in (*pred.module.parameters(),
+                                       *pred.module.buffers()))
     log(f"{label} built in {time.perf_counter() - t0:.1f}s: "
         f"{cfg.num_layers} layers, hidden {cfg.hidden_size}, "
         f"{n_params / 1e9:.2f} B parameters, "
@@ -667,40 +749,18 @@ def phase_serving(fa, model_config: dict | None = None,
     httpd, thread = serve(PredictorApp({"llama": pred}), 0)
     port = httpd.server_port
     try:
-        def make_bodies(seed):
-            rng = np.random.default_rng(seed)
-            bodies = [{"ids": [rng.integers(1, cfg.vocab_size, n).tolist()],
-                       "max_new_tokens": NEW_TOKENS} for n in PROMPT_LENS]
-            bodies[3].update(temperature=0.8, seed=7)
-            return bodies
-
-        def concurrent_round(bodies):
-            results: list = [None] * len(bodies)
-
-            def call(i):
-                results[i] = post(port, "/v1/models/llama:generate",
-                                  bodies[i])
-
-            threads = [threading.Thread(target=call, args=(i,))
-                       for i in range(len(bodies))]
-            for t in threads:
-                t.start()
-            for t in threads:
-                t.join(timeout=600)
-            return results
-
         # warm-up round at the same shapes (CUDA module loading, cuBLAS
         # heuristics, allocator), other prompts; not counted
-        check(all(r[0] == 200 for r in concurrent_round(make_bodies(1))),
-              "warm-up round")
-        bodies = make_bodies(0)
+        check(all(r[0] == 200 for r in concurrent_round(
+            port, serving_bodies(cfg.vocab_size, 1))), "warm-up round")
+        bodies = serving_bodies(cfg.vocab_size, 0)
         prompts = [b["ids"][0] for b in bodies]
         chunks = len(prefill_shapes())
         before = pred.engine.stats()["timing"]
 
         fa.flash_attention.launches = 0          # the main path starts
         t0 = time.perf_counter()
-        results = concurrent_round(bodies)
+        results = concurrent_round(port, bodies)
         wall = time.perf_counter() - t0
         launches = fa.flash_attention.launches   # the main path ended
         after = pred.engine.stats()["timing"]
@@ -781,7 +841,7 @@ def phase_serving(fa, model_config: dict | None = None,
                "ttft_mean_s": (after["ttft_sum"] - before["ttft_sum"])
                / max(n_ttft, 1),
                "decode_tok_per_s": dec_tok / dec_s if dec_s else 0.0,
-               "wall_s": wall}
+               "wall_s": wall, "streams": [r[1]["ids"][0] for r in results]}
         if extra is not None:
             out.update(extra(pred))
         return out
@@ -858,6 +918,16 @@ def idle_state(engine) -> dict:
     return st
 
 
+def chat_turns(vocab: int, seed: int) -> list[list[int]]:
+    """Phase 7(a)'s traffic: a ``PC_SYSTEM``-token system prompt with user
+    turns of ``PC_SUFFIXES`` tokens, then the first turn again."""
+    rng = np.random.default_rng(seed)
+    system = rng.integers(1, vocab, PC_SYSTEM).tolist()
+    users = [rng.integers(1, vocab, n).tolist() for n in PC_SUFFIXES]
+    check(len({u[0] for u in users}) == len(users), "distinct turns")
+    return [system + u for u in users] + [system + users[0]]
+
+
 def phase_prefix_cache(fa) -> dict:
     """Phase 7: prefix-cached serving (module docstring)."""
     from kubeflow_tpu_torch.serving.engine import (PREFIX_HITS,
@@ -880,12 +950,7 @@ def phase_prefix_cache(fa) -> dict:
         f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated")
 
     def turns(seed):
-        rng = np.random.default_rng(seed)
-        system = rng.integers(1, cfg.vocab_size, PC_SYSTEM).tolist()
-        users = [rng.integers(1, cfg.vocab_size, n).tolist()
-                 for n in PC_SUFFIXES]
-        check(len({u[0] for u in users}) == len(users), "distinct turns")
-        return [system + u for u in users] + [system + users[0]]
+        return chat_turns(cfg.vocab_size, seed)
 
     prompts = turns(70)
     plan = prefix_plan()
@@ -1137,6 +1202,11 @@ def kernel_group(key: str) -> str:
     """A device kernel's kind, from its name."""
     if "flash_" in key:
         return "flash kernels"
+    if ("gpu_kernel_impl<" in key and "MulFunctor" in key
+            and "BFloat16" in key):
+        # int8 q times a bf16 scale: the one bf16 product that casts an
+        # operand (bf16 x bf16 runs gpu_kernel_impl_nocast)
+        return "int8 dequantize"
     if any(w in key for w in ("fprop", "dgrad", "wgrad", "conv")):
         return "convolution"
     if "f32f32" in key or "sgemm" in key:
@@ -2008,6 +2078,526 @@ def phase_vision(fa) -> dict:
     return results
 
 
+def int8_pages_equal(engine, prompt: list[int], usable: int) -> bool:
+    """Whether the int8 pages ``engine`` committed for ``prompt`` past its
+    reused prefix equal ``quantize_kv`` of the scratch rows they were cut
+    from, bitwise (one gather per layer and tensor)."""
+    from kubeflow_tpu_torch.serving.page_pool import pages_for
+    from kubeflow_tpu_torch.serving.quant import quantize_kv
+
+    node, _ = engine.prefix_cache.match(prompt)
+    shared = usable // PC_PAGE
+    pages = node.pages[shared:pages_for(len(prompt), PC_PAGE)]
+    first, end = shared * PC_PAGE, (shared + len(pages)) * PC_PAGE
+    bufs = [{name: torch.empty((len(pages),) + tuple(t.shape[1:]),
+                               dtype=t.dtype, device=t.device)
+             for name, t in layer.items()}
+            for layer in engine.pool.kv["layers"]]
+    engine.pool.gather(pages, bufs)
+    for b, rows in zip(bufs, engine._scratch()):
+        for name in ("k", "v"):
+            x = rows[name][0, first:end]
+            q, scale = quantize_kv(x.reshape((len(pages), PC_PAGE)
+                                             + tuple(x.shape[1:])))
+            if not (torch.equal(q, b[name])
+                    and torch.equal(scale, b[name + "s"])):
+                return False
+    return True
+
+
+def kv_quant_perplexity(model) -> dict:
+    """Perplexity of a ``PPL_TAIL``-token continuation over a
+    ``PPL_HEAD``-token prompt's KV, int8 (quantized per page of
+    ``PC_PAGE`` positions and head, then dequantized) against bf16, on
+    ``model`` (the reference's test_kv_quant_perplexity_neutral)."""
+    from kubeflow_tpu_torch.models import llama
+    from kubeflow_tpu_torch.serving.quant import dequantize_kv, quantize_kv
+
+    cfg = model.config
+    rng = np.random.default_rng(73)
+    prompt = rng.integers(1, cfg.vocab_size, PPL_HEAD + PPL_TAIL).tolist()
+    head, tail = prompt[:PPL_HEAD], prompt[PPL_HEAD:]
+
+    @torch.no_grad()
+    def continuation(quantize: bool):
+        cache = llama.init_cache(cfg, 1, PPL_HEAD + PPL_TAIL)
+        model(torch.tensor([head], device="cuda"), cache=cache)
+        for layer in cache["layers"]:
+            for name in ("k", "v"):
+                x = layer[name][0, :PPL_HEAD]
+                if quantize:
+                    pages = x.reshape((PPL_HEAD // PC_PAGE, PC_PAGE)
+                                      + tuple(x.shape[1:]))
+                    q, scale = quantize_kv(pages)
+                    x.copy_(dequantize_kv(q, scale, x.dtype).reshape(x.shape))
+            layer["index"] = PPL_HEAD
+        logits = model(torch.tensor([tail], device="cuda"),
+                       cache=cache)["logits"][0].double()
+        logp = torch.log_softmax(logits, -1)
+        pick = logp[torch.arange(len(tail) - 1),
+                    torch.tensor(tail[1:], device="cuda")]
+        return float(torch.exp(-pick.mean())), logits
+
+    ppl_ref, ref = continuation(False)
+    ppl_q, got = continuation(True)
+    return {"ppl_bf16": ppl_ref, "ppl_int8": ppl_q,
+            "ppl_ratio": ppl_q / ppl_ref,
+            "logits_rel": float((got - ref).abs().max() / ref.abs().max())}
+
+
+def phase_int8(fa) -> dict:
+    """Phase 12 (module docstring)."""
+    from kubeflow_tpu_torch.models import registry
+    from kubeflow_tpu_torch.serving.quant import (QTensor, quantize_array,
+                                                  quantized_bytes)
+
+    # the bf16 model the predictor quantizes (same seed: the same weights
+    # before quantization): two layers' weights and one prompt's logits
+    model = registry.get("llama").make_model(
+        size="7b", param_dtype="compute").init_weights(0)
+    cfg = model.config
+    bf16_bytes = quantized_bytes(model)
+    layers = tuple(f"layers.{i}." for i in INT8_CHECK_LAYERS)
+    weights = {n: p.detach().cpu() for n, p in model.named_parameters()
+               if n.startswith(layers) and n.endswith(".kernel")
+               and p.numel() >= 1 << 12}      # quantize_params' min_size
+    prompt = serving_bodies(cfg.vocab_size, 0)[1]["ids"][0]
+    ids = torch.tensor([prompt], device="cuda")
+    with torch.no_grad():
+        bf16_logits = model(ids)["logits"].float()
+    del model
+    free_memory()
+
+    def extras(pred) -> dict:
+        t0 = time.perf_counter()
+        for name, w in weights.items():
+            owner, _, leaf = name.rpartition(".")
+            qt = getattr(pred.module.get_submodule(owner), leaf)
+            check(isinstance(qt, QTensor), f"{name} is not int8")
+            q, scale = quantize_array(w, 0)
+            check(torch.equal(qt.q.cpu(), q)
+                  and torch.equal(qt.scale.cpu(), scale),
+                  f"{name}: quantized on the card != quantize_array on the "
+                  f"CPU")
+        log(f"phase 12: the int8 q and scale of layers {INT8_CHECK_LAYERS} "
+            f"({len(weights)} weights, "
+            f"{sum(w.numel() for w in weights.values()) / 1e6:.0f} M values)"
+            f" made on the card equal quantize_array on the CPU, bitwise "
+            f"({time.perf_counter() - t0:.1f}s)")
+        qts = [m for m in pred.module.modules() if isinstance(m, QTensor)]
+        n_q = sum(m.q.numel() for m in qts)
+        n_scale = sum(m.scale.numel() for m in qts)
+        out = {"weight_bytes": pred.weight_bytes, "bf16_bytes": bf16_bytes}
+        log(f"phase 12: weight_bytes {out['weight_bytes']} "
+            f"({out['weight_bytes'] / 1e9:.3f} GB) against {bf16_bytes} "
+            f"({bf16_bytes / 1e9:.3f} GB) in bf16, "
+            f"{out['weight_bytes'] / bf16_bytes:.4f}x: {len(qts)} int8 "
+            f"weights of {n_q} values, {n_scale} float32 scales")
+        # each int8 value saves one byte of bf16; each scale costs four
+        check(out["weight_bytes"] == bf16_bytes - n_q + 4 * n_scale, out)
+        with torch.no_grad():
+            logits = pred.module(ids)["logits"].float()
+        check(bool(torch.isfinite(logits).all()), "finite int8 logits")
+        out["logits_rel"] = ((logits - bf16_logits).abs().max()
+                             / bf16_logits.abs().max()).item()
+        out["top1"] = (logits.argmax(-1) == bf16_logits.argmax(-1)
+                       ).float().mean().item()
+        log(f"phase 12: prefill logits [1, {len(prompt)}, "
+            f"{cfg.vocab_size}] int8 against bf16 weights (same seed): max "
+            f"rel drift {out['logits_rel']:.3e}, top-1 agreement "
+            f"{out['top1']:.4f} of positions")
+        out.update(phase_profile(pred.module, "int8 "))
+
+        def dequantize_all():
+            for m in qts:
+                m.dequantize()
+
+        out["dequant_ms"] = time_ms(dequantize_all, reps=3, windows=5)
+        bound = (n_q * (1 + 2) + n_scale * 4) / HBM_BYTES_PER_S * 1e3
+        log(f"phase 12: dequantizing every int8 weight once ({len(qts)} "
+            f"weights, {n_q / 1e9:.2f} G values; once per forward): "
+            f"{out['dequant_ms']:.3f} ms, bound {bound:.3f} ms (bytes)")
+        out.update(int8_kv_traffic(fa, pred))
+        return out
+
+    out = phase_serving(fa, label="int8 llama 7b", extra=extras,
+                        quantize=True)
+    free_memory()
+    return out
+
+
+def int8_kv_traffic(fa, pred) -> dict:
+    """Phase 12's second half: int8 KV pages under phase 7(a)'s traffic on
+    the int8 model, and the perplexity check."""
+    from kubeflow_tpu_torch.models.llama import kv_page_nbytes
+    from kubeflow_tpu_torch.serving.engine import (PREFIX_HITS,
+                                                   PREFIX_MISSES,
+                                                   ContinuousBatcher)
+
+    cfg = pred.cfg
+    budget = int(PC_CACHE_MB * (1 << 20))
+    eng = ContinuousBatcher(pred.module, cfg, max_batch=4, max_seq=MAX_SEQ,
+                            prefill_chunk=PREFILL_CHUNK,
+                            prefix_cache_bytes=budget, page_size=PC_PAGE,
+                            kv_quant=True)
+    bf16_pages = budget // kv_page_nbytes(cfg, PC_PAGE)
+    pages = eng.prefix_cache.max_pages
+    log(f"phase 12: int8 KV pages of {eng.page_nbytes} B "
+        f"({eng.page_nbytes / 2**20:.2f} MiB): {pages} cache pages in "
+        f"{PC_CACHE_MB} MB against {bf16_pages} bf16 pages, "
+        f"{pages / bf16_pages:.3f}x")
+    check(pages >= 1.9 * bf16_pages, (pages, bf16_pages))
+    plan = prefix_plan()
+    store: list = []
+    try:
+        with torch.no_grad(), first_token_logits(store):
+            saved = counters(fa)
+            for prompt in chat_turns(cfg.vocab_size, 71):   # warm-up
+                serve_one(eng, prompt, store)
+            set_counters(fa, saved)
+            h0, m0 = PREFIX_HITS.get(), PREFIX_MISSES.get()
+            set_counters(fa, dict.fromkeys(KERNEL_NAMES, 0))  # path starts
+            runs = []
+            for (n, usable), prompt in zip(plan,
+                                           chat_turns(cfg.vocab_size, 70)):
+                r = serve_one(eng, prompt, store)
+                check(len(r["ids"]) == n + NEW_TOKENS
+                      and r["ids"][:n] == prompt, (n, "int8 KV stream"))
+                if usable < n - 1:
+                    check(int8_pages_equal(eng, prompt, usable),
+                          f"int8 pages of the {n}-token prompt")
+                runs.append(r)
+            launches = counters(fa)                           # path ended
+            set_counters(fa, {k: saved[k] + launches[k] for k in saved})
+        hits, misses = PREFIX_HITS.get() - h0, PREFIX_MISSES.get() - m0
+        chunks = len(prefix_shapes())
+        log(f"phase 12 int8 KV: flash_fwd launches {launches['flash_fwd']} "
+            f"(expected {cfg.num_layers} x {chunks} chunks); prefix hits "
+            f"{hits:.0f}, misses {misses:.0f}; every committed page equals "
+            f"quantize_kv of its scratch rows, bitwise; TTFT ms "
+            + " ".join(f"{r['ttft'] * 1e3:.2f}" for r in runs))
+        check(launches["flash_fwd"] == cfg.num_layers * chunks, launches)
+        check((hits, misses) == (3, 1), (hits, misses))
+        idle_state(eng)
+    finally:
+        eng.shutdown()
+    del eng
+    torch.cuda.empty_cache()
+    ppl = kv_quant_perplexity(pred.module)
+    log(f"phase 12: perplexity of a {PPL_TAIL}-token continuation over "
+        f"{PPL_HEAD} tokens of int8 prompt KV {ppl['ppl_int8']:.4f} against "
+        f"bf16 {ppl['ppl_bf16']:.4f}: ratio {ppl['ppl_ratio']:.6f} (tol "
+        f"|ratio - 1| < {KV_QUANT_PPL_TOL:g}); continuation logits max rel "
+        f"diff {ppl['logits_rel']:.3e}")
+    check(abs(ppl["ppl_ratio"] - 1.0) < KV_QUANT_PPL_TOL, ppl)
+    return {"kv_launches": launches["flash_fwd"], "kv_pages": pages,
+            "kv_bf16_pages": bf16_pages,
+            "kv_ttft_ms": [r["ttft"] * 1e3 for r in runs], **ppl}
+
+
+class HandoffWire:
+    """Phase 13's handoff transport: ``disagg.http_post_json``'s JSON POST
+    with its body's bytes and wall time, and the serialize time (from a
+    wrapper of ``disagg.serialize_handoff``), by prompt length."""
+
+    def __init__(self):
+        self.rows: dict[int, dict] = {}
+
+    def post(self, addr: str, path: str, payload: dict,
+             timeout: float = 600.0) -> dict:
+        import http.client
+
+        body = json.dumps(payload).encode()
+        host, _, port = addr.partition(":")
+        t0 = time.perf_counter()
+        conn = http.client.HTTPConnection(host, int(port), timeout=timeout)
+        try:
+            conn.request("POST", path, body=body,
+                         headers={"Content-Type": "application/json"})
+            resp = conn.getresponse()
+            raw = resp.read()
+        finally:
+            conn.close()
+        if resp.status != 200:
+            raise RuntimeError(f"decode peer answered {resp.status}: "
+                               f"{raw[:200]!r}")
+        out = json.loads(raw)
+        self.rows.setdefault(len(payload["ids"]), {}).update(
+            wire_bytes=len(body), post_s=time.perf_counter() - t0,
+            deserialize_s=out.get("deserialize_s"))
+        return out
+
+    @contextlib.contextmanager
+    def timed_serialize(self):
+        from kubeflow_tpu_torch.serving import disagg
+
+        original = disagg.serialize_handoff
+
+        def timed(state, pool):
+            t0 = time.perf_counter()
+            out = original(state, pool)
+            self.rows.setdefault(len(state.ids), {})["serialize_s"] = \
+                time.perf_counter() - t0
+            return out
+
+        disagg.serialize_handoff = timed
+        try:
+            yield
+        finally:
+            disagg.serialize_handoff = original
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def start_decode_child(port: int):
+    """``python -m kubeflow_tpu_torch.serving.predictor --role decode`` at
+    phase 2's model, seed and settings on ``port``; its output lines are
+    collected by threads (``child.lines``)."""
+    cmd = [sys.executable, "-m", "kubeflow_tpu_torch.serving.predictor",
+           "--model", "llama:size=7b", "--max-seq", str(MAX_SEQ),
+           "--prefill-chunk", str(PREFILL_CHUNK), "--max-batch", "4",
+           "--role", "decode", "--port", str(port)]
+    env = dict(os.environ)
+    env.pop("KF_POD_PORT", None)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT)] + [p for p in [env.get("PYTHONPATH")] if p])
+    child = subprocess.Popen(cmd, cwd=ROOT, env=env, text=True,
+                             stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+    child.lines = []
+
+    def drain(stream):
+        for line in stream:
+            child.lines.append(line.rstrip())
+
+    child.readers = [threading.Thread(target=drain, args=(s,), daemon=True)
+                     for s in (child.stdout, child.stderr)]
+    for t in child.readers:
+        t.start()
+    return child
+
+
+def child_ready(child, port: int) -> None:
+    """Wait for the decode child's ``/healthz``; fail, printing its
+    output, if it exits or does not come up in ``CHILD_START_S``."""
+    import http.client
+
+    end = time.monotonic() + CHILD_START_S
+    while time.monotonic() < end:
+        if child.poll() is not None:
+            break
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=5)
+        try:
+            conn.request("GET", "/healthz")
+            if conn.getresponse().status == 200:
+                return
+        except OSError:
+            pass
+        finally:
+            conn.close()
+        time.sleep(0.5)
+    log("decode child output:\n" + "\n".join(child.lines[-60:]))
+    check(False, f"the decode child is not serving (exit {child.poll()})")
+
+
+def stop_child(child) -> int:
+    if child.poll() is None:
+        child.terminate()
+        try:
+            child.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            child.kill()
+            child.wait(timeout=30)
+    for t in child.readers:
+        t.join(timeout=10)
+    return child.returncode
+
+
+def phase_disagg(fa, colocated: list | None = None,
+                 colocated_tok_s: float | None = None) -> dict:
+    """Phase 13 (module docstring); ``colocated``: phase 2's streams of
+    ``serving_bodies(.., 0)``, made here when not given."""
+    import http.client
+
+    from kubeflow_tpu_torch.serving.engine import ContinuousBatcher
+    from kubeflow_tpu_torch.serving.httpserve import serve
+    from kubeflow_tpu_torch.serving.predictor import (GenerativePredictor,
+                                                      PredictorApp)
+
+    child_port = free_port()
+    t_child = time.perf_counter()
+    child = start_decode_child(child_port)       # starts while we build
+    wire = HandoffWire()
+    pred, httpd = None, None
+    try:
+        pred = GenerativePredictor("llama", size="7b", max_seq=MAX_SEQ,
+                                   prefill_chunk=PREFILL_CHUNK, max_batch=4,
+                                   seed=0, role="prefill",
+                                   handoff_post=wire.post)
+        cfg = pred.cfg
+        bodies = serving_bodies(cfg.vocab_size, 0)
+        if colocated is None:
+            ref = ContinuousBatcher(pred.module, cfg, max_batch=4,
+                                    max_seq=MAX_SEQ,
+                                    prefill_chunk=PREFILL_CHUNK)
+            reqs = [ref.submit(b["ids"][0], NEW_TOKENS,
+                               temperature=b.get("temperature", 0.0),
+                               seed=b.get("seed", 0)) for b in bodies]
+            colocated = [r.result(timeout=600) for r in reqs]
+            ref.shutdown()
+            del ref, reqs
+        child_ready(child, child_port)
+        log(f"phase 13(a): decode child (pid {child.pid}) serving on "
+            f":{child_port} after {time.perf_counter() - t_child:.1f}s")
+        ttft: dict[int, float] = {}
+        capture = pred.engine.handoff_fn
+
+        def noted(req, state):
+            ttft[len(req.ids)] = req.first_token_at - req.submitted_at
+            capture(req, state)
+
+        pred.engine.handoff_fn = noted
+        httpd, thread = serve(PredictorApp({"llama": pred}), 0)
+        peer = {"X-KF-Decode-Peer": f"127.0.0.1:{child_port}"}
+        chunks = len(prefill_shapes())
+        with wire.timed_serialize():
+            set_counters(fa, dict.fromkeys(KERNEL_NAMES, 0))  # path starts
+            t0 = time.perf_counter()
+            results = concurrent_round(httpd.server_port, bodies, peer)
+            wall = time.perf_counter() - t0
+            launches = counters(fa)                           # path ended
+        if child.poll() is not None:
+            log("decode child output:\n" + "\n".join(child.lines[-60:]))
+            check(False, f"the decode child died (exit {child.poll()})")
+        for i, (status, body) in enumerate(results):
+            check(status == 200, (i, status, body))
+        streams = [body["ids"][0] for _, body in results]
+        same = [s == c for s, c in zip(streams, colocated)]
+        conn = http.client.HTTPConnection("127.0.0.1", child_port,
+                                          timeout=30)
+        conn.request("GET", "/v1/models/llama")
+        child_stats = json.loads(conn.getresponse().read())["stats"]
+        conn.close()
+        pre_stats = pred.engine.stats()
+        log(f"phase 13(a): 4 concurrent requests in {wall:.2f}s through "
+            f"the prefill predictor; flash_fwd launches "
+            f"{launches['flash_fwd']} in this process (expected "
+            f"{cfg.num_layers} x {chunks} chunks); streams equal to the "
+            f"colocated ones {same}; decode child: role "
+            f"{child_stats.get('role')}, resumed {child_stats.get('resumed')}"
+            f"; prefill: handoffs {pre_stats['handoffs']}, resumed locally "
+            f"{pre_stats['resumed']}")
+        check(all(same), "disaggregated streams != colocated streams")
+        check(launches == {"flash_fwd": cfg.num_layers * chunks,
+                           "flash_bwd_dq": 0, "flash_bwd_dkv": 0}, launches)
+        check(child_stats.get("role") == "decode"
+              and child_stats.get("resumed") == 4, child_stats)
+        check(pre_stats["handoffs"] == 4 and pre_stats["resumed"] == 0,
+              pre_stats)
+        log(f"  {card_line()}")
+        for n in PROMPT_LENS:
+            row = wire.rows[n]
+            row["ttft_s"] = ttft[n]
+            log(f"  handoff of the {n}-token prompt: "
+                f"{-(-n // PC_PAGE)} pages, {row['wire_bytes']} B of JSON; "
+                f"serialize {row['serialize_s'] * 1e3:.1f} ms, POST "
+                f"{row['post_s'] * 1e3:.1f} ms (transfer, deserialize and "
+                f"decode), deserialize {row['deserialize_s'] * 1e3:.1f} ms; "
+                f"TTFT {ttft[n] * 1e3:.1f} ms")
+        # the peer goes away: the next request resumes on this engine
+        code = stop_child(child)
+        log(f"phase 13(a): decode child stopped (exit {code})")
+        status, body = post(httpd.server_port, "/v1/models/llama:generate",
+                            bodies[1], peer)
+        after = pred.engine.stats()
+        log(f"phase 13(a): with the peer gone, a {PROMPT_LENS[1]}-token "
+            f"request completes with status {status}, stream equal to the "
+            f"colocated one {status == 200 and body['ids'][0] == colocated[1]}"
+            f", resumed locally {after['resumed']}")
+        check(status == 200 and body["ids"][0] == colocated[1]
+              and after["resumed"] == 1, (status, after))
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=10)
+        httpd = None
+        check(pred.stop(timeout=60), "prefill predictor idle")
+        check(pred.engine.stats()["kv_pool"]["orphan_pages"] == 0,
+              pred.engine.stats()["kv_pool"])
+        model = pred.module
+        pred = noted = capture = None     # the predictor goes; the model stays
+        free_memory()
+        out = {"launches": launches["flash_fwd"], "handoffs": wire.rows,
+               "wall_s": wall}
+        out.update(disagg_in_process(fa, model, bodies, colocated_tok_s))
+        return out
+    finally:
+        if httpd is not None:
+            httpd.shutdown()
+            httpd.server_close()
+        stop_child(child)
+        if pred is not None:
+            pred.stop(timeout=60)
+
+
+def disagg_in_process(fa, model, bodies: list[dict],
+                      colocated_tok_s: float | None) -> dict:
+    """Phase 13(b): a ``DisaggCoordinator`` (1 prefill, 1 decode engine
+    over one int8 pool) takes phase 2's four requests."""
+    from kubeflow_tpu_torch.serving.disagg import DisaggCoordinator
+
+    cfg = model.config
+    co = DisaggCoordinator(model, cfg, max_batch=4, max_seq=MAX_SEQ,
+                           prefill_chunk=PREFILL_CHUNK, page_size=PC_PAGE,
+                           kv_quant=True)
+    try:
+        pool = co.pool
+        log(f"phase 13(b): one int8 pool of {pool.num_pages} pages x "
+            f"{pool.page_nbytes / 2**20:.2f} MiB = "
+            f"{pool.num_pages * pool.page_nbytes / 1e9:.2f} GB; "
+            f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated")
+        chunks = len(prefill_shapes())
+        set_counters(fa, dict.fromkeys(KERNEL_NAMES, 0))      # path starts
+        t0 = time.perf_counter()
+        reqs = [co.submit(b["ids"][0], max_new_tokens=NEW_TOKENS,
+                          temperature=b.get("temperature", 0.0),
+                          seed=b.get("seed", 0)) for b in bodies]
+        outs = [r.result(timeout=600) for r in reqs]
+        wall = time.perf_counter() - t0
+        launches = counters(fa)                               # path ended
+        check(all(len(o) == n + NEW_TOKENS for o, n in zip(outs,
+                                                             PROMPT_LENS)),
+              "int8 disaggregated streams")
+        check(co.drained(timeout=60), "coordinator idle")
+        st = co.stats()
+        pre, dec = st["prefill"][0], st["decode"][0]
+        t = dec["timing"]
+        tok_s = t["decode_tokens"] / t["decode_seconds"] \
+            if t["decode_seconds"] else 0.0
+        log(f"phase 13(b): 4 requests in {wall:.2f}s; flash_fwd launches "
+            f"{launches['flash_fwd']} (expected {cfg.num_layers} x {chunks} "
+            f"chunks); prefill handoffs {pre['handoffs']}, decode resumed "
+            f"{dec['resumed']}; at idle: in_use {st['kv_pool']['in_use']}, "
+            f"orphan_pages {st['kv_pool']['orphan_pages']}")
+        log(f"  decode role {tok_s:.1f} tok/s while the prefill role took "
+            f"the prompts (the {PROMPT_LENS[-1]}-token one last), against "
+            + (f"{colocated_tok_s:.1f}" if colocated_tok_s else "(not run)")
+            + " colocated (phase 2, this call); " + card_line())
+        check(launches["flash_fwd"] == cfg.num_layers * chunks, launches)
+        check(pre["handoffs"] == 4 and dec["resumed"] == 4, (pre, dec))
+        check(st["kv_pool"]["orphan_pages"] == 0, st["kv_pool"])
+        return {"int8_launches": launches["flash_fwd"],
+                "int8_decode_tok_per_s": tok_s, "int8_wall_s": wall}
+    finally:
+        co.shutdown()
+        del co
+        free_memory()
+
+
 def kernel_times_only(fa) -> int:
     """``--kernel-times``: build the kernels and time K1, K2 and K3 at the
     Llama training shape and at the causal 2048 shape (for an A/B of two
@@ -2027,14 +2617,20 @@ def kernel_times_only(fa) -> int:
 
 
 def some_phases(fa, which: str) -> int:
-    """``--phases 9,10,11``: build and check the kernels (phase 1), then
-    the named phases of this slice; prints no result line."""
+    """``--phases 9,12,13``: build and check the kernels (phase 1), then
+    the named phases (9 to 13); prints no result line."""
     wanted = {int(w) for w in which.split(",") if w}
-    if not wanted <= {9, 10, 11}:
-        print(f"chip_smoke: --phases takes 9, 10 and 11, not {which}",
-              file=sys.stderr)
+    if not wanted <= {9, 10, 11, 12, 13}:
+        print(f"chip_smoke: --phases takes 9, 10, 11, 12 and 13, not "
+              f"{which}", file=sys.stderr)
         return 2
     phase_kernels(fa)
+    if 12 in wanted:
+        phase_int8(fa)
+        free_memory()
+    if 13 in wanted:
+        phase_disagg(fa)
+        free_memory()
     if 11 in wanted:
         phase_speculation(fa)
         free_memory()
@@ -2082,6 +2678,11 @@ def main(argv: list[str]) -> int:
     moe = phase_serving(fa, {"moe_experts": MOE_EXPERTS}, "MoE llama 7b",
                         extra=moe_serving_extras)
     free_memory()
+    int8 = phase_int8(fa)
+    free_memory()
+    disagg = phase_disagg(fa, serving["streams"],
+                          serving["decode_tok_per_s"])
+    free_memory()
     log(f"before training: {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
         f"allocated on the card")
     bert = phase_training(fa, TRAIN_CONFIG, TRAIN_LAUNCHES, "BERT-large")
@@ -2126,6 +2727,26 @@ def main(argv: list[str]) -> int:
         f"{moe['chunk_ms']:.3f} ms, of a 4-row decode step "
         f"{moe['decode_ms']:.3f} ms; capacity drops of the block check "
         f"{moe['moe_block_drops']}")
+    log(f"phase 12 (int8 weights): TTFT mean "
+        f"{int8['ttft_mean_s'] * 1e3:.1f} ms over the 4 concurrent requests;"
+        f" decode {int8['decode_tok_per_s']:.1f} tok/s over 4 slots; device "
+        f"time of a 512-token chunk {int8['chunk_ms']:.3f} ms, of a 4-row "
+        f"decode step {int8['decode_ms']:.3f} ms (bf16: phase 3); "
+        f"dequantizing every weight once {int8['dequant_ms']:.3f} ms; "
+        f"weight_bytes {int8['weight_bytes']} against {int8['bf16_bytes']} "
+        f"in bf16; int8 KV: {int8['kv_pages']} pages per {PC_CACHE_MB} MB "
+        f"against {int8['kv_bf16_pages']}, perplexity ratio "
+        f"{int8['ppl_ratio']:.6f}, TTFT ms " + " ".join(
+            f"{t:.2f}" for t in int8["kv_ttft_ms"]))
+    log("phase 13(a) (bf16 pages across processes), per request: " + "; ".join(
+        f"{n} tokens {r['wire_bytes']} B, serialize "
+        f"{r['serialize_s'] * 1e3:.1f} ms, POST {r['post_s'] * 1e3:.1f} ms, "
+        f"deserialize {r['deserialize_s'] * 1e3:.1f} ms, TTFT "
+        f"{r['ttft_s'] * 1e3:.1f} ms"
+        for n, r in sorted(disagg["handoffs"].items()))
+        + f"; phase 13(b) (int8 pages in process): decode "
+        f"{disagg['int8_decode_tok_per_s']:.1f} tok/s against phase 2's "
+        f"{serving['decode_tok_per_s']:.1f} colocated")
     log("phase 11 (tok/s, passes 1 and 2): " + "; ".join(
         f"{m} " + " and ".join(f"{x:.2f}" for x in spec[m]["tok_per_s"])
         + (f", accept rate {spec[m]['accept_rate']:.3f} ({spec[m]['accepted']}"
@@ -2145,15 +2766,23 @@ def main(argv: list[str]) -> int:
     check(prefix["launches"] == sum(r["launches"] for r in prefix_rows),
           "prefix-cached serving launches")
     check(moe["launches"] == serving["launches"], "MoE serving launches")
+    check(int8["launches"] == disagg["launches"] == disagg["int8_launches"]
+          == serving["launches"], "int8 and disaggregated serving launches")
+    check(int8["kv_launches"] == prefix["launches"], "int8 KV launches")
     check(spec["launches"] == sum(r["launches"] for r in spec_rows),
           "speculative serving launches")
-    # phase 9 runs K1 at phase 2's shapes, phase 10 at phase 5's
-    moe_rows = [with_launches(r, r["launches"], "MoE") for r in serving_rows]
+    # phases 9, 12 and 13 run K1 at phase 2's shapes, phase 12's int8 KV
+    # traffic at phase 7's, phase 10 at phase 5's
+    shared_rows = [with_launches(r, r["launches"], label)
+                   for label in ("MoE", "int8", "disagg", "disagg int8 KV")
+                   for r in serving_rows]
+    shared_rows += [with_launches(r, r["launches"], "int8 KV")
+                    for r in prefix_rows]
     moe_train_rows = {name: with_launches(
         llama_rows[name], moe_train["launches"][name], "MoE")
         for name in KERNEL_NAMES}
     kernels = [kernel_entry("flash_fwd", serving_rows + prefix_rows
-                            + moe_rows + spec_rows
+                            + shared_rows + spec_rows
                             + [bert_rows["flash_fwd"], llama_rows["flash_fwd"],
                                moe_train_rows["flash_fwd"]],
                             errs["flash_fwd"])]

@@ -20,6 +20,10 @@ Parameters are created frozen (``requires_grad=False``): a served model
 never builds an autograd graph.  Training turns them on at build time
 (``parallel/train_step.py::init_train_state`` calls
 ``requires_grad_(True)``).
+
+A served model's matmul weights may be int8 (``serving/quant.py``
+``quantize_params`` swaps such a parameter for a ``QTensor``); ``weight``
+dequantizes one at use as the reference's ``QTensor`` does.
 """
 
 from __future__ import annotations
@@ -44,6 +48,15 @@ def init_submodules(model: nn.Module, seed: int) -> torch.Generator:
         if m is not model and hasattr(m, "init_weights"):
             m.init_weights(gen)
     return gen
+
+
+def weight(w, dtype: torch.dtype) -> torch.Tensor:
+    """A weight in ``dtype``: a parameter is cast; an int8 ``QTensor``
+    dequantizes to bf16 first (the reference's ``__jax_array__``, whatever
+    the compute dtype), then is cast."""
+    if isinstance(w, torch.Tensor):
+        return w.to(dtype)
+    return w.dequantize().to(dtype)
 
 
 def param(shape, dtype, device) -> nn.Parameter:
@@ -98,7 +111,8 @@ class DenseGeneral(nn.Module):
             nn.init.zeros_(self.bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        w = self.kernel.to(self.dtype).reshape(self.kernel.shape[0], -1)
+        w = weight(self.kernel, self.dtype)
+        w = w.reshape(w.shape[0], -1)
         y = (x.to(self.dtype) @ w).reshape(x.shape[:-1] + self.features)
         if self.bias is not None:
             y = y + self.bias.to(self.dtype)

@@ -318,13 +318,28 @@ def moe_layers(cfg: LlamaConfig) -> set[int]:
 
 
 def init_kv_pool(cfg: LlamaConfig, num_pages: int, page_size: int, *,
-                 device=None):
+                 device=None, quantized: bool = False):
     """Per-layer paged KV pool: ``[num_pages, page_size, Hkv, D]`` k and v
     tensors in the model dtype, addressed through page tables (page 0 is
     the null page).  Callers attach ``pages``/``index`` per layer at
-    dispatch time, as ``init_cache`` callers attach ``index``."""
+    dispatch time, as ``init_cache`` callers attach ``index``.
+
+    ``quantized``: the store of int8 pages (``serving/quant.py``), four
+    tensors per layer under the reference's page-tree keys: ``k``/``v``
+    int8 ``[num_pages, page_size, Hkv, D]`` and ``ks``/``vs`` float32
+    ``[num_pages, 1, Hkv, 1]``, one scale per (page, kv head).  Only the
+    engine's commit and seed read it; the paged attention branch takes
+    the model-dtype store."""
     device = resolve(device)
     shape = (num_pages, page_size, cfg.num_kv_heads, cfg.head_dim)
+    if quantized:
+        scale = (num_pages, 1, cfg.num_kv_heads, 1)
+        return {"layers": [
+            {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+             "ks": torch.ones(scale, dtype=torch.float32, device=device),
+             "v": torch.zeros(shape, dtype=torch.int8, device=device),
+             "vs": torch.ones(scale, dtype=torch.float32, device=device)}
+            for _ in range(cfg.num_layers)]}
     dt = cfg.torch_dtype
     return {"layers": [
         {"k": torch.zeros(shape, dtype=dt, device=device),

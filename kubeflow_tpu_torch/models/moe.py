@@ -124,9 +124,11 @@ class MoEBlock(nn.Module):
         kl.lecun_normal_(self.w_out, gen)
 
     def _experts(self) -> tuple[torch.Tensor, torch.Tensor]:
-        """The expert weights rounded to the model dtype, in float32."""
+        """The expert weights rounded to the model dtype (dequantized
+        first when int8), in float32."""
         dt = self.config.torch_dtype
-        return self.w_in.to(dt).float(), self.w_out.to(dt).float()
+        return (kl.weight(self.w_in, dt).float(),
+                kl.weight(self.w_out, dt).float())
 
     def forward(self, x: torch.Tensor, dropless: bool | None = None
                 ) -> tuple[torch.Tensor, torch.Tensor]:

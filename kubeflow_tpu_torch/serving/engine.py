@@ -2,9 +2,8 @@
 scheduling), on one CUDA card.
 
 Counterpart of ``kubeflow_tpu/serving/engine.py``'s ``ContinuousBatcher``,
-trimmed to the colocated path with no disaggregation, KV quantization,
-cluster prefix directory, weight-residency pressure, tenant fair queueing
-or tracing (ROADMAP queue A lists them).  What it keeps:
+without weight-residency pressure, tenant fair queueing or tracing
+(ROADMAP queue A lists them).  What it keeps:
 
 - ``max_batch`` slots over one RESIDENT KV view ``[max_batch, max_seq]``
   per layer, held in the model dtype and updated in place; each slot sits
@@ -44,7 +43,34 @@ or tracing (ROADMAP queue A lists them).  What it keeps:
   is the one decode without speculation gives.  A cost model
   (``SPEC_COST_BASE``, ``SPEC_COST_SLOPE``, the drafter's
   ``cost_per_token``) runs a round only when its expected tokens beat the
-  decode chunk it displaces.
+  decode chunk it displaces;
+- with ``kv_quant``, int8 pages (``serving/quant.py``): the commit
+  quantizes the pages it cuts from the scratch, one float32 scale per
+  (page, kv head), and a seed dequantizes the pages it gathers.  The
+  reference's cold prefill starts every prompt from a zero scratch; this
+  engine reuses one, so before an int8 commit the tail page's positions
+  that no chunk of this prompt wrote are made what the reference holds
+  there (zeros, or its warm seed's padding of the last seeded page):
+  they enter the per-head amax, and with it every real position's int8
+  value;
+- disaggregation (``serving/disagg.py``): ``role="prefill"`` admits a
+  prompt without a slot, prefills it, commits EVERY prompt page (the
+  tail's included) with one handoff reference per page, and passes a
+  ``HandoffState`` to ``handoff_fn``; ``submit_handoff`` (any role) seeds
+  a slot's scratch from those pages, releases the references, and decodes
+  on.  The request carries its ``torch.Generator`` across the handoff (in
+  process; across processes its state rides the body), so a handed-off
+  stream is the colocated one.  ``failover_fn`` is offered every request
+  that dies with the engine; ``adopt`` takes one over.  An injected
+  ``pool`` (and ``prefix_cache``) is shared with sibling engines, which
+  issue their copies on the same CUDA stream (the thread default);
+- cluster prefix reuse (``serving/kv_directory.py``): with a
+  ``directory``, every cached prompt is advertised and every eviction
+  withdrawn; with a ``fetch_fn`` too, a prompt whose longest advertised
+  prefix (on another engine) covers more full pages than the local match
+  fetches those pages (the ``:pages`` wire format) into the local tree
+  first, and ``export_prefix`` ships this engine's full pages to a peer
+  from whichever tier holds them.
 """
 
 from __future__ import annotations
@@ -58,6 +84,9 @@ import torch
 from kubeflow_tpu_torch.models.llama import init_kv_pool, kv_page_nbytes
 from kubeflow_tpu_torch.serving.page_pool import PagePool, pages_for
 from kubeflow_tpu_torch.serving.prefix_cache import PrefixCache
+from kubeflow_tpu_torch.serving.quant import (dequantize_kv,
+                                              kv_page_nbytes_int8,
+                                              quantize_kv)
 from kubeflow_tpu_torch.serving.speculative import (MIN_DRAFT,
                                                     SpeculationState,
                                                     ngram_draft)
@@ -108,9 +137,21 @@ ADMISSION_WAIT = REGISTRY.histogram(
     "queue wait from submit() to slot admission",
     buckets=(0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5,
              1.0, 2.5, 5.0, 10.0, 30.0))
+HANDOFFS = REGISTRY.counter(
+    "serving_prefill_handoffs_total",
+    "prefilled requests handed off to a decode worker (disaggregation)")
+HANDOFF_WAIT = REGISTRY.histogram(
+    "serving_handoff_wait_seconds",
+    "prefill-commit to decode-seed latency of a disaggregated handoff",
+    buckets=(0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25,
+             0.5, 1.0, 2.5, 5.0))
 
 PREFILL_BUCKETS = (16, 32, 64, 128, 256, 512, 1024, 2048)
 DECODE_CHUNKS = (8, 16, 32, 64, 128)
+# the reference's warm seed pads its page list to one of these counts by
+# repeating the last page (the rest of its scratch is zeros); an int8
+# commit reproduces what that padding leaves in the tail page
+SEED_BUCKETS = (1, 2, 4, 8, 16, 32, 64)
 
 # verify-round cost model, in decode-step units: a round costs about BASE
 # steps of fixed overhead plus SLOPE steps per verified token (the
@@ -163,6 +204,11 @@ class GenRequest:
     _engine: object | None = field(default=None, repr=False)
     _gen: torch.Generator | None = field(default=None, repr=False)
     _spec: SpeculationState | None = field(default=None, repr=False)
+    # disaggregation: a pending HandoffState rides the request across the
+    # prefill -> decode boundary (page references and sampling state),
+    # cleared (its references dropped) at the decode seed or at death
+    _handoff: object | None = field(default=None, repr=False)
+    _failovers: int = 0
 
     def expired(self, now: float | None = None) -> bool:
         return (self.deadline is not None
@@ -198,7 +244,20 @@ class ContinuousBatcher:
                  max_queue: int = 0, prefix_cache_bytes: int = 0,
                  page_size: int = 16, kv_pages: int = 0,
                  host_kv_pages: int = 0, speculative_tokens: int = 0,
-                 draft_fn=None):
+                 draft_fn=None, role: str = "colocated", handoff_fn=None,
+                 failover_fn=None, pool: PagePool | None = None,
+                 prefix_cache: PrefixCache | None = None,
+                 kv_quant: bool = False, directory=None,
+                 engine_id: str | None = None, engine_addr: str = "",
+                 fetch_fn=None):
+        if role not in ("colocated", "prefill", "decode"):
+            raise ValueError(f"unknown engine role {role!r}")
+        if role == "prefill" and handoff_fn is None:
+            raise ValueError("a prefill-role engine needs a handoff_fn "
+                             "(who receives the finished prompt KV?)")
+        self.role = role
+        self.handoff_fn = handoff_fn
+        self.failover_fn = failover_fn
         self.model = model
         self.cfg = cfg
         self.device = model.device
@@ -223,23 +282,60 @@ class ContinuousBatcher:
         # clamped like prefill_chunk: a page longer than max_seq could
         # never be committed
         self.page_size = max(1, min(int(page_size), self.max_seq))
+        if role == "prefill" and self.max_seq % self.page_size:
+            # a handoff commits EVERY prompt page, the tail's included; a
+            # page straddling max_seq would hold positions the scratch
+            # does not have
+            raise ValueError(
+                f"prefill role needs page_size ({self.page_size}) to "
+                f"divide max_seq ({self.max_seq})")
         self.pages_per_seq = pages_for(self.max_seq, self.page_size)
-        self.page_nbytes = kv_page_nbytes(cfg, self.page_size)
+        self.kv_quant = bool(kv_quant)
+        self.page_nbytes = (kv_page_nbytes_int8(cfg, self.page_size)
+                            if self.kv_quant
+                            else kv_page_nbytes(cfg, self.page_size))
         cache_pages = 0
         if prefix_cache_bytes > 0:
             cache_pages = max(1, int(prefix_cache_bytes) // self.page_nbytes)
-        if kv_pages <= 0:
-            # the cache's allowance plus every slot's in-flight prompt
-            # pages (an upper bound: they become cache entries)
-            kv_pages = 1 + cache_pages + max_batch * self.pages_per_seq
-        # device rows only for a prefix cache: without one nothing ever
-        # commits a page, and the default engine's memory stays as it was
-        kv = (init_kv_pool(cfg, kv_pages, self.page_size, device=self.device)
-              if cache_pages else None)
-        self.pool = PagePool(kv_pages, self.page_size, self.page_nbytes,
-                             host_pages=max(0, int(host_kv_pages)), kv=kv)
-        self.prefix_cache = (PrefixCache(self.pool, cache_pages)
-                             if cache_pages else None)
+        # an injected pool (or cache) is shared with sibling engines: this
+        # engine cannot tell an orphan from a sibling's cache entry or an
+        # in-flight handoff, so the pool's owner does the leak accounting
+        self._pool_shared = pool is not None or prefix_cache is not None
+        if pool is None:
+            if kv_pages <= 0:
+                # the cache's allowance plus every slot's in-flight prompt
+                # pages (an upper bound: they become cache entries)
+                kv_pages = 1 + cache_pages + max_batch * self.pages_per_seq
+            # device rows for a prefix cache or a disaggregated role (the
+            # handoff's pages); otherwise nothing ever commits a page, and
+            # the default engine's memory stays as it was
+            kv = (init_kv_pool(cfg, kv_pages, self.page_size,
+                               device=self.device, quantized=self.kv_quant)
+                  if cache_pages or role != "colocated" else None)
+            pool = PagePool(kv_pages, self.page_size, self.page_nbytes,
+                            host_pages=max(0, int(host_kv_pages)), kv=kv)
+        elif pool.page_size != self.page_size:
+            raise ValueError(
+                f"shared pool page_size {pool.page_size} != engine "
+                f"page_size {self.page_size}")
+        elif pool.kv is not None and pool.quantized != self.kv_quant:
+            raise ValueError(f"shared pool quantized={pool.quantized} != "
+                             f"engine kv_quant={self.kv_quant}")
+        self.pool = pool
+        if prefix_cache is not None:
+            self.prefix_cache = prefix_cache
+        else:
+            self.prefix_cache = (PrefixCache(self.pool, cache_pages)
+                                 if cache_pages else None)
+        # cluster prefix reuse: advertise on insert, withdraw on evict,
+        # fetch a peer's pages on a local miss the directory covers
+        self.directory = directory
+        self.engine_id = engine_id or f"engine-{id(self):x}"
+        self.engine_addr = engine_addr
+        self.fetch_fn = fetch_fn
+        self._remote_fetches = 0
+        if self.directory is not None and self.prefix_cache is not None:
+            self.prefix_cache.on_evict = self._withdraw_prefix
         shape = (max_batch, self.max_seq, cfg.num_kv_heads, cfg.head_dim)
         dt = cfg.torch_dtype
         self.view = [{"k": torch.zeros(shape, dtype=dt, device=self.device),
@@ -261,6 +357,11 @@ class ContinuousBatcher:
                         "decode_tokens": 0, "decode_seconds": 0.0,
                         "prefill_chunks": 0}
         self._spec_tally = {"proposed": 0, "accepted": 0, "rounds": 0}
+        # requests mid-prefill on a prefill-role engine: no slot, out of
+        # the queue, but load (drained() and the per-role stats count them)
+        self._prefilling = 0
+        self._handoffs = 0    # handoffs made (prefill role)
+        self._resumed = 0     # handoffs seeded into a slot here
 
     # -- public ----------------------------------------------------------------
     def submit(self, ids: list[int], max_new_tokens: int = 32,
@@ -304,16 +405,68 @@ class ContinuousBatcher:
             req.seed = seed
             if deadline_s is not None:
                 req.deadline = req.submitted_at + deadline_s
-            req._engine = self
-            self.queue.append(req)
-            QUEUE_DEPTH.set(len(self.queue))
-            if self._thread is None or not self._thread.is_alive():
-                self._stop = False
-                self._thread = threading.Thread(
-                    target=self._loop, daemon=True, name="serving-batcher")
-                self._thread.start()
-            self._work.notify_all()
+            self._enqueue_locked(req)
         return req
+
+    def _enqueue_locked(self, req: GenRequest) -> None:
+        """The one enqueue tail (lock held) of submit, handoff resume and
+        failover adoption: ownership, queue append, batcher (re)spawn."""
+        req._engine = self
+        self.queue.append(req)
+        QUEUE_DEPTH.set(len(self.queue))
+        if self._thread is None or not self._thread.is_alive():
+            self._stop = False
+            self._thread = threading.Thread(
+                target=self._loop, daemon=True, name="serving-batcher")
+            self._thread.start()
+        self._work.notify_all()
+
+    def submit_handoff(self, state) -> GenRequest:
+        """Resume a prefilled request from its handoff pages (the decode
+        half of disaggregation).  In process the state carries the
+        original request, its generator included; a cross-process resume
+        (``request=None``) mints a request here, with a generator on this
+        engine's device restored from ``state.gen_state`` (seeded from the
+        request's seed when the body carried none: a greedy stream).  The
+        state's page references are released at the seed or at the
+        request's death.  Draining rejects only NEW work (a cross-process
+        resume); an in-process handoff continues an admitted request."""
+        req = state.request
+        preadmitted = req is not None
+        if req is None:
+            req = GenRequest(list(state.ids), state.max_new_tokens,
+                             state.temperature, state.eos_id,
+                             seed=state.seed, top_k=state.top_k,
+                             top_p=state.top_p)
+            req.generated = list(state.generated)
+            req.deadline = state.deadline
+            req._gen = torch.Generator(device=self.device)
+            if state.gen_state is not None:
+                req._gen.set_state(state.gen_state)
+            else:
+                req._gen.manual_seed(state.seed)
+            state.request = req
+        if self.spec_max and req._spec is None:
+            req._spec = SpeculationState(self.spec_max)
+        req._handoff = state
+        with self._work:
+            if self._closed:
+                raise RuntimeError("serving engine is shut down")
+            if self._draining and not preadmitted:
+                raise Draining("serving engine is draining (finishing "
+                               "in-flight requests, accepting no new ones)")
+            self._enqueue_locked(req)
+        return req
+
+    def adopt(self, req: GenRequest) -> bool:
+        """Take over a live request from a dying sibling engine (the
+        coordinator's decode failover) for a cold re-run; False when this
+        engine cannot accept work."""
+        with self._work:
+            if self._closed or self._draining:
+                return False
+            self._enqueue_locked(req)
+        return True
 
     def generate_sync(self, batch: list[list[int]], max_new_tokens: int = 32,
                       temperature: float = 0.0, eos_id: int | None = None,
@@ -341,10 +494,17 @@ class ContinuousBatcher:
         with self._work:
             live_tokens = sum(len(s.ids) + len(s.generated)
                               for s in self.slots if s is not None)
-            out = {"active": sum(1 for s in self.slots if s is not None),
+            # a prefill-role engine's mid-prefill requests hold no slot
+            # but are load (its per-role signal)
+            out = {"active": (sum(1 for s in self.slots if s is not None)
+                              + self._prefilling),
                    "queued": len(self.queue),
                    "max_batch": self.max_batch,
                    "timing": dict(self._timing)}
+            if self.role != "colocated":
+                out["role"] = self.role
+                out["handoffs"] = self._handoffs
+                out["resumed"] = self._resumed
             if self.max_queue:
                 out["max_queue"] = self.max_queue
             if self._draining:
@@ -357,15 +517,22 @@ class ContinuousBatcher:
                                     if tally["proposed"] else 0.0)}
         pool = self.pool.stats()
         pool["live_tokens"] = live_tokens
+        if self.kv_quant:
+            pool["quantized"] = True
         cache = (self.prefix_cache.stats() if self.prefix_cache is not None
                  else None)
-        # pages held by nobody but an in-flight admission: 0 whenever the
-        # engine is idle (every committed page is cache-owned or freed)
-        pool["orphan_pages"] = pool["in_use"] - (cache["pages"] if cache
-                                                 else 0)
+        if not self._pool_shared:
+            # pages held by nobody but an in-flight admission: 0 whenever
+            # the engine is idle (every committed page is cache-owned or
+            # freed).  A shared pool's owner counts these instead.
+            pool["orphan_pages"] = pool["in_use"] - (cache["pages"] if cache
+                                                     else 0)
         out["kv_pool"] = pool
         if cache is not None:
             out["prefix_cache"] = cache
+        if self.directory is not None:
+            out["remote_fetches"] = self._remote_fetches
+            out["directory"] = self.directory.stats()
         return out
 
     def _estimated_wait_locked(self) -> float:
@@ -377,16 +544,21 @@ class ContinuousBatcher:
         return len(self.queue) / max(self.max_batch, 1) * self._service_ewma
 
     def drain(self) -> None:
-        """Stop admitting; queued and in-flight requests run to the end."""
+        """Stop admitting; queued and in-flight requests run to the end.
+        A draining engine stops being a fetch target at once."""
         with self._work:
             self._draining = True
             self._work.notify_all()
+        if self.directory is not None:
+            self.directory.drop_engine(self.engine_id)
 
     def drained(self, timeout: float = 60.0) -> bool:
-        """Block until no request is queued or decoding (or timeout)."""
+        """Block until no request is queued, prefilling or decoding (or
+        timeout)."""
         deadline = time.monotonic() + timeout
         with self._work:
-            while self.queue or any(s is not None for s in self.slots):
+            while (self.queue or self._prefilling
+                   or any(s is not None for s in self.slots)):
                 remaining = deadline - time.monotonic()
                 if remaining <= 0:
                     return False
@@ -403,6 +575,19 @@ class ContinuousBatcher:
             self._work.notify_all()
         if self._thread is not None:
             self._thread.join(timeout=30)
+        if self.directory is not None:
+            self.directory.drop_engine(self.engine_id)
+
+    def restart(self) -> None:
+        """Reopen a shut-down (or draining) engine; the batcher respawns
+        on the next submit.  The pool and prefix cache survive, so the
+        warm prefixes are advertised again."""
+        with self._work:
+            self._closed = False
+            self._draining = False
+        if self.directory is not None and self.prefix_cache is not None:
+            for toks in self.prefix_cache.cached_prefixes():
+                self._advertise_prefix(list(toks))
 
     # -- the scheduling loop ---------------------------------------------------
     _DEAD_MSG = {
@@ -425,6 +610,8 @@ class ContinuousBatcher:
         req.error = msg
         req.outcome = outcome
         REQS_TOTAL.labels(outcome).inc()
+        # a pending handoff's page references die with the request
+        self._release_handoff(req)
         req._done.set()
         with self._work:
             self._work.notify_all()
@@ -454,6 +641,22 @@ class ContinuousBatcher:
         for req, outcome in dead:
             self._fail(req, outcome, self._DEAD_MSG[outcome])
 
+    def _die_with_engine(self, dying: list[GenRequest], outcome: str,
+                         msg: str) -> None:
+        """The engine goes away (shutdown or crash) with live requests:
+        each is first offered to ``failover_fn`` (True transfers it to a
+        surviving engine); the rest fail.  Runs outside the lock: the
+        failover takes a sibling engine's lock."""
+        for req in dying:
+            if (self.failover_fn is not None
+                    and not req._cancel_requested and not req.expired()):
+                try:
+                    if self.failover_fn(req):
+                        continue
+                except Exception:
+                    self.log.error("failover_fn raised", exc_info=True)
+            self._fail(req, outcome, msg)
+
     def _loop(self) -> None:
         try:
             with torch.no_grad():
@@ -466,8 +669,7 @@ class ContinuousBatcher:
                 self.queue.clear()
                 self.slots = [None] * self.max_batch
                 self._thread = None
-            for req in dying:
-                self._fail(req, "error", "serving engine crashed")
+            self._die_with_engine(dying, "error", "serving engine crashed")
 
     def _step(self) -> bool:
         """One scheduling iteration; False when the engine stopped."""
@@ -479,8 +681,8 @@ class ContinuousBatcher:
                 self.queue.clear()
                 self.slots = [None] * self.max_batch
         if self._stop:
-            for req in dying:
-                self._fail(req, "shutdown", "serving engine shut down")
+            self._die_with_engine(dying, "shutdown",
+                                  "serving engine shut down")
             return False
         self._sweep_dead()
         self._admit()
@@ -492,33 +694,46 @@ class ContinuousBatcher:
         return True
 
     def _admit(self) -> None:
-        """FIFO admission into free slots, at most ``max_batch`` per call
-        so requests done at admission cannot starve in-flight decode."""
+        """FIFO admission, at most ``max_batch`` per call so requests done
+        at admission cannot starve in-flight decode.  A handoff seed and a
+        colocated prefill need a free slot; a prefill-role engine's own
+        admissions take none (they prefill, commit and hand off)."""
         for _ in range(self.max_batch):
             with self._work:
+                if not self.queue:
+                    QUEUE_DEPTH.set(0)
+                    return
+                head = self.queue[0]
+                needs_slot = not (self.role == "prefill"
+                                  and head._handoff is None)
                 free = next((i for i, s in enumerate(self.slots)
                              if s is None), None)
-                if not self.queue or free is None:
+                if needs_slot and free is None:
                     QUEUE_DEPTH.set(len(self.queue))
                     return
                 req = self.queue.pop(0)
                 QUEUE_DEPTH.set(len(self.queue))
-            self._admit_one(free, req)
+                if not needs_slot:
+                    self._prefilling += 1
+            try:
+                if req._handoff is not None:
+                    self._admit_handoff(free, req)
+                elif not needs_slot:
+                    self._admit_prefill(req)
+                else:
+                    self._admit_colocated(free, req)
+            finally:
+                if not needs_slot:
+                    with self._work:
+                        self._prefilling -= 1
+                        self._work.notify_all()
 
-    def _admit_one(self, free: int, req: GenRequest) -> None:
-        outcome = self._dead_outcome(req)
-        if outcome is not None:
-            self._fail(req, outcome, self._DEAD_MSG[outcome])
-            return
+    def _start_admission(self, req: GenRequest) -> None:
         req.admitted_at = time.perf_counter()
         ADMISSION_WAIT.observe(req.admitted_at - req.submitted_at)
         req._gen = torch.Generator(device=self.device).manual_seed(req.seed)
-        tok = self._run_prefill(req)
-        outcome = self._dead_outcome(req)
-        if tok is None or outcome is not None:
-            outcome = outcome or "cancelled"
-            self._fail(req, outcome, self._DEAD_MSG[outcome])
-            return
+
+    def _first_token(self, req: GenRequest, tok: int) -> None:
         req.first_token_at = time.perf_counter()
         ttft = req.first_token_at - req.submitted_at
         TTFT_HIST.observe(ttft)
@@ -528,7 +743,120 @@ class ContinuousBatcher:
             t = self._timing
             t["ttft_sum"] += ttft
             t["ttft_count"] += 1
+
+    def _admit_colocated(self, free: int, req: GenRequest) -> None:
+        """Prefill the prompt and seat it in slot ``free``."""
+        outcome = self._dead_outcome(req)
+        if outcome is not None:
+            self._fail(req, outcome, self._DEAD_MSG[outcome])
+            return
+        self._start_admission(req)
+        tok, _ = self._run_prefill(req)
+        outcome = self._dead_outcome(req)
+        if tok is None or outcome is not None:
+            outcome = outcome or "cancelled"
+            self._fail(req, outcome, self._DEAD_MSG[outcome])
+            return
+        self._first_token(req, tok)
         self._seat(free, req)
+
+    def _admit_prefill(self, req: GenRequest) -> None:
+        """Prefill-role admission: run the prompt, commit its KV to pool
+        pages and hand the request off.  A request complete at its first
+        token finishes here; one whose pages the pool cannot host decodes
+        in a local slot (availability over purity), or sheds when no slot
+        is free either."""
+        outcome = self._dead_outcome(req)
+        if outcome is not None:
+            self._fail(req, outcome, self._DEAD_MSG[outcome])
+            return
+        self._start_admission(req)
+        tok, pages = self._run_prefill(req, want_pages=True)
+        if tok is None:
+            outcome = self._dead_outcome(req) or "cancelled"
+            self._fail(req, outcome, self._DEAD_MSG[outcome])
+            return
+        self._first_token(req, tok)
+        outcome = self._dead_outcome(req)
+        hit_eos = req.eos_id is not None and tok == req.eos_id
+        if outcome is not None or len(req.generated) >= req.max_new_tokens \
+                or hit_eos:
+            if pages is not None:
+                self.pool.decref(pages)
+            if outcome is not None:
+                self._fail(req, outcome, self._DEAD_MSG[outcome])
+            else:
+                self._complete_ok(req)
+            return
+        if pages is None:
+            with self._work:
+                free = next((i for i, s in enumerate(self.slots)
+                             if s is None), None)
+            if free is None:
+                self._fail(req, "shed", "kv page pool exhausted and no "
+                           "local slot for colocated fallback")
+                return
+            self._seat(free, req)
+            return
+        from kubeflow_tpu_torch.serving.disagg import HandoffState, seed_words
+
+        state = HandoffState(
+            ids=list(req.ids), generated=list(req.generated),
+            max_new_tokens=req.max_new_tokens, temperature=req.temperature,
+            eos_id=req.eos_id, seed=req.seed, top_k=req.top_k,
+            top_p=req.top_p, pages=pages, key_chain=seed_words(req.seed),
+            deadline=req.deadline, committed_at=time.perf_counter(),
+            request=req)
+        req._handoff = state
+        HANDOFFS.inc()
+        with self._work:
+            self._handoffs += 1
+        try:
+            self.handoff_fn(req, state)
+        except Exception as e:
+            self.log.warning("prefill handoff failed", error=str(e))
+            self._fail(req, "error", f"prefill handoff failed: {e}")
+
+    def _admit_handoff(self, free: int, req: GenRequest) -> None:
+        """Decode-side admission: seed the scratch from the handoff's pages
+        (dequantized when int8), drop their references, and seat the
+        request; its generator continues where the prefill left it."""
+        state = req._handoff
+        outcome = self._dead_outcome(req)
+        if outcome is not None:
+            self._fail(req, outcome, self._DEAD_MSG[outcome])
+            return
+        if req.admitted_at is None:
+            req.admitted_at = time.perf_counter()
+        self._seed_scratch(state.pages, self._scratch())
+        if state.committed_at is not None:
+            HANDOFF_WAIT.observe(time.perf_counter() - state.committed_at)
+        self._release_handoff(req)
+        with self._work:
+            self._resumed += 1
+        self._seat(free, req)
+
+    def _complete_ok(self, req: GenRequest) -> None:
+        """Terminal success without a decode slot (a prefill-role request
+        done at its first token)."""
+        with self._work:
+            dur = time.perf_counter() - (req.admitted_at or req.submitted_at)
+            self._service_ewma = (dur if self._service_ewma <= 0.0
+                                  else 0.8 * self._service_ewma + 0.2 * dur)
+            self._work.notify_all()
+        req.outcome = "ok"
+        REQS_TOTAL.labels("ok").inc()
+        req._done.set()
+
+    def _release_handoff(self, req: GenRequest) -> None:
+        """Drop a pending handoff's page references exactly once and
+        detach it (idempotent; the guard lives in
+        ``disagg.release_handoff``)."""
+        state, req._handoff = req._handoff, None
+        if state is not None:
+            from kubeflow_tpu_torch.serving.disagg import release_handoff
+
+            release_handoff(self.pool, state)
 
     def _scratch(self) -> list[dict]:
         if self._scratch_kv is None:
@@ -541,21 +869,80 @@ class ContinuousBatcher:
                 for _ in range(self.cfg.num_layers)]
         return self._scratch_kv
 
-    def _run_prefill(self, req: GenRequest) -> int | None:
+    def _seed_scratch(self, pages: list[int], scratch: list[dict]) -> None:
+        """Copy committed pages into the scratch head, in order (one
+        gather per layer and tensor); int8 pages are gathered with their
+        scales and dequantized into the model dtype.  Positions past
+        ``max_seq`` are dropped."""
+        n = len(pages)
+        span = n * self.page_size
+        if not self.kv_quant and span <= self.max_seq:
+            self.pool.gather(pages, [(l["k"][0, :span], l["v"][0, :span])
+                                     for l in scratch])
+            return
+        store = self.pool.kv["layers"]
+        bufs = [{name: torch.empty((n,) + tuple(t.shape[1:]), dtype=t.dtype,
+                                   device=t.device)
+                 for name, t in layer.items()} for layer in store]
+        self.pool.gather(pages, bufs)
+        keep = min(span, self.max_seq)
+        dt = self.cfg.torch_dtype
+        for l, b in zip(scratch, bufs):
+            for name in ("k", "v"):
+                x = b[name]
+                if self.kv_quant:
+                    x = dequantize_kv(x, b[name + "s"], dt)
+                l[name][0, :keep] = x.reshape((span,) + x.shape[2:])[:keep]
+
+    def _fill_tail(self, scratch: list[dict], written: int, end: int,
+                   seed: tuple | None) -> None:
+        """Make scratch positions ``[written, end)`` (the tail page's past
+        everything this prompt wrote) what the reference's scratch holds
+        there: its warm seed's padding, ``seed = (last seeded page, seed
+        span)``, repeats that page below the span, and zeros follow."""
+        if written >= end:
+            return
+        ps = self.page_size
+        page, span = seed if seed is not None else (None, 0)
+        rep_end = min(end, span) if page is not None else written
+        rows = (torch.arange(written, rep_end, device=self.device) % ps
+                if rep_end > written else None)
+        tree = self.pool.get(page)["layers"] if rows is not None else None
+        dt = self.cfg.torch_dtype
+        for li, l in enumerate(scratch):
+            for name in ("k", "v"):
+                t = l[name][0]
+                if rows is not None:
+                    src = tree[li][name]
+                    if self.kv_quant:
+                        src = dequantize_kv(src, tree[li][name + "s"], dt)
+                    t[written:rep_end] = src[rows]
+                t[max(written, rep_end):end].zero_()
+
+    def _run_prefill(self, req: GenRequest, want_pages: bool = False
+                     ) -> tuple[int | None, list[int] | None]:
         """Prefill the prompt into the batch-1 scratch in chunks and sample
-        the first token at the last real position; None when the request
-        died between chunks (the pin is still released).
+        the first token at the last real position: ``(token, pages)``,
+        ``(None, None)`` when the request died between chunks (the pin is
+        still released).
 
         With a prefix cache, a longest-prefix HIT seeds the scratch head
         from the cached pages and prefills only the suffix; the prompt's
         new pages are then committed and inserted into the radix tree
         inside the pin window.  The per-position KV and the last
         position's logits do not depend on how the prompt is split, so
-        warm and cold streams are the same."""
+        warm and cold streams are the same.  ``want_pages`` (prefill
+        role) commits EVERY prompt page and returns their ids with one
+        handoff reference each (None when the pool cannot host them)."""
         prompt_len = len(req.ids)
+        ps = self.page_size
         scratch = self._scratch()
         node, usable = None, 0
         if self.prefix_cache is not None:
+            if self.directory is not None and self.fetch_fn is not None:
+                # a peer holding more of this prompt: pull its pages in
+                # first, so the pinned match below sees a local hit
+                self._maybe_fetch_remote(req)
             node, matched = self.prefix_cache.match(req.ids, pin=True)
             # always leave >= 1 suffix token: the first token's logits
             # come from the suffix prefill (pages hold KV, not logits)
@@ -565,22 +952,25 @@ class ContinuousBatcher:
                 node, usable = None, 0
             (PREFIX_HITS if node is not None else PREFIX_MISSES).inc()
         try:
+            written, seed = 0, None
             if node is not None:
                 # spilled pages fault back before the gather reads them
                 # (same stream); the tail page's positions past ``usable``
                 # and the scratch beyond the seed hold garbage that the
                 # suffix prefill overwrites before any query reads it.
                 # Cached pages lie inside max_seq, so the seed fits.
-                n_seed = pages_for(usable, self.page_size)
-                span = n_seed * self.page_size
+                n_seed = pages_for(usable, ps)
                 self.prefix_cache.fault(node)
-                self.pool.gather(node.pages[:n_seed],
-                                 [(l["k"][0, :span], l["v"][0, :span])
-                                  for l in scratch])
+                self._seed_scratch(node.pages[:n_seed], scratch)
+                written = n_seed * ps
+                bucket = next((b for b in SEED_BUCKETS if b >= n_seed),
+                              self.pages_per_seq)
+                seed = (node.pages[n_seed - 1], min(bucket * ps,
+                                                    self.max_seq))
             pos = usable
             while True:
                 if self._dead_outcome(req) is not None:
-                    return None
+                    return None, None
                 take = min(prompt_len - pos, self.prefill_chunk)
                 # pad to a bucket, never past max_seq
                 room = self.max_seq - pos
@@ -595,50 +985,185 @@ class ContinuousBatcher:
                 PREFILL_TOKENS.inc(take)
                 with self._work:
                     self._timing["prefill_chunks"] += 1
+                written = max(written, pos + cb)
                 pos += take
                 if pos >= prompt_len:
                     break
             logits = out["logits"][0, take - 1][None]
             tok = int(sample_rows(logits, [req], [req._gen])[0])
             fully_cached = node is not None and usable >= prompt_len - 1
-            if self.prefix_cache is not None and not fully_cached:
+            commit = want_pages or (self.prefix_cache is not None
+                                    and not fully_cached)
+            if commit and self.kv_quant:
+                end = min(pages_for(prompt_len, ps), self.max_seq // ps) * ps
+                self._fill_tail(scratch, written, end, seed)
+            pages = None
+            if want_pages:
+                pages = self._commit_and_insert(req.ids, usable, node,
+                                                scratch, for_handoff=True)
+            elif commit:
                 # cache the whole prompt: shared pages by reference, only
                 # the pages past the match are committed
                 self._commit_and_insert(req.ids, usable, node, scratch)
-            return tok
+            return tok, pages
         finally:
             if node is not None:
                 self.prefix_cache.release(node)
 
     def _commit_and_insert(self, ids: list[int], usable: int, node,
-                           scratch: list[dict]) -> None:
+                           scratch: list[dict],
+                           for_handoff: bool = False) -> list[int] | None:
         """Commit the prompt's new pages (past the shared prefix) from the
-        prefill scratch into the pool and insert the prompt into the radix
-        tree.  Pool pressure evicts LRU cache entries; if the pool still
-        cannot host the pages the prompt is not cached: admission never
-        blocks on cache capacity."""
+        prefill scratch into the pool (quantized when int8) and insert the
+        prompt into the radix tree.  Pool pressure evicts LRU cache
+        entries; if the pool still cannot host the pages the prompt is not
+        cached: admission never blocks on cache capacity.
+
+        ``for_handoff`` commits EVERY page the prompt touches and returns
+        all their ids with ONE handoff reference each (fresh pages keep
+        their alloc reference, shared ones gain one); None when the pool
+        cannot host them."""
         ps = self.page_size
-        # only pages that lie FULLY inside the scratch: a page straddling
-        # max_seq would hold positions the scratch does not have.  The
-        # uncovered prompt tail is not cached.
-        needed = min(pages_for(len(ids), ps), self.max_seq // ps)
-        ids = ids[:needed * ps]
+        if for_handoff:
+            needed = pages_for(len(ids), ps)
+        else:
+            # only pages that lie FULLY inside the scratch: a page
+            # straddling max_seq would hold positions the scratch does not
+            # have.  The uncovered prompt tail is not cached.
+            needed = min(pages_for(len(ids), ps), self.max_seq // ps)
+            ids = ids[:needed * ps]
         shared = usable // ps if node is not None else 0
         n_new = needed - shared
         if n_new <= 0 or not ids:
-            return
+            return None
         fresh = self.pool.alloc(n_new)
         while fresh is None:
-            if not self.prefix_cache.evict_lru():
-                return
+            if self.prefix_cache is None or not self.prefix_cache.evict_lru():
+                return None
             fresh = self.pool.alloc(n_new)
         first, end = shared * ps, needed * ps
-        self.pool.put_many(fresh, [(l["k"][0, first:end],
-                                    l["v"][0, first:end]) for l in scratch])
+        layers = []
+        for l in scratch:
+            k, v = l["k"][0, first:end], l["v"][0, first:end]
+            if self.kv_quant:
+                shape = (n_new, ps) + tuple(k.shape[1:])
+                kq, kscale = quantize_kv(k.reshape(shape))
+                vq, vscale = quantize_kv(v.reshape(shape))
+                layers.append({"k": kq, "ks": kscale, "v": vq, "vs": vscale})
+            else:
+                layers.append((k, v))
+        self.pool.put_many(fresh, layers)
         shared_ids = list(node.pages[:shared]) if shared else []
-        self.prefix_cache.insert(ids, shared_ids + fresh)
+        if self.prefix_cache is not None:
+            if self.prefix_cache.insert(ids, shared_ids + fresh):
+                self._advertise_prefix(ids)
+        if for_handoff:
+            if shared_ids:
+                self.pool.incref(shared_ids)
+            return shared_ids + fresh
         # the tree holds its own references now; drop the alloc's
         self.pool.decref(fresh)
+        return None
+
+    # -- cluster prefix reuse --------------------------------------------------
+    def _advertise_prefix(self, ids) -> None:
+        """Register every full-page prefix of ``ids`` in the directory
+        (advisory: a failure costs a routing hint, never this request)."""
+        if self.directory is None:
+            return
+        try:
+            self.directory.advertise(self.engine_id, self.engine_addr, ids)
+        except Exception:
+            self.log.warning("prefix advertise failed", exc_info=True)
+
+    def _withdraw_prefix(self, tokens) -> None:
+        """The prefix cache's eviction callback: the dropped node's pages
+        are gone, so are its directory entries."""
+        if self.directory is None:
+            return
+        try:
+            self.directory.withdraw(self.engine_id, tokens)
+        except Exception:
+            self.log.warning("prefix withdraw failed", exc_info=True)
+
+    def _maybe_fetch_remote(self, req: GenRequest) -> None:
+        """Pull a peer's prefix pages into the LOCAL radix tree when the
+        directory knows an owner covering strictly more full pages of
+        this prompt than the local match.  On success the caller's pinned
+        match sees a warm hit; a stale entry or a failed fetch degrades to
+        a local prefill, never a wrong stream."""
+        from kubeflow_tpu_torch.serving.disagg import (parse_page_trees,
+                                                       put_trees)
+        from kubeflow_tpu_torch.serving.kv_directory import (
+            REMOTE_FETCH_WAIT, REMOTE_FETCHES)
+
+        _, local = self.prefix_cache.match(req.ids)  # unpinned peek
+        hit = self.directory.lookup(req.ids, exclude=self.engine_id)
+        if hit is None:
+            return
+        if hit["matched"] // self.page_size <= local // self.page_size:
+            return
+        t0 = time.perf_counter()
+        try:
+            payload = self.fetch_fn(hit, list(req.ids[:hit["matched"]]))
+        except Exception as e:
+            self.log.warning("remote prefix fetch failed",
+                             owner=hit["engine_id"], error=str(e))
+            return
+        if not isinstance(payload, dict) or not payload.get("pages"):
+            return
+        try:
+            trees = parse_page_trees(payload["pages"], self)
+        except ValueError as e:
+            self.log.warning("remote prefix pages rejected", error=str(e))
+            return
+        # the owner revalidated against its own tree: it may cover fewer
+        # tokens than advertised, and only whole shipped pages count
+        m = min(int(payload.get("matched", 0)), hit["matched"],
+                len(trees) * self.page_size)
+        n = m // self.page_size
+        if n <= 0:
+            return
+        trees = trees[:n]
+        pids = self.pool.alloc(n)
+        while pids is None:
+            if not self.prefix_cache.evict_lru():
+                return   # the pool cannot host the import: prefill locally
+            pids = self.pool.alloc(n)
+        put_trees(self.pool, pids, trees)
+        inserted = self.prefix_cache.insert(
+            list(req.ids[:n * self.page_size]), pids)
+        # the tree holds its own references now (or refused the insert)
+        self.pool.decref(pids)
+        if inserted:
+            wait = time.perf_counter() - t0
+            REMOTE_FETCHES.inc()
+            REMOTE_FETCH_WAIT.observe(wait)
+            with self._work:
+                self._remote_fetches += 1
+
+    def export_prefix(self, ids: list[int]) -> dict:
+        """Serve a peer's prefix-page fetch (the ``:pages`` verb): the FULL
+        pages covering the longest local match, in the handoff wire
+        format, from whichever tier holds them (a spilled page ships from
+        host RAM without a fault).  ``matched`` 0 when the tree cannot
+        cover one full page."""
+        from kubeflow_tpu_torch.serving.disagg import encode_page
+
+        empty = {"matched": 0, "pages": []}
+        if self.prefix_cache is None or not ids:
+            return empty
+        node, usable = self.prefix_cache.match(list(ids), pin=True)
+        if node is None:
+            return empty
+        try:
+            n = usable // self.page_size
+            if n <= 0:
+                return empty
+            pages = [encode_page(self.pool.get(p)) for p in node.pages[:n]]
+            return {"matched": n * self.page_size, "pages": pages}
+        finally:
+            self.prefix_cache.release(node)
 
     def _seat(self, free: int, req: GenRequest) -> None:
         """Install the prefilled scratch as slot ``free``'s view row and

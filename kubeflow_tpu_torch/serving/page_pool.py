@@ -25,8 +25,11 @@ one tree of per-layer arrays per page id.  Here the device store is
 ``init_kv_pool``'s layout, allocated once: per layer one
 ``[rows, page, Hkv, D]`` k tensor and one v tensor, ``rows`` = the budget
 ``num_pages``; a device-resident page id maps to a row (row 0 is the null
-page's).  Commits (``put``/``put_many``) and seeds (``gather``) are one
-scatter or gather per layer over the page ids' rows.  A spill copies a
+page's).  An int8 store (``init_kv_pool(..., quantized=True)``) holds two
+more tensors per layer, the scales ``ks``/``vs`` ``[rows, 1, Hkv, 1]``;
+every operation below runs over whichever tensors the layer's store
+holds, by name.  Commits (``put``/``put_many``) and seeds (``gather``)
+are one scatter or gather per layer and tensor over the page ids' rows.  A spill copies a
 row of every layer into a preallocated host arena (pinned on CUDA) and
 frees the row; a fault takes a free row, copies the data back and remaps
 the id.  A fault with no free row (residency over the budget) grows the
@@ -130,12 +133,12 @@ class PagePool:
             self._free_rows = list(range(self._nrows - 1, 0, -1))
             if self.host_pages:
                 pin = k0.device.type == "cuda"
-                shape = (self.host_pages,) + tuple(k0.shape[1:])
                 self._arena = [
-                    {name: torch.empty(shape, dtype=k0.dtype,
+                    {name: torch.empty((self.host_pages,)
+                                       + tuple(t.shape[1:]), dtype=t.dtype,
                                        pin_memory=pin)
-                     for name in ("k", "v")}
-                    for _ in kv["layers"]]
+                     for name, t in layer.items()}
+                    for layer in kv["layers"]]
         PAGES_CAPACITY.set(float(self.num_pages - 1))
         PAGES_FREE.set(float(self.num_pages - 1))
         HBM_PAGES.set(0.0)
@@ -166,8 +169,7 @@ class PagePool:
     def _grow(self) -> None:
         """Extend the row tensors to ``_nrows`` (faults past the budget)."""
         for layer in self.kv["layers"]:
-            for name in ("k", "v"):
-                t = layer[name]
+            for name, t in list(layer.items()):
                 if t.shape[0] < self._nrows:
                     extra = t.new_zeros((self._nrows - t.shape[0],)
                                         + tuple(t.shape[1:]))
@@ -178,16 +180,23 @@ class PagePool:
             raise ValueError("this page pool holds no device storage")
 
     # -- device store ----------------------------------------------------------
+    @property
+    def quantized(self) -> bool:
+        """Whether the store holds int8 pages with their scales."""
+        return self.kv is not None and "ks" in self.kv["layers"][0]
+
     def put(self, page: int, tree: dict) -> None:
-        """Commit an allocated page's per-layer k/v (``{"layers": [{"k":
-        [page, Hkv, D], "v": ...}]}``) into its device row."""
-        self.put_many([page], [(l["k"][None], l["v"][None])
+        """Commit an allocated page's per-layer tensors (``{"layers":
+        [{"k": [page, Hkv, D], "v": ...}]}``, plus ``ks``/``vs`` ``[1,
+        Hkv, 1]`` for an int8 store) into its device row."""
+        self.put_many([page], [{name: t[None] for name, t in l.items()}
                                for l in tree["layers"]])
 
     def put_many(self, pages: list[int], layers) -> None:
-        """Commit allocated pages: ``layers`` holds per layer a (k, v)
-        pair covering the pages in order, ``[n * page, Hkv, D]`` or
-        ``[n, page, Hkv, D]``; one scatter per layer and tensor."""
+        """Commit allocated pages: ``layers`` holds per layer the tensors
+        of the layer's store by name (or a (k, v) pair for a model-dtype
+        store) covering the pages in order, each ``[n * rows_of_one,
+        ...]`` or ``[n, ...]``; one scatter per layer and tensor."""
         self._need_kv()
         with self._lock:
             for p in pages:
@@ -197,17 +206,19 @@ class PagePool:
                     raise ValueError(f"put on spilled page {p}")
         rows = self._rows(pages)
         n = len(pages)
-        for dst, (k, v) in zip(self.kv["layers"], layers):
-            for name, src in (("k", k), ("v", v)):
+        for dst, src in zip(self.kv["layers"], layers):
+            src = _by_name(dst, src)
+            for name, t in src.items():
                 dst[name].index_copy_(
-                    0, rows, src.reshape((n,) + tuple(dst[name].shape[1:])))
+                    0, rows, t.reshape((n,) + tuple(dst[name].shape[1:])))
         with self._lock:
             self._committed.update(pages)
 
     def gather(self, pages: list[int], out) -> None:
-        """Copy committed device pages into ``out``: per layer a (k, v)
-        pair of contiguous ``[n * page, Hkv, D]`` destinations (the seed
-        of a prefill scratch); one gather per layer and tensor."""
+        """Copy committed device pages into ``out``: per layer the
+        store's tensors by name (or a (k, v) pair) as contiguous
+        destinations, ``[n * page, Hkv, D]`` for k and v (the seed of a
+        prefill scratch); one gather per layer and tensor."""
         self._need_kv()
         with self._lock:
             for p in pages:
@@ -215,14 +226,15 @@ class PagePool:
                     raise ValueError(f"page {p} holds no device KV")
         rows = self._rows(pages)
         n = len(pages)
-        for src, (k, v) in zip(self.kv["layers"], out):
-            for name, dst in (("k", k), ("v", v)):
+        for src, dst_layer in zip(self.kv["layers"], out):
+            for name, dst in _by_name(src, dst_layer).items():
                 torch.index_select(
                     src[name], 0, rows,
                     out=dst.view((n,) + tuple(src[name].shape[1:])))
 
     def get(self, page: int) -> dict:
-        """The page's per-layer k/v from whichever tier holds it: views of
+        """The page's per-layer tensors (``k``/``v``, and ``ks``/``vs`` in an
+        int8 store) from whichever tier holds it: views of
         its device row, or of its host arena slot once the spill's copy
         has landed.  Views stay valid until the page frees or moves."""
         self._need_kv()
@@ -237,7 +249,8 @@ class PagePool:
                 raise KeyError(page)
         if done is not None:
             done.synchronize()
-        return {"layers": [{"k": l["k"][at], "v": l["v"][at]} for l in src]}
+        return {"layers": [{name: t[at] for name, t in l.items()}
+                           for l in src]}
 
     # -- allocation ------------------------------------------------------------
     def alloc(self, n: int) -> list[int] | None:
@@ -313,7 +326,7 @@ class PagePool:
             return []
         done = None
         for src, dst in zip(self.kv["layers"], self._arena):
-            for name in ("k", "v"):
+            for name in src:
                 for _, row, slot in moves:
                     dst[name][slot].copy_(src[name][row], non_blocking=True)
         device = self.kv["layers"][0]["k"].device
@@ -346,7 +359,7 @@ class PagePool:
         if self.kv["layers"][0]["k"].shape[0] < self._nrows:
             self._grow()
         for src, dst in zip(self._arena, self.kv["layers"]):
-            for name in ("k", "v"):
+            for name in src:
                 for _, slot, row in moves:
                     dst[name][row].copy_(src[name][slot], non_blocking=True)
         with self._lock:
@@ -411,6 +424,17 @@ class PagePool:
                 "page_size": self.page_size,
                 "page_nbytes": self.page_nbytes,
             }
+
+
+def _by_name(store: dict, tensors) -> dict:
+    """A layer's tensors keyed like ``store``'s: a (k, v) pair names
+    itself; a dict must hold exactly the store's keys."""
+    if not isinstance(tensors, dict):
+        tensors = dict(zip(("k", "v"), tensors))
+    if set(tensors) != set(store):
+        raise ValueError(f"page tensors {sorted(tensors)} != the store's "
+                         f"{sorted(store)}")
+    return tensors
 
 
 def pages_for(tokens: int, page_size: int) -> int:

@@ -513,3 +513,173 @@ def test_ragged_multi_token_write_on_the_card(cuda_device):
             want_v[b, st:st + 5] = v_new[b]
         assert torch.equal(layer["k"], want_k)
         assert torch.equal(layer["v"], want_v)
+
+
+# -- int8 serving and disaggregation on the card --------------------------------
+
+def _tiny_cuda_model(cuda_device, dtype="bfloat16"):
+    from kubeflow_tpu_torch.models import llama
+
+    return llama.LlamaModel(llama.llama_tiny(dtype=dtype),
+                            device=cuda_device).init_weights(0).eval()
+
+
+@pytest.mark.cuda
+def test_quantize_on_the_card_is_bitwise_the_cpu(cuda_device):
+    from kubeflow_tpu_torch.serving import quant
+
+    g = torch.Generator().manual_seed(4)
+    for shape, axis in (((512, 32, 128), 0), ((512, 1376), 0),
+                        ((4, 512, 1376), 1)):
+        w = torch.randn(shape, generator=g).bfloat16()
+        w[:, 3] = 0                                   # an all-zero channel
+        q, s = quant.quantize_array(w, axis)
+        qc, sc = quant.quantize_array(w.to(cuda_device), axis)
+        assert torch.equal(qc.cpu(), q) and torch.equal(sc.cpu(), s)
+        deq = quant.QTensor(q, s).dequantize()
+        assert torch.equal(quant.QTensor(qc, sc).dequantize().cpu(), deq)
+    x = torch.randn(7, 16, 8, 128, generator=g).bfloat16()
+    q, s = quant.quantize_kv(x)
+    qc, sc = quant.quantize_kv(x.to(cuda_device))
+    assert torch.equal(qc.cpu(), q) and torch.equal(sc.cpu(), s)
+    assert torch.equal(quant.dequantize_kv(qc, sc, torch.bfloat16).cpu(),
+                       quant.dequantize_kv(q, s, torch.bfloat16))
+
+
+@pytest.mark.cuda
+def test_int8_commit_on_the_card_is_the_cpu_quantize_kv(cuda_device):
+    from kubeflow_tpu_torch.serving import quant
+    from kubeflow_tpu_torch.serving.engine import ContinuousBatcher
+
+    model = _tiny_cuda_model(cuda_device)
+    eng = ContinuousBatcher(model, model.config, max_batch=2, max_seq=128,
+                            page_size=32, prefix_cache_bytes=1 << 20,
+                            kv_quant=True)
+    try:
+        long = [7] + list(range(100, 190))
+        short = [9, 3, 5, 8, 13, 21, 34, 55, 89, 144]
+        for prompt in (long, short):
+            eng.generate_sync([prompt], max_new_tokens=2)
+            node, _ = eng.prefix_cache.match(prompt)
+            scratch = eng._scratch()
+            for i, pid in enumerate(node.pages):
+                tree = eng.pool.get(pid)["layers"]
+                for layer, rows in zip(tree, scratch):
+                    for name in ("k", "v"):
+                        page = rows[name][0, i * 32:(i + 1) * 32].cpu()
+                        q, s = quant.quantize_kv(page[None])
+                        assert torch.equal(layer[name].cpu(), q[0])
+                        assert torch.equal(layer[name + "s"].cpu(), s[0])
+        # the short prompt's tail past its bucket (16) is zeros
+        for rows in eng._scratch():
+            assert not bool(rows["k"][0, 16:32].any())
+        assert eng.stats()["kv_pool"]["orphan_pages"] == 0
+    finally:
+        eng.shutdown()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_quant", [False, True])
+def test_card_pages_survive_the_wire_bitwise(cuda_device, kv_quant):
+    import json
+
+    from kubeflow_tpu_torch.models import llama
+    from kubeflow_tpu_torch.serving import disagg, quant
+    from kubeflow_tpu_torch.serving.page_pool import PagePool
+
+    cfg = llama.llama_tiny()
+    ps = 16
+    pool = PagePool(4, ps, kv=llama.init_kv_pool(cfg, 4, ps,
+                                                 device=cuda_device,
+                                                 quantized=kv_quant))
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    layers = []
+    for _ in range(cfg.num_layers):
+        kv = [torch.randn(1, ps, cfg.num_kv_heads, cfg.head_dim, generator=g,
+                          device=cuda_device) for _ in range(2)]
+        if kv_quant:
+            (kq, ks), (vq, vs) = (quant.quantize_kv(t) for t in kv)
+            layers.append({"k": kq, "ks": ks, "v": vq, "vs": vs})
+        else:
+            layers.append({"k": kv[0].bfloat16(), "v": kv[1].bfloat16()})
+    (pid,) = pool.alloc(1)
+    pool.put_many([pid], layers)
+    wire = json.loads(json.dumps([disagg.encode_page(pool.get(pid))]))
+    view = type("E", (), {"cfg": cfg, "kv_quant": kv_quant,
+                          "page_size": ps})()
+    (tree,) = disagg.parse_page_trees(wire, view)
+    for got, want in zip(tree["layers"], pool.get(pid)["layers"]):
+        for name, t in want.items():
+            assert torch.equal(got[name], t.cpu())
+
+
+@pytest.mark.cuda
+def test_card_generator_state_rides_a_serialized_handoff(cuda_device):
+    import json
+    import threading
+
+    from kubeflow_tpu_torch.serving import disagg
+    from kubeflow_tpu_torch.serving.engine import ContinuousBatcher
+
+    model = _tiny_cuda_model(cuda_device)
+    cfg = model.config
+    kw = dict(max_new_tokens=12, temperature=1.1, top_k=20)
+    prompts = [[5, 8, 13], [2, 7, 9, 11, 40]]
+    ref = ContinuousBatcher(model, cfg, max_batch=2, max_seq=64)
+    want = ref.generate_sync(prompts, seed=5, **kw)
+    ref.shutdown()
+    bodies, both = [], threading.Event()
+
+    def capture(req, st):
+        body = json.loads(json.dumps(disagg.serialize_handoff(st, pre.pool)))
+        bodies.append((req, body, st))
+        if len(bodies) == len(prompts):
+            both.set()
+
+    pre = ContinuousBatcher(model, cfg, max_batch=2, max_seq=64,
+                            role="prefill", handoff_fn=capture)
+    dec = ContinuousBatcher(model, cfg, max_batch=2, max_seq=64,
+                            role="decode")
+    try:
+        reqs = [pre.submit(p, seed=5 + i, **kw) for i, p in
+                enumerate(prompts)]
+        assert both.wait(60)
+        for req, body, st in bodies:
+            disagg.release_handoff(pre.pool, st)
+            disagg.complete_forwarded(req, disagg.resume_serialized(dec,
+                                                                    body))
+        assert [r.result(60) for r in reqs] == want
+        assert dec.stats()["resumed"] == 2
+    finally:
+        pre.shutdown()
+        dec.shutdown()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_quant", [False, True])
+def test_coordinator_on_the_card_matches_colocated(cuda_device, kv_quant):
+    # bf16 pages: the streams (seeded) are the colocated engine's; int8
+    # pages are lossy, so those streams complete and leak nothing
+    from kubeflow_tpu_torch.serving.disagg import DisaggCoordinator
+    from kubeflow_tpu_torch.serving.engine import ContinuousBatcher
+
+    model = _tiny_cuda_model(cuda_device)
+    cfg = model.config
+    prompts = [list(range(2, 40)), [5, 8, 13], list(range(60, 100))]
+    kw = dict(max_new_tokens=10, temperature=0.8, seed=3)
+    ref = ContinuousBatcher(model, cfg, max_batch=2, max_seq=128)
+    want = ref.generate_sync(prompts, **kw)
+    ref.shutdown()
+    co = DisaggCoordinator(model, cfg, max_batch=2, max_seq=128,
+                           page_size=16, kv_quant=kv_quant)
+    try:
+        got = co.generate_sync(prompts, **kw)
+        if kv_quant:
+            assert all(len(o) == len(p) + 10 for o, p in zip(got, prompts))
+        else:
+            assert got == want
+        assert co.drained(timeout=60)
+        assert co.stats()["kv_pool"]["orphan_pages"] == 0
+        assert co.decode[0].stats()["resumed"] == len(prompts)
+    finally:
+        co.shutdown()

@@ -62,6 +62,9 @@ def test_imports_load_no_jax_and_no_reference_package(which):
         "kubeflow_tpu_torch.serving.prefix_cache",
         "kubeflow_tpu_torch.serving.speculative",
         "kubeflow_tpu_torch.serving.draft_model",
+        "kubeflow_tpu_torch.serving.quant",
+        "kubeflow_tpu_torch.serving.disagg",
+        "kubeflow_tpu_torch.serving.kv_directory",
         "kubeflow_tpu_torch.models.moe",
         "kubeflow_tpu_torch.models.bert",
         "kubeflow_tpu_torch.parallel.train_step",

@@ -209,9 +209,8 @@ def test_bounded_queue_sheds_and_drain_rejects(jax_side):
 
 
 @pytest.mark.parametrize("argv,flag", [
-    (["--kv-quant"], "--kv-quant"),
+    (["--staging-mb", "128"], "--staging-mb"),
     (["--weight-budget-mb", "64"], "--weight-budget-mb"),
-    (["--role", "prefill"], "--role"),
     (["--checkpoint-dir", "/ckpt"], "--checkpoint-dir"),
 ])
 def test_main_refuses_unported_flags(argv, flag, capsys):
@@ -243,6 +242,28 @@ def test_main_accepts_prefix_cache_flags(argv, want, monkeypatch):
         tpred.main(argv + ["--device", "cpu"])
     defaults = {"prefix_cache_mb": 0.0, "kv_page_size": 16,
                 "host_kv_pages": 0}
+    assert {k: seen[k] for k in defaults} == {**defaults, **want}
+
+
+@pytest.mark.parametrize("argv,want", [
+    (["--role", "prefill"], {"role": "prefill"}),
+    (["--role", "decode", "--kv-quant"], {"role": "decode",
+                                          "kv_quant": True}),
+    (["--model", "llama:quantize=int8"], {"quantize": True}),
+    (["--model", "llama:role=prefill,kv_quant=true,quantize=1"],
+     {"role": "prefill", "kv_quant": True, "quantize": True}),
+])
+def test_main_accepts_int8_and_role_flags(argv, want, monkeypatch):
+    seen = {}
+
+    def built(name, **kw):
+        seen.update(kw)
+        raise _Built
+
+    monkeypatch.setattr(tpred, "GenerativePredictor", built)
+    with pytest.raises(_Built):
+        tpred.main(argv + ["--device", "cpu"])
+    defaults = {"role": "colocated", "kv_quant": False, "quantize": False}
     assert {k: seen[k] for k in defaults} == {**defaults, **want}
 
 
@@ -315,8 +336,11 @@ def test_prefix_cache_options_reach_the_engine(jax_side):
 
 
 def test_main_refuses_unported_model_options():
-    with pytest.raises(SystemExit, match="quantize"):
-        tpred.main(["--model", "llama:quantize=int8", "--device", "cpu"])
+    with pytest.raises(SystemExit, match="checkpoint_dir"):
+        tpred.main(["--model", "llama:checkpoint_dir=/ckpt", "--device",
+                    "cpu"])
+    with pytest.raises(SystemExit, match="tp=2"):
+        tpred.main(["--model", "llama:tp=2", "--device", "cpu"])
     # expert parallelism waits for the multi-device slice
     with pytest.raises(SystemExit, match="ep=2"):
         tpred.main(["--model", "llama:moe_experts=8,ep=2", "--device",
