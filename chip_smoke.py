@@ -4,10 +4,11 @@
     python3 chip_smoke.py                 # every phase below
     python3 chip_smoke.py --kernel-times  # build, then K1-K3 times only
     python3 chip_smoke.py --phases 12,13  # build, then those phases only
-                                          # (9 to 13; no result line)
+                                          # (9 to 14; no result line)
 
 Phases, numbered as PERF.md cites them, run in the order 1, 2, 3, 7, 11,
-9, 12, 13, 4, 5, 10, 6, 8 (each phase frees its models before the next);
+9, 12, 13, 14, 4, 5, 10, 6, 8 (each phase frees its models before the
+next);
 any failure exits nonzero and prints no result:
 
 1. Build every CUDA kernel of the port from ``kubeflow_tpu_torch/ops/csrc``
@@ -73,7 +74,7 @@ any failure exits nonzero and prints no result:
    pages fault back bitwise equal and its stream repeats the earlier
    hit's.
 8. Numbers: the card's name and power limit; each kernel's device time at
-   its main-path shapes (phases 2, 4, 5, 7 and 9 to 13) beside its
+   its main-path shapes (phases 2, 4, 5, 7 and 9 to 14) beside its
    bound, its plain version's time and a PyTorch call that computes the
    same function (``scaled_dot_product_attention`` forward, and its
    backward for K2 and K3: yardsticks the port never calls); K1, K2 and K3
@@ -87,7 +88,8 @@ any failure exits nonzero and prints no result:
    shapes' times with their own launches.  Phase 11's K1 calls are timed per
    distinct (Sq, Sk), except that the drafter's short calls (Sq <= 16) are
    timed at Sk rounded up to a multiple of 256; their bounds are computed
-   from each call's own shape.
+   from each call's own shape.  Phase 14's K1 calls are recorded and timed
+   per distinct shape.
 9. MoE serving at full width: phase 2's requests through a
    ``GenerativePredictor`` of Llama-2-7B's width and depth with
    ``moe_experts`` 8 on every second layer (16 MoE layers of 8 GELU
@@ -116,8 +118,8 @@ any failure exits nonzero and prints no result:
    drafter proposes the stream without speculation (the oracle: the
    ceiling of speculation on this traffic).  Each serves phase 2's four
    prompts and a 512-token prompt of one 64-token block repeated 8 times,
-   one request at a time, 64 greedy tokens each.  Every token a verify
-   round keeps must be that round's own choice; one verify forward's
+   one request at a time, ``SPEC_NEW`` greedy tokens each.  Every token a
+   verify round keeps must be that round's own choice; one verify forward's
    logits must agree with sequential decode's within 1e-1 of max |logit|;
    each speculative stream must equal the stream without speculation up to
    the first position whose top-1/top-2 margin is below twice that
@@ -158,6 +160,41 @@ any failure exits nonzero and prints no result:
    pool) takes the same requests: every stream completes, K1 32 x the
    chunks, no orphan page at idle; the decode role's tokens/s beside phase
    2's.
+14. Multi-model, multi-tenant serving at 7B (phase 2's model and
+   settings).  (a) The seed-0 model serves phase 2's requests (equal to
+   phase 2's streams), is written with ``save_streamable`` (13.2 GB, one
+   file per tensor) and restored into a seed-7 predictor through a
+   ``STAGING_MB`` pinned window: its streams equal the seed-0 ones; the
+   restore's seconds and bytes/s beside the pinned copy rate measured
+   here, ``max_staged_bytes`` within the window; the same checkpoint
+   restored with ``quantize``, parked and warmed again, with the peak
+   device memory of that restore within one layer's bf16 weights of the
+   int8 weights.  (c) On one engine (``max_batch`` 4): 16 "storm"
+   requests of 300 tokens then one "victim", all queued before admission
+   starts, under WFQ shares 1:1 (the victim admitted within the
+   reference's starvation bound) and FIFO (admitted last); its TTFT and
+   each tenant's usage.  (d) One request with a ``traceparent`` through
+   ``PredictorApp``: every span of the trace (predictor, engine request,
+   admission wait, one prefill per chunk, decode) under that trace id with
+   the reference's parents, and the Chrome trace loads as JSON; phase 2's
+   requests at sample rates 0 and 1 give the same tokens, decode tokens/s
+   of both.  (b) Two 7B models from the checkpoint behind one
+   ``PredictorApp`` under a ``WEIGHT_BUDGET_MB`` budget (room for one):
+   "a" with a 2048 MB prefix cache, "b" started parked.  Requests a, b, a
+   over HTTP (each switch parks one, whose ``memory_allocated`` falls by
+   its ``weight_bytes``, and warms the other; every stream equals phase
+   2's; ``residency`` reads right without warming); 4 concurrent cold
+   requests to a parked model make one load and 3 coalesced; with b
+   resident and idle and most of a's pages held, a request to a relieves
+   b, whose bytes become ``DONATED_PAGES`` page slots, with no prefix
+   eviction; b's next load reclaims only free donated slots; a second
+   relieve and reclaim reuse the rows the first reclaim left reserved.
+   The one-token full prefix hit to a holds every K1 call against the
+   plain version and its token against phase 2's stream.  (e)
+   ``:predict`` for ``mnist_mlp`` over HTTP (logits within 1e-4 of the
+   CPU's) and BERT-large on one 128-token row: K1 launches 24, every call
+   held against the plain version, the logits against the plain route.
+   The checkpoint directory is removed at the end of the phase.
 
 The line before the last is the ``kernels`` JSON object; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -282,8 +319,19 @@ KV_QUANT_PPL_TOL = 0.02
 # phase 13: the decode child's start-up budget (a fresh interpreter,
 # CUDA, the 7B init) and its HTTP port's polling
 CHILD_START_S = 240
-# phase 11: speculation at phase 2's settings
-SPEC_TOKENS, DRAFT_LAYERS, SPEC_NEW = 4, 4, 64
+# phase 14: multi-model, multi-tenant serving at 7B.  Phase 2's model in
+# bf16 is 13,214,687,232 B of weights (6,744,121,344 B in int8): one model
+# fits WEIGHT_BUDGET_MB, two do not, and an eviction donates that many
+# bytes in 8 MiB pages of 16 positions
+STAGING_MB, WEIGHT_BUDGET_MB = 64, 20000
+CKPT_BYTES, INT8_BYTES = 13_214_687_232, 6_744_121_344
+DONATED_PAGES = CKPT_BYTES // (8 << 20)       # 1575
+TENANT_STORM, TENANT_PROMPT, TENANT_NEW = 16, 300, 16
+BERT_ROW = 128
+# phase 11: speculation at phase 2's settings.  Depth cut from 64 new
+# tokens per request to 32 when phase 14 joined: its 8 host-bound runs of
+# 5 requests took ~267 s of a 694 s run at 64 (an H100 80GB HBM3 call)
+SPEC_TOKENS, DRAFT_LAYERS, SPEC_NEW = 4, 4, 32
 SPEC_BLOCK, SPEC_REPEATS = 64, 8
 # off first: the oracle drafts the off streams (speculation's ceiling)
 SPEC_MODES = ("off", "ngram", "draft", "oracle")
@@ -620,12 +668,16 @@ def plain_attention_route(model):
             a.cfg = flash_cfg
 
 
-def checked_flash(fa, worst: dict, shapes: set):
+def checked_flash(fa, worst: dict, shapes: set, calls: list | None = None):
     """A stand-in for ``flash_attention`` that runs the kernel, holds each
     call against the plain version on the same q, k, v, and passes the
     kernel's output on; the worst ratios go to ``worst`` ("o", "lse") and
-    each call's (Sq, Sk) to ``shapes``."""
+    each call's (Sq, Sk) to ``shapes`` (and its whole shape to ``calls``,
+    as ``recording_flash`` records it, when given)."""
     def checked(q, k, v, *, causal=False):
+        if calls is not None:
+            calls.append((q.shape[0], q.shape[1], k.shape[1], q.shape[2],
+                          k.shape[2], q.shape[3], causal))
         o, lse = fa.flash_attention_with_lse(q, k, v, causal=causal)
         ro, rlse = fa.flash_attention_reference(q, k, v, causal=causal)
         sum_pv = fa.flash_attention_reference(q, k, v.abs(),
@@ -1993,9 +2045,11 @@ def phase_speculation(fa) -> dict:
 
 def recording_flash(fa, shapes: list):
     """A stand-in for ``flash_attention`` that launches the kernel through
-    its wrapper (which counts the launch) and records (Sq, Sk, causal)."""
+    its wrapper (which counts the launch) and records each call's
+    (B, Sq, Sk, H, Hkv, D, causal)."""
     def recorded(q, k, v, *, causal=False):
-        shapes.append((q.shape[1], k.shape[1], causal))
+        shapes.append((q.shape[0], q.shape[1], k.shape[1], q.shape[2],
+                       k.shape[2], q.shape[3], causal))
         return fa.flash_attention(q, k, v, causal=causal)
 
     return recorded
@@ -2024,7 +2078,7 @@ def spec_numbers(fa, shapes: list) -> list[dict]:
     with the drafter's short calls (Sq <= 16) grouped at Sk rounded up to
     a multiple of 256 and timed there; bounds from each call's shape."""
     groups: dict[tuple[int, int], list] = {}
-    for sq, sk, causal in shapes:
+    for _, sq, sk, _, _, _, causal in shapes:
         check(causal, "phase 11 runs K1 causal only")
         key = (sq, sk if sq > 16 else min(-(-sk // 256) * 256, MAX_SEQ))
         groups.setdefault(key, []).append(sk)
@@ -2445,12 +2499,9 @@ def phase_disagg(fa, colocated: list | None = None,
             ref = ContinuousBatcher(pred.module, cfg, max_batch=4,
                                     max_seq=MAX_SEQ,
                                     prefill_chunk=PREFILL_CHUNK)
-            reqs = [ref.submit(b["ids"][0], NEW_TOKENS,
-                               temperature=b.get("temperature", 0.0),
-                               seed=b.get("seed", 0)) for b in bodies]
-            colocated = [r.result(timeout=600) for r in reqs]
+            colocated = engine_streams(ref, bodies)
             ref.shutdown()
-            del ref, reqs
+            del ref
         child_ready(child, child_port)
         log(f"phase 13(a): decode child (pid {child.pid}) serving on "
             f":{child_port} after {time.perf_counter() - t_child:.1f}s")
@@ -2598,6 +2649,635 @@ def disagg_in_process(fa, model, bodies: list[dict],
         free_memory()
 
 
+# -- phase 14: multi-model, multi-tenant serving ---------------------------------
+
+def checkpoint_home(need: int) -> Path:
+    """A fresh directory for the phase's checkpoint on the first disk with
+    room for it (TMPDIR, then the checkout); prints both disks' usage."""
+    import shutil
+    import tempfile
+
+    for base in (Path(tempfile.gettempdir()), ROOT):
+        usage = shutil.disk_usage(base)
+        log(f"phase 14: disk of {base}: {usage.free / 1e9:.1f} GB free of "
+            f"{usage.total / 1e9:.1f} GB")
+        if usage.free > 1.2 * need:
+            return Path(tempfile.mkdtemp(prefix=".kf_ckpt_", dir=base))
+    check(False, f"no disk holds the {need} B checkpoint")
+
+
+def pinned_h2d_gb_s() -> float:
+    """Host-to-device copy rate of a pinned 256 MiB buffer (CUDA events,
+    median of 5): the bound of a streamed restore."""
+    host = torch.empty(256 << 20, dtype=torch.uint8, pin_memory=True)
+    dev = torch.empty_like(host, device="cuda")
+    dev.copy_(host, non_blocking=True)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(5):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        dev.copy_(host, non_blocking=True)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / 1e3)
+    return host.numel() / statistics.median(times) / 1e9
+
+
+def engine_streams(engine, bodies: list[dict], new_tokens: int = NEW_TOKENS
+                   ) -> list[list[int]]:
+    """``bodies`` (``serving_bodies``) submitted together to ``engine``,
+    as the predictor submits them; the full streams."""
+    reqs = [engine.submit(b["ids"][0], new_tokens,
+                          temperature=b.get("temperature", 0.0),
+                          seed=b.get("seed", 0)) for b in bodies]
+    return [r.result(timeout=600) for r in reqs]
+
+
+def fleet_predictor(**kw):
+    """Phase 2's 7B predictor settings with ``kw``."""
+    from kubeflow_tpu_torch.serving.predictor import GenerativePredictor
+
+    return GenerativePredictor("llama", size="7b", max_seq=MAX_SEQ,
+                               prefill_chunk=PREFILL_CHUNK, max_batch=4, **kw)
+
+
+def fleet_restore(fa, ckpt: Path, phase2: list | None) -> tuple:
+    """Phase 14(a): phase 2's model (seed 0) written with
+    ``save_streamable``, restored into a seed-7 predictor through the
+    ``STAGING_MB`` window; both serve phase 2's requests.  Returns the
+    restored predictor, phase 2's bodies, the streams and the numbers."""
+    from kubeflow_tpu_torch.serving.model_pool import save_streamable
+
+    p0 = fleet_predictor(seed=0)
+    bodies = serving_bodies(p0.cfg.vocab_size, 0)
+    streams = engine_streams(p0.engine, bodies)
+    if phase2 is not None:
+        check(streams == phase2, "phase 14 seed-0 streams != phase 2's")
+    t0 = time.perf_counter()
+    total = save_streamable(p0.module, str(ckpt))
+    save_s = time.perf_counter() - t0
+    weight_bytes = p0.weight_bytes
+    check(total == weight_bytes == CKPT_BYTES, (total, weight_bytes))
+    log(f"phase 14(a): wrote {total} B in {len(os.listdir(ckpt)) - 1} "
+        f"files to {ckpt} in {save_s:.2f}s "
+        f"({total / save_s / 1e9:.2f} GB/s)")
+    p0.stop(timeout=60)
+    del p0
+    free_memory()
+    h2d = pinned_h2d_gb_s()
+    t0 = time.perf_counter()
+    p1 = fleet_predictor(seed=7, checkpoint_dir=str(ckpt),
+                         staging_mb=STAGING_MB)
+    build_s = time.perf_counter() - t0
+    rep = p1.last_restore
+    rate = rep["bytes"] / rep["seconds"] / 1e9
+    log(f"phase 14(a): seed-7 predictor restored {rep['tensors']} tensors, "
+        f"{rep['bytes']} B in {rep['seconds']:.3f}s ({rate:.2f} GB/s; "
+        f"pinned copy_ rate in this call {h2d:.2f} GB/s, "
+        f"{100 * rate / h2d:.1f}% of it); max_staged_bytes "
+        f"{rep['max_staged_bytes']} against the {STAGING_MB} MiB window "
+        f"({int(STAGING_MB * (1 << 20))} B); predictor built in "
+        f"{build_s:.2f}s")
+    check(0 < rep["max_staged_bytes"] <= STAGING_MB * (1 << 20), rep)
+    restored = engine_streams(p1.engine, bodies)
+    same = restored == streams
+    log(f"phase 14(a): the restored seed-7 model's 4 streams equal the "
+        f"seed-0 model's: {same}")
+    check(same, "restored streams")
+    return p1, bodies, streams, {"save_s": save_s, "restore_s": rep["seconds"],
+                         "restore_gb_s": rate, "h2d_gb_s": h2d,
+                         "max_staged": rep["max_staged_bytes"]}
+
+
+def fleet_int8_restore(ckpt: Path) -> dict:
+    """Phase 14(a), int8: the same checkpoint with ``quantize``.  Built,
+    then parked and warmed again so that the peak of
+    ``max_memory_allocated`` is taken over the restore alone (each weight
+    lands in bf16, is quantized and dropped before the next)."""
+    p = fleet_predictor(seed=7, checkpoint_dir=str(ckpt),
+                        staging_mb=STAGING_MB, quantize=True)
+    try:
+        wb = p.weight_bytes
+        check(wb == INT8_BYTES, (wb, INT8_BYTES))
+        p.park()
+        free_memory()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        p.warm()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        held = torch.cuda.memory_allocated() - base
+        layer = sum(math.prod(s) * 2 for n, (s, _) in p._shapes.items()
+                    if n.startswith("layers.0."))
+        log(f"phase 14(a) int8: restored in "
+            f"{p.last_restore['seconds']:.3f}s; weight_bytes {wb}; peak of "
+            f"max_memory_allocated over the restore {peak} B above the "
+            f"engine's {base} B, {peak - wb} B above the int8 weights (one "
+            f"layer's bf16 weights: {layer} B; window {STAGING_MB} MiB)")
+        n_tensors = len([*p.module.parameters(), *p.module.buffers()])
+        check(0 <= held - wb <= 512 * n_tensors
+              and peak - wb <= layer + STAGING_MB * (1 << 20),
+              (peak, held, wb, layer))
+        return {"int8_peak": peak, "int8_bytes": wb,
+                "int8_restore_s": p.last_restore["seconds"]}
+    finally:
+        p.stop(timeout=60)
+        del p
+        free_memory()
+
+
+def fleet_tenants(module, cfg) -> dict:
+    """Phase 14(c): 16 "storm" requests then 1 "victim" on one engine
+    (``max_batch`` 4), all queued before admission starts, under WFQ
+    shares of 1:1 and under FIFO; the victim's admission position and
+    TTFT and each tenant's usage."""
+    import math
+
+    from kubeflow_tpu_torch.qos.accounting import Accountant, set_accountant
+    from kubeflow_tpu_torch.serving.engine import ContinuousBatcher
+
+    rng = np.random.default_rng(14)
+    prompts = [rng.integers(1, cfg.vocab_size, TENANT_PROMPT).tolist()
+               for _ in range(TENANT_STORM + 1)]
+    tenants = ["storm"] * TENANT_STORM + ["victim"]
+    shares = {"storm": 1.0, "victim": 1.0}
+    out = {}
+    for label, eng_shares in (("wfq", shares), ("fifo", None)):
+        acct = Accountant()
+        prev = set_accountant(acct)
+        eng = ContinuousBatcher(module, cfg, max_batch=4, max_seq=MAX_SEQ,
+                                prefill_chunk=PREFILL_CHUNK,
+                                tenant_shares=eng_shares)
+        try:
+            gate = threading.Event()
+            admit = eng._admit
+
+            def gated(admit=admit, gate=gate):
+                gate.wait(60)
+                admit()
+
+            eng._admit = gated             # admission waits for the queue
+            t0 = time.perf_counter()
+            reqs = [eng.submit(p, TENANT_NEW, tenant=t)
+                    for p, t in zip(prompts, tenants)]
+            gate.set()
+            for r in reqs:
+                r.result(timeout=600)
+            wall = time.perf_counter() - t0
+        finally:
+            eng.shutdown()
+            set_accountant(prev)
+        order = sorted(reqs, key=lambda r: r.admitted_at)
+        victim = reqs[-1]
+        pos = order.index(victim)
+        ttft = victim.first_token_at - victim.submitted_at
+        storm_ttft = [r.first_token_at - r.submitted_at for r in reqs[:-1]]
+        usage = {t: {"requests": u["requests"],
+                     "decode_tokens": u["decode_tokens"],
+                     "slice_seconds": round(u["slice_seconds"], 4),
+                     "admission_wait_max_s": round(
+                         u["admission_wait"]["max_s"], 4)}
+                 for t, u in acct.all_usage().items()}
+        log(f"phase 14(c) {label}: victim admitted at position {pos} of "
+            f"{len(reqs)}; victim TTFT {ttft * 1e3:.1f} ms, storm TTFT "
+            f"mean {statistics.mean(storm_ttft) * 1e3:.1f} ms; "
+            f"{len(reqs)} requests in {wall:.2f}s; usage {usage}")
+        out[label] = {"pos": pos, "ttft_s": ttft, "usage": usage}
+        del eng, reqs, order, victim
+    # the reference's starvation bound: the victim's first request within
+    # ceil(1 * W / w_victim) admissions
+    bound = math.ceil(sum(shares.values()) / shares["victim"])
+    check(out["wfq"]["pos"] < bound, ("wfq victim", out["wfq"], bound))
+    check(out["fifo"]["pos"] == TENANT_STORM, ("fifo", out["fifo"]))
+    check(out["wfq"]["usage"]["victim"]["requests"] == {"ok": 1},
+          out["wfq"]["usage"])
+    check(out["wfq"]["usage"]["storm"]["decode_tokens"]
+          == TENANT_STORM * (TENANT_NEW - 1), out["wfq"]["usage"])
+    check(set(out["fifo"]["usage"]) == {"anonymous"}, out["fifo"]["usage"])
+    return out
+
+
+def fleet_tracing(pred, bodies: list[dict], streams: list) -> dict:
+    """Phase 14(d): one traced request with a ``traceparent`` through
+    ``PredictorApp``; then phase 2's four requests at sample rate 0 and
+    1, tokens identical."""
+    from kubeflow_tpu_torch import trace
+    from kubeflow_tpu_torch.serving.httpserve import serve
+    from kubeflow_tpu_torch.serving.predictor import PredictorApp
+
+    httpd, thread = serve(PredictorApp({"llama": pred}), 0)
+    port = httpd.server_port
+    try:
+        tracer = trace.set_tracer(trace.Tracer(
+            1.0, collector=trace.Collector(1 << 16)))
+        ctx = trace.SpanContext(trace.new_trace_id(), trace.new_span_id())
+        status, body = post(port, "/v1/models/llama:generate", bodies[2],
+                            {"traceparent": ctx.to_traceparent()})
+        check(status == 200 and body["ids"][0] == streams[2], status)
+        spans = tracer.collector.trace(ctx.trace_id)
+        by_id = {s.span_id: s for s in spans}
+        names = [s.name for s in spans]
+        chunks = len(chunk_shapes(PROMPT_LENS[2]))
+        want = {"predictor.request": 1, "engine.request": 1,
+                "engine.admission_wait": 1, "engine.prefill": chunks,
+                "engine.decode": 1}
+        got = {n: names.count(n) for n in want}
+        parents = {s.name: by_id[s.parent_id].name if s.parent_id in by_id
+                   else "client" for s in spans}
+        dumped = json.loads(json.dumps(trace.chrome_trace(spans)))
+        log(f"phase 14(d): trace {ctx.trace_id}: spans {got} (parents "
+            f"{parents}); chrome trace {len(dumped['traceEvents'])} events; "
+            f"durations (host) " + ", ".join(
+                f"{s.name} {s.duration * 1e3:.2f} ms" for s in spans))
+        check(got == want and len(spans) == sum(want.values()), names)
+        check(parents == {"predictor.request": "client",
+                          "engine.request": "predictor.request",
+                          "engine.admission_wait": "engine.request",
+                          "engine.prefill": "engine.request",
+                          "engine.decode": "engine.request"}, parents)
+        check(len(dumped["traceEvents"]) == len(spans), "chrome trace")
+        rates = {}
+        for rate in (0.0, 1.0):
+            trace.set_tracer(trace.Tracer(
+                rate, collector=trace.Collector(1 << 16)))
+            before = pred.engine.stats()["timing"]
+            results = concurrent_round(port, bodies)
+            after = pred.engine.stats()["timing"]
+            check(all(r[0] == 200 for r in results), results)
+            check([r[1]["ids"][0] for r in results] == streams,
+                  f"streams at sample rate {rate}")
+            dec = after["decode_seconds"] - before["decode_seconds"]
+            rates[rate] = ((after["decode_tokens"] - before["decode_tokens"])
+                           / dec if dec else 0.0)
+        log(f"phase 14(d): decode {rates[0.0]:.1f} tok/s at sample rate 0, "
+            f"{rates[1.0]:.1f} at rate 1 (host-timed), tokens identical to "
+            f"the untraced streams")
+        return {"tok_s_rate0": rates[0.0], "tok_s_rate1": rates[1.0]}
+    finally:
+        trace.set_tracer(trace.Tracer(0.0))
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=10)
+
+
+def get_json(port: int, path: str) -> dict:
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    try:
+        conn.request("GET", path)
+        return json.loads(conn.getresponse().read())
+    finally:
+        conn.close()
+
+
+def fleet_residency(fa, ckpt: Path, bodies: list[dict], streams: list,
+                    calls: list) -> dict:
+    """Phase 14(b): two 7B models from the checkpoint under one
+    ``WEIGHT_BUDGET_MB`` budget behind one ``PredictorApp``; "a" with a
+    2048 MB prefix cache, "b" started parked.  ``calls``: the phase's
+    record of K1 calls, which the checked request adds to."""
+    from kubeflow_tpu_torch.serving import model_pool as mp
+    from kubeflow_tpu_torch.serving.httpserve import serve
+    from kubeflow_tpu_torch.serving.predictor import (PredictorApp,
+                                                      wire_model_pool)
+
+    a = fleet_predictor(checkpoint_dir=str(ckpt), staging_mb=STAGING_MB,
+                        prefix_cache_mb=PC_CACHE_MB, kv_page_size=PC_PAGE)
+    b = fleet_predictor(checkpoint_dir=str(ckpt), staging_mb=STAGING_MB)
+    parks: list = []
+
+    def measured(name, pred):
+        park = pred.park
+
+        def wrapped():
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            freed = park()
+            torch.cuda.synchronize()
+            parks.append((name, freed,
+                          before - torch.cuda.memory_allocated()))
+            return freed
+        return wrapped
+
+    a.park, b.park = measured("a", a), measured("b", b)
+    b.park()                                   # parked=true
+    pool = wire_model_pool({"a": a, "b": b},
+                           int(WEIGHT_BUDGET_MB * (1 << 20)))
+    httpd, thread = serve(PredictorApp({"a": a, "b": b}, model_pool=pool), 0)
+    port = httpd.server_port
+    evicted: list = []
+    a.engine.prefix_cache.on_evict = evicted.append
+    held: list = []
+    try:
+        body = bodies[1]
+        seq = []
+        # a's second request takes another prompt: its prefix cache (which
+        # a park keeps) would serve the first one warm, and a warm stream
+        # is not held to the cold one on the card (phase 7)
+        for name, i in (("a", 1), ("b", 1), ("a", 0)):
+            t0 = time.perf_counter()
+            status, out = post(port, f"/v1/models/{name}:generate",
+                               bodies[i])
+            check(status == 200 and out["ids"][0] == streams[i],
+                  (name, i, status, out.get("ids", [None])[0]))
+            res = {n: get_json(port, f"/v1/models/{n}")["residency"]
+                   for n in ("a", "b")}
+            seq.append((name, time.perf_counter() - t0, res))
+        check([r for _, _, r in seq] == [
+            {"a": "resident", "b": "parked"},
+            {"a": "parked", "b": "resident"},
+            {"a": "resident", "b": "parked"}], seq)
+        check(b.parked, "a metadata probe warmed b")
+        log("phase 14(b): a, b, a over HTTP (streams equal the seed-0 "
+            "model's: True); " + "; ".join(
+                f"{n} {dt:.2f}s (then {r})" for n, dt, r in seq))
+        loads = {n: pool.stats()["models"][n]["last_load_seconds"]
+                 for n in ("a", "b")}
+        # TTFT: a one-token request to the resident a (a prompt it has
+        # not cached), then 4 concurrent ones to the parked b (its load
+        # included)
+        one = dict(body, max_new_tokens=1)
+        t0 = time.perf_counter()
+        status, out = post(port, "/v1/models/a:generate",
+                           dict(bodies[3], max_new_tokens=1))
+        resident_ttft = time.perf_counter() - t0
+        check(status == 200 and out["ids"][0] == streams[3][:len(
+            bodies[3]["ids"][0]) + 1], status)
+        before = pool.stats()["models"]["b"]
+        loads0 = mp.COLDSTART_LOADS.get()
+        walls: list = [None] * 4
+
+        def cold(i):
+            t = time.perf_counter()
+            walls[i] = (post(port, "/v1/models/b:generate", one),
+                        time.perf_counter() - t)
+
+        threads = [threading.Thread(target=cold, args=(i,))
+                   for i in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        after = pool.stats()["models"]["b"]
+        for (status, out), _ in walls:
+            check(status == 200 and out["ids"][0]
+                  == streams[1][:len(body["ids"][0]) + 1], status)
+        coalesced = after["coalesced"] - before["coalesced"]
+        n_loads = mp.COLDSTART_LOADS.get() - loads0
+        log(f"phase 14(b): 4 concurrent cold requests to parked b: loads "
+            f"{n_loads:.0f}, coalesced {coalesced}; b loaded in "
+            f"{after['last_load_seconds']:.3f}s; cold TTFT (parked to first "
+            f"token, wall) {max(w for _, w in walls) * 1e3:.1f} ms against "
+            f"resident TTFT {resident_ttft * 1e3:.1f} ms; a's last load "
+            f"{loads['a']:.3f}s")
+        check(n_loads == 1 and coalesced == 3, (n_loads, coalesced))
+        # a's page pool runs dry while b is resident and idle: b is pinned
+        # by a held lease while a loads (the pool overshoots its budget),
+        # then released; every free page of a's pool is then held (as
+        # in-flight work would hold it)
+        # a's load serves a one-token full prefix hit of a's first prompt:
+        # every K1 call is held against the plain version (the chunk of
+        # the prompt's last tokens over its whole cached prefix)
+        pool.acquire("b")
+        worst = {"o": 0.0, "lse": 0.0}
+        shapes: set = set()
+        with flash_route(checked_flash(fa, worst, shapes, calls)):
+            status, out = post(port, "/v1/models/a:generate", one)
+        pool.release("b")
+        first = streams[1][:len(body["ids"][0]) + 1]
+        same = status == 200 and out["ids"][0] == first
+        log(f"phase 14(b): a's one-token full prefix hit (Sq, Sk) "
+            f"{sorted(shapes)}: every K1 call vs plain: |dO|/allowance "
+            f"{worst['o']:.3f} (tol {IN_MODEL_TOL['o']:g}), lse "
+            f"{worst['lse']:.3g} (tol {IN_MODEL_TOL['lse']:g}); first token "
+            f"equals the cold stream's: {same}")
+        check(same and shapes and in_model_ok(worst), (status, worst, shapes))
+        check(pool.state_of("a") == pool.state_of("b") == "resident",
+              pool.stats())
+        pages = a.engine.pool
+        cap0 = pages.stats()["pages"]
+        free0 = pages.free_count
+        held += pages.alloc(free0)
+        cached0 = a.engine.prefix_cache.stats()["pages"]
+        status, out = post(port, "/v1/models/a:generate", bodies[2])
+        check(status == 200 and out["ids"][0] == streams[2], status)
+        st = pages.stats()
+        donated = pool.stats()["donated_pages"]
+        log(f"phase 14(b): a's pool of {cap0} pages with {len(held)} held: "
+            f"a {PROMPT_LENS[2]}-token request relieved b (parked "
+            f"{b.parked}), {donated} pages donated "
+            f"({CKPT_BYTES} // {pages.page_nbytes}); pool now {st['pages']} "
+            f"pages over {st['device_rows']} device rows; prefix evictions "
+            f"{len(evicted)}; cached pages {cached0} -> "
+            f"{a.engine.prefix_cache.stats()['pages']}")
+        check(b.parked and donated == CKPT_BYTES // pages.page_nbytes
+              == DONATED_PAGES, (donated, b.parked))
+        check(st["pages"] == cap0 + DONATED_PAGES and evicted == [], st)
+        # b comes back: a (idle) parks, then the free donated slots return
+        # and no live page moves
+        in_use = pages.stats()["in_use"]
+        headroom = pages.free_count
+        status, _ = post(port, "/v1/models/b:generate", one)
+        check(status == 200, status)
+        st = pages.stats()
+        reclaimed = DONATED_PAGES - pool.stats()["donated_pages"]
+        log(f"phase 14(b): b warmed again; reclaimed {reclaimed} donated "
+            f"slots (free headroom {headroom}), {DONATED_PAGES - reclaimed} "
+            f"stay donated; live pages {in_use} -> {st['in_use']}; device "
+            f"rows stay {st['device_rows']}")
+        check(reclaimed == min(DONATED_PAGES, headroom) and st["in_use"]
+              == in_use and evicted == [], (reclaimed, headroom, st))
+        # a second cycle: a loads beside the pinned b, a fresh prompt finds
+        # a's pool dry, b's weights are donated again into the rows the
+        # reclaim left reserved (the tensors grow only by the slots still
+        # donated), and b's return reclaims again
+        rows1, donated1 = st["device_rows"], pool.stats()["donated_pages"]
+        pool.acquire("b")
+        pool.acquire("a")
+        pool.release("a")
+        pool.release("b")
+        held += pages.alloc(pages.free_count)
+        fresh = dict(bodies[2], ids=[np.random.default_rng(14).integers(
+            1, a.cfg.vocab_size, PROMPT_LENS[2]).tolist()])
+        status, out = post(port, "/v1/models/a:generate", fresh)
+        check(status == 200 and len(out["ids"][0]) > PROMPT_LENS[2]
+              and out["ids"][0][:PROMPT_LENS[2]] == fresh["ids"][0], status)
+        st2 = pages.stats()
+        donated2 = pool.stats()["donated_pages"]
+        relieved = b.parked
+        in_use = st2["in_use"]
+        headroom = pages.free_count
+        status, _ = post(port, "/v1/models/b:generate", one)
+        check(status == 200, status)
+        st3 = pages.stats()
+        reclaimed2 = donated2 - pool.stats()["donated_pages"]
+        log(f"phase 14(b): second cycle: {donated2 - donated1} pages "
+            f"donated (b parked {relieved}); pool {st2['pages']} pages over "
+            f"{st2['device_rows']} device rows (first cycle "
+            f"{rows1}; a growth by every donation would give "
+            f"{rows1 + DONATED_PAGES}); b warmed again: reclaimed "
+            f"{reclaimed2} (free headroom {headroom}); device rows stay "
+            f"{st3['device_rows']}; prefix evictions {len(evicted)}")
+        check(relieved and donated2 - donated1 == DONATED_PAGES
+              and st2["device_rows"] == max(rows1, st2["pages"] + 1)
+              and reclaimed2 == min(donated2, headroom)
+              and st3["device_rows"] == st2["device_rows"]
+              and st3["in_use"] == in_use and evicted == [],
+              (donated1, donated2, reclaimed2, headroom, st2, st3))
+        # every park freed the weights: memory_allocated falls by
+        # weight_bytes, each tensor's block rounded up to 512 bytes
+        n_tensors = len(a._shapes)
+        log("phase 14(b): parks (model, weight_bytes, memory_allocated "
+            "drop): " + "; ".join(f"{n} {f} {d}" for n, f, d in parks))
+        for name, freed, drop in parks:
+            check(freed == CKPT_BYTES
+                  and 0 <= drop - freed <= 512 * n_tensors,
+                  (name, freed, drop))
+        return {"loads": loads, "load_b_s": after["last_load_seconds"],
+                "resident_ttft_s": resident_ttft,
+                "cold_ttft_s": max(w for _, w in walls),
+                "donated": donated, "reclaimed": reclaimed,
+                "device_rows": [rows1, st2["device_rows"]],
+                "parks": parks}
+    finally:
+        if held:
+            a.engine.pool.decref(held)
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=10)
+        mp.set_model_pool(None)
+        a.stop(timeout=60)
+        b.stop(timeout=60)
+
+
+def fleet_classifiers(fa) -> dict:
+    """Phase 14(e): ``:predict`` over HTTP for ``mnist_mlp`` (against the
+    same predictor's CPU copy), and BERT-large on one 128-token row
+    through K1 (24 launches), every call held against the plain version,
+    the logits against the plain attention route."""
+    from kubeflow_tpu_torch.serving.httpserve import serve
+    from kubeflow_tpu_torch.serving.predictor import (ClassifierPredictor,
+                                                      PredictorApp)
+
+    mlp = ClassifierPredictor("mnist_mlp", seed=0)
+    images = np.random.default_rng(4).standard_normal(
+        (4, 28, 28, 1)).astype(np.float32)
+    httpd, thread = serve(PredictorApp({"mnist_mlp": mlp}), 0)
+    try:
+        status, out = post(httpd.server_port, "/v1/models/mnist_mlp:predict",
+                           {"instances": images.tolist()})
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=10)
+    host = ClassifierPredictor("mnist_mlp", seed=0, device="cpu")
+    with torch.no_grad():
+        host.module.load_state_dict({k: v.cpu() for k, v in
+                                     mlp.module.state_dict().items()})
+    want = host.forward(torch.from_numpy(images))
+    got = torch.tensor(out["logits"])
+    err = (got - want).abs().max().item()
+    log(f"phase 14(e): mnist_mlp :predict over HTTP: status {status}, "
+        f"predictions {out['predictions']}, logits max |card - cpu| "
+        f"{err:.3e} (tol 1e-4)")
+    check(status == 200 and out["predictions"]
+          == want.argmax(-1).tolist() and err <= 1e-4, (status, err))
+    bert = ClassifierPredictor("bert", model_config={"size": "large"},
+                               seed=0)
+    rows = np.random.default_rng(5).integers(
+        0, bert.module.config.vocab_size, (1, BERT_ROW))
+    x = torch.from_numpy(rows)
+    bert.forward(x)                                  # warm, not counted
+    set_counters(fa, dict.fromkeys(KERNEL_NAMES, 0))  # the path starts
+    logits = bert.forward(x)
+    launches = counters(fa)["flash_fwd"]              # the path ended
+    worst, shapes = {"o": 0.0, "lse": 0.0}, set()
+    with torch.no_grad(), flash_route(checked_flash(fa, worst, shapes)):
+        bert.forward(x)
+    with plain_attention_route(bert.module):
+        ref = bert.forward(x)
+    rel = ((logits - ref).abs().max() / ref.abs().max()).item()
+    preds = bert.predict(rows.tolist())["predictions"]
+    tol = LOGITS_REL_TOL["plain_route"]
+    log(f"phase 14(e): BERT-large :predict [1, {BERT_ROW}]: flash_fwd "
+        f"launches {launches} (expected 24); every K1 call vs plain: "
+        f"|dO|/allowance {worst['o']:.3f} (tol {IN_MODEL_TOL['o']:g}), lse "
+        f"{worst['lse']:.2e}; logits kernel vs plain route: max rel err "
+        f"{rel:.3e} (tol {tol:g}); predictions equal argmax "
+        f"{preds == logits.argmax(-1).tolist()}")
+    check(launches == 24 and in_model_ok(worst) and rel <= tol
+          and bool(torch.isfinite(logits).all())
+          and preds == logits.argmax(-1).tolist(),
+          (launches, worst, rel))
+    del bert, mlp
+    free_memory()
+    return {"bert_launches": launches, "bert_rel": rel}
+
+
+def phase_fleet(fa, phase2: list | None = None) -> dict:
+    """Phase 14 (module docstring); ``phase2``: phase 2's streams, when
+    it ran.  Every K1 call of the phase is recorded for the numbers."""
+    t_phase = time.perf_counter()
+    ckpt = checkpoint_home(CKPT_BYTES)
+    calls: list = []
+    out: dict = {}
+    try:
+        set_counters(fa, dict.fromkeys(KERNEL_NAMES, 0))   # the path starts
+        with flash_route(recording_flash(fa, calls)):
+            pred, bodies, streams, out["restore"] = fleet_restore(
+                fa, ckpt, phase2)
+            out["tenants"] = fleet_tenants(pred.module, pred.cfg)
+            out["tracing"] = fleet_tracing(pred, bodies, streams)
+            pred.stop(timeout=60)
+            del pred
+            free_memory()
+            out["restore"].update(fleet_int8_restore(ckpt))
+            out["residency"] = fleet_residency(fa, ckpt, bodies, streams,
+                                               calls)
+            free_memory()
+            launches = counters(fa)["flash_fwd"]
+        out.update(fleet_classifiers(fa))
+    finally:
+        import shutil
+
+        shutil.rmtree(ckpt, ignore_errors=True)
+        log(f"phase 14: removed {ckpt}")
+    check(launches == len(calls), (launches, len(calls)))
+    # BERT's :predict ran K1 at one shape, outside the recording
+    out["calls"] = calls + [(1, BERT_ROW, BERT_ROW, 16, 16, 64, False)] \
+        * out["bert_launches"]
+    out["launches"] = len(out["calls"])
+    log(f"phase 14: flash_fwd launches {out['launches']} ({launches} in the "
+        f"7B traffic, {out['bert_launches']} in BERT's :predict); "
+        f"{time.perf_counter() - t_phase:.1f}s")
+    return out
+
+
+def fleet_numbers(fa, calls: list) -> list[dict]:
+    """K1 rows of phase 14: its recorded calls grouped by shape, each
+    shape timed once (kernel, plain version, SDPA) beside its bound."""
+    counts: dict[tuple, int] = {}
+    for c in calls:
+        counts[c] = counts.get(c, 0) + 1
+    rows = []
+    for (b, sq, sk, h, hkv, d, causal), n in sorted(counts.items()):
+        ms, plain_ms, library_ms = k1_times(fa, b, sq, sk, h, hkv, d, causal)
+        name = f"{'bert_predict' if d == 64 else '7b_fleet'}_{sq}x{sk}"
+        row = {"shape": name, "launches": n, "ms": ms, "plain_ms": plain_ms,
+               "library_ms": library_ms,
+               **bound_fields("flash_fwd", (b, sq, sk, h, hkv, d, causal),
+                              torch.bfloat16)}
+        log(f"flash_fwd {name} bf16 (x{n} in phase 14): kernel {ms:.4f} ms, "
+            f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}), plain "
+            f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms")
+        rows.append(row)
+    return rows
+
+
 def kernel_times_only(fa) -> int:
     """``--kernel-times``: build the kernels and time K1, K2 and K3 at the
     Llama training shape and at the causal 2048 shape (for an A/B of two
@@ -2618,13 +3298,17 @@ def kernel_times_only(fa) -> int:
 
 def some_phases(fa, which: str) -> int:
     """``--phases 9,12,13``: build and check the kernels (phase 1), then
-    the named phases (9 to 13); prints no result line."""
+    the named phases (9 to 14); prints no result line."""
     wanted = {int(w) for w in which.split(",") if w}
-    if not wanted <= {9, 10, 11, 12, 13}:
-        print(f"chip_smoke: --phases takes 9, 10, 11, 12 and 13, not "
+    if not wanted <= {9, 10, 11, 12, 13, 14}:
+        print(f"chip_smoke: --phases takes 9, 10, 11, 12, 13 and 14, not "
               f"{which}", file=sys.stderr)
         return 2
     phase_kernels(fa)
+    if 14 in wanted:
+        fleet = phase_fleet(fa)
+        free_memory()
+        fleet_numbers(fa, fleet["calls"])
     if 12 in wanted:
         phase_int8(fa)
         free_memory()
@@ -2683,6 +3367,8 @@ def main(argv: list[str]) -> int:
     disagg = phase_disagg(fa, serving["streams"],
                           serving["decode_tok_per_s"])
     free_memory()
+    fleet = phase_fleet(fa, serving["streams"])
+    free_memory()
     log(f"before training: {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
         f"allocated on the card")
     bert = phase_training(fa, TRAIN_CONFIG, TRAIN_LAUNCHES, "BERT-large")
@@ -2710,6 +3396,7 @@ def main(argv: list[str]) -> int:
     llama_rows = training_numbers(fa, LLAMA_SHAPE, llama["launches"],
                                   LLAMA_LAUNCHES)
     spec_rows = spec_numbers(fa, spec["shapes"])
+    fleet_rows = fleet_numbers(fa, fleet["calls"])
     causal_numbers(fa)
     log(f"phase 2: TTFT mean {serving['ttft_mean_s'] * 1e3:.1f} ms over the "
         f"4 concurrent requests; decode "
@@ -2747,6 +3434,25 @@ def main(argv: list[str]) -> int:
         + f"; phase 13(b) (int8 pages in process): decode "
         f"{disagg['int8_decode_tok_per_s']:.1f} tok/s against phase 2's "
         f"{serving['decode_tok_per_s']:.1f} colocated")
+    res = fleet["residency"]
+    log(f"phase 14: restore {fleet['restore']['restore_s']:.3f}s at "
+        f"{fleet['restore']['restore_gb_s']:.2f} GB/s (pinned copy_ "
+        f"{fleet['restore']['h2d_gb_s']:.2f} GB/s), checkpoint write "
+        f"{fleet['restore']['save_s']:.2f}s, max_staged_bytes "
+        f"{fleet['restore']['max_staged']}; int8 restore "
+        f"{fleet['restore']['int8_restore_s']:.3f}s, peak "
+        f"{fleet['restore']['int8_peak']} B over {fleet['restore']['int8_bytes']}"
+        f" B of weights; load of b {res['load_b_s']:.3f}s, cold TTFT "
+        f"{res['cold_ttft_s'] * 1e3:.1f} ms against resident "
+        f"{res['resident_ttft_s'] * 1e3:.1f} ms, donated {res['donated']} "
+        f"pages, reclaimed {res['reclaimed']}; victim TTFT "
+        f"{fleet['tenants']['wfq']['ttft_s'] * 1e3:.1f} ms under WFQ "
+        f"(position {fleet['tenants']['wfq']['pos']}) against "
+        f"{fleet['tenants']['fifo']['ttft_s'] * 1e3:.1f} ms FIFO (position "
+        f"{fleet['tenants']['fifo']['pos']}); decode "
+        f"{fleet['tracing']['tok_s_rate0']:.1f} tok/s untraced, "
+        f"{fleet['tracing']['tok_s_rate1']:.1f} traced; BERT-large logits "
+        f"kernel vs plain route {fleet['bert_rel']:.3e}")
     log("phase 11 (tok/s, passes 1 and 2): " + "; ".join(
         f"{m} " + " and ".join(f"{x:.2f}" for x in spec[m]["tok_per_s"])
         + (f", accept rate {spec[m]['accept_rate']:.3f} ({spec[m]['accepted']}"
@@ -2771,6 +3477,8 @@ def main(argv: list[str]) -> int:
     check(int8["kv_launches"] == prefix["launches"], "int8 KV launches")
     check(spec["launches"] == sum(r["launches"] for r in spec_rows),
           "speculative serving launches")
+    check(fleet["launches"] == sum(r["launches"] for r in fleet_rows),
+          "phase 14 launches")
     # phases 9, 12 and 13 run K1 at phase 2's shapes, phase 12's int8 KV
     # traffic at phase 7's, phase 10 at phase 5's
     shared_rows = [with_launches(r, r["launches"], label)
@@ -2782,7 +3490,7 @@ def main(argv: list[str]) -> int:
         llama_rows[name], moe_train["launches"][name], "MoE")
         for name in KERNEL_NAMES}
     kernels = [kernel_entry("flash_fwd", serving_rows + prefix_rows
-                            + shared_rows + spec_rows
+                            + shared_rows + spec_rows + fleet_rows
                             + [bert_rows["flash_fwd"], llama_rows["flash_fwd"],
                                moe_train_rows["flash_fwd"]],
                             errs["flash_fwd"])]

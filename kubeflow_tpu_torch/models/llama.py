@@ -251,7 +251,10 @@ class LlamaModel(nn.Module):
                  param_dtype=torch.float32):
         super().__init__()
         self.config = config
-        device = resolve(device)
+        # "meta": the structure without storage, which the predictor's
+        # loader fills one tensor at a time; every other device resolves
+        if device is None or torch.device(device).type != "meta":
+            device = resolve(device)
         self.tok_embeddings = kl.Embed(config.vocab_size, config.hidden_size,
                                        dtype=config.torch_dtype,
                                        param_dtype=param_dtype, device=device)

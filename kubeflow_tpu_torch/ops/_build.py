@@ -19,6 +19,12 @@ import subprocess
 import threading
 from pathlib import Path
 
+from kubeflow_tpu_torch.utils.metrics import REGISTRY
+
+# nvcc runs this process made (a re-warmed model must not add one)
+BUILDS = REGISTRY.counter("kernel_builds_total",
+                          "nvcc builds of the port's CUDA kernels")
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -76,6 +82,7 @@ def _finish(name: str, started) -> None:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
     os.replace(tmp, out)
+    BUILDS.inc()
 
 
 def build_all(names: list[str] | None = None) -> dict[str, Path]:

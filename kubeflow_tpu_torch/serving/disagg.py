@@ -306,18 +306,19 @@ def deserialize_handoff(body: dict, engine) -> HandoffState:
                         committed_at=time.perf_counter(), **fields)
 
 
-def resume_serialized(engine, body: dict,
-                      timing: dict | None = None) -> list[int]:
+def resume_serialized(engine, body: dict, timing: dict | None = None,
+                      trace_ctx=None) -> list[int]:
     """The decode-role predictor's ``:resume``: load the pages into the
     pool, seed a slot, decode to completion; the full token stream.
     ``timing`` receives ``deserialize_s``, the host time from the parsed
-    body to the pages' copies issued."""
+    body to the pages' copies issued; ``trace_ctx`` parents the resumed
+    request's spans."""
     t0 = time.perf_counter()
     state = deserialize_handoff(body, engine)
     if timing is not None:
         timing["deserialize_s"] = time.perf_counter() - t0
     try:
-        req = engine.submit_handoff(state)
+        req = engine.submit_handoff(state, trace_ctx=trace_ctx)
     except BaseException:
         release_handoff(engine.pool, state)
         raise

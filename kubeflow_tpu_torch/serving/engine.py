@@ -1,9 +1,8 @@
 """Continuous batching for generative serving (Orca-style iteration-level
 scheduling), on one CUDA card.
 
-Counterpart of ``kubeflow_tpu/serving/engine.py``'s ``ContinuousBatcher``,
-without weight-residency pressure, tenant fair queueing or tracing
-(ROADMAP queue A lists them).  What it keeps:
+Counterpart of ``kubeflow_tpu/serving/engine.py``'s ``ContinuousBatcher``.
+What it keeps:
 
 - ``max_batch`` slots over one RESIDENT KV view ``[max_batch, max_seq]``
   per layer, held in the model dtype and updated in place; each slot sits
@@ -29,6 +28,25 @@ without weight-residency pressure, tenant fair queueing or tracing
   truth);
 - eos, deadlines, cancellation, bounded admission (``max_queue``), drain
   and shutdown;
+- multi-tenant admission (``qos/``): every request carries a tenant
+  (``submit(tenant=)``, clamped against ``tenant_shares``; ``anonymous``
+  otherwise) and a virtual finish tag minted in the one enqueue tail;
+  admission takes the smallest tag, arrival order breaking ties, so
+  without shares (one flow, monotone tags) it is exactly FIFO.  A bounded
+  queue sheds per tenant at its ``fair_quota``; the accountant meters
+  outcomes, admission waits, decode tokens and slice-seconds per tenant,
+  and two histograms by tenant time the admission wait and TTFT;
+- tracing (``trace/``): the spans ride on the request
+  (``engine.request``, ``engine.admission_wait``, one ``engine.prefill``
+  per chunk, ``engine.prefill_handoff`` on the prefill role,
+  ``engine.decode`` from seating), under the caller's ``trace_ctx`` or a
+  head-sampled root; every failing exit closes them.  Spans time the
+  host: a chunk's span closes once its kernels are issued, so it
+  measures dispatch, and no span synchronizes the card;
+- weight-residency pressure: when a commit or a fetched prefix cannot get
+  pages, ``pressure_fn()`` (a ``ModelPool.relieve``) runs BEFORE any
+  prefix-cache eviction, and the alloc retries on True: an idle model's
+  weights are colder than any cached prefix;
 - sampling with one ``torch.Generator`` per request, seeded from its seed:
   a request's draws depend only on its own seed and step, never on
   co-batched traffic;
@@ -81,7 +99,11 @@ from dataclasses import dataclass, field
 
 import torch
 
+from kubeflow_tpu_torch import trace
 from kubeflow_tpu_torch.models.llama import init_kv_pool, kv_page_nbytes
+from kubeflow_tpu_torch.qos.accounting import get_accountant
+from kubeflow_tpu_torch.qos.tenants import ANONYMOUS, clamp_tenant
+from kubeflow_tpu_torch.qos.wfq import WeightedFairQueue, fair_quota
 from kubeflow_tpu_torch.serving.page_pool import PagePool, pages_for
 from kubeflow_tpu_torch.serving.prefix_cache import PrefixCache
 from kubeflow_tpu_torch.serving.quant import (dequantize_kv,
@@ -90,6 +112,7 @@ from kubeflow_tpu_torch.serving.quant import (dequantize_kv,
 from kubeflow_tpu_torch.serving.speculative import (MIN_DRAFT,
                                                     SpeculationState,
                                                     ngram_draft)
+from kubeflow_tpu_torch.trace import NULL_SPAN
 from kubeflow_tpu_torch.utils.logging import get_logger
 from kubeflow_tpu_torch.utils.metrics import REGISTRY
 
@@ -137,6 +160,21 @@ ADMISSION_WAIT = REGISTRY.histogram(
     "queue wait from submit() to slot admission",
     buckets=(0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5,
              1.0, 2.5, 5.0, 10.0, 30.0))
+# tenant-labelled siblings of the two QoS-relevant histograms, observed
+# beside the unlabelled ones; tenants are clamped to the share map, so
+# the label set stays bounded
+TENANT_ADMISSION_WAIT = REGISTRY.histogram(
+    "serving_tenant_admission_wait_seconds",
+    "queue wait from submit() to slot admission, by tenant",
+    buckets=(0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5,
+             1.0, 2.5, 5.0, 10.0, 30.0),
+    labels=("tenant",))
+TENANT_TTFT = REGISTRY.histogram(
+    "serving_tenant_time_to_first_token_seconds",
+    "time to first token, by tenant (per-tenant SLO source)",
+    buckets=(0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5,
+             1.0, 2.5, 5.0, 10.0, 30.0),
+    labels=("tenant",))
 HANDOFFS = REGISTRY.counter(
     "serving_prefill_handoffs_total",
     "prefilled requests handed off to a decode worker (disaggregation)")
@@ -193,6 +231,8 @@ class GenRequest:
     top_k: int = 0        # 0 = disabled
     top_p: float = 0.0    # 0 or >= 1 = disabled
     deadline: float | None = None   # absolute perf_counter() deadline
+    # the tenant this request bills to (clamped to the share map)
+    tenant: str = ANONYMOUS
     submitted_at: float = field(default_factory=time.perf_counter)
     admitted_at: float | None = None
     first_token_at: float | None = None
@@ -201,6 +241,10 @@ class GenRequest:
     outcome: str | None = None
     _done: threading.Event = field(default_factory=threading.Event)
     _cancel_requested: bool = False
+    # WFQ admission: the virtual finish tag minted at enqueue, and an
+    # arrival sequence for deterministic cross-tenant tie-breaks
+    _vft: float = 0.0
+    _seq: int = 0
     _engine: object | None = field(default=None, repr=False)
     _gen: torch.Generator | None = field(default=None, repr=False)
     _spec: SpeculationState | None = field(default=None, repr=False)
@@ -209,6 +253,12 @@ class GenRequest:
     # cleared (its references dropped) at the decode seed or at death
     _handoff: object | None = field(default=None, repr=False)
     _failovers: int = 0
+    # tracing: the spans ride on the request from the submitting thread
+    # into the batcher thread; NULL_SPAN when the trace is unsampled
+    span: object = field(default=NULL_SPAN, repr=False)       # request
+    wait_span: object = field(default=NULL_SPAN, repr=False)  # admission
+    decode_span: object = field(default=NULL_SPAN, repr=False)
+    handoff_span: object = field(default=NULL_SPAN, repr=False)
 
     def expired(self, now: float | None = None) -> bool:
         return (self.deadline is not None
@@ -249,7 +299,8 @@ class ContinuousBatcher:
                  prefix_cache: PrefixCache | None = None,
                  kv_quant: bool = False, directory=None,
                  engine_id: str | None = None, engine_addr: str = "",
-                 fetch_fn=None):
+                 fetch_fn=None, tenant_shares: dict | None = None,
+                 pressure_fn=None):
         if role not in ("colocated", "prefill", "decode"):
             raise ValueError(f"unknown engine role {role!r}")
         if role == "prefill" and handoff_fn is None:
@@ -334,6 +385,11 @@ class ContinuousBatcher:
         self.engine_addr = engine_addr
         self.fetch_fn = fetch_fn
         self._remote_fetches = 0
+        # pressure_fn() -> bool: the weight-residency arbiter
+        # (serving/model_pool.py), called when the pool cannot cover an
+        # alloc, BEFORE any prefix-cache eviction; True means a cold
+        # model's weights became page slots and the alloc retries
+        self.pressure_fn = pressure_fn
         if self.directory is not None and self.prefix_cache is not None:
             self.prefix_cache.on_evict = self._withdraw_prefix
         shape = (max_batch, self.max_seq, cfg.num_kv_heads, cfg.head_dim)
@@ -344,6 +400,11 @@ class ContinuousBatcher:
         self._scratch_kv = None   # batch-1 prefill scratch, made at first use
         self.slots: list[GenRequest | None] = [None] * max_batch
         self.queue: list[GenRequest] = []
+        # {tenant: WFQ weight}; None folds every request into one
+        # anonymous flow, whose monotone tags make admission FIFO
+        self.tenant_shares = dict(tenant_shares) if tenant_shares else None
+        self._wfq = WeightedFairQueue(shares=self.tenant_shares)
+        self._arrival = 0
         self._lock = threading.Lock()
         self._work = threading.Condition(self._lock)
         self._auto_seed = 0
@@ -367,7 +428,8 @@ class ContinuousBatcher:
     def submit(self, ids: list[int], max_new_tokens: int = 32,
                temperature: float = 0.0, eos_id: int | None = None,
                seed: int | None = None, top_k: int = 0, top_p: float = 0.0,
-               deadline_s: float | None = None) -> GenRequest:
+               deadline_s: float | None = None, trace_ctx=None,
+               tenant: str | None = None) -> GenRequest:
         if len(ids) + max_new_tokens > self.max_seq:
             raise ValueError(
                 f"prompt+new ({len(ids) + max_new_tokens}) > max_seq "
@@ -385,20 +447,74 @@ class ContinuousBatcher:
         if deadline_s is not None and deadline_s <= 0:
             raise ValueError("deadline_s must be > 0")
         req = GenRequest(list(ids), max_new_tokens, temperature, eos_id,
-                         top_k=top_k, top_p=top_p)
+                         top_k=top_k, top_p=top_p,
+                         tenant=clamp_tenant(tenant, self.tenant_shares))
         if self.spec_max:
             req._spec = SpeculationState(self.spec_max)
+        # spans before the critical section: a rejection below still
+        # records its outcome on the request span before it closes
+        self._start_trace(req, trace_ctx)
+        try:
+            self._enqueue(req, seed, deadline_s)
+        except BaseException as e:
+            req.span.set_attribute(
+                "outcome", "shed" if isinstance(e, QueueFull)
+                else "draining" if isinstance(e, Draining) else "error")
+            req.wait_span.end()
+            req.span.end()
+            raise
+        return req
+
+    def _start_trace(self, req: GenRequest, trace_ctx) -> None:
+        tracer = trace.get_tracer()
+        if trace_ctx is not None:
+            req.span = tracer.start_span("engine.request", trace_ctx)
+        else:
+            # a direct caller: the engine roots its own trace under head
+            # sampling
+            req.span = tracer.start_root("engine.request")
+        req.span.set_attribute("prompt_tokens", len(req.ids))
+        req.span.set_attribute("max_new_tokens", req.max_new_tokens)
+        req.span.set_attribute("tenant", req.tenant)
+        req.wait_span = tracer.start_span("engine.admission_wait", req.span)
+        req.wait_span.set_attribute("tenant", req.tenant)
+
+    def _enqueue(self, req: GenRequest, seed: int | None,
+                 deadline_s: float | None) -> None:
         with self._work:
             if self._closed:
                 raise RuntimeError("serving engine is shut down")
             if self._draining:
                 raise Draining("serving engine is draining (finishing "
                                "in-flight requests, accepting no new ones)")
-            if self.max_queue and len(self.queue) >= self.max_queue:
+            est_wait = self._estimated_wait_locked(req.tenant)
+            if self.max_queue:
+                # the bounded queue is divided by tenant share: a storming
+                # tenant sheds at its own fair share while the others'
+                # stay open; one flow's quota is the whole queue
+                quota = fair_quota(self.max_queue, req.tenant,
+                                   self.tenant_shares)
+                waiting = (len(self.queue) if not self.tenant_shares
+                           else sum(1 for r in self.queue
+                                    if r.tenant == req.tenant))
+                if waiting >= quota:
+                    REQS_TOTAL.labels("shed").inc()
+                    get_accountant().record_outcome(req.tenant, "shed")
+                    raise QueueFull(
+                        f"admission queue full ({quota} waiting)"
+                        if not self.tenant_shares else
+                        f"admission queue full for tenant {req.tenant} "
+                        f"({waiting}/{quota} fair-share slots)",
+                        retry_after=est_wait)
+            if deadline_s is not None and est_wait >= deadline_s > 0:
+                # the deadline cannot survive the queue: shed now rather
+                # than prefill a request the deadline sweep will evict
                 REQS_TOTAL.labels("shed").inc()
+                get_accountant().record_outcome(req.tenant, "shed")
                 raise QueueFull(
-                    f"admission queue full ({self.max_queue} waiting)",
-                    retry_after=self._estimated_wait_locked())
+                    f"estimated queue wait {est_wait:.2f}s exceeds the "
+                    f"request deadline {deadline_s:.2f}s",
+                    retry_after=est_wait)
             if seed is None:
                 self._auto_seed += 1
                 seed = self._auto_seed
@@ -406,12 +522,15 @@ class ContinuousBatcher:
             if deadline_s is not None:
                 req.deadline = req.submitted_at + deadline_s
             self._enqueue_locked(req)
-        return req
 
     def _enqueue_locked(self, req: GenRequest) -> None:
         """The one enqueue tail (lock held) of submit, handoff resume and
-        failover adoption: ownership, queue append, batcher (re)spawn."""
+        failover adoption: ownership, the WFQ tag, queue append, batcher
+        (re)spawn."""
         req._engine = self
+        self._arrival += 1
+        req._seq = self._arrival
+        req._vft = self._wfq.tag(req.tenant)
         self.queue.append(req)
         QUEUE_DEPTH.set(len(self.queue))
         if self._thread is None or not self._thread.is_alive():
@@ -421,7 +540,7 @@ class ContinuousBatcher:
             self._thread.start()
         self._work.notify_all()
 
-    def submit_handoff(self, state) -> GenRequest:
+    def submit_handoff(self, state, trace_ctx=None) -> GenRequest:
         """Resume a prefilled request from its handoff pages (the decode
         half of disaggregation).  In process the state carries the
         original request, its generator included; a cross-process resume
@@ -446,6 +565,8 @@ class ContinuousBatcher:
             else:
                 req._gen.manual_seed(state.seed)
             state.request = req
+            self._start_trace(req, trace_ctx)
+            req.wait_span.end()
         if self.spec_max and req._spec is None:
             req._spec = SpeculationState(self.spec_max)
         req._handoff = state
@@ -472,7 +593,8 @@ class ContinuousBatcher:
                       temperature: float = 0.0, eos_id: int | None = None,
                       seed: int | None = None, top_k: int = 0,
                       top_p: float = 0.0,
-                      deadline_s: float | None = None) -> list[list[int]]:
+                      deadline_s: float | None = None, trace_ctx=None,
+                      tenant: str | None = None) -> list[list[int]]:
         """Submit a (possibly ragged) batch and wait for all rows;
         all-or-nothing: a failed row cancels its siblings."""
         reqs: list[GenRequest] = []
@@ -481,7 +603,8 @@ class ContinuousBatcher:
                 reqs.append(self.submit(
                     ids, max_new_tokens, temperature, eos_id,
                     seed=None if seed is None else seed + i,
-                    top_k=top_k, top_p=top_p, deadline_s=deadline_s))
+                    top_k=top_k, top_p=top_p, deadline_s=deadline_s,
+                    trace_ctx=trace_ctx, tenant=tenant))
             return [r.result() for r in reqs]
         except BaseException:
             for r in reqs:
@@ -535,13 +658,26 @@ class ContinuousBatcher:
             out["directory"] = self.directory.stats()
         return out
 
-    def _estimated_wait_locked(self) -> float:
+    def _estimated_wait_locked(self, tenant: str | None = None) -> float:
         """Seconds until a new arrival would reach a slot: waiters ahead
         over slot capacity, times the observed service time (0 until the
-        first request completes)."""
+        first request completes).  With tenant shares, the waiters and
+        the capacity are the tenant's own (its queued requests over its
+        share of the batch): under WFQ another tenant's backlog does not
+        delay it beyond its share."""
         if self._service_ewma <= 0.0:
             return 0.0
-        return len(self.queue) / max(self.max_batch, 1) * self._service_ewma
+        if not self.tenant_shares or tenant is None:
+            waves = len(self.queue) / max(self.max_batch, 1)
+            return waves * self._service_ewma
+        weight = max(1e-9, float(self.tenant_shares.get(tenant, 1.0)))
+        total = sum(max(1e-9, float(w))
+                    for w in self.tenant_shares.values())
+        if tenant not in self.tenant_shares:
+            total += weight
+        capacity = max(1e-9, max(self.max_batch, 1) * weight / total)
+        waiting = sum(1 for r in self.queue if r.tenant == tenant)
+        return (waiting / capacity) * self._service_ewma
 
     def drain(self) -> None:
         """Stop admitting; queued and in-flight requests run to the end.
@@ -610,8 +746,16 @@ class ContinuousBatcher:
         req.error = msg
         req.outcome = outcome
         REQS_TOTAL.labels(outcome).inc()
+        get_accountant().record_outcome(req.tenant, outcome)
         # a pending handoff's page references die with the request
         self._release_handoff(req)
+        # whatever span is still open closes with the outcome (end() is
+        # idempotent)
+        req.wait_span.end()
+        req.handoff_span.end()
+        req.decode_span.end()
+        req.span.set_attribute("outcome", outcome)
+        req.span.end()
         req._done.set()
         with self._work:
             self._work.notify_all()
@@ -694,8 +838,9 @@ class ContinuousBatcher:
         return True
 
     def _admit(self) -> None:
-        """FIFO admission, at most ``max_batch`` per call so requests done
-        at admission cannot starve in-flight decode.  A handoff seed and a
+        """WFQ admission (the smallest virtual finish tag, arrival order
+        breaking ties: FIFO with one flow), at most ``max_batch`` per call
+        so requests done at admission cannot starve in-flight decode.  A handoff seed and a
         colocated prefill need a free slot; a prefill-role engine's own
         admissions take none (they prefill, commit and hand off)."""
         for _ in range(self.max_batch):
@@ -703,7 +848,7 @@ class ContinuousBatcher:
                 if not self.queue:
                     QUEUE_DEPTH.set(0)
                     return
-                head = self.queue[0]
+                head = min(self.queue, key=lambda r: (r._vft, r._seq))
                 needs_slot = not (self.role == "prefill"
                                   and head._handoff is None)
                 free = next((i for i, s in enumerate(self.slots)
@@ -711,7 +856,9 @@ class ContinuousBatcher:
                 if needs_slot and free is None:
                     QUEUE_DEPTH.set(len(self.queue))
                     return
-                req = self.queue.pop(0)
+                self.queue.remove(head)
+                req = head
+                self._wfq.advance(req._vft)
                 QUEUE_DEPTH.set(len(self.queue))
                 if not needs_slot:
                     self._prefilling += 1
@@ -730,13 +877,18 @@ class ContinuousBatcher:
 
     def _start_admission(self, req: GenRequest) -> None:
         req.admitted_at = time.perf_counter()
-        ADMISSION_WAIT.observe(req.admitted_at - req.submitted_at)
+        wait = req.admitted_at - req.submitted_at
+        ADMISSION_WAIT.observe(wait)
+        TENANT_ADMISSION_WAIT.labels(req.tenant).observe(wait)
+        get_accountant().record_admission_wait(req.tenant, wait)
+        req.wait_span.end()
         req._gen = torch.Generator(device=self.device).manual_seed(req.seed)
 
     def _first_token(self, req: GenRequest, tok: int) -> None:
         req.first_token_at = time.perf_counter()
         ttft = req.first_token_at - req.submitted_at
         TTFT_HIST.observe(ttft)
+        TENANT_TTFT.labels(req.tenant).observe(ttft)
         req.generated.append(tok)
         TOKENS_TOTAL.inc()
         with self._work:
@@ -808,6 +960,8 @@ class ContinuousBatcher:
             deadline=req.deadline, committed_at=time.perf_counter(),
             request=req)
         req._handoff = state
+        req.handoff_span = trace.get_tracer().start_span(
+            "engine.prefill_handoff", req.span, pages=len(pages))
         HANDOFFS.inc()
         with self._work:
             self._handoffs += 1
@@ -832,6 +986,7 @@ class ContinuousBatcher:
         if state.committed_at is not None:
             HANDOFF_WAIT.observe(time.perf_counter() - state.committed_at)
         self._release_handoff(req)
+        req.handoff_span.end()
         with self._work:
             self._resumed += 1
         self._seat(free, req)
@@ -846,6 +1001,9 @@ class ContinuousBatcher:
             self._work.notify_all()
         req.outcome = "ok"
         REQS_TOTAL.labels("ok").inc()
+        get_accountant().record_outcome(req.tenant, "ok")
+        req.span.set_attribute("outcome", "ok")
+        req.span.end()
         req._done.set()
 
     def _release_handoff(self, req: GenRequest) -> None:
@@ -951,6 +1109,10 @@ class ContinuousBatcher:
                 self.prefix_cache.release(node)
                 node, usable = None, 0
             (PREFIX_HITS if node is not None else PREFIX_MISSES).inc()
+            req.span.set_attribute("prefix_cache",
+                                   "hit" if node is not None else "miss")
+            req.span.set_attribute("prefix_matched_tokens", usable)
+        tracer = trace.get_tracer()
         try:
             written, seed = 0, None
             if node is not None:
@@ -980,7 +1142,12 @@ class ContinuousBatcher:
                 ids = torch.tensor([chunk], dtype=torch.int64,
                                    device=self.device)
                 cache = {"layers": [dict(l, index=pos) for l in scratch]}
-                out = self.model(ids, cache=cache)
+                # the span closes once the chunk's kernels are issued: it
+                # times their dispatch (no synchronize)
+                with tracer.start_span("engine.prefill", req.span,
+                                       tokens=take, start_pos=pos,
+                                       bucket=cb):
+                    out = self.model(ids, cache=cache)
                 PREFILL_DISPATCHES.inc()
                 PREFILL_TOKENS.inc(take)
                 with self._work:
@@ -1038,6 +1205,11 @@ class ContinuousBatcher:
             return None
         fresh = self.pool.alloc(n_new)
         while fresh is None:
+            # residency arbitration first: an idle model's weights are
+            # colder than anything in the prefix cache
+            if self.pressure_fn is not None and self.pressure_fn():
+                fresh = self.pool.alloc(n_new)
+                continue
             if self.prefix_cache is None or not self.prefix_cache.evict_lru():
                 return None
             fresh = self.pool.alloc(n_new)
@@ -1127,6 +1299,9 @@ class ContinuousBatcher:
         trees = trees[:n]
         pids = self.pool.alloc(n)
         while pids is None:
+            if self.pressure_fn is not None and self.pressure_fn():
+                pids = self.pool.alloc(n)
+                continue
             if not self.prefix_cache.evict_lru():
                 return   # the pool cannot host the import: prefill locally
             pids = self.pool.alloc(n)
@@ -1172,6 +1347,10 @@ class ContinuousBatcher:
         for vl, sl in zip(self.view, self._scratch()):
             vl["k"][free, :n].copy_(sl["k"][0, :n])
             vl["v"][free, :n].copy_(sl["v"][0, :n])
+        # the decode span opens at seating and closes at the terminal
+        # outcome (_finish_if_done / _fail)
+        req.decode_span = trace.get_tracer().start_span("engine.decode",
+                                                        req.span)
         with self._work:
             self.slots[free] = req
             ACTIVE_SLOTS.set(sum(1 for s in self.slots if s))
@@ -1226,6 +1405,8 @@ class ContinuousBatcher:
         host = torch.stack(toks).tolist()        # [chunk, B]: the sync
         dt = time.perf_counter() - t0
         taken = 0
+        acct = get_accountant()
+        n_active = sum(1 for r in reqs if r is not None)
         for i, req in enumerate(reqs):
             if req is None:
                 continue
@@ -1234,12 +1415,18 @@ class ContinuousBatcher:
                 # weighted by how much of the stream went by
                 req._spec.note_skip(weight=chunk // 32)
             want = req.max_new_tokens - len(req.generated)
+            row_taken = 0
             for step in range(min(chunk, want)):
                 t = host[step][i]
                 req.generated.append(t)
-                taken += 1
+                row_taken += 1
                 if req.eos_id is not None and t == req.eos_id:
                     break
+            taken += row_taken
+            # the tenant bills its tokens and an equal split of the
+            # dispatch's wall time (every occupied slot rode it)
+            acct.record_decode_tokens(req.tenant, row_taken)
+            acct.record_slice_seconds(req.tenant, dt / max(1, n_active))
         # counters before completion events: a woken caller sees them
         TOKENS_TOTAL.inc(taken)
         DECODE_TOKENS.inc(taken)
@@ -1315,6 +1502,7 @@ class ContinuousBatcher:
         dt = time.perf_counter() - t0
         SPEC_ROUNDS.inc()
         taken_total, proposed, accepted_total = 0, 0, 0
+        acct = get_accountant()
         for i, req in active:
             draft = drafts[i][:gamma]
             col = [choices[j][i] for j in range(gamma + 1)]
@@ -1329,6 +1517,8 @@ class ContinuousBatcher:
                 if req.eos_id is not None and tok == req.eos_id:
                     break
             taken_total += taken
+            acct.record_decode_tokens(req.tenant, taken)
+            acct.record_slice_seconds(req.tenant, dt / max(1, len(active)))
             if draft:
                 proposed += len(draft)
                 accepted_total += accepted
@@ -1398,6 +1588,11 @@ class ContinuousBatcher:
             self._work.notify_all()
         req.outcome = "ok"
         REQS_TOTAL.labels("ok").inc()
+        get_accountant().record_outcome(req.tenant, "ok")
+        req.decode_span.set_attribute("tokens", len(req.generated))
+        req.decode_span.end()
+        req.span.set_attribute("outcome", "ok")
+        req.span.end()
         req._done.set()
 
 

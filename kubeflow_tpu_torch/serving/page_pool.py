@@ -17,7 +17,10 @@ page IDS into one shared pool:
   slot while the id and its refcount stay; ``fault`` brings it back.
   Faults are never refused (a seed already holds references), so device
   residency may pass the budget for a while; the next ``alloc`` under
-  pressure spills or evicts it back down.
+  pressure spills or evicts it back down;
+- ``donate``/``reclaim`` move the budget for the weight-residency pool:
+  an evicted model's bytes become page slots, and a warming model takes
+  back only free ones.
 
 The semantics (which ids ``alloc`` hands out, when it refuses, the
 counters) are the reference's; the storage differs.  The reference keeps
@@ -167,13 +170,15 @@ class PagePool:
             self.kv["layers"][0]["k"].device, non_blocking=True)
 
     def _grow(self) -> None:
-        """Extend the row tensors to ``_nrows`` (faults past the budget)."""
+        """Extend the row tensors to ``_nrows`` (faults past the budget,
+        donations), one layer and tensor at a time; new rows are written
+        by a commit or a fault before anything reads them."""
         for layer in self.kv["layers"]:
             for name, t in list(layer.items()):
                 if t.shape[0] < self._nrows:
-                    extra = t.new_zeros((self._nrows - t.shape[0],)
-                                        + tuple(t.shape[1:]))
-                    layer[name] = torch.cat([t, extra])
+                    grown = t.new_empty((self._nrows,) + tuple(t.shape[1:]))
+                    grown[:t.shape[0]].copy_(t)
+                    layer[name] = grown
 
     def _need_kv(self) -> None:
         if self.kv is None:
@@ -378,6 +383,60 @@ class PagePool:
             self._publish_locked()
         return len(moves)
 
+    # -- budget donation (weight residency arbitration) ------------------------
+    def donate(self, n: int) -> None:
+        """Grow the HBM page budget by ``n`` slots: the weight-residency
+        pool (``serving/model_pool.py``) evicted a cold model's weights
+        and turns the freed bytes into KV page capacity.  New ids extend
+        the id space and go to the front of the LIFO free list, so the
+        donated slots hand out first.  A pool with storage first reuses
+        the rows that back no page of the budget (those a reclaim left
+        reserved, or a fault past the budget added) and grows every
+        layer's row tensors only by the rest (``_grow``: one layer and
+        tensor at a time, so the transient is one old tensor beside its
+        grown copy, inside the bytes the eviction freed)."""
+        add = int(n)
+        if add <= 0:
+            return
+        grow = False
+        with self._lock:
+            new_ids = list(range(self._ids, self._ids + add))
+            self._ids += add
+            self._refs.extend([0] * add)
+            self._free.extend(reversed(new_ids))
+            self.num_pages += add
+            if self.kv is not None:
+                # rows the budget can occupy: the null page, every
+                # device-tier page, and alloc's headroom
+                need = max(self.num_pages, len(self._row))
+                if need > self._nrows:
+                    first = self._nrows
+                    self._nrows = need
+                    self._free_rows.extend(range(need - 1, first - 1, -1))
+                    grow = True
+            PAGES_CAPACITY.set(float(self.num_pages - 1))
+            self._publish_locked()
+        if grow:
+            self._grow()
+
+    def reclaim(self, n: int) -> int:
+        """Take back up to ``n`` donated slots (a parked model is warming
+        and wants its bytes).  Only FREE HBM headroom returns: a reclaim
+        never evicts or spills live KV; returns the slots reclaimed.  The
+        id space stays wide (ids are bookkeeping) and so do the device
+        rows: only the budget ``alloc`` enforces shrinks, and the rows'
+        bytes stay reserved (``stats()``'s ``device_rows``) for the next
+        ``donate`` to reuse before it grows the tensors."""
+        with self._lock:
+            take = min(int(n), len(self._free),
+                       self.num_pages - 1 - self._hbm_used())
+            if take <= 0:
+                return 0
+            self.num_pages -= take
+            PAGES_CAPACITY.set(float(self.num_pages - 1))
+            self._publish_locked()
+            return take
+
     def tier(self, page: int) -> str:
         """``"hbm"`` | ``"host"`` | ``"none"`` (allocated, not committed)."""
         with self._lock:
@@ -423,6 +482,9 @@ class PagePool:
                                        "sum": self._fault_wait_sum},
                 "page_size": self.page_size,
                 "page_nbytes": self.page_nbytes,
+                # rows held on the card (the null page's included): a
+                # reclaim shrinks "pages", never these
+                "device_rows": self._nrows if self.kv is not None else 0,
             }
 
 

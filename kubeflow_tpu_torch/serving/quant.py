@@ -65,13 +65,19 @@ def quantize_array(w: torch.Tensor,
                    axis: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
     """Symmetric per-channel int8 over ``axis`` (the contraction axis):
     ``(q int8, scale float32 keepdim)``."""
-    w = w.float()
-    scale = _scale(w.abs().amax(dim=axis, keepdim=True))
-    q = torch.clamp(torch.round(w / scale), -127, 127).to(torch.int8)
+    x = w.float()
+    # max |w| as max(max w, -min w): the same value without a temporary
+    # of w's size (the restore quantizes 7B weights one at a time on the
+    # card, and its peak is one weight's float32 copy)
+    amax = torch.maximum(x.amax(dim=axis, keepdim=True),
+                         x.amin(dim=axis, keepdim=True).neg())
+    scale = _scale(amax)
+    x = x / scale if x is w else x.div_(scale)
+    q = x.round_().clamp_(-127, 127).to(torch.int8)
     return q, scale
 
 
-def _wants_quant(name: str, p: torch.Tensor, min_size: int) -> bool:
+def wants_quant(name: str, p: torch.Tensor, min_size: int) -> bool:
     parts = name.split(".")
     if any(part in parts for part in SKIP_PATH_PARTS):
         return False
@@ -88,20 +94,34 @@ def quantize_params(module: nn.Module, *, min_size: int = 1 << 12,
     parameter's own (a float32 state dict loaded into a bf16 model: the
     reference quantizes its float32 masters)."""
     names = [n for n, p in module.named_parameters()
-             if _wants_quant(n, p, min_size)]
+             if wants_quant(n, p, min_size)]
     for name in names:
-        prefix, _, leaf = name.rpartition(".")
-        owner = module.get_submodule(prefix)
-        p = owner._parameters[leaf]
-        full = p if source is None or name not in source else source[name]
-        # DenseGeneral kernels contract on axis 0 (input features); the
-        # MoE stacks [E, in, out] on the second-to-last axis
-        axis = p.ndim - 2 if leaf in ("w_in", "w_out") else 0
-        q, scale = quantize_array(full.to(p.device), axis)
-        del owner._parameters[leaf]
-        setattr(owner, leaf, QTensor(q, scale))
-        del p, full
+        quantize_param(module, name,
+                       None if source is None else source.get(name),
+                       min_size=min_size)
     return names
+
+
+@torch.no_grad()
+def quantize_param(module: nn.Module, name: str,
+                   full: torch.Tensor | None = None, *,
+                   min_size: int = 1 << 12) -> bool:
+    """Swap parameter ``name`` for a ``QTensor`` made from ``full`` (its
+    own values when None) if it is an eligible matmul weight; whether it
+    was swapped."""
+    prefix, _, leaf = name.rpartition(".")
+    owner = module.get_submodule(prefix)
+    p = owner._parameters.get(leaf)
+    if p is None or not wants_quant(name, p, min_size):
+        return False
+    full = p if full is None else full
+    # DenseGeneral kernels contract on axis 0 (input features); the MoE
+    # stacks [E, in, out] on the second-to-last axis
+    axis = p.ndim - 2 if leaf in ("w_in", "w_out") else 0
+    q, scale = quantize_array(full.to(p.device), axis)
+    del owner._parameters[leaf]
+    setattr(owner, leaf, QTensor(q, scale))
+    return True
 
 
 def quantized_bytes(module: nn.Module) -> int:

@@ -683,3 +683,137 @@ def test_coordinator_on_the_card_matches_colocated(cuda_device, kv_quant):
         assert co.decode[0].stats()["resumed"] == len(prompts)
     finally:
         co.shutdown()
+
+
+# -- checkpoints and weight residency on the card --------------------------------
+
+@pytest.mark.cuda
+def test_streamed_restore_to_the_card_is_the_cpu_restore(cuda_device,
+                                                         tmp_path):
+    # a window smaller than one tensor: every tensor goes in pieces through
+    # the pinned ring and the side stream; float32 records cast to bf16
+    from kubeflow_tpu_torch.serving import model_pool as mp
+
+    model = _tiny_cuda_model(cuda_device, dtype="float32")
+    mp.save_streamable(model, str(tmp_path))
+    like = {n: p.detach().to(torch.bfloat16)
+            for n, p in model.named_parameters()}
+    window = 1000
+    assert window < max(p.numel() * 4 for p in like.values())
+    ring = mp.StagingRing(window, cuda_device)
+    card, rep = mp.stream_restore(str(tmp_path), like, device=cuda_device,
+                                  ring=ring)
+    host, _ = mp.stream_restore(str(tmp_path),
+                                {n: t.cpu() for n, t in like.items()},
+                                staging_bytes=window)
+    assert 0 < rep["max_staged_bytes"] <= window
+    for name in like:
+        assert card[name].device.type == "cuda"
+        assert torch.equal(card[name].cpu(), host[name]), name
+        assert torch.equal(host[name], like[name].cpu()), name
+
+
+@pytest.mark.cuda
+def test_park_frees_weight_bytes_and_warm_restores_them(cuda_device):
+    from kubeflow_tpu_torch.ops import _build
+    from kubeflow_tpu_torch.serving.predictor import GenerativePredictor
+
+    pred = GenerativePredictor("llama", size="tiny", max_batch=1,
+                               max_seq=128)
+    try:
+        prompt = [list(range(3, 40))]
+        base = pred.generate(prompt, max_new_tokens=8)["ids"]
+        builds = _build.BUILDS.get()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        nbytes = pred.weight_bytes
+        assert pred.park() == nbytes
+        torch.cuda.synchronize()
+        dropped = before - torch.cuda.memory_allocated()
+        # every weight's block rounds up to 512 bytes
+        n = len(pred._shapes)
+        assert nbytes <= dropped <= nbytes + 512 * n, (dropped, nbytes)
+        pred.warm()
+        torch.cuda.synchronize()
+        assert torch.cuda.memory_allocated() - before in range(
+            -512 * n, 512 * n + 1)
+        assert pred.generate(prompt, max_new_tokens=8)["ids"] == base
+        assert _build.BUILDS.get() == builds
+    finally:
+        pred.stop(timeout=30)
+
+
+@pytest.mark.cuda
+def test_donation_then_alloc_then_reclaim_on_a_card_pool(cuda_device):
+    from kubeflow_tpu_torch.models import llama
+    from kubeflow_tpu_torch.serving.page_pool import PagePool
+
+    cfg = llama.llama_tiny()
+    kv = llama.init_kv_pool(cfg, 4, 16, device=cuda_device)
+    pool = PagePool(4, 16, llama.kv_page_nbytes(cfg, 16), kv=kv)
+    held = pool.alloc(3)
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    layers = [(torch.randn(3 * 16, cfg.num_kv_heads, cfg.head_dim,
+                           generator=g, device=cuda_device).bfloat16(),) * 2
+              for _ in range(cfg.num_layers)]
+    pool.put_many(held, layers)
+    assert pool.alloc(1) is None
+    pool.donate(5)
+    assert kv["layers"][0]["k"].shape[0] == 9
+    more = pool.alloc(5)
+    assert more is not None
+    out = [(torch.empty(3 * 16, cfg.num_kv_heads, cfg.head_dim,
+                        dtype=torch.bfloat16, device=cuda_device),) * 2
+           for _ in range(cfg.num_layers)]
+    pool.gather(held, [(o[0], o[0]) for o in out])
+    assert all(torch.equal(o[0], src[0]) for o, src in zip(out, layers))
+    assert pool.reclaim(5) == 0          # every donated slot is live
+    pool.decref(more)
+    assert pool.reclaim(5) == 5 and pool.stats()["pages"] == 3
+    # a second donation lands in the rows the reclaim kept: no new bytes
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    pool.donate(5)
+    assert kv["layers"][0]["k"].shape[0] == 9
+    assert pool.stats()["device_rows"] == 9
+    assert torch.cuda.memory_allocated() == before
+    more = pool.alloc(5)
+    assert more is not None and pool.alloc(1) is None
+    pool.gather(held, [(o[0], o[0]) for o in out])
+    assert all(torch.equal(o[0], src[0]) for o, src in zip(out, layers))
+
+
+@pytest.mark.cuda
+def test_int8_restore_peak_stays_near_the_int8_size(cuda_device, tmp_path):
+    # Llama-2-7B's width at 2 layers, a float32 checkpoint: each weight
+    # lands, is quantized and dropped before the next, so the peak is the
+    # int8 model plus one float32 weight and one temporary of its size
+    from kubeflow_tpu_torch.models import llama
+    from kubeflow_tpu_torch.serving import model_pool as mp
+    from kubeflow_tpu_torch.serving.predictor import GenerativePredictor
+    from kubeflow_tpu_torch.serving.quant import wants_quant
+
+    cfg = {"num_layers": 2}
+    full = llama.LlamaModel(llama.llama2_7b(**cfg),
+                            device=cuda_device).init_weights(0)
+    mp.save_streamable(full, str(tmp_path))
+    largest = max(p.numel() * 4 for n, p in full.named_parameters()
+                  if wants_quant(n, p, 1 << 12))
+    bf16_bytes = sum(p.numel() * 2 for p in full.parameters())
+    del full
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    pred = GenerativePredictor("llama", size="7b", model_config=cfg,
+                               checkpoint_dir=str(tmp_path), quantize=True,
+                               staging_mb=64, max_batch=1, max_seq=64)
+    try:
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        held = torch.cuda.memory_allocated() - base   # weights and engine
+        assert pred.weight_bytes < bf16_bytes
+        assert peak <= held + 2 * largest + (64 << 20), (
+            peak, held, pred.weight_bytes, largest)
+    finally:
+        pred.stop(timeout=30)

@@ -65,6 +65,14 @@ def test_imports_load_no_jax_and_no_reference_package(which):
         "kubeflow_tpu_torch.serving.quant",
         "kubeflow_tpu_torch.serving.disagg",
         "kubeflow_tpu_torch.serving.kv_directory",
+        "kubeflow_tpu_torch.serving.model_pool",
+        "kubeflow_tpu_torch.qos",
+        "kubeflow_tpu_torch.qos.wfq",
+        "kubeflow_tpu_torch.qos.tenants",
+        "kubeflow_tpu_torch.qos.accounting",
+        "kubeflow_tpu_torch.trace",
+        "kubeflow_tpu_torch.trace.span",
+        "kubeflow_tpu_torch.trace.tracer",
         "kubeflow_tpu_torch.models.moe",
         "kubeflow_tpu_torch.models.bert",
         "kubeflow_tpu_torch.parallel.train_step",

@@ -5,7 +5,8 @@ sides: the reference's pool stores a tree of jax arrays per page id, the
 port's stores rows of ``init_kv_pool``'s per-layer tensors, and the pages
 hold the same numpy-made values.  After every call the two sides must
 agree on its result (page ids, refcounts, ``ValueError`` or not), on
-``stats()`` (the fault wait's seconds aside: a host time), ``free_count``,
+``stats()`` (the fault wait's seconds aside: a host time; and the port's
+``device_rows``), ``free_count``,
 ``host_count``, and each page's ``tier``.  Pages read back through
 ``get`` must hold the same bytes on both sides, and a spill-fault round
 trip must not move a bit, in float32 and bfloat16.
@@ -107,6 +108,8 @@ class Log:
     def note(self, what, value):
         st = dict(self.pool.stats())
         st["fault_wait_seconds"] = st["fault_wait_seconds"]["count"]
+        # the port's row tensors (no counterpart in the reference's store)
+        st.pop("device_rows", None)
         self.rows.append((what, value, st, self.pool.free_count,
                           self.pool.host_count,
                           [(p, self.pool.refcount(p), self.pool.tier(p))

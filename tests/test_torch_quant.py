@@ -529,12 +529,17 @@ def test_predictor_cli_accepts_quantize_and_kv_quant():
         size="tiny", max_batch=2, max_seq=64, prefill_chunk=16, max_queue=0,
         prefix_cache_mb=0.0, kv_page_size=16, host_kv_pages=0,
         speculative_tokens=0, draft_layers=0, kv_quant=False,
-        role="colocated")
+        role="colocated", staging_mb=64.0, checkpoint_dir=None)
     name, kw = tpred._parse_model_spec("llama:quantize=int8,kv_quant=1", args)
     assert name == "llama" and kw["quantize"] and kw["kv_quant"]
     _, kw = tpred._parse_model_spec("llama:quantize=true,role=decode", args)
     assert kw["quantize"] and kw["role"] == "decode" and not kw["kv_quant"]
-    for bad in ("llama:tp=2", "llama:ep=2", "llama:staging_mb=128",
-                "llama:checkpoint_dir=/x"):
-        with pytest.raises(SystemExit, match="not yet supported"):
+    # tensor and expert parallelism wait for the multi-device slice; the
+    # staging window and checkpoint options are served, and refused only
+    # at values that cannot work
+    for bad, why in (("llama:tp=2", "not yet supported"),
+                     ("llama:ep=2", "not yet supported"),
+                     ("llama:staging_mb=0", "must be > 0"),
+                     ("llama:checkpoint_dir=/x", "streamable")):
+        with pytest.raises(SystemExit, match=why):
             tpred._parse_model_spec(bad, args)

@@ -209,11 +209,15 @@ def test_bounded_queue_sheds_and_drain_rejects(jax_side):
 
 
 @pytest.mark.parametrize("argv,flag", [
-    (["--staging-mb", "128"], "--staging-mb"),
-    (["--weight-budget-mb", "64"], "--weight-budget-mb"),
+    (["--staging-mb", "0"], "--staging-mb"),
+    (["--weight-budget-mb", "-64"], "--weight-budget-mb"),
     (["--checkpoint-dir", "/ckpt"], "--checkpoint-dir"),
 ])
 def test_main_refuses_unported_flags(argv, flag, capsys):
+    """The residency and checkpoint flags are served now; main refuses
+    their unusable values by name before it builds anything (an empty
+    window, a negative budget, a directory without a streamable
+    manifest)."""
     with pytest.raises(SystemExit):
         tpred.main(argv + ["--device", "cpu"])
     assert flag in capsys.readouterr().err
@@ -336,6 +340,7 @@ def test_prefix_cache_options_reach_the_engine(jax_side):
 
 
 def test_main_refuses_unported_model_options():
+    # a checkpoint_dir without a streamable manifest (orbax, or nothing)
     with pytest.raises(SystemExit, match="checkpoint_dir"):
         tpred.main(["--model", "llama:checkpoint_dir=/ckpt", "--device",
                     "cpu"])
