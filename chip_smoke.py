@@ -4,11 +4,11 @@
     python3 chip_smoke.py                 # every phase below
     python3 chip_smoke.py --kernel-times  # build, then K1-K3 times only
     python3 chip_smoke.py --phases 12,13  # build, then those phases only
-                                          # (9 to 14; no result line)
+                                          # (9 to 16; no result line)
 
 Phases, numbered as PERF.md cites them, run in the order 1, 2, 3, 7, 11,
-9, 12, 13, 14, 4, 5, 10, 6, 8 (each phase frees its models before the
-next);
+9, 12, 13, 14, 15, 4, 5, 10, 16, 6, 8 (each phase frees its models before
+the next);
 any failure exits nonzero and prints no result:
 
 1. Build every CUDA kernel of the port from ``kubeflow_tpu_torch/ops/csrc``
@@ -22,7 +22,10 @@ any failure exits nonzero and prints no result:
    runs of phases 4 and 5 give it and at a GQA, a strided and a non-causal
    D=64 case; hold the backward kernels (K2 dQ, K3 dK/dV) against theirs
    at both training shapes, a causal D=128, a ragged Sq = Sk = 200 and a
-   GQA (32 over 8 heads) case.
+   GQA (32 over 8 heads) case.  At D = 256 (phases 15 and 16): K1 at every
+   shape of both phases, K1, K2 and K3 at phase 16's training shape, a
+   causal multi-query 2048-token sequence, a ragged Sq = Sk = 200 case and
+   a non-causal GQA case, and K1 at a strided GQA view.
 2. Serving main path at full width: a Llama-2-7B ``GenerativePredictor``
    (32 layers, random weights from a seed) served through ``PredictorApp``
    on a local port answers 4 concurrent HTTP ``:generate`` requests
@@ -196,7 +199,25 @@ any failure exits nonzero and prints no result:
    held against the plain version, the logits against the plain route.
    The checkpoint directory is removed at the end of the phase.
 
-The line before the last is the ``kernels`` JSON object; the last line is
+15. Serving at head_dim 256: phase 2's predictor, traffic, settings and
+   checks on the reference's Llama block at the widths of Gemma 2B
+   (``GEMMA2B_WIDTHS`` as ``model_config`` on size "7b": hidden 2048, 18
+   layers, 8 query heads over 1 KV head of 256, FFN 16384, a tied
+   256000-row head; 2.51 B parameters, random weights from seed 0; not
+   Gemma: SiLU gate, the reference's RMSNorm, no embedding scale).  K1
+   (D = 256) must launch 18 x the prefill chunks; re-sent requests
+   reproduce their tokens; every K1 call of a chunked 1500-token prefill
+   is held against the plain version; the prefill logits through the
+   kernel and plain routes agree within 1e-1 of max |logit|.
+16. Training at head_dim 256: the same widths at full depth through the
+   worker entrypoint, float32 masters, bf16 compute, remat, causal, global
+   batch 8 x 512, 10 adamw steps, each launching K1 36 times and K2 and K3
+   18 times; the in-step check (loss and grad_norm against the plain
+   route, every K2 and K3 call against its plain version); the step by
+   operator; the phase's peak memory under 90% of the card.
+
+The line before the last is the ``kernels`` JSON object (``name<256>``:
+the D = 256 instantiations on phases 15 and 16); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -235,10 +256,9 @@ KERNEL_WORK = {  # name: (q-like, k-like, rows, products)
 }
 # the bf16 K1, K2 and K3 instantiations, which must keep their wgmma
 # products and TMA loads in the built code
-WGMMA_KERNELS = ("flash_fwd_bf16_wgmma<64>", "flash_fwd_bf16_wgmma<128>",
-                 "flash_bwd_dq_bf16_wgmma<64>", "flash_bwd_dq_bf16_wgmma<128>",
-                 "flash_bwd_dkv_bf16_wgmma<64>",
-                 "flash_bwd_dkv_bf16_wgmma<128>")
+WGMMA_KERNELS = tuple(f"{k}<{d}>" for k in (
+    "flash_fwd_bf16_wgmma", "flash_bwd_dq_bf16_wgmma",
+    "flash_bwd_dkv_bf16_wgmma") for d in (64, 128, 256))
 
 # phase 2's requests: prompt lengths and the engine settings
 PROMPT_LENS = (17, 300, 700, 1500)
@@ -246,6 +266,7 @@ MAX_SEQ, PREFILL_CHUNK, NEW_TOKENS = 2048, 512, 16
 EXTRA_SHAPES = [  # (name, B, Sq, Sk, H, Hkv, D, causal)
     ("gqa_ragged_strided", 2, 200, 700, 32, 8, 128, True),
     ("noncausal_d64", 2, 100, 300, 4, 4, 64, False),
+    ("gqa_ragged_d256_strided", 2, 200, 700, 8, 2, 256, True),
 ]
 # phase 7: prefix-cached serving at phase 2's settings.  (a) a system
 # prompt shared by three user turns, then the first turn again; (b) a
@@ -346,10 +367,42 @@ SPEC_SHAPES = [  # (name, B, Sq, Sk, H, Hkv, D, causal)
     ("7b_spec_prefill_512x512", 1, 512, 512, 32, 32, 128, True),
 ]
 CAUSAL_DQ_SHAPE = (1, 2048, 2048, 32, 32, 128, True)  # B, Sq, Sk, H, Hkv, D
+# phases 15 and 16: the reference's Llama block (SiLU gate, its RMSNorm, no
+# embedding scale: not Gemma) at the widths of Gemma 2B (arXiv:2403.08295,
+# Table 1; google/gemma-2b's published config): hidden 2048, 18 layers, 8
+# query heads over 1 KV head of 256 (multi-query), FFN 16384, a tied
+# 256000-row head, RMSNorm eps 1e-6; 2.51 B parameters, taken through
+# model_config on size "7b" as a user passes it.  Serving at phase 2's
+# settings and traffic; training at full width and depth, float32 masters,
+# bf16 compute, remat, global batch 8 x 512 (40 GB of masters, gradients
+# and adamw moments and ~10 GB of logits and their gradient)
+GEMMA2B_WIDTHS = {"vocab_size": 256000, "hidden_size": 2048,
+                  "num_layers": 18, "num_heads": 8, "num_kv_heads": 1,
+                  "intermediate_size": 16384, "rms_eps": 1e-6}
+GEMMA_HEADS = (8, 1, 256)                      # H, Hkv, D
+GEMMA_LAYERS, GEMMA_BATCH = 18, 8
+GEMMA_LABEL = "llama at Gemma-2B widths"
+GEMMA_CONFIG = {"model": "llama",
+                "model_config": {"size": "7b", **GEMMA2B_WIDTHS},
+                "global_batch": GEMMA_BATCH, "steps": TRAIN_STEPS,
+                "log_every": 1, "seed": 0,
+                "optimizer": {"name": "adamw", "learning_rate": 1e-4}}
+GEMMA_SHAPE = ("gemma2b_train", GEMMA_BATCH, LLAMA_SEQ, LLAMA_SEQ,
+               *GEMMA_HEADS, True)
+GEMMA_LAUNCHES = {"flash_fwd": 2 * GEMMA_LAYERS,
+                  "flash_bwd_dq": GEMMA_LAYERS, "flash_bwd_dkv": GEMMA_LAYERS}
+# the D = 256 kernels off the two paths: one causal multi-query sequence of
+# 2048, ragged Sq = Sk = 200, non-causal GQA, and (K1) a strided view
+D256_SHAPES = [  # (name, B, Sq, Sk, H, Hkv, D, causal)
+    ("mqa_causal_2048_d256", 1, 2048, 2048, 8, 1, 256, True),
+    ("ragged_200_d256", 2, 200, 200, 8, 1, 256, True),
+    ("noncausal_gqa_d256", 2, 100, 300, 4, 2, 256, False),
+]
 BWD_SHAPES = [TRAIN_SHAPE, LLAMA_SHAPE,  # (name, B, Sq, Sk, H, Hkv, D, causal)
               ("causal_d128", 2, 384, 384, 8, 8, 128, True),
               ("ragged_200_causal", 2, 200, 200, 16, 16, 64, True),
-              ("gqa_32_over_8", 2, 256, 256, 32, 8, 128, True)]
+              ("gqa_32_over_8", 2, 256, 256, 32, 8, 128, True),
+              GEMMA_SHAPE, *D256_SHAPES]
 # max |kernel - plain| / max |plain| per gradient (dQ, dK, dV).  f32:
 # summation order only.  bf16: the kernels round P and dS to bf16 for
 # their products (2^-8 relative per weight) and the gradients to bf16.
@@ -434,13 +487,15 @@ def prefix_shapes() -> list[tuple[int, int]]:
     return [s for n, pos in prefix_plan() for s in chunk_shapes(n, pos)]
 
 
-def path_shapes(shapes: list[tuple[int, int]], label: str) -> list[tuple]:
-    """Distinct 7B prefill shapes with their launch counts per layer:
-    (name, B, Sq, Sk, H, Hkv, D, causal, count)."""
+def path_shapes(shapes: list[tuple[int, int]], label: str,
+                model: str = "7b", heads: tuple = (32, 32, 128)) -> list[tuple]:
+    """Distinct prefill shapes of a serving path (``heads``: H, Hkv, D)
+    with their launch counts per layer: (name, B, Sq, Sk, H, Hkv, D,
+    causal, count)."""
     counts: dict[tuple[int, int], int] = {}
     for s in shapes:
         counts[s] = counts.get(s, 0) + 1
-    return [(f"7b_{label}_{sq}x{sk}", 1, sq, sk, 32, 32, 128, True, c)
+    return [(f"{model}_{label}_{sq}x{sk}", 1, sq, sk, *heads, True, c)
             for (sq, sk), c in sorted(counts.items())]
 
 
@@ -452,6 +507,12 @@ def main_path_shapes() -> list[tuple]:
 def prefix_path_shapes() -> list[tuple]:
     """Phase 7(a)'s distinct prefill shapes (``path_shapes``)."""
     return path_shapes(prefix_shapes(), "prefix")
+
+
+def gemma_path_shapes() -> list[tuple]:
+    """Phase 15's distinct prefill shapes: phase 2's chunks at Gemma-2B's
+    heads (``path_shapes``)."""
+    return path_shapes(prefill_shapes(), "prefill", "gemma2b", GEMMA_HEADS)
 
 
 def make_qkv(b, sq, sk, h, hkv, d, dtype, seed, strided=False):
@@ -495,10 +556,13 @@ def check_backward(fa, name, b, sq, sk, h, hkv, d, causal, dtype,
     return errs[0], max(errs[1:])
 
 
-def sass_counts(path: Path) -> dict[str, tuple[int, int]]:
-    """(HGMMA, UTMALDG) instructions per kernel of a built library, from
-    ``cuobjdump -sass``: the wgmma products and the TMA tile loads that
-    the compiler kept, by the kernel's short name (``name<D>``)."""
+def sass_counts(path: Path) -> dict[str, tuple[int, int, int]]:
+    """(HGMMA, UTMALDG, highest register) per kernel of a built library,
+    from ``cuobjdump -sass``: the wgmma products and the TMA tile loads
+    that the compiler kept, and the registers it allocated (ptxas reports
+    a warp-specialised kernel's count at entry, 168, where its consumers
+    may use up to 232 after setmaxnreg.inc), by the kernel's short name
+    (``name<D>``)."""
     from kubeflow_tpu_torch.ops import _build
 
     cuobjdump = Path(_build.nvcc()).parent / "cuobjdump"
@@ -512,11 +576,13 @@ def sass_counts(path: Path) -> dict[str, tuple[int, int]]:
             mangled = line.split("Function :")[1].strip()
             m = re.search(r"(?<=\d)(flash_\w+?)ILi(\d+)E", mangled)
             current = f"{m.group(1)}<{m.group(2)}>" if m else mangled
-            counts[current] = [0, 0]
+            counts[current] = [0, 0, -1]
         elif current is not None:
             counts[current][0] += "HGMMA" in line
             counts[current][1] += "UTMALDG" in line
-    return {k: (v[0], v[1]) for k, v in counts.items()}
+            counts[current][2] = max([counts[current][2]] + [
+                int(r) for r in re.findall(r"\bR(\d+)\b", line)])
+    return {k: tuple(v) for k, v in counts.items()}
 
 
 def check_build(libs: dict) -> None:
@@ -538,11 +604,13 @@ def check_build(libs: dict) -> None:
             # ptxas runs the wgmma products of such a kernel one by one
             check("Performance Loss" not in line,
                   f"ptxas serialises wgmma in {name}: {line.strip()}")
-        for kernel, (hgmma, utmaldg) in sorted(sass_counts(path).items()):
-            log(f"  sass[{name}] {kernel}: HGMMA {hgmma} UTMALDG {utmaldg}")
+        for kernel, (hgmma, utmaldg, reg) in sorted(
+                sass_counts(path).items()):
+            log(f"  sass[{name}] {kernel}: HGMMA {hgmma} UTMALDG {utmaldg} "
+                f"registers to R{reg}")
     wgmma = {**sass_counts(libs["flash_fwd"]), **sass_counts(libs["flash_bwd"])}
     for kernel in WGMMA_KERNELS:
-        hgmma, utmaldg = wgmma.get(kernel, (0, 0))
+        hgmma, utmaldg, _ = wgmma.get(kernel, (0, 0, 0))
         check(hgmma > 0 and utmaldg > 0,
               f"{kernel}: HGMMA {hgmma}, UTMALDG {utmaldg} (wanted > 0)")
 
@@ -558,9 +626,11 @@ def phase_kernels(fa) -> dict:
     check_build(libs)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    main_err = 0.0
-    cases = ([s[:8] for s in main_path_shapes() + prefix_path_shapes()]
-             + [TRAIN_SHAPE, LLAMA_SHAPE] + SPEC_SHAPES + EXTRA_SHAPES)
+    main_err = main_err_256 = 0.0
+    cases = ([s[:8] for s in main_path_shapes() + prefix_path_shapes()
+              + gemma_path_shapes()]
+             + [TRAIN_SHAPE, LLAMA_SHAPE, GEMMA_SHAPE] + SPEC_SHAPES
+             + EXTRA_SHAPES + D256_SHAPES)
     for i, (name, b, sq, sk, h, hkv, d, causal) in enumerate(cases):
         for dtype in (torch.bfloat16, torch.float32):
             q, k, v = make_qkv(b, sq, sk, h, hkv, d, dtype, seed=i,
@@ -583,14 +653,23 @@ def phase_kernels(fa) -> dict:
                     ("7b_prefill", "7b_prefix", "7b_spec", TRAIN_SHAPE[0],
                      LLAMA_SHAPE[0])):
                 main_err = max(main_err, e_o)
-    errs = {"flash_fwd": main_err, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
+            if dtype == torch.bfloat16 and name.startswith(
+                    ("gemma2b_prefill", GEMMA_SHAPE[0])):
+                main_err_256 = max(main_err_256, e_o)
+    errs = {"flash_fwd": main_err, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0,
+            "flash_fwd<256>": main_err_256, "flash_bwd_dq<256>": 0.0,
+            "flash_bwd_dkv<256>": 0.0}
     for i, (name, *shape) in enumerate(BWD_SHAPES):
         for dtype in (torch.bfloat16, torch.float32):
             e_dq, e_dkv = check_backward(fa, name, *shape, dtype, seed=50 + i)
-            if dtype == torch.bfloat16 and name in (TRAIN_SHAPE[0],
-                                                    LLAMA_SHAPE[0]):
+            if dtype != torch.bfloat16:
+                continue
+            if name in (TRAIN_SHAPE[0], LLAMA_SHAPE[0]):
                 errs["flash_bwd_dq"] = max(errs["flash_bwd_dq"], e_dq)
                 errs["flash_bwd_dkv"] = max(errs["flash_bwd_dkv"], e_dkv)
+            elif name == GEMMA_SHAPE[0]:
+                errs["flash_bwd_dq<256>"] = e_dq
+                errs["flash_bwd_dkv<256>"] = e_dkv
     return errs
 
 
@@ -1596,8 +1675,10 @@ def kernel_times(fa, shape: tuple, seed: int, plain_too: bool = True):
     qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
                   for t in (q, k, v))
     mask = causal_lower_right(sq, sk) if causal else None
-    sdpa_fwd = time_ms(lambda: sdpa(qt, kt, vt, attn_mask=mask))
-    ot = sdpa(qt, kt, vt, attn_mask=mask)
+    gqa = h != hkv              # SDPA's own grouped route, no repeat
+    sdpa_fwd = time_ms(lambda: sdpa(qt, kt, vt, attn_mask=mask,
+                                    enable_gqa=gqa))
+    ot = sdpa(qt, kt, vt, attn_mask=mask, enable_gqa=gqa)
     dot = do.transpose(1, 2)
     sdpa_bwd = time_ms(lambda: torch.autograd.grad(
         ot, (qt, kt, vt), dot, retain_graph=True))
@@ -1625,12 +1706,13 @@ def per_launch(rows: list[dict], key: str) -> float:
 
 def kernel_entry(name: str, rows: list[dict], max_err: float) -> dict:
     """One kernel's object of the ``kernels`` line; times per launch over
-    the main paths' mix of shapes."""
+    the main paths' mix of shapes.  ``name<256>`` is the D = 256
+    instantiation, on phases 15 and 16."""
     source, replaces = {
         "flash_fwd": ("flash_fwd.cu", ":136"),
         "flash_bwd_dq": ("flash_bwd.cu", ":264"),
         "flash_bwd_dkv": ("flash_bwd.cu", ":282"),
-    }[name]
+    }[name.removesuffix("<256>")]
     bytes_ms, ops_ms = (per_launch(rows, k) for k in ("bytes_ms",
                                                        "operations_ms"))
     ms = per_launch(rows, "ms")
@@ -1735,6 +1817,51 @@ def phase_moe_training(fa) -> dict:
     check(peak < 0.9 * card, "MoE training peak memory over 90% of the card")
     return {**run, "moe_aux": values, "peak_gb": peak / 1e9,
             "peak_share": peak / card}
+
+
+def phase_gemma_serving(fa) -> dict:
+    """Phase 15: phase 2 on the Llama at Gemma-2B's widths (head_dim 256,
+    multi-query), K1 at D = 256 in every prefill chunk."""
+    t0 = time.perf_counter()
+    out = phase_serving(fa, GEMMA2B_WIDTHS, GEMMA_LABEL)
+    log(f"phase 15 ({GEMMA_LABEL}): {time.perf_counter() - t0:.1f}s")
+    return out
+
+
+def phase_gemma_training(fa) -> dict:
+    """Phase 16: the Llama at Gemma-2B's widths and full depth through the
+    worker entrypoint (K1 36, K2 and K3 18 launches a step at D = 256),
+    the in-step check and the step profile; peak memory under 90%."""
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    run = phase_training(fa, GEMMA_CONFIG, GEMMA_LAUNCHES, GEMMA_LABEL)
+    free_memory()
+    check_training_step(fa, GEMMA_CONFIG, GEMMA_LAUNCHES, GEMMA_LABEL)
+    peak = torch.cuda.max_memory_allocated()
+    card = torch.cuda.get_device_properties(0).total_memory
+    log(f"phase 16 peak memory (max_memory_allocated over the counted run "
+        f"and its checks): {peak / 1e9:.2f} GB, {100 * peak / card:.1f}% of "
+        f"the card's {card / 1e9:.2f} GB; {time.perf_counter() - t0:.1f}s")
+    check(peak < 0.9 * card, "phase 16 peak memory over 90% of the card")
+    free_memory()
+    return {**run, "peak_gb": peak / 1e9, "peak_share": peak / card}
+
+
+def gemma_numbers(fa, serving: dict | None, training: dict | None) -> dict:
+    """K1's rows at phase 15's shapes and K1, K2 and K3's at phase 16's,
+    with the launches of those runs (None: the phase did not run)."""
+    out = {}
+    if serving is not None:
+        out["serving"] = phase_numbers(fa, gemma_path_shapes(),
+                                       num_layers=GEMMA_LAYERS)
+        check(serving["launches"]
+              == sum(r["launches"] for r in out["serving"]),
+              "phase 15 launches")
+    if training is not None:
+        out["training"] = training_numbers(fa, GEMMA_SHAPE,
+                                           training["launches"],
+                                           GEMMA_LAUNCHES)
+    return out
 
 
 def spec_prompts(vocab: int) -> list[list[int]]:
@@ -2069,7 +2196,8 @@ def k1_times(fa, b, sq, sk, h, hkv, d, causal) -> tuple[float, float, float]:
     set_counters(fa, saved)                      # timing is not the path
     plain_ms = time_ms(
         lambda: fa.flash_attention_reference(q, k, v, causal=causal))
-    library_ms = time_ms(lambda: sdpa(qt, kt, vt, attn_mask=mask))
+    library_ms = time_ms(lambda: sdpa(qt, kt, vt, attn_mask=mask,
+                                      enable_gqa=h != hkv))
     return ms, plain_ms, library_ms
 
 
@@ -3298,13 +3426,22 @@ def kernel_times_only(fa) -> int:
 
 def some_phases(fa, which: str) -> int:
     """``--phases 9,12,13``: build and check the kernels (phase 1), then
-    the named phases (9 to 14); prints no result line."""
+    the named phases (9 to 16); prints no result line."""
     wanted = {int(w) for w in which.split(",") if w}
-    if not wanted <= {9, 10, 11, 12, 13, 14}:
-        print(f"chip_smoke: --phases takes 9, 10, 11, 12, 13 and 14, not "
-              f"{which}", file=sys.stderr)
+    if not wanted <= set(range(9, 17)):
+        print(f"chip_smoke: --phases takes 9 to 16, not {which}",
+              file=sys.stderr)
         return 2
     phase_kernels(fa)
+    gemma = {}
+    if 15 in wanted:
+        gemma["serving"] = phase_gemma_serving(fa)
+        free_memory()
+    if 16 in wanted:
+        gemma["training"] = phase_gemma_training(fa)
+    if gemma:
+        log(card_line())
+        gemma_numbers(fa, gemma.get("serving"), gemma.get("training"))
     if 14 in wanted:
         fleet = phase_fleet(fa)
         free_memory()
@@ -3369,6 +3506,8 @@ def main(argv: list[str]) -> int:
     free_memory()
     fleet = phase_fleet(fa, serving["streams"])
     free_memory()
+    gemma_serving = phase_gemma_serving(fa)
+    free_memory()
     log(f"before training: {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
         f"allocated on the card")
     bert = phase_training(fa, TRAIN_CONFIG, TRAIN_LAUNCHES, "BERT-large")
@@ -3387,6 +3526,8 @@ def main(argv: list[str]) -> int:
         f"the card's {card / 1e9:.2f} GB")
     free_memory()
     moe_train = phase_moe_training(fa)
+    free_memory()
+    gemma_train = phase_gemma_training(fa)
     vision = phase_vision(fa)
     log(card_line())
     serving_rows = phase_numbers(fa, main_path_shapes(), num_layers=32)
@@ -3397,6 +3538,7 @@ def main(argv: list[str]) -> int:
                                   LLAMA_LAUNCHES)
     spec_rows = spec_numbers(fa, spec["shapes"])
     fleet_rows = fleet_numbers(fa, fleet["calls"])
+    gemma_rows = gemma_numbers(fa, gemma_serving, gemma_train)
     causal_numbers(fa)
     log(f"phase 2: TTFT mean {serving['ttft_mean_s'] * 1e3:.1f} ms over the "
         f"4 concurrent requests; decode "
@@ -3466,6 +3608,10 @@ def main(argv: list[str]) -> int:
         f"{moe_train['peak_gb']:.2f} GB), "
         + ", ".join(f"{m} {r['samples_per_sec']:.1f}"
                     for m, r in vision.items())
+        + f", {GEMMA_LABEL} {gemma_train['samples_per_sec']:.3f} (peak "
+        f"{gemma_train['peak_gb']:.2f} GB); phase 15: TTFT mean "
+        f"{gemma_serving['ttft_mean_s'] * 1e3:.1f} ms, decode "
+        f"{gemma_serving['decode_tok_per_s']:.1f} tok/s over 4 slots"
         + f"; total {time.perf_counter() - t_start:.1f}s")
     check(serving["launches"] == sum(r["launches"] for r in serving_rows),
           "serving launches")
@@ -3497,6 +3643,11 @@ def main(argv: list[str]) -> int:
     kernels += [kernel_entry(name, [bert_rows[name], llama_rows[name],
                                     moe_train_rows[name]], errs[name])
                 for name in ("flash_bwd_dq", "flash_bwd_dkv")]
+    # the D = 256 instantiations: K1 on phases 15 and 16, K2 and K3 on 16
+    train_256 = gemma_rows["training"]
+    kernels += [kernel_entry(f"{name}<256>", (
+        gemma_rows["serving"] if name == "flash_fwd" else [])
+        + [train_256[name]], errs[f"{name}<256>"]) for name in KERNEL_NAMES]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -117,19 +117,27 @@ struct BwdParams {
 // each work tile owns its rows, so dQ is the same bits on every run.
 template <int D>
 struct DqTiles {
-  // keys per tile: a consumer holds dQ (D / 2 registers), S and dP (BK / 2
-  // each) and dS packed (BK / 4), all live while dQ(t-1) is in flight:
-  // 112 registers at D = 64 with 64-key tiles, 104 at D = 128 with 32-key
-  // tiles, within ptxas's 168 (64-key tiles at D = 128 would need 144).
-  static constexpr int BQ = 128, BK = D == 128 ? 32 : 64, STAGES = 4;
+  // keys per tile: a consumer holds dQ (D / 2 accumulator values a
+  // thread), S and dP (BK / 2 each) and dS packed (BK / 4), all live while
+  // dQ(t-1) is in flight: 112 values at D = 64 with 64-key tiles, 104 at
+  // D = 128 and 168 at D = 256 with 32-key tiles, within the 232
+  // registers a consumer has after setmaxnreg.inc (flash_hopper.cuh).
+  // At D = 256 each consumer keeps its own 64 query rows and all of D (no
+  // split of D between the consumers, which would form S and dP twice),
+  // three stages fit beside Q and dO, and dQ goes out through Q's buffer.
+  static constexpr int BQ = 128, BK = D == 64 ? 64 : 32;
+  static constexpr int STAGES = D == 256 ? 3 : 4;
+  static constexpr bool DQ_IN_Q = D == 256;  // Q's rows take dQ once read
   static constexpr int Q_HALF = BQ * BOX_BYTES;   // one 64-column box
   static constexpr int KV_HALF = BK * BOX_BYTES;
   static constexpr int Q_BYTES = BQ * D * 2, KV_BYTES = BK * D * 2;
   static constexpr int OFF_DO = Q_BYTES;
   static constexpr int OFF_K = 2 * Q_BYTES;
   static constexpr int OFF_V = OFF_K + STAGES * KV_BYTES;
-  static constexpr int OFF_DQ = OFF_V + STAGES * KV_BYTES;  // laid out as Q
-  static constexpr int OFF_BAR = OFF_DQ + Q_BYTES;
+  static constexpr int OFF_DQ =  // laid out as Q
+      DQ_IN_Q ? 0 : OFF_V + STAGES * KV_BYTES;
+  static constexpr int OFF_BAR =
+      OFF_V + STAGES * KV_BYTES + (DQ_IN_Q ? 0 : Q_BYTES);
   // barriers: q_full, q_empty, full[STAGES], empty[STAGES]
   static constexpr int SMEM = OFF_BAR + 8 * (2 + 2 * STAGES) + 1024;  // +align
 };
@@ -223,7 +231,8 @@ __global__ void __launch_bounds__(3 * WG, 1)
     const float scale2 = p.scale * LOG2E;
     const uint32_t q_rows = sq_tile + c * 64 * BOX_BYTES;  // A of S
     const uint32_t do_rows = sdo_tile + c * 64 * BOX_BYTES;  // A of dP
-    const uint32_t dq_rows = sdq_tile + c * 64 * BOX_BYTES;
+    const uint32_t dq_rows =
+        T::DQ_IN_Q ? q_rows : sdq_tile + c * 64 * BOX_BYTES;
 
     float dq[D / 2];
     float sc[BK / 2], dp[BK / 2];  // S(t); dP(t), then dS(t) / scale
@@ -298,8 +307,17 @@ __global__ void __launch_bounds__(3 * WG, 1)
         for (int kk = 0; kk < BK / 16; ++kk) {
           const uint64_t db =
               desc_sw128(kt + kk * 16 * BOX_BYTES, T::KV_HALF, 1024);
-          if constexpr (D == 128) wgmma_rs_n128(dq, dsa[kk], db, 1);
-          else wgmma_rs_n64(dq, dsa[kk], db, 1);
+          if constexpr (D == 256) {  // two n128 halves, two boxes apart
+            wgmma_rs_n128(part<0, 64>(dq), dsa[kk], db, 1);
+            wgmma_rs_n128(part<1, 64>(dq), dsa[kk],
+                          desc_sw128(kt + 2 * T::KV_HALF + kk * 16 * BOX_BYTES,
+                                     T::KV_HALF, 1024),
+                          1);
+          } else if constexpr (D == 128) {
+            wgmma_rs_n128(dq, dsa[kk], db, 1);
+          } else {
+            wgmma_rs_n64(dq, dsa[kk], db, 1);
+          }
         }
         wgmma_commit();
       };
@@ -375,7 +393,9 @@ __global__ void __launch_bounds__(3 * WG, 1)
           pack_ds();
         }
       }
-      arrive(q_empty);  // no more S or dP products: the next Q and dO may load
+      // no more S or dP products: the next Q and dO may load (under DQ_IN_Q
+      // once dQ has gone out through this consumer's rows of Q)
+      if constexpr (!T::DQ_IN_Q) arrive(q_empty);
       if (my_tiles > 0) {
         const int last = my_tiles - 1;  // its dS K
         fence_regs(dq);
@@ -399,6 +419,10 @@ __global__ void __launch_bounds__(3 * WG, 1)
                   ((int64_t)x.b * p.sq + row0) * ld + (int64_t)x.hq * D;
       store_tile_bf16<D>(dq, mul, dq_rows, T::Q_HALF, dqg, ld,
                          min(64, p.sq - row0), 1 + c);
+      if constexpr (T::DQ_IN_Q) {  // the rows were read: TMA may refill them
+        fence_proxy_async();
+        arrive(q_empty);
+      }
     }
   }
 }
@@ -457,8 +481,9 @@ cudaError_t launch_dq_wgmma(const BwdParams& p, int batch, int d,
 // then one lane per warp releases the stage.  dS^T is formed and its
 // product issued before P^T is packed, so S^T and dP^T die early: the
 // peak is the 64 accumulator registers of dK and dV plus the 64 of S^T
-// and dP^T (at D = 64; D = 128 splits, below).  The loop visits, for each of the G query heads of
-// the kv head, each query tile from the first that sees the key tile
+// and dP^T (at D = 64; D = 128 and 256 split D, and 256 takes dK and dV
+// in two sweeps, below).  A sweep visits, for each of the G query heads
+// of the kv head, each query tile from the first that sees the key tile
 // (causal), so dK and dV sum over the group in registers, with no atomics;
 // a consumer skips the products of tiles that see none of its own keys.
 // Tail query columns past Sq are masked to a weight of 0 (their Q and dO
@@ -472,13 +497,23 @@ cudaError_t launch_dq_wgmma(const BwdParams& p, int batch, int d,
 // rounding residue of 1e22, whose exp2 is 0 or infinity.
 template <int D>
 struct DkvTiles {
-  // At D = 128 the two consumers split D instead of the keys: each owns
-  // all 64 keys of the block and half of dK's and dV's columns, and both
-  // form the same S^T and dP^T.  One consumer holding 128 accumulator
-  // registers of dK and dV next to the 64 of S^T and dP^T spills
-  // (ptxas), so D = 128 pays 1.5x the products for no spill.
-  static constexpr bool SPLIT = D == 128;
+  // Registers.  ptxas holds this kernel's consumers to 168 registers
+  // whatever setmaxnreg.inc asks (its SASS never past R170, where K1's and
+  // K2's reach R205 and more; the cause is not known).  One consumer
+  // holding all of dK and dV (D accumulator values a thread) next to the
+  // 64 of S^T and dP^T spills from D = 128 on, so at 128 and 256 the two
+  // consumers split D instead of the keys: each owns all 64 keys of the
+  // block and half of dK's and dV's columns, and both form the same S^T
+  // and dP^T, 1.5x the products.  At D = 256 the split sweep still
+  // spilled (128 values of dK and dV beside 64, at 64- and 32-query
+  // tiles), so two sweeps over the query tiles: dK (S^T, dP^T, dS^T Q:
+  // 144 values, K3<128>'s profile), then dV (S^T, P^T dO: 112).  The dV
+  // sweep forms S^T again and reads Q and dO again: per 64 x 64 tile and
+  // consumer 3 D-deep products and 2 of 128 columns, 2x the 4 D a block
+  // needs.
+  static constexpr bool SPLIT = D >= 128;
   static constexpr int BKEY = SPLIT ? 64 : 128, BQR = 64, STAGES = 2;
+  static constexpr bool TWO_PASS = D == 256;
   static constexpr int DO = SPLIT ? D / 2 : D;      // dK / dV columns owned
   static constexpr int KV_HALF = BKEY * BOX_BYTES;  // one 64-column box
   static constexpr int Q_HALF = BQR * BOX_BYTES;
@@ -493,6 +528,9 @@ struct DkvTiles {
   // barriers: kv_full, full[STAGES], empty[STAGES]
   static constexpr int SMEM = OFF_BAR + 8 * (1 + 2 * STAGES) + 1024;  // +align
 };
+
+// what one sweep of flash_bwd_dkv_bf16_wgmma accumulates
+enum DkvSweep { BOTH, DK_ONLY, DV_ONLY };
 
 struct DkvArgs {
   CUtensorMap q, k, v, dout, lse, delta;  // 64-byte aligned members first
@@ -545,11 +583,13 @@ __global__ void __launch_bounds__(3 * WG, 1)
         tma_load_4d(sk + h * T::KV_HALF, &a.k, kv_full, 64 * h, hk, k0, b);
         tma_load_4d(sv + h * T::KV_HALF, &a.v, kv_full, 64 * h, hk, k0, b);
       }
-      for (int it = 0; it < n_iter; ++it) {
-        const int s = it % STAGES;
+      for (int it = 0; it < (T::TWO_PASS ? 2 : 1) * n_iter; ++it) {
+        // i: the tile of the sweep (a division less for one sweep: this
+        // thread's latency per tile shows in a 2-stage ring)
+        const int s = it % STAGES, i = T::TWO_PASS ? it % n_iter : it;
         if (it >= STAGES) mbar_wait(empty(s), ((it / STAGES) - 1) & 1);
-        const int hq = hk * p.group + it / per_head;
-        const int q0 = (first + it % per_head) * T::BQR;
+        const int hq = hk * p.group + i / per_head;
+        const int q0 = (first + i % per_head) * T::BQR;
         const int row = (b * p.h + hq) * p.sq + q0;  // of lse and delta
         mbar_expect_tx(full(s), 2 * T::Q_BYTES + 2 * T::ROW_BOX * 4);
         for (int h = 0; h < D / 64; ++h) {
@@ -571,130 +611,173 @@ __global__ void __launch_bounds__(3 * WG, 1)
     const float scale2 = p.scale * LOG2E;
     const uint32_t kv_row = T::SPLIT ? 0 : c * 64 * BOX_BYTES;
     const uint32_t k_rows = sk + kv_row, v_rows = sv + kv_row;  // A of S^T
-    const uint32_t b_col = T::SPLIT ? c * T::Q_HALF : 0;  // B of dK, dV
+    const uint32_t b_col =  // B of dK, dV: this consumer's DO columns
+        T::SPLIT ? c * (T::DO / 64) * T::Q_HALF : 0;
     const int kpos[2] = {kc0 + 16 * warp + g, kc0 + 16 * warp + g + 8};
+    constexpr int NQ = T::BQR;  // query columns of S^T and dP^T
+    static_assert(NQ == 64, "S^T and dP^T are m64n64 products");
 
-    float dk[T::DO / 2], dv[T::DO / 2];
+    // One sweep over the query tiles, from ring iteration it0, adding
+    // dS^T Q into dk (when the sweep forms dS) and P^T dO into dv (when
+    // it forms P V's gradient); a dK-only sweep passes dk twice.
+    auto sweep = [&](auto what, int it0, float (&dk)[T::DO / 2],
+                     float (&dv)[T::DO / 2]) {
+      constexpr bool DS = decltype(what)::value != DV_ONLY;
+      constexpr bool PV = decltype(what)::value != DK_ONLY;
+      for (int i = 0; i < n_iter; ++i) {
+        const int it = it0 + i, s = it % STAGES;
+        mbar_wait(full(s), (it / STAGES) & 1);
+        const int hq = hk * p.group + i / per_head;
+        const int qt = first + i % per_head, q0 = qt * T::BQR;
+        if (qt >= my_first && kc0 < p.sk) {
+          float st[NQ / 2], dpt[NQ / 2];
+          // K and V stay put, so their D / 8 descriptors are the same on
+          // every iteration, and the compiler would hoist them out of the
+          // loop: 64 registers at D = 256, which the consumer does not
+          // have.  There they are formed anew from an opaque base.
+          const uint32_t k_at = D == 256 ? opaque(k_rows) : k_rows;
+          const uint32_t v_at = D == 256 && DS ? opaque(v_rows) : v_rows;
+          fence_regs(st);
+          if constexpr (DS) fence_regs(dpt);
+          wgmma_fence();
 #pragma unroll
-    for (int i = 0; i < T::DO / 2; ++i) dk[i] = dv[i] = 0.f;
+          for (int kk = 0; kk < D / 16; ++kk) {
+            const uint32_t off = (kk % 4) * 32;  // 16 columns of a box row
+            const uint32_t kq = (kk / 4) * T::KV_HALF + off;
+            const uint32_t qq = (kk / 4) * T::Q_HALF + off;
+            wgmma_ss_n64(st, desc_sw128(k_at + kq, 16, 1024),
+                         desc_sw128(sq_tile(s) + qq, 16, 1024), kk > 0);
+            if constexpr (DS)
+              wgmma_ss_n64(dpt, desc_sw128(v_at + kq, 16, 1024),
+                           desc_sw128(sdo_tile(s) + qq, 16, 1024), kk > 0);
+          }
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(st);
+          if constexpr (DS) fence_regs(dpt);
 
-    mbar_wait(kv_full, 0);
-    for (int it = 0; it < n_iter; ++it) {
-      const int s = it % STAGES;
-      mbar_wait(full(s), (it / STAGES) & 1);
-      const int hq = hk * p.group + it / per_head;
-      const int qt = first + it % per_head, q0 = qt * T::BQR;
-      if (qt >= my_first && kc0 < p.sk) {
-        float st[32], dpt[32];
-        fence_regs(st);
-        fence_regs(dpt);
-        wgmma_fence();
+          // element 4j + 2r + e: key row kpos[r], query column 8j + 2t4 + e.
+          // P^T in st, dS^T / scale in dpt (the epilogue scales dK).  Only
+          // a tile that reaches past Sq or below the diagonal tests the
+          // mask.
+          const uint32_t rows =  // lse, then delta (flash_hopper.cuh, "Rows")
+              slse(s) + 4 * (((b * p.h + hq) * p.sq + q0) & 3);
+          auto weights = [&](auto masked) {
 #pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk) {
-          const uint32_t off = (kk % 4) * 32;  // 16 columns of a box row
-          const uint32_t kq = (kk / 4) * T::KV_HALF + off;
-          const uint32_t qq = (kk / 4) * T::Q_HALF + off;
-          wgmma_ss_n64(st, desc_sw128(k_rows + kq, 16, 1024),
-                       desc_sw128(sq_tile(s) + qq, 16, 1024), kk > 0);
-          wgmma_ss_n64(dpt, desc_sw128(v_rows + kq, 16, 1024),
-                       desc_sw128(sdo_tile(s) + qq, 16, 1024), kk > 0);
-        }
-        wgmma_commit();
-        wgmma_wait<0>();
-        fence_regs(st);
-        fence_regs(dpt);
-
-        // element 4j + 2r + e: key row kpos[r], query column 8j + 2t4 + e.
-        // P^T in st, dS^T / scale in dpt (the epilogue scales dK).  Only a
-        // tile that reaches past Sq or below the diagonal tests the mask.
-        const uint32_t rows =  // lse, then delta (flash_hopper.cuh, "Rows")
-            slse(s) + 4 * (((b * p.h + hq) * p.sq + q0) & 3);
-        auto weights = [&](auto masked) {
+            for (int j = 0; j < NQ / 8; ++j)
 #pragma unroll
-          for (int j = 0; j < 8; ++j)
-#pragma unroll
-            for (int e = 0; e < 2; ++e) {
-              const int col = 8 * j + 2 * t4 + e, qi = q0 + col;
-              const float lse = lds_f32(rows + 4 * col);
-              const float dl = lds_f32(rows + T::ROW_BYTES + 4 * col);
-              const float l2 = lse * LOG2E;
-              float pm = 0.f;  // the weight of a masked entry
-              if constexpr (decltype(masked)::value)
-                if (qi < p.sq) pm = ex2((NEG_INF - lse) * LOG2E);
-#pragma unroll
-              for (int r = 0; r < 2; ++r) {
-                const int i = 4 * j + 2 * r + e;
-                float pv = ex2(st[i] * scale2 - l2);
+              for (int e = 0; e < 2; ++e) {
+                const int col = 8 * j + 2 * t4 + e, qi = q0 + col;
+                const float lse = lds_f32(rows + 4 * col);
+                float dl = 0.f;
+                if constexpr (DS) dl = lds_f32(rows + T::ROW_BYTES + 4 * col);
+                const float l2 = lse * LOG2E;
+                float pm = 0.f;  // the weight of a masked entry
                 if constexpr (decltype(masked)::value)
-                  if (qi >= p.sq || (p.causal && kpos[r] > qi + offset))
-                    pv = pm;
-                st[i] = pv;
-                dpt[i] = pv * (dpt[i] - dl);
+                  if (qi < p.sq) pm = ex2((NEG_INF - lse) * LOG2E);
+#pragma unroll
+                for (int r = 0; r < 2; ++r) {
+                  const int i = 4 * j + 2 * r + e;
+                  float pv = ex2(st[i] * scale2 - l2);
+                  if constexpr (decltype(masked)::value)
+                    if (qi >= p.sq || (p.causal && kpos[r] > qi + offset))
+                      pv = pm;
+                  st[i] = pv;
+                  if constexpr (DS) dpt[i] = pv * (dpt[i] - dl);
+                }
               }
+          };
+          if (q0 + T::BQR > p.sq || (p.causal && kc0 + 63 > q0 + offset))
+            weights(std::true_type{});
+          else
+            weights(std::false_type{});
+
+          if constexpr (DS) {
+            uint32_t dsa[NQ / 16][4];  // dS^T as the A fragments of dS^T Q
+#pragma unroll
+            for (int kk = 0; kk < NQ / 16; ++kk)
+#pragma unroll
+              for (int i = 0; i < 4; ++i)
+                dsa[kk][i] =
+                    pack2_bf16(dpt[8 * kk + 2 * i], dpt[8 * kk + 2 * i + 1]);
+            fence_regs(dk);
+            wgmma_fence();
+#pragma unroll
+            for (int kk = 0; kk < NQ / 16; ++kk) {  // queries 16kk .. + 15
+              const uint64_t dq = desc_sw128(
+                  sq_tile(s) + b_col + kk * 16 * BOX_BYTES, T::Q_HALF, 1024);
+              if constexpr (T::DO == 128) wgmma_rs_n128(dk, dsa[kk], dq, 1);
+              else wgmma_rs_n64(dk, dsa[kk], dq, 1);
             }
-        };
-        if (q0 + T::BQR > p.sq || (p.causal && kc0 + 63 > q0 + offset))
-          weights(std::true_type{});
-        else
-          weights(std::false_type{});
-
-        uint32_t dsa[4][4];  // dS^T as the A fragments of dS^T Q
+            wgmma_commit();
+          }
+          if constexpr (PV) {
+            uint32_t pa[NQ / 16][4];
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk)
+            for (int kk = 0; kk < NQ / 16; ++kk)
 #pragma unroll
-          for (int i = 0; i < 4; ++i)
-            dsa[kk][i] = pack2_bf16(dpt[8 * kk + 2 * i], dpt[8 * kk + 2 * i + 1]);
-        fence_regs(dk);
-        wgmma_fence();
+              for (int i = 0; i < 4; ++i)
+                pa[kk][i] =
+                    pack2_bf16(st[8 * kk + 2 * i], st[8 * kk + 2 * i + 1]);
+            fence_regs(dv);
+            wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {  // queries 16kk .. 16kk + 15
-          const uint64_t dq = desc_sw128(
-              sq_tile(s) + b_col + kk * 16 * BOX_BYTES, T::Q_HALF, 1024);
-          if constexpr (T::DO == 128) wgmma_rs_n128(dk, dsa[kk], dq, 1);
-          else wgmma_rs_n64(dk, dsa[kk], dq, 1);
+            for (int kk = 0; kk < NQ / 16; ++kk) {
+              const uint64_t ddo = desc_sw128(
+                  sdo_tile(s) + b_col + kk * 16 * BOX_BYTES, T::Q_HALF, 1024);
+              if constexpr (T::DO == 128) wgmma_rs_n128(dv, pa[kk], ddo, 1);
+              else wgmma_rs_n64(dv, pa[kk], ddo, 1);
+            }
+            wgmma_commit();
+          }
+          wgmma_wait<0>();
+          if constexpr (DS) fence_regs(dk);
+          if constexpr (PV) fence_regs(dv);
         }
-        wgmma_commit();
-        uint32_t pa[4][4];
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-            pa[kk][i] = pack2_bf16(st[8 * kk + 2 * i], st[8 * kk + 2 * i + 1]);
-        fence_regs(dv);
-        wgmma_fence();
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
-          const uint64_t ddo = desc_sw128(
-              sdo_tile(s) + b_col + kk * 16 * BOX_BYTES, T::Q_HALF, 1024);
-          if constexpr (T::DO == 128) wgmma_rs_n128(dv, pa[kk], ddo, 1);
-          else wgmma_rs_n64(dv, pa[kk], ddo, 1);
-        }
-        wgmma_commit();
-        wgmma_wait<0>();
-        fence_regs(dk);
-        fence_regs(dv);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty(s));  // the stage may be refilled
       }
-      __syncwarp();
-      if (lane == 0) mbar_arrive(empty(s));  // the stage may be refilled
-    }
+    };
 
-    // epilogue: dK (times the scale) and dV in bf16 through the consumer's
-    // part of the K and V tiles: its rows, or under SPLIT its box, once
-    // both consumers have done reading K and V
-    if constexpr (T::SPLIT) named_sync<2 * WG>(3);
-    const float scale[2] = {p.scale, p.scale}, one[2] = {1.f, 1.f};
-    const int64_t out_ss = (int64_t)p.hkv * D;
-    const int64_t out0 = (((int64_t)b * p.sk + kc0) * p.hkv + hk) * D +
-                         (T::SPLIT ? 64 * c : 0);
-    const uint32_t k_out = T::SPLIT ? sk + c * T::KV_HALF : k_rows;
-    const uint32_t v_out = T::SPLIT ? sv + c * T::KV_HALF : v_rows;
-    const int valid = min(64, p.sk - kc0);
-    store_tile_bf16<T::DO>(dk, scale, k_out, T::KV_HALF,
-                           static_cast<bf16*>(p.dk) + out0, out_ss, valid,
-                           1 + c);
-    store_tile_bf16<T::DO>(dv, one, v_out, T::KV_HALF,
-                           static_cast<bf16*>(p.dv) + out0, out_ss, valid,
-                           1 + c);
+    // epilogue: dK (times the scale, dk_) or dV in bf16 through the
+    // consumer's part of a K or V tile that both consumers have done
+    // reading (its rows, or under SPLIT its box), addressed only once the
+    // sweep is over
+    auto store = [&](float (&acc)[T::DO / 2], bool dk_, uint32_t tile) {
+      const float mul[2] = {dk_ ? p.scale : 1.f, dk_ ? p.scale : 1.f};
+      const int64_t out0 = (((int64_t)b * p.sk + kc0) * p.hkv + hk) * D +
+                           (T::SPLIT ? T::DO * c : 0);
+      const uint32_t part =
+          T::SPLIT ? c * (T::DO / 64) * T::KV_HALF : kv_row;
+      store_tile_bf16<T::DO>(acc, mul, tile + part, T::KV_HALF,
+                             static_cast<bf16*>(dk_ ? p.dk : p.dv) + out0,
+                             (int64_t)p.hkv * D, min(64, p.sk - kc0), 1 + c);
+    };
+    mbar_wait(kv_full, 0);
+    if constexpr (!T::TWO_PASS) {
+      float dk[T::DO / 2], dv[T::DO / 2];
+#pragma unroll
+      for (int i = 0; i < T::DO / 2; ++i) dk[i] = dv[i] = 0.f;
+      sweep(std::integral_constant<int, BOTH>{}, 0, dk, dv);
+      if constexpr (T::SPLIT) named_sync<2 * WG>(3);
+      store(dk, true, sk);
+      store(dv, false, sv);
+    } else {
+      {  // dK, then out through V, which the dV sweep does not read
+        float dk[T::DO / 2];
+#pragma unroll
+        for (int i = 0; i < T::DO / 2; ++i) dk[i] = 0.f;
+        sweep(std::integral_constant<int, DK_ONLY>{}, 0, dk, dk);
+        named_sync<2 * WG>(3);
+        store(dk, true, sv);
+      }
+      float dv[T::DO / 2];
+#pragma unroll
+      for (int i = 0; i < T::DO / 2; ++i) dv[i] = 0.f;
+      sweep(std::integral_constant<int, DV_ONLY>{}, n_iter, dv, dv);
+      named_sync<2 * WG>(3);
+      store(dv, false, sk);
+    }
   }
 }
 
@@ -735,23 +818,31 @@ cudaError_t launch_dkv_wgmma(const BwdParams& p, int batch, int d,
 // score of a pair is one fmaf per d in order, as there.  Tiles are padded
 // by one word per row against bank conflicts.
 
+// Keys per tile of dq, queries per tile of dkv: 64, and 32 at D = 256,
+// where 64 would need 280,320 and 296,960 B of shared memory (232,448 B
+// is a block's most).
+template <int D>
+constexpr int F32_TILE = D == 256 ? 32 : 64;
+
 template <int D>
 constexpr size_t dq_f32_smem_bytes() {  // Q, dO, K, V, dS, lse, delta
-  return sizeof(float) * (size_t)(2 * BQ * (D + 1) + 2 * BK * (D + 1) +
-                                  BQ * (BK + 1) + 2 * BQ);
+  constexpr int BKT = F32_TILE<D>;
+  return sizeof(float) * (size_t)(2 * BQ * (D + 1) + 2 * BKT * (D + 1) +
+                                  BQ * (BKT + 1) + 2 * BQ);
 }
 
 template <int D>
 __global__ void __launch_bounds__(F32_THREADS)
     flash_bwd_dq_f32(const BwdParams p) {
   constexpr int CPT = D / 16, LD = D + 1;
+  constexpr int BKT = F32_TILE<D>, KPT = BKT / 16;  // keys, keys a thread
   extern __shared__ float smem[];
   float* qs = smem;              // [BQ][LD], pre-scaled
   float* dos = qs + BQ * LD;     // [BQ][LD]
-  float* ks = dos + BQ * LD;     // [BK][LD]
-  float* vs = ks + BK * LD;      // [BK][LD]
-  float* dss = vs + BK * LD;     // [BQ][BK + 1]
-  float* lse = dss + BQ * (BK + 1);
+  float* ks = dos + BQ * LD;     // [BKT][LD]
+  float* vs = ks + BKT * LD;     // [BKT][LD]
+  float* dss = vs + BKT * LD;    // [BQ][BKT + 1]
+  float* lse = dss + BQ * (BKT + 1);
   float* delta = lse + BQ;
 
   const int tid = threadIdx.x, rg = tid / 16, cg = tid % 16;
@@ -779,10 +870,10 @@ __global__ void __launch_bounds__(F32_THREADS)
         qi < p.sq ? src[((int64_t)b * p.h + hq) * p.sq + qi] : 0.f;
   }
 
-  int n_tiles = (p.sk + BK - 1) / BK;
+  int n_tiles = (p.sk + BKT - 1) / BKT;
   if (p.causal) {
     const int last_key = min(q0 + BQ, p.sq) - 1 + offset;
-    n_tiles = min(n_tiles, last_key < 0 ? 0 : last_key / BK + 1);
+    n_tiles = min(n_tiles, last_key < 0 ? 0 : last_key / BKT + 1);
   }
 
   float acc[4][CPT];
@@ -792,8 +883,8 @@ __global__ void __launch_bounds__(F32_THREADS)
     for (int c = 0; c < CPT; ++c) acc[i][c] = 0.f;
 
   for (int tile = 0; tile < n_tiles; ++tile) {
-    const int k0 = tile * BK;
-    for (int i = tid; i < BK * D; i += F32_THREADS) {
+    const int k0 = tile * BKT;
+    for (int i = tid; i < BKT * D; i += F32_THREADS) {
       const int r = i / D, d = i % D, kj = k0 + r;
       const bool ok = kj < p.sk;
       ks[r * LD + d] = ok ? kg[(int64_t)kj * p.k_ss + d] : 0.f;
@@ -801,28 +892,28 @@ __global__ void __launch_bounds__(F32_THREADS)
     }
     __syncthreads();
 
-    float s[4][4], dp[4][4];
+    float s[4][KPT], dp[4][KPT];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+      for (int j = 0; j < KPT; ++j) s[i][j] = dp[i][j] = 0.f;
 #pragma unroll 4
     for (int d = 0; d < D; ++d) {
-      float qv[4], ov[4], kv[4], vv[4];
+      float qv[4], ov[4], kv[KPT], vv[KPT];
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         qv[i] = qs[(rg * 4 + i) * LD + d];
         ov[i] = dos[(rg * 4 + i) * LD + d];
       }
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < KPT; ++j) {
         kv[j] = ks[(cg + 16 * j) * LD + d];
         vv[j] = vs[(cg + 16 * j) * LD + d];
       }
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int j = 0; j < KPT; ++j) {
           s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
           dp[i][j] = fmaf(ov[i], vv[j], dp[i][j]);
         }
@@ -831,21 +922,21 @@ __global__ void __launch_bounds__(F32_THREADS)
     for (int i = 0; i < 4; ++i) {
       const int r = rg * 4 + i, qpos = q0 + r + offset;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < KPT; ++j) {
         const int kj = k0 + cg + 16 * j;
         const float sv =
             (kj >= p.sk || (p.causal && kj > qpos)) ? NEG_INF : s[i][j];
         const float pv = expf(sv - lse[r]);
-        dss[r * (BK + 1) + cg + 16 * j] = pv * (dp[i][j] - delta[r]) * p.scale;
+        dss[r * (BKT + 1) + cg + 16 * j] = pv * (dp[i][j] - delta[r]) * p.scale;
       }
     }
     __syncthreads();
 
 #pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {
+    for (int kk = 0; kk < BKT; ++kk) {
       float dsv[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) dsv[i] = dss[(rg * 4 + i) * (BK + 1) + kk];
+      for (int i = 0; i < 4; ++i) dsv[i] = dss[(rg * 4 + i) * (BKT + 1) + kk];
 #pragma unroll
       for (int c = 0; c < CPT; ++c) {
         const float kv = ks[kk * LD + cg + 16 * c];
@@ -867,23 +958,25 @@ __global__ void __launch_bounds__(F32_THREADS)
 
 template <int D>
 constexpr size_t dkv_f32_smem_bytes() {  // K, V, Q, dO, P^T, dS^T, rows
-  return sizeof(float) * (size_t)(2 * BK * (D + 1) + 2 * BQ * (D + 1) +
-                                  2 * BK * (BQ + 1) + 2 * BQ);
+  constexpr int BQT = F32_TILE<D>;
+  return sizeof(float) * (size_t)(2 * BK * (D + 1) + 2 * BQT * (D + 1) +
+                                  2 * BK * (BQT + 1) + 2 * BQT);
 }
 
 template <int D>
 __global__ void __launch_bounds__(F32_THREADS)
     flash_bwd_dkv_f32(const BwdParams p) {
   constexpr int CPT = D / 16, LD = D + 1;
+  constexpr int BQT = F32_TILE<D>, QPT = BQT / 16;  // queries, a thread's
   extern __shared__ float smem[];
   float* ks = smem;              // [BK][LD]
   float* vs = ks + BK * LD;      // [BK][LD]
-  float* qs = vs + BK * LD;      // [BQ][LD], pre-scaled
-  float* dos = qs + BQ * LD;     // [BQ][LD]
-  float* pts = dos + BQ * LD;    // [BK][BQ + 1]: P^T
-  float* dst = pts + BK * (BQ + 1);  // [BK][BQ + 1]: dS^T / scale
-  float* lse = dst + BK * (BQ + 1);
-  float* delta = lse + BQ;
+  float* qs = vs + BK * LD;      // [BQT][LD], pre-scaled
+  float* dos = qs + BQT * LD;    // [BQT][LD]
+  float* pts = dos + BQT * LD;   // [BK][BQT + 1]: P^T
+  float* dst = pts + BK * (BQT + 1);  // [BK][BQT + 1]: dS^T / scale
+  float* lse = dst + BK * (BQT + 1);
+  float* delta = lse + BQT;
 
   const int tid = threadIdx.x, rg = tid / 16, cg = tid % 16;
   const int k0 = blockIdx.x * BK;
@@ -903,8 +996,8 @@ __global__ void __launch_bounds__(F32_THREADS)
     vs[r * LD + d] = ok ? vg[(int64_t)kj * p.v_ss + d] : 0.f;
   }
 
-  const int n_qt = (p.sq + BQ - 1) / BQ;
-  const int first = p.causal ? max(k0 - offset, 0) / BQ : 0;
+  const int n_qt = (p.sq + BQT - 1) / BQT;
+  const int first = p.causal ? max(k0 - offset, 0) / BQT : 0;
 
   float dk[4][CPT], dv[4][CPT];
 #pragma unroll
@@ -919,44 +1012,44 @@ __global__ void __launch_bounds__(F32_THREADS)
     const float* dog =
         static_cast<const float*>(p.dout) + b * p.do_sb + hq * p.do_sh;
     for (int qt = first; qt < n_qt; ++qt) {
-      const int q0 = qt * BQ;
-      for (int i = tid; i < BQ * D; i += F32_THREADS) {
+      const int q0 = qt * BQT;
+      for (int i = tid; i < BQT * D; i += F32_THREADS) {
         const int r = i / D, d = i % D, qi = q0 + r;
         const bool ok = qi < p.sq;
         qs[r * LD + d] = ok ? qg[(int64_t)qi * p.q_ss + d] * p.scale : 0.f;
         dos[r * LD + d] = ok ? dog[(int64_t)qi * p.do_ss + d] : 0.f;
       }
-      if (tid < 2 * BQ) {
-        const int i = tid % BQ, qi = q0 + i;
-        const float* src = tid < BQ ? p.lse : p.delta;
-        (tid < BQ ? lse : delta)[i] =
+      if (tid < 2 * BQT) {
+        const int i = tid % BQT, qi = q0 + i;
+        const float* src = tid < BQT ? p.lse : p.delta;
+        (tid < BQT ? lse : delta)[i] =
             qi < p.sq ? src[((int64_t)b * p.h + hq) * p.sq + qi] : 0.f;
       }
       __syncthreads();
 
       // rows are keys rg*4 + i, columns queries cg + 16j
-      float s[4][4], dp[4][4];
+      float s[4][QPT], dp[4][QPT];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+        for (int j = 0; j < QPT; ++j) s[i][j] = dp[i][j] = 0.f;
 #pragma unroll 4
       for (int d = 0; d < D; ++d) {
-        float kv[4], vv[4], qv[4], ov[4];
+        float kv[4], vv[4], qv[QPT], ov[QPT];
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           kv[i] = ks[(rg * 4 + i) * LD + d];
           vv[i] = vs[(rg * 4 + i) * LD + d];
         }
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int j = 0; j < QPT; ++j) {
           qv[j] = qs[(cg + 16 * j) * LD + d];
           ov[j] = dos[(cg + 16 * j) * LD + d];
         }
 #pragma unroll
         for (int i = 0; i < 4; ++i)
 #pragma unroll
-          for (int j = 0; j < 4; ++j) {
+          for (int j = 0; j < QPT; ++j) {
             s[i][j] = fmaf(qv[j], kv[i], s[i][j]);
             dp[i][j] = fmaf(ov[j], vv[i], dp[i][j]);
           }
@@ -965,26 +1058,26 @@ __global__ void __launch_bounds__(F32_THREADS)
       for (int i = 0; i < 4; ++i) {
         const int r = rg * 4 + i, kj = k0 + r;
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int j = 0; j < QPT; ++j) {
           const int c = cg + 16 * j, qi = q0 + c;
           const float sv = (qi >= p.sq || (p.causal && kj > qi + offset))
                                ? NEG_INF
                                : s[i][j];
           const float pv = expf(sv - lse[c]);
-          pts[r * (BQ + 1) + c] = pv;
+          pts[r * (BQT + 1) + c] = pv;
           // Q is pre-scaled, so dS^T Q = (dS^T / scale) (scale Q)
-          dst[r * (BQ + 1) + c] = pv * (dp[i][j] - delta[c]);
+          dst[r * (BQT + 1) + c] = pv * (dp[i][j] - delta[c]);
         }
       }
       __syncthreads();
 
 #pragma unroll 4
-      for (int qq = 0; qq < BQ; ++qq) {
+      for (int qq = 0; qq < BQT; ++qq) {
         float pv[4], dsv[4];
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
-          pv[i] = pts[(rg * 4 + i) * (BQ + 1) + qq];
-          dsv[i] = dst[(rg * 4 + i) * (BQ + 1) + qq];
+          pv[i] = pts[(rg * 4 + i) * (BQT + 1) + qq];
+          dsv[i] = dst[(rg * 4 + i) * (BQT + 1) + qq];
         }
 #pragma unroll
         for (int c = 0; c < CPT; ++c) {
@@ -1070,11 +1163,15 @@ extern "C" int kf_flash_bwd_dq(const void* q, const void* k, const void* v,
   const dim3 grid((sq + BQ - 1) / BQ, h, batch);
   if (dtype == 1 && d == 64) return launch_dq_wgmma<64>(p, batch, d, st);
   if (dtype == 1 && d == 128) return launch_dq_wgmma<128>(p, batch, d, st);
+  if (dtype == 1 && d == 256) return launch_dq_wgmma<256>(p, batch, d, st);
   if (dtype == 0 && d == 64)
     return launch(flash_bwd_dq_f32<64>, dq_f32_smem_bytes<64>(), grid,
                   F32_THREADS, p, st);
   if (dtype == 0 && d == 128)
     return launch(flash_bwd_dq_f32<128>, dq_f32_smem_bytes<128>(), grid,
+                  F32_THREADS, p, st);
+  if (dtype == 0 && d == 256)
+    return launch(flash_bwd_dq_f32<256>, dq_f32_smem_bytes<256>(), grid,
                   F32_THREADS, p, st);
   return (int)cudaErrorInvalidValue;
 }
@@ -1095,11 +1192,15 @@ extern "C" int kf_flash_bwd_dkv(const void* q, const void* k, const void* v,
   const dim3 grid((sk + BK - 1) / BK, hkv, batch);
   if (dtype == 1 && d == 64) return launch_dkv_wgmma<64>(p, batch, d, st);
   if (dtype == 1 && d == 128) return launch_dkv_wgmma<128>(p, batch, d, st);
+  if (dtype == 1 && d == 256) return launch_dkv_wgmma<256>(p, batch, d, st);
   if (dtype == 0 && d == 64)
     return launch(flash_bwd_dkv_f32<64>, dkv_f32_smem_bytes<64>(), grid,
                   F32_THREADS, p, st);
   if (dtype == 0 && d == 128)
     return launch(flash_bwd_dkv_f32<128>, dkv_f32_smem_bytes<128>(), grid,
+                  F32_THREADS, p, st);
+  if (dtype == 0 && d == 256)
+    return launch(flash_bwd_dkv_f32<256>, dkv_f32_smem_bytes<256>(), grid,
                   F32_THREADS, p, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -14,10 +14,11 @@
 // 512..1536, 32 heads of 128) the work is 2-11 GFLOP against 17-34 MB of
 // Q/K/V/O: at the bf16 tensor-core rate (989 TFLOP/s) and 3.35 TB/s the two
 // bounds are within 2x of each other (5 us bytes-bound at 512x512, 11 us
-// operations-bound at 512x1536).  So the design keeps every intermediate out
-// of device memory (S and P live in registers, K/V are read once per
-// 128-query tile, O and lse are written once) and puts the bf16 products on
-// the tensor cores.
+// operations-bound at 512x1536; at D = 256 with 8 query heads over one KV
+// head, 5.4 GFLOP against 5.8 MB at 512x1536: operations-bound).  So the
+// design keeps every intermediate out of device memory (S and P live in
+// registers, K/V are read once per 128-query tile, O and lse are written
+// once) and puts the bf16 products on the tensor cores.
 //
 // Two kernels, one per input dtype:
 // - bf16 (the serving and training paths): flash_fwd_bf16_wgmma, a
@@ -25,7 +26,7 @@
 //   and every tile loaded by TMA into a ring of mbarrier-guarded stages
 //   (below; flash_hopper.cuh).  P stays in registers, rounded to bf16 for
 //   PV (l sums the float32 values).  128-query work tiles, tiles of 128
-//   keys (64 at D = 128).
+//   keys at D = 64 and 64 at D = 128 and 256.
 // - float32: flash_fwd_f32, both products on the CUDA cores in float32, so
 //   the result is exact to float32 rounding (no TF32).  One block per
 //   (64-query tile, head, batch) and a loop over 64-key tiles.
@@ -36,9 +37,10 @@
 // and raises (ops/flash_attention.py _tma_compatible); the float32 kernel
 // takes any strides.  GQA reads kv head h / (H / Hkv) instead of
 // repeating.  Ragged Sq / Sk are masked in-kernel; tail query rows are
-// never written.  Shared memory above 48 KB (f32 at D=128: 115 KB; bf16:
-// 129 KB at D=64, 161 KB at D=128) is requested with cudaFuncSetAttribute
-// before each launch (the setting is per device).
+// never written.  Shared memory above 48 KB (f32: 115 KB at D=128, 209 KB
+// at D=256; bf16: 129 KB at D=64, 161 KB at D=128, 193 KB at D=256) is
+// requested with cudaFuncSetAttribute before each launch (the setting is
+// per device).
 
 #include "flash_common.cuh"
 #include "flash_hopper.cuh"
@@ -234,22 +236,32 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_f32(const Params p) {
 // still waits and releases them).  The two consumers take turns at
 // issuing their products (ping-pong), so one's softmax overlaps the
 // other's products.  The epilogue writes O / l in bf16 through the
-// consumer's rows of an O buffer with 16-byte stores, and lse = m ln 2 +
-// ln l (-1e30 + ln l on a row that saw no key).
+// consumer's rows of an O buffer (at D = 256, of Q's buffer) with 16-byte
+// stores, and lse = m ln 2 + ln l (-1e30 + ln l on a row that saw no key).
 template <int D>
 struct FwdTiles {
-  // keys per tile: at D = 128 the consumer holds O (64 registers) beside
-  // S (BK / 2) and P (BK / 4); 64-key tiles keep that within ptxas's 168.
-  // Three stages: a stage is released only when the PV product of the
-  // next tile's iteration retires, so two would starve the producer.
-  static constexpr int BQ = 128, BK = D == 128 ? 64 : 128, STAGES = 3;
+  // Registers.  A consumer holds O (D / 2 accumulator values a thread), S
+  // (BK / 2) and P (BK / 4) at once.  Under __launch_bounds__(384, 1)
+  // ptxas reports 168 registers, the count at entry, but allocates up to
+  // CONSUMER_REGS (232) in the code after setmaxnreg.inc (flash_hopper.cuh):
+  // at D = 256, BK = 64 (176 accumulator values) builds with no spill and
+  // BK = 128 (224) would not fit.  So 64-key tiles at D = 128 (112 values)
+  // and 256 (176); 128 at D = 64 (112).
+  // Stages: a stage is released only when the PV product of the next
+  // tile's iteration retires, so two starve the producer a little; at
+  // D = 256 three do not fit beside Q (and O goes out through Q's buffer).
+  static constexpr int BQ = 128, BK = D == 64 ? 128 : 64;
+  static constexpr int STAGES = D == 256 ? 2 : 3;
+  static constexpr bool O_IN_Q = D == 256;  // Q's rows take O once read
   static constexpr int Q_HALF = BQ * BOX_BYTES;   // one 64-column box
   static constexpr int KV_HALF = BK * BOX_BYTES;
   static constexpr int Q_BYTES = BQ * D * 2, KV_BYTES = BK * D * 2;
   static constexpr int OFF_K = Q_BYTES;
   static constexpr int OFF_V = OFF_K + STAGES * KV_BYTES;
-  static constexpr int OFF_O = OFF_V + STAGES * KV_BYTES;  // O, laid out as Q
-  static constexpr int OFF_BAR = OFF_O + Q_BYTES;
+  static constexpr int OFF_O =  // O, laid out as Q
+      O_IN_Q ? 0 : OFF_V + STAGES * KV_BYTES;
+  static constexpr int OFF_BAR =
+      OFF_V + STAGES * KV_BYTES + (O_IN_Q ? 0 : Q_BYTES);
   // barriers: q_full, q_empty, k_full[STAGES], v_full[STAGES], empty[STAGES]
   static constexpr int SMEM = OFF_BAR + 8 * (2 + 3 * STAGES) + 1024;  // +align
 };
@@ -343,7 +355,8 @@ __global__ void __launch_bounds__(3 * WG, 1)
     const int warp = tid / 32, lane = tid % 32, g = lane / 4, t4 = lane % 4;
     const float scale2 = p.scale * LOG2E;
     const uint32_t q_rows = sq_tile + c * 64 * BOX_BYTES;  // A of Q K^T
-    const uint32_t o_rows = so_tile + c * 64 * BOX_BYTES;
+    const uint32_t o_rows =
+        T::O_IN_Q ? q_rows : so_tile + c * 64 * BOX_BYTES;
 
     float m[2], l[2], o[D / 2], alpha[2];
     float sc[T::BK / 2];         // S(t), then P(t) in float32
@@ -407,8 +420,17 @@ __global__ void __launch_bounds__(3 * WG, 1)
         for (int kk = 0; kk < T::BK / 16; ++kk) {
           const uint64_t db =
               desc_sw128(vt + kk * 16 * BOX_BYTES, T::KV_HALF, 1024);
-          if constexpr (D == 128) wgmma_rs_n128(o, pa[kk], db, 1);
-          else wgmma_rs_n64(o, pa[kk], db, 1);
+          if constexpr (D == 256) {  // two n128 halves, two boxes apart
+            wgmma_rs_n128(part<0, 64>(o), pa[kk], db, 1);
+            wgmma_rs_n128(part<1, 64>(o), pa[kk],
+                          desc_sw128(vt + 2 * T::KV_HALF + kk * 16 * BOX_BYTES,
+                                     T::KV_HALF, 1024),
+                          1);
+          } else if constexpr (D == 128) {
+            wgmma_rs_n128(o, pa[kk], db, 1);
+          } else {
+            wgmma_rs_n64(o, pa[kk], db, 1);
+          }
         }
         wgmma_commit();
       };
@@ -510,7 +532,9 @@ __global__ void __launch_bounds__(3 * WG, 1)
           rescale_and_pack();
         }
       }
-      arrive(q_empty);  // no more S products: the next Q may load
+      // no more S products: the next Q may load (under O_IN_Q once O has
+      // gone out through this consumer's rows of it)
+      if constexpr (!T::O_IN_Q) arrive(q_empty);
       if (my_tiles > 0) {
         const int last = my_tiles - 1;  // its P V
         mbar_wait(v_full(stage(last)), parity(last));
@@ -535,6 +559,10 @@ __global__ void __launch_bounds__(3 * WG, 1)
                  (int64_t)row0 * p.o_ss;
       store_tile_bf16<D>(o, inv, o_rows, T::Q_HALF, og, p.o_ss,
                          min(64, p.sq - row0), 1 + c);
+      if constexpr (T::O_IN_Q) {  // the rows were read: TMA may refill them
+        fence_proxy_async();
+        arrive(q_empty);
+      }
       if (t4 == 0) {
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
@@ -631,8 +659,11 @@ extern "C" int kf_flash_fwd(const void* q, const void* k, const void* v,
   cudaError_t err = cudaErrorInvalidValue;
   if (dtype == 0 && d == 64) err = launch_f32<64>(p, batch, st);
   else if (dtype == 0 && d == 128) err = launch_f32<128>(p, batch, st);
+  else if (dtype == 0 && d == 256) err = launch_f32<256>(p, batch, st);
   else if (dtype == 1 && d == 64) err = launch_wgmma<64>(p, batch, hkv, d, st);
   else if (dtype == 1 && d == 128)
     err = launch_wgmma<128>(p, batch, hkv, d, st);
+  else if (dtype == 1 && d == 256)
+    err = launch_wgmma<256>(p, batch, hkv, d, st);
   return (int)err;
 }

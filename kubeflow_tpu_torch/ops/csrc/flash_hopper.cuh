@@ -131,6 +131,13 @@ __device__ __forceinline__ void tma_load_1d(uint32_t dst, const CUtensorMap* map
 // Registers per thread after the hand-over: the producer warpgroup gives
 // (168 - 40) x 128 to the two consumer warpgroups, (232 - 168) x 256; a
 // block of 384 threads starts at 168 (65,536 / 384, rounded down to 8).
+// ptxas reports 168 for the kernel (its count at entry) but allocates up
+// to 232 in the code after setmaxnreg.inc: K1's and K2's consumers at
+// D = 256 hold 176 and 168 accumulator values with registers past R200
+// and no spill (chip_smoke.py prints each kernel's highest register).
+// K3's consumers stay within 168 whatever they ask (flash_bwd.cu,
+// DkvTiles).  A consumer asking for more than the producer frees (240:
+// 18,432 registers against 16,384) waits in setmaxnreg.inc for ever.
 constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
 
 template <int N>
@@ -156,6 +163,29 @@ __device__ __forceinline__ void warpgroup_sync(int id) { named_sync<WG>(id); }
 template <int THREADS>
 __device__ __forceinline__ void named_arrive(int id) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "n"(THREADS) : "memory");
+}
+
+// order this thread's generic-proxy accesses of shared memory before later
+// async-proxy ones (a TMA load into a tile the thread has written or read)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// The M registers a thread holds of an m64n(2M) accumulator, seen as the N
+// of the m64n(2N) accumulator over its columns 2NI .. 2N(I + 1) - 1 (the
+// layout above repeats every 8 columns).  An m64n256 product is issued as
+// two m64n128 ones on parts 0 and 1, the second with B two boxes on.
+template <int I, int N, int M>
+__device__ __forceinline__ float (&part(float (&a)[M]))[N] {
+  static_assert(N * (I + 1) <= M, "part out of range");
+  return *reinterpret_cast<float(*)[N]>(a + N * I);
+}
+
+// x, which the compiler may no longer assume it knows: what is computed
+// from it inside a loop stays inside the loop
+__device__ __forceinline__ uint32_t opaque(uint32_t x) {
+  asm volatile("" : "+r"(x));
+  return x;
 }
 
 __device__ __forceinline__ float lds_f32(uint32_t addr) {

@@ -34,7 +34,7 @@ import math
 import torch
 
 NEG_INF = -1e30
-HEAD_DIMS = (64, 128)          # template instantiations of the kernel
+HEAD_DIMS = (64, 128, 256)     # template instantiations of the kernels
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 

@@ -85,7 +85,7 @@ def test_dispatch_flash_only_when_unmasked():
 
 
 @pytest.mark.parametrize("d,route", [(100, "plain"), (64, "flash"),
-                                     (128, "flash")])
+                                     (128, "flash"), (256, "flash")])
 def test_dispatch_gates_flash_on_built_head_dims(d, route, monkeypatch):
     # as the reference takes its kernel only where supported() holds, a
     # head_dim the kernel is not built for (OpenLLaMA-3B's 100) runs the

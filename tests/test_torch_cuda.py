@@ -189,6 +189,75 @@ def test_wgmma_dq_is_bitwise_reproducible(cuda_device, causal):
     assert torch.equal(first, second)
 
 
+D256_CASES = [  # (B, Sq, Sk, H, Hkv, D, causal): Gemma-2B's head_dim
+    (1, 2048, 2048, 8, 1, 256, True),   # multi-query, one long sequence
+    (2, 200, 200, 8, 1, 256, True),     # ragged, multi-query
+    (1, 129, 200, 8, 2, 256, True),     # GQA, decode offset, ragged
+    (2, 100, 300, 4, 4, 256, False),    # non-causal
+    (2, 300, 100, 4, 2, 256, False),    # more queries than keys
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", D256_CASES)
+def test_d256_kernels_match_plain_version(cuda_device, case, dtype):
+    # K1 (O and lse), K2 and K3 at head_dim 256, each one launch, against
+    # their plain versions: the tolerances above
+    b, sq, sk, h, hkv, d, causal = case
+    g = torch.Generator(device=cuda_device).manual_seed(9)
+    q, k, v, do = (torch.randn(*shape, generator=g, device=cuda_device)
+                   .to(dtype) for shape in ((b, sq, h, d), (b, sk, hkv, d),
+                                            (b, sk, hkv, d), (b, sq, h, d)))
+    before = (tfa.flash_attention.launches, tfa.flash_bwd_dq.launches,
+              tfa.flash_bwd_dkv.launches)
+    o, lse = tfa.flash_attention_with_lse(q, k, v, causal=causal)
+    delta = tfa.flash_bwd_delta(o, do)
+    got = (tfa.flash_bwd_dq(q, k, v, do, lse, delta, causal=causal),
+           *tfa.flash_bwd_dkv(q, k, v, do, lse, delta, causal=causal))
+    ro, rlse = tfa.flash_attention_reference(q, k, v, causal=causal)
+    want = (tfa.flash_bwd_dq_reference(q, k, v, do, lse, delta,
+                                       causal=causal),
+            *tfa.flash_bwd_dkv_reference(q, k, v, do, lse, delta,
+                                         causal=causal))
+    torch.cuda.synchronize()
+    assert (tfa.flash_attention.launches, tfa.flash_bwd_dq.launches,
+            tfa.flash_bwd_dkv.launches) == tuple(n + 1 for n in before)
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(o.float(), ro.float(), atol=tol, rtol=tol)
+    assert (lse - rlse).abs().max().item() < 1e-3
+    for name, x, ref in zip(("dq", "dk", "dv"), got, want):
+        assert x.dtype == dtype and x.shape == ref.shape
+        rel = ((x.float() - ref.float()).abs().max()
+               / ref.float().abs().max()).item()
+        assert rel < BWD_TOL[dtype], f"{name}: {rel:.3e}"
+
+
+@pytest.mark.cuda
+def test_wgmma_dq_d256_is_bitwise_reproducible(cuda_device):
+    q, k, v, do = _bf16_inputs(cuda_device, 2, 300, 300, 8, 1, 256, seed=10)
+    o, lse = tfa.flash_attention_with_lse(q, k, v, causal=True)
+    delta = tfa.flash_bwd_delta(o, do)
+    first = tfa.flash_bwd_dq(q, k, v, do, lse, delta, causal=True)
+    second = tfa.flash_bwd_dq(q, k, v, do, lse, delta, causal=True)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+def test_d256_dispatch_launches_k1(cuda_device):
+    # at head_dim 256 the dispatcher's flash route launches K1 (no plain
+    # route, no library attention): the kernel's output, one launch
+    from kubeflow_tpu_torch.ops.attention import dot_product_attention
+
+    q, k, v, _ = _bf16_inputs(cuda_device, 1, 300, 300, 8, 1, 256, seed=11)
+    before = tfa.flash_attention.launches
+    out = dot_product_attention(q, k, v, causal=True, use_flash=True)
+    assert tfa.flash_attention.launches == before + 1
+    assert torch.equal(out, tfa.flash_attention_with_lse(q, k, v,
+                                                         causal=True)[0])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("kernel", ["flash_attention", "flash_bwd_dq",
                                     "flash_bwd_dkv"])

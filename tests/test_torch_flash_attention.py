@@ -30,6 +30,15 @@ DTYPES = {"float32": (jnp.float32, torch.float32),
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 
 
+def at_head_dims(rows, rows_256):
+    """Cases at head_dim 64 under their ids of before, then cases at 256
+    (Gemma-2B's head_dim, which the reference's ``supported()`` admits),
+    their ids marked ``d256``: rows of the parameters without ``d``."""
+    return ([pytest.param(*r, 64, id="-".join(map(str, r))) for r in rows]
+            + [pytest.param(*r, 256, id="-".join(map(str, r)) + "-d256")
+               for r in rows_256])
+
+
 def make_qkv(seed, b, sq, sk, h, hkv, d, dtype):
     """Same numbers for both frameworks: numpy f32, rounded to ``dtype``
     once, on the JAX side, and handed over bit for bit."""
@@ -53,10 +62,11 @@ def max_err(t: torch.Tensor, ref) -> float:
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("causal,sq,sk", [(False, 256, 256), (True, 256, 256),
-                                          (True, 128, 384)])
-def test_matches_pallas_kernel_o_and_lse(causal, sq, sk, dtype):
-    (jq, jk, jv), (q, k, v) = make_qkv(0, 2, sq, sk, 2, 2, 64, dtype)
+@pytest.mark.parametrize("causal,sq,sk,d", at_head_dims(
+    [(False, 256, 256), (True, 256, 256), (True, 128, 384)],
+    [(False, 128, 256), (True, 128, 128), (True, 128, 384)]))
+def test_matches_pallas_kernel_o_and_lse(causal, sq, sk, d, dtype):
+    (jq, jk, jv), (q, k, v) = make_qkv(0, 2, sq, sk, 2, 2, d, dtype)
     ref_o, res = jfa._flash_fwd(jq, jk, jv, causal=causal, block_q=256,
                                 block_k=256)
     ref_lse = np.asarray(res[4]).reshape(2, 2, sq)   # [B*H, Sq, 1]
@@ -69,13 +79,17 @@ def test_matches_pallas_kernel_o_and_lse(causal, sq, sk, dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("causal,sq,sk,h,hkv", [
+@pytest.mark.parametrize("causal,sq,sk,h,hkv,d", at_head_dims([
     (True, 37, 101, 4, 2),      # ragged, decode offset, GQA
     (True, 32, 32, 4, 4),       # the short-prompt prefill shape
     (False, 50, 77, 4, 1),      # non-causal, multi-query
-])
-def test_ragged_and_gqa_match_xla_reference(causal, sq, sk, h, hkv, dtype):
-    (jq, jk, jv), (q, k, v) = make_qkv(1, 2, sq, sk, h, hkv, 64, dtype)
+], [
+    (True, 37, 101, 2, 1),      # ragged, decode offset, multi-query
+    (False, 50, 77, 2, 2),      # non-causal, ragged
+]))
+def test_ragged_and_gqa_match_xla_reference(causal, sq, sk, h, hkv, d,
+                                            dtype):
+    (jq, jk, jv), (q, k, v) = make_qkv(1, 2, sq, sk, h, hkv, d, dtype)
     ref = _xla_attention(jq, jk, jv, causal=causal, mask=None,
                          softmax_dtype=jnp.float32)
     out = tfa.flash_attention(q, k, v, causal=causal)

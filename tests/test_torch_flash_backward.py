@@ -36,6 +36,15 @@ DTYPES = {"float32": (jnp.float32, torch.float32),
 GRAD_TOL = {"float32": 1e-4, "bfloat16": 4e-2}
 
 
+def at_head_dims(rows, rows_256):
+    """Cases at head_dim 64 under their ids of before, then cases at 256
+    (Gemma-2B's head_dim, which the reference's ``supported()`` admits),
+    their ids marked ``d256``: rows of the parameters without ``d``."""
+    return ([pytest.param(*r, 64, id="-".join(map(str, r))) for r in rows]
+            + [pytest.param(*r, 256, id="-".join(map(str, r)) + "-d256")
+               for r in rows_256])
+
+
 def to_torch(a) -> torch.Tensor:
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":
@@ -78,10 +87,11 @@ def assert_grads_close(got, want, dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("causal,s", [(False, 128), (True, 128),
-                                      (False, 256), (True, 256)])
-def test_backward_matches_pallas_kernels(causal, s, dtype):
-    qkv, w = make_inputs(0, 2, s, s, 2, 2, 64, dtype)
+@pytest.mark.parametrize("causal,s,d", at_head_dims(
+    [(False, 128), (True, 128), (False, 256), (True, 256)],
+    [(False, 128), (True, 256)]))
+def test_backward_matches_pallas_kernels(causal, s, d, dtype):
+    qkv, w = make_inputs(0, 2, s, s, 2, 2, d, dtype)
     want = jax_grads(qkv, w, lambda q, k, v: jfa.flash_attention(
         q, k, v, causal=causal))
     _, got = port_grads(qkv, w, lambda q, k, v: tfa.flash_attention(
@@ -90,14 +100,17 @@ def test_backward_matches_pallas_kernels(causal, s, dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("causal,sq,sk,h,hkv", [
+@pytest.mark.parametrize("causal,sq,sk,h,hkv,d", at_head_dims([
     (True, 37, 101, 4, 2),      # ragged, decode offset, GQA
     (False, 50, 77, 4, 1),      # non-causal, multi-query
     (True, 128, 384, 2, 2),     # the reference's decode-offset case
-])
+], [
+    (True, 37, 101, 2, 1),      # ragged, decode offset, multi-query
+    (False, 50, 77, 2, 2),      # non-causal, ragged
+]))
 def test_backward_ragged_and_gqa_match_xla_reference(causal, sq, sk, h, hkv,
-                                                     dtype):
-    qkv, w = make_inputs(1, 2, sq, sk, h, hkv, 64, dtype)
+                                                     d, dtype):
+    qkv, w = make_inputs(1, 2, sq, sk, h, hkv, d, dtype)
     want = jax_grads(qkv, w, lambda q, k, v: _xla_attention(
         q, k, v, causal=causal, mask=None, softmax_dtype=jnp.float32))
     _, got = port_grads(qkv, w, lambda q, k, v: tfa.flash_attention(
