@@ -4,11 +4,11 @@
     python3 chip_smoke.py                 # every phase below
     python3 chip_smoke.py --kernel-times  # build, then K1-K3 times only
     python3 chip_smoke.py --phases 12,13  # build, then those phases only
-                                          # (9 to 16; no result line)
+                                          # (9 to 17; no result line)
 
 Phases, numbered as PERF.md cites them, run in the order 1, 2, 3, 7, 11,
-9, 12, 13, 14, 15, 4, 5, 10, 16, 6, 8 (each phase frees its models before
-the next);
+9, 12, 13, 14, 15, 4, 5, 10, 16, 6, 17, 8 (each phase frees its models
+before the next);
 any failure exits nonzero and prints no result:
 
 1. Build every CUDA kernel of the port from ``kubeflow_tpu_torch/ops/csrc``
@@ -81,7 +81,8 @@ any failure exits nonzero and prints no result:
    bound, its plain version's time and a PyTorch call that computes the
    same function (``scaled_dot_product_attention`` forward, and its
    backward for K2 and K3: yardsticks the port never calls); K1, K2 and K3
-   beside their bounds at a causal D=128 shape of one 2048-token sequence;
+   beside their bounds at a causal D=128 shape of one 2048-token sequence,
+   and at phase 17's per-rank shape (12 x 512) with the gang's launches;
    TTFT and decode tokens/s of phases 2, 9 and 12; samples/s of every
    training run; phase 11's tokens/s per mode; phase 12's chunk and
    decode-step device times, dequantization time and weight bytes; phase
@@ -215,6 +216,24 @@ any failure exits nonzero and prints no result:
    18 times; the in-step check (loss and grad_norm against the plain
    route, every K2 and K3 call against its plain version); the step by
    operator; the phase's peak memory under 90% of the card.
+17. Data-parallel training as a gang of processes on this card (NCCL
+   refuses two ranks on one device, so the ranks meet over gloo, which
+   moves every gradient through host memory).  (a) Phase 4's BERT-large
+   and adamw at global batch 24 x 512 for 5 steps, from an .npz made from
+   seed 0, through the worker entrypoint as one process and as a gang of
+   2 from ``spawn_local_gang`` (both ranks on cuda:0): every rank launches
+   K1 48 and K2 and K3 24 times a step, the ranks' losses and grad_norms
+   are bitwise equal, and each step's loss and grad_norm is held to the
+   one process's within ``GANG_TOL``; per rank the launches, peak memory,
+   samples/s and the all-reduce seconds, calls and bytes of a step.  (b)
+   ResNet-50 at 224 x 224, global batch 128, 3 steps of momentum sgd, the
+   same way (its BatchNorms take the gang's global statistics; no flash
+   launch).  (c) The Trainer on BERT-large under the reference test's
+   membership schedule (world 2 -> 1 at step 6 of 12), index 0 and then
+   index 1 in this process: the ``ResizeCheckpoint`` record (step 6,
+   epoch 1, members [0]), steps 1-12 logged in order and one resize for
+   index 0, index 1 resigning at step 6; K1-K3 launch 48/24/24 a step on
+   both sides of the barrier.
 
 The line before the last is the ``kernels`` JSON object (``name<256>``:
 the D = 256 instantiations on phases 15 and 16); the last line is
@@ -290,6 +309,11 @@ TRAIN_SHAPE = ("bert_large_train", TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 16, 16,
 # per step: K1 runs twice per layer (forward, and remat's recompute in the
 # backward), K2 and K3 once per layer
 TRAIN_LAUNCHES = {"flash_fwd": 48, "flash_bwd_dq": 24, "flash_bwd_dkv": 24}
+# phase 17: the same model as a gang of processes on this card, each rank
+# holding its rows of the global batch
+GANG_RANKS = 2
+GANG_SHAPE = ("bert_large_gang_rank", TRAIN_BATCH // GANG_RANKS, TRAIN_SEQ,
+              TRAIN_SEQ, 16, 16, 64, False)
 # phase 5: Llama training at Llama-2-7B's width (hidden 4096, 32 heads of
 # 128, FFN 11008, vocab 32000), float32 masters, bf16 compute, remat,
 # sequence 512 as the Trainer makes Llama batches; depth cut from 32 to 20
@@ -398,7 +422,7 @@ D256_SHAPES = [  # (name, B, Sq, Sk, H, Hkv, D, causal)
     ("ragged_200_d256", 2, 200, 200, 8, 1, 256, True),
     ("noncausal_gqa_d256", 2, 100, 300, 4, 2, 256, False),
 ]
-BWD_SHAPES = [TRAIN_SHAPE, LLAMA_SHAPE,  # (name, B, Sq, Sk, H, Hkv, D, causal)
+BWD_SHAPES = [TRAIN_SHAPE, GANG_SHAPE, LLAMA_SHAPE,  # (name, B, Sq, Sk, ...)
               ("causal_d128", 2, 384, 384, 8, 8, 128, True),
               ("ragged_200_causal", 2, 200, 200, 16, 16, 64, True),
               ("gqa_32_over_8", 2, 256, 256, 32, 8, 128, True),
@@ -629,7 +653,8 @@ def phase_kernels(fa) -> dict:
     main_err = main_err_256 = 0.0
     cases = ([s[:8] for s in main_path_shapes() + prefix_path_shapes()
               + gemma_path_shapes()]
-             + [TRAIN_SHAPE, LLAMA_SHAPE, GEMMA_SHAPE] + SPEC_SHAPES
+             + [TRAIN_SHAPE, GANG_SHAPE, LLAMA_SHAPE, GEMMA_SHAPE]
+             + SPEC_SHAPES
              + EXTRA_SHAPES + D256_SHAPES)
     for i, (name, b, sq, sk, h, hkv, d, causal) in enumerate(cases):
         for dtype in (torch.bfloat16, torch.float32):
@@ -651,7 +676,7 @@ def phase_kernels(fa) -> dict:
             check(ok, f"flash_fwd disagrees at {name} {dtype}")
             if dtype == torch.bfloat16 and name.startswith(
                     ("7b_prefill", "7b_prefix", "7b_spec", TRAIN_SHAPE[0],
-                     LLAMA_SHAPE[0])):
+                     GANG_SHAPE[0], LLAMA_SHAPE[0])):
                 main_err = max(main_err, e_o)
             if dtype == torch.bfloat16 and name.startswith(
                     ("gemma2b_prefill", GEMMA_SHAPE[0])):
@@ -664,7 +689,7 @@ def phase_kernels(fa) -> dict:
             e_dq, e_dkv = check_backward(fa, name, *shape, dtype, seed=50 + i)
             if dtype != torch.bfloat16:
                 continue
-            if name in (TRAIN_SHAPE[0], LLAMA_SHAPE[0]):
+            if name in (TRAIN_SHAPE[0], GANG_SHAPE[0], LLAMA_SHAPE[0]):
                 errs["flash_bwd_dq"] = max(errs["flash_bwd_dq"], e_dq)
                 errs["flash_bwd_dkv"] = max(errs["flash_bwd_dkv"], e_dkv)
             elif name == GEMMA_SHAPE[0]:
@@ -2260,6 +2285,298 @@ def phase_vision(fa) -> dict:
     return results
 
 
+# -- phase 17: data-parallel training as a gang of processes on the card ------
+
+# (a) phase 4's BERT-large and optimizer at global batch 24 x 512 for 5
+# steps, from an .npz made from the seed; (b) ResNet-50 at 224 x 224,
+# global batch 128, 3 steps of the ImageNet recipe's momentum sgd (lr 0.1
+# x 128 / 256), its BatchNorms on the gang's global statistics.  Each runs
+# through the worker entrypoint as one process and as a gang of GANG_RANKS
+# processes from spawn_local_gang on this card (gloo: NCCL refuses two
+# ranks on one device).  (c) The Trainer on BERT-large under the reference
+# test's membership schedule, world 2 -> 1 at step 6 of 12.
+GANG_BERT = {**TRAIN_CONFIG, "steps": 5}
+GANG_RESNET = {"model": "resnet50", "model_config": {},
+               "global_batch": VISION_BATCH, "steps": 3, "log_every": 1,
+               "seed": 0, "optimizer": {"name": "sgd", "learning_rate": 0.05,
+                                        "momentum": 0.9}}
+# a whole gang run (start-up, both models, 5 + 3 steps) must end in this
+GANG_TIMEOUT_S = 600.0
+# the gang against one process, relative, every step: the same rows and
+# weights, but each rank's bf16 GEMMs and convolutions run at half the
+# rows (other cuBLAS and cuDNN kernels, other rounding) and the gradients
+# are summed in another order; as STEP_TOL, 24 random-weight bf16 layers
+# amplify rounding-level differences (measured on an H100: BERT-large
+# 2.5e-5 on the loss and 1.3e-3 on grad_norm over 5 steps, ResNet-50
+# 3.1e-5 and 9.9e-5 over 3)
+GANG_TOL = STEP_TOL
+RESIZE_SCHEDULE = {0: (0, (0, 1)), 6: (1, (0,))}   # step: (epoch, members)
+
+GANG_WORKER = r"""
+import gc, json, os, time
+import torch
+import torch.distributed as dist
+from kubeflow_tpu_torch.ops import flash_attention as fa
+from kubeflow_tpu_torch.parallel import train_step as ts
+from kubeflow_tpu_torch.training import __main__ as worker
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+KERNELS = {"flash_fwd": fa.flash_attention, "flash_bwd_dq": fa.flash_bwd_dq,
+           "flash_bwd_dkv": fa.flash_bwd_dkv}
+reduced = {"s": 0.0, "bytes": 0, "calls": 0}
+_all_reduce = dist.all_reduce
+
+
+def timed_all_reduce(tensor, *args, **kwargs):
+    # the collective alone, from an idle card to its result on the card
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = _all_reduce(tensor, *args, **kwargs)
+    torch.cuda.synchronize()
+    reduced["s"] += time.perf_counter() - t0
+    reduced["bytes"] += tensor.numel() * tensor.element_size()
+    reduced["calls"] += 1
+    return out
+
+
+dist.all_reduce = timed_all_reduce
+trail = []
+_build_step = ts.build_train_step
+
+
+def build_step(*args, **kwargs):
+    step = _build_step(*args, **kwargs)
+
+    def recorded(state, batch):
+        state, m = step(state, batch)
+        trail.append((m["loss"], m["grad_norm"]))
+        return state, m
+
+    return recorded
+
+
+ts.build_train_step = build_step
+jobs = []
+for config in json.loads(os.environ["GANG_CONFIGS"]):
+    os.environ["JAXJOB_TRAINER_CONFIG"] = json.dumps(config)
+    trail.clear()
+    reduced.update(s=0.0, bytes=0, calls=0)
+    stamps = []
+    torch.cuda.reset_peak_memory_stats()
+    for kernel in KERNELS.values():
+        kernel.launches = 0                          # the path starts
+    rc = worker.main(["--device", "cuda"], metrics_hook=lambda s, r:
+                     stamps.append(time.perf_counter()))
+    launches = {n: k.launches for n, k in KERNELS.items()}   # it ended
+    steps, batch = config["steps"], config["global_batch"]
+    jobs.append({
+        "model": config["model"], "rc": rc, "launches": launches,
+        "trail": [[float(loss), float(norm)] for loss, norm in trail],
+        "samples_per_s": batch * (len(stamps) - 1) / (stamps[-1] - stamps[0]),
+        "allreduce_s": reduced["s"] / steps,
+        "allreduce_bytes": reduced["bytes"] / steps,
+        "allreduce_calls": reduced["calls"] / steps,
+        "peak_gb": torch.cuda.max_memory_allocated() / 1e9})
+    gc.collect()
+    torch.cuda.empty_cache()
+print(json.dumps({
+    "device": torch.cuda.current_device(),
+    "backend": dist.get_backend() if dist.is_initialized() else None,
+    "world": dist.get_world_size() if dist.is_initialized() else 1,
+    "jobs": jobs}))
+"""
+
+
+def gang_data(home: Path) -> tuple[str, str]:
+    """The .npz files of phase 17 from seed 0: 5 global batches of 24 BERT
+    rows (15% of positions weighted) and 3 of 128 ResNet images (float16:
+    the model rounds them to bf16)."""
+    rng = np.random.default_rng(0)
+    n, vocab = TRAIN_BATCH * GANG_BERT["steps"], 30522
+    bert = home / "bert.npz"
+    np.savez(bert,
+             input_ids=rng.integers(0, vocab, (n, TRAIN_SEQ), dtype=np.int32),
+             labels=rng.integers(0, vocab, (n, TRAIN_SEQ), dtype=np.int32),
+             weights=(rng.random((n, TRAIN_SEQ)) < 0.15).astype(np.float32))
+    n = VISION_BATCH * GANG_RESNET["steps"]
+    resnet = home / "resnet.npz"
+    np.savez(resnet,
+             image=rng.standard_normal((n, 224, 224, 3), dtype=np.float32)
+             .astype(np.float16),
+             label=rng.integers(0, 1000, (n,), dtype=np.int32))
+    return str(bert), str(resnet)
+
+
+def gang_compare(label: str, one: dict, ranks: list[dict]) -> None:
+    """Every rank's trail bitwise equal to rank 0's, rank 0's within
+    GANG_TOL of one process's at every step."""
+    trails = [r["trail"] for r in ranks]
+    check(all(t == trails[0] for t in trails),
+          f"{label}: the ranks' losses differ: {trails}")
+    worst = dict.fromkeys(GANG_TOL, 0.0)
+    for i, (got, want) in enumerate(zip(trails[0], one["trail"],
+                                        strict=True)):
+        rel = {k: abs(g - w) / abs(w)
+               for k, g, w in zip(("loss", "grad_norm"), got, want)}
+        log(f"phase 17 {label} step {i + 1}: loss gang {got[0]:.6f} one "
+            f"{want[0]:.6f} (rel {rel['loss']:.3e}), grad_norm gang "
+            f"{got[1]:.6f} one {want[1]:.6f} (rel {rel['grad_norm']:.3e})")
+        check(all(math.isfinite(x) for x in got + want), (label, got, want))
+        worst = {k: max(worst[k], rel[k]) for k in worst}
+    ok = all(worst[k] <= GANG_TOL[k] for k in worst)
+    log(f"phase 17 {label}: {len(ranks)} ranks bitwise equal; gang vs one "
+        f"process max rel loss {worst['loss']:.3e} grad_norm "
+        f"{worst['grad_norm']:.3e} (tol {GANG_TOL['loss']:g}, "
+        f"{GANG_TOL['grad_norm']:g}) {'ok' if ok else 'FAIL'}")
+    check(ok, f"{label}: gang vs one process {worst}")
+
+
+def gang_resize(fa, data: str, home: Path) -> dict:
+    """(c) The Trainer on BERT-large under ``RESIZE_SCHEDULE`` (the
+    reference test's: world 2 -> 1 at step 6 of 12), index 0 and then
+    index 1, in this process: the resize record, monotone steps, index 1
+    resigning at step 6.  Launches by shape: rows per worker change at
+    the barrier."""
+    from kubeflow_tpu_torch.elastic import Membership, ResizeCheckpoint
+    from kubeflow_tpu_torch.elastic.runtime import ScriptedMembership
+    from kubeflow_tpu_torch.training.trainer import Trainer, TrainerConfig
+
+    schedule = {step: Membership(epoch, members)
+                for step, (epoch, members) in RESIZE_SCHEDULE.items()}
+    launches = {GANG_SHAPE[0]: dict.fromkeys(KERNEL_NAMES, 0),
+                TRAIN_SHAPE[0]: dict.fromkeys(KERNEL_NAMES, 0)}
+    out = {}
+    for index in (0, 1):
+        ck = home / f"resize-{index}"
+        cfg = TrainerConfig.from_dict({
+            **TRAIN_CONFIG, "steps": 12, "data_path": data,
+            "checkpoint_dir": str(ck), "checkpoint_every": 100,
+            "optimizer": {"name": "sgd", "learning_rate": 1e-2}})
+        seen = dict.fromkeys(KERNEL_NAMES, 0)
+
+        def hook(step, rec, seen=seen):
+            now = counters(fa)
+            shape = GANG_SHAPE[0] if step <= 6 else TRAIN_SHAPE[0]
+            for n in KERNEL_NAMES:
+                launches[shape][n] += now[n] - seen[n]
+            seen.update(now)
+
+        set_counters(fa, seen)                           # the path starts
+        t0 = time.perf_counter()
+        trainer = Trainer(cfg, hook, ScriptedMembership(index, schedule),
+                          device="cuda")
+        summary = trainer.run()
+        wall = time.perf_counter() - t0
+        steps = [h["step"] for h in trainer.history]
+        losses = [h["loss"] for h in trainer.history]
+        record = ResizeCheckpoint(str(ck)).load()
+        log(f"phase 17(c) index {index}: {summary}, resizes "
+            f"{trainer.resizes}, steps {steps}, record {record}, losses "
+            f"{' '.join(f'{x:.4f}' for x in losses)}; {wall:.1f}s")
+        check(all(math.isfinite(x) for x in losses), (index, losses))
+        check(record == {"step": 6, "epoch": 1, "members": [0]},
+              f"resize record {record}")
+        if index == 0:
+            check(summary["resizes"] == 1 and trainer.resizes == [
+                {"step": 6, "epoch": 1, "world": 1, "rank": 0}],
+                (summary, trainer.resizes))
+            check(steps == list(range(1, 13)), f"steps {steps}")
+        else:
+            check(summary.get("resigned") is True
+                  and summary["start_step"] == 6, summary)
+            check(steps == list(range(1, 7)), f"steps {steps}")
+        out[index] = {"summary": summary, "wall_s": wall}
+        del trainer
+        free_memory()
+    per_step = {n: launches[GANG_SHAPE[0]][n] / 12 for n in KERNEL_NAMES}
+    check(per_step == {n: float(v) for n, v in TRAIN_LAUNCHES.items()}
+          and launches[TRAIN_SHAPE[0]] == {
+              n: 6 * v for n, v in TRAIN_LAUNCHES.items()},
+          f"phase 17(c) launches {launches}")
+    return {"workers": out, "launches": launches}
+
+
+def phase_gang(fa) -> dict:
+    """Phase 17: (a) and (b) as one process and as a gang (every job of
+    both runs in the same processes, one after the other), then (c)."""
+    import shutil
+    import tempfile
+
+    from kubeflow_tpu_torch.parallel.distributed import spawn_local_gang
+
+    t0 = time.perf_counter()
+    free_memory()
+    home = Path(tempfile.mkdtemp(prefix=".kf_gang_"))
+    try:
+        bert_npz, resnet_npz = gang_data(home)
+        env = {"GANG_CONFIGS": json.dumps([
+                   {**GANG_BERT, "data_path": bert_npz},
+                   {**GANG_RESNET, "data_path": resnet_npz}]),
+               "PYTHONPATH": os.pathsep.join(
+                   [str(ROOT)] + [p for p in [os.environ.get("PYTHONPATH")]
+                                  if p])}
+        one = spawn_local_gang(GANG_WORKER, 1, timeout=GANG_TIMEOUT_S,
+                               extra_env=env)[0]
+        t1 = time.perf_counter()
+        ranks = spawn_local_gang(GANG_WORKER, GANG_RANKS,
+                                 timeout=GANG_TIMEOUT_S, extra_env=env)
+        t2 = time.perf_counter()
+        log(f"phase 17: one process {t1 - t0:.1f}s, gang of {GANG_RANKS} "
+            f"{t2 - t1:.1f}s (start-up, model builds and both jobs)")
+        for r, out in enumerate(ranks):
+            check(out["backend"] == "gloo" and out["device"] == 0
+                  and out["world"] == GANG_RANKS, (r, out["backend"],
+                                                   out["device"]))
+        results = {}
+        for j, (label, config) in enumerate(
+                (("BERT-large", GANG_BERT), ("ResNet-50", GANG_RESNET))):
+            jobs = [out["jobs"][j] for out in ranks]
+            want = ({n: config["steps"] * v for n, v in
+                     TRAIN_LAUNCHES.items()} if j == 0
+                    else dict.fromkeys(KERNEL_NAMES, 0))
+            for r, job in enumerate(jobs + [one["jobs"][j]]):
+                who = f"rank {r}" if r < len(jobs) else "one process"
+                log(f"phase 17 {label} {who}: launches {job['launches']} "
+                    f"(expected {want}), peak memory {job['peak_gb']:.2f} "
+                    f"GB, samples/s {job['samples_per_s']:.2f}, all-reduce "
+                    f"{job['allreduce_s']:.4f} s per step in "
+                    f"{job['allreduce_calls']:.0f} calls of "
+                    f"{job['allreduce_bytes']:.0f} bytes in all")
+                check(job["rc"] == 0 and job["launches"] == want,
+                      (label, who, job["launches"]))
+            gang_compare(label, one["jobs"][j], jobs)
+            results[label] = {
+                "one_samples_per_s": one["jobs"][j]["samples_per_s"],
+                "gang_samples_per_s": min(j_["samples_per_s"]
+                                          for j_ in jobs),
+                "allreduce_s": max(j_["allreduce_s"] for j_ in jobs),
+                "allreduce_bytes": jobs[0]["allreduce_bytes"],
+                "peak_gb": max(j_["peak_gb"] for j_ in jobs),
+                "launches": {n: sum(j_["launches"][n] for j_ in jobs)
+                             for n in KERNEL_NAMES}}
+        resize = gang_resize(fa, bert_npz, home)
+    finally:
+        shutil.rmtree(home, ignore_errors=True)
+    log(f"phase 17: {time.perf_counter() - t0:.1f}s")
+    return {**results, "resize": resize}
+
+
+def gang_numbers(fa, gang: dict, bert_rows: dict) -> dict[str, list[dict]]:
+    """K1-K3 rows of phase 17: the gang's launches at each rank's shape,
+    and (c)'s at the shapes before and after the barrier (after it: phase
+    4's shape, whose times ``bert_rows`` holds)."""
+    per_rank = training_numbers(fa, GANG_SHAPE, gang["BERT-large"]["launches"],
+                                TRAIN_LAUNCHES)
+    resize = gang["resize"]["launches"]
+    return {n: [per_rank[n],
+                with_launches(per_rank[n], resize[GANG_SHAPE[0]][n],
+                              "17(c) world 2"),
+                with_launches(bert_rows[n], resize[TRAIN_SHAPE[0]][n],
+                              "17(c) world 1")]
+            for n in KERNEL_NAMES}
+
+
 def int8_pages_equal(engine, prompt: list[int], usable: int) -> bool:
     """Whether the int8 pages ``engine`` committed for ``prompt`` past its
     reused prefix equal ``quantize_kv`` of the scratch rows they were cut
@@ -3428,11 +3745,17 @@ def some_phases(fa, which: str) -> int:
     """``--phases 9,12,13``: build and check the kernels (phase 1), then
     the named phases (9 to 16); prints no result line."""
     wanted = {int(w) for w in which.split(",") if w}
-    if not wanted <= set(range(9, 17)):
-        print(f"chip_smoke: --phases takes 9 to 16, not {which}",
+    if not wanted <= set(range(9, 18)):
+        print(f"chip_smoke: --phases takes 9 to 17, not {which}",
               file=sys.stderr)
         return 2
     phase_kernels(fa)
+    if 17 in wanted:
+        gang = phase_gang(fa)
+        log(card_line())
+        gang_numbers(fa, gang, training_numbers(
+            fa, TRAIN_SHAPE, dict.fromkeys(KERNEL_NAMES, 0), TRAIN_LAUNCHES))
+        free_memory()
     gemma = {}
     if 15 in wanted:
         gemma["serving"] = phase_gemma_serving(fa)
@@ -3529,6 +3852,7 @@ def main(argv: list[str]) -> int:
     free_memory()
     gemma_train = phase_gemma_training(fa)
     vision = phase_vision(fa)
+    gang = phase_gang(fa)
     log(card_line())
     serving_rows = phase_numbers(fa, main_path_shapes(), num_layers=32)
     prefix_rows = phase_numbers(fa, prefix_path_shapes(), num_layers=32)
@@ -3539,6 +3863,7 @@ def main(argv: list[str]) -> int:
     spec_rows = spec_numbers(fa, spec["shapes"])
     fleet_rows = fleet_numbers(fa, fleet["calls"])
     gemma_rows = gemma_numbers(fa, gemma_serving, gemma_train)
+    gang_rows = gang_numbers(fa, gang, bert_rows)
     causal_numbers(fa)
     log(f"phase 2: TTFT mean {serving['ttft_mean_s'] * 1e3:.1f} ms over the "
         f"4 concurrent requests; decode "
@@ -3612,6 +3937,15 @@ def main(argv: list[str]) -> int:
         f"{gemma_train['peak_gb']:.2f} GB); phase 15: TTFT mean "
         f"{gemma_serving['ttft_mean_s'] * 1e3:.1f} ms, decode "
         f"{gemma_serving['decode_tok_per_s']:.1f} tok/s over 4 slots"
+        + f"; phase 17: BERT-large gang of {GANG_RANKS} "
+        f"{gang['BERT-large']['gang_samples_per_s']:.2f} against one process "
+        f"{gang['BERT-large']['one_samples_per_s']:.2f} (all-reduce "
+        f"{gang['BERT-large']['allreduce_s']:.4f} s and "
+        f"{gang['BERT-large']['allreduce_bytes']:.0f} bytes per step), "
+        f"ResNet-50 gang {gang['ResNet-50']['gang_samples_per_s']:.1f} "
+        f"against {gang['ResNet-50']['one_samples_per_s']:.1f} (all-reduce "
+        f"{gang['ResNet-50']['allreduce_s']:.4f} s and "
+        f"{gang['ResNet-50']['allreduce_bytes']:.0f} bytes per step)"
         + f"; total {time.perf_counter() - t_start:.1f}s")
     check(serving["launches"] == sum(r["launches"] for r in serving_rows),
           "serving launches")
@@ -3638,10 +3972,11 @@ def main(argv: list[str]) -> int:
     kernels = [kernel_entry("flash_fwd", serving_rows + prefix_rows
                             + shared_rows + spec_rows + fleet_rows
                             + [bert_rows["flash_fwd"], llama_rows["flash_fwd"],
-                               moe_train_rows["flash_fwd"]],
-                            errs["flash_fwd"])]
+                               moe_train_rows["flash_fwd"]]
+                            + gang_rows["flash_fwd"], errs["flash_fwd"])]
     kernels += [kernel_entry(name, [bert_rows[name], llama_rows[name],
-                                    moe_train_rows[name]], errs[name])
+                                    moe_train_rows[name]] + gang_rows[name],
+                             errs[name])
                 for name in ("flash_bwd_dq", "flash_bwd_dkv")]
     # the D = 256 instantiations: K1 on phases 15 and 16, K2 and K3 on 16
     train_256 = gemma_rows["training"]

@@ -37,6 +37,8 @@ from torch import nn
 from torch.nn import functional as F
 
 from kubeflow_tpu_torch.ops.matmul import matmul_f32
+from kubeflow_tpu_torch.parallel.distributed import (
+    data_parallel_group, sum_over_group)
 
 
 def init_submodules(model: nn.Module, seed: int) -> torch.Generator:
@@ -297,7 +299,17 @@ class BatchNorm(nn.Module):
     ``train`` the batch statistics are used; without, the running averages
     (buffers ``mean`` and ``var``, flax's ``batch_stats``).  Training never
     updates the running averages: the reference's training loss discards
-    that update."""
+    that update.
+
+    Under a data-parallel train step (a group bound by
+    ``parallel/distributed.data_parallel``) the train-mode statistics are
+    the global batch's, as the reference's pjit computes them on the
+    global array: the sums of x and x^2 and the row count are summed over
+    the gang in one differentiable all-reduce, forward and backward."""
+
+    # the train step runs even an empty micro-batch piece through a model
+    # holding this layer, so that every rank issues its collectives
+    reduces_over_group = True
 
     def __init__(self, features: int, epsilon: float = 1e-5, *,
                  scale_init: float = 1.0, device=None):
@@ -318,8 +330,18 @@ class BatchNorm(nn.Module):
         xf = x.float()
         if train:
             dims = tuple(range(x.ndim - 1))
-            mean = xf.mean(dims)
-            var = (xf.square().mean(dims) - mean.square()).clamp_min(0.0)
+            group = data_parallel_group()
+            if group is None:
+                mean = xf.mean(dims)
+                var = (xf.square().mean(dims) - mean.square()).clamp_min(0.0)
+            else:
+                c = x.shape[-1]
+                count = xf.new_full((1,), float(xf.numel() // c))
+                sums = sum_over_group(torch.cat(
+                    [xf.sum(dims), xf.square().sum(dims), count]), group)
+                mean = sums[:c] / sums[-1]
+                var = (sums[c:2 * c] / sums[-1]
+                       - mean.square()).clamp_min(0.0)
         else:
             mean, var = self.mean, self.var
         mul = torch.rsqrt(var + self.epsilon) * self.scale

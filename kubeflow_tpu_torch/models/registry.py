@@ -11,7 +11,10 @@ cannot be reproduced bit for bit, so the port's synthetic batches have the
 reference's shapes, ranges and masking rate, not its numbers (tests hand
 both sides the same numpy batch).  ``forward_loss(module, batch)`` is the
 reference's ``forward_loss(module, params, batch)`` with the parameters in
-the module.
+the module.  ``loss_weight(batch)`` is the denominator of that loss on
+``batch``: its label count for the mean losses, the summed mask weight
+for BERT's masked LM.  A data-parallel step scales each rank's loss by it
+(``parallel/train_step.py``) so the gang's loss is the global batch's.
 """
 
 from __future__ import annotations
@@ -29,6 +32,12 @@ class ModelEntry:
     make_batch: Callable[..., dict] | None = None   # (b, gen, module)
     forward_loss: Callable[..., Any] | None = None  # (module, batch)
     generative: bool = False         # decoder LM: served by the engine
+    loss_weight: Callable[[dict], Any] | None = None  # (batch)
+
+
+def _label_count(key: str) -> Callable[[dict], int]:
+    """The weight of a mean over every element of ``batch[key]``."""
+    return lambda batch: batch[key].numel()
 
 
 _REGISTRY: dict[str, ModelEntry] = {}
@@ -69,7 +78,7 @@ def _mlp_loss(module, batch):
 register(ModelEntry(
     "mnist_mlp", _make_mlp,
     make_batch=lambda b, gen, m: _image_batch(b, gen, (28, 28, 1), 10),
-    forward_loss=_mlp_loss))
+    forward_loss=_mlp_loss, loss_weight=_label_count("label")))
 
 
 # --- CIFAR ConvNet -----------------------------------------------------------
@@ -95,7 +104,7 @@ def _convnet_loss(module, batch):
 register(ModelEntry(
     "cifar_convnet", _make_convnet,
     make_batch=lambda b, gen, m: _image_batch(b, gen, (32, 32, 3), 10),
-    forward_loss=_convnet_loss))
+    forward_loss=_convnet_loss, loss_weight=_label_count("label")))
 
 
 # --- ResNet-50 ---------------------------------------------------------------
@@ -121,7 +130,7 @@ register(ModelEntry(
     "resnet50", _make_resnet,
     make_batch=lambda b, gen, m: _image_batch(
         b, gen, (224, 224, 3), m.config.num_classes),
-    forward_loss=_resnet_loss))
+    forward_loss=_resnet_loss, loss_weight=_label_count("label")))
 
 
 # --- BERT --------------------------------------------------------------------
@@ -153,8 +162,13 @@ def _bert_loss(module, batch):
     return mlm_loss(out, batch["labels"], batch["weights"])
 
 
+def _bert_weight(batch):
+    # mlm_loss divides by the mask weight (at least 1)
+    return batch["weights"].float().sum()
+
+
 register(ModelEntry("bert", _make_bert, make_batch=_bert_batch,
-                    forward_loss=_bert_loss))
+                    forward_loss=_bert_loss, loss_weight=_bert_weight))
 
 
 # --- Llama -------------------------------------------------------------------
@@ -191,4 +205,5 @@ def _llama_loss(module, batch):
 
 
 register(ModelEntry("llama", _make_llama, make_batch=_llama_batch,
-                    forward_loss=_llama_loss, generative=True))
+                    forward_loss=_llama_loss, generative=True,
+                    loss_weight=_label_count("labels")))

@@ -8,8 +8,10 @@ zero, a float32 mean over H and W rounded to the compute dtype, and a
 float32 classifier.  Parameter names follow the flax tree
 (``stage1_block0/conv2/kernel`` is ``stage1_block0.conv2.kernel``), and
 the BatchNorm running averages (flax's ``batch_stats``) are the buffers
-``*.mean`` and ``*.var``.  The cross-replica BatchNorm axis (``axis_name``)
-waits for the multi-device slice.
+``*.mean`` and ``*.var``.  Under a data-parallel train step every
+BatchNorm takes the global batch's statistics (``layers.BatchNorm``);
+``axis_name``, the reference's cross-replica axis, names that group
+(``"dp"``).
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ class ResNetConfig:
     num_classes: int = 1000
     width: int = 64
     dtype: str = "bfloat16"
-    axis_name: str | None = None  # cross-replica BN: not yet ported
+    axis_name: str | None = None  # cross-replica BN: the dp group
 
 
 def resnet50(**kw) -> ResNetConfig:
@@ -79,10 +81,10 @@ class ResNet(nn.Module):
     def __init__(self, config: ResNetConfig = ResNetConfig(), *,
                  device=None):
         super().__init__()
-        if config.axis_name is not None:
-            raise NotImplementedError(
-                "cross-replica BatchNorm (axis_name) waits for the "
-                "multi-device slice")
+        if config.axis_name not in (None, "dp"):
+            raise ValueError(
+                f"axis_name {config.axis_name!r}: the port's BatchNorms "
+                "reduce over the data-parallel group, named 'dp'")
         self.config = cfg = config
         device = resolve(device)
         dt = dtype_of(cfg.dtype)

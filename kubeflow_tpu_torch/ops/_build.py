@@ -7,11 +7,20 @@ file name carries a hash of the source, the shared ``csrc/*.cuh`` headers
 and the flags, so an edited source is rebuilt and an unchanged one is
 loaded as it is.  ``build_all`` starts one ``nvcc`` per source at once, so
 the build time of several kernels is that of the slowest.
+
+Several processes (the ranks of a local gang) may build at first use
+together: each source's build runs under an inter-process lock
+(``fcntl.flock`` on ``_build/<name>.lock``, released by the kernel if the
+holder dies), and a process that waited finds the library built and
+loads it.  ``nvcc`` writes a temporary name that is renamed into place,
+so no reader sees half a library.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -85,12 +94,27 @@ def _finish(name: str, started) -> None:
     BUILDS.inc()
 
 
+@contextlib.contextmanager
+def _build_lock(name: str):
+    """Hold ``name``'s inter-process build lock."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / f"{name}.lock", "a") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
 def build_all(names: list[str] | None = None) -> dict[str, Path]:
     """Compile every named source (default: all) in parallel; returns
     name -> library path.  Raises on the first failed build."""
     names = sources() if names is None else names
-    with _lock:
-        started = {n: _start(n) for n in names}
+    with _lock, contextlib.ExitStack() as held:
+        missing = sorted(n for n in names if not library_path(n).exists())
+        for n in missing:     # in one order in every process: no deadlock
+            held.enter_context(_build_lock(n))
+        started = {n: _start(n) for n in missing}   # built while we waited?
         for n, s in started.items():
             if s is not None:
                 _finish(n, s)

@@ -1,2 +1,2 @@
-"""Training-step construction and process rendezvous (one device in this
-slice)."""
+"""Training-step construction, process rendezvous and the gang's
+collectives (data parallelism over a torch.distributed group)."""

@@ -2,9 +2,11 @@
 
 Counterpart of ``kubeflow_tpu/training/__main__.py``: the same flags and
 the ``JAXJOB_TRAINER_CONFIG`` env the JAXJob controller injects, plus
-``--device`` (``cuda`` unless ``--device cpu``).  Joins the rendezvous
-(one process in this slice), runs the Trainer and prints its summary as
-one JSON line.
+``--device`` (``cuda`` unless ``--device cpu``).  Joins the gang from
+the ``JAXJOB_*`` rendezvous env (``parallel/distributed.py``; its summary,
+with the backend, is logged), runs the Trainer and prints its summary as
+one JSON line.  ``worker_index`` of an elastic run defaults to
+``JAXJOB_MEMBER_INDEX`` (the Trainer reads it).
 """
 
 from __future__ import annotations
@@ -51,7 +53,7 @@ def main(argv: list[str] | None = None, *,
             args.learning_rate)
 
     log = get_logger("worker")
-    rdv = initialize_from_env()
+    rdv = initialize_from_env(device=args.device)
     log.info("rendezvous", **rdv)
 
     cfg = TrainerConfig.from_dict(cfg_dict)

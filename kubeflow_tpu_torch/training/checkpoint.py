@@ -7,6 +7,11 @@ into place, so a crash mid-save never leaves a checkpoint that
 ``latest_step`` would pick.  The oldest files beyond ``max_to_keep`` are
 deleted.  Saves are synchronous (``wait`` is accepted for the reference's
 API).  Orbax checkpoints of the JAX package are not read.
+
+In a gang (``group`` of more than one rank) every rank calls ``save``:
+rank 0 writes, and the gang then meets at a barrier, so no rank's
+``latest_step`` can pick a step another rank is still writing; every
+rank restores the same file.
 """
 
 from __future__ import annotations
@@ -17,14 +22,18 @@ from pathlib import Path
 
 import torch
 
+from kubeflow_tpu_torch.parallel.distributed import rank_of
+
 _NAME = re.compile(r"^ckpt-(\d+)\.pt$")
 
 
 class CheckpointManager:
-    def __init__(self, directory: str, max_to_keep: int = 3):
+    def __init__(self, directory: str, max_to_keep: int = 3, *,
+                 group=None):
         self._dir = Path(directory).resolve()
         self._dir.mkdir(parents=True, exist_ok=True)
         self._keep = max_to_keep
+        self._group = group
 
     def steps(self) -> list[int]:
         return sorted(int(m.group(1)) for p in self._dir.iterdir()
@@ -35,14 +44,20 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     def save(self, step: int, state, *, wait: bool = False) -> None:
-        """Write ``state`` (a ``TrainState``) as step ``step``."""
-        path = self._dir / f"ckpt-{step}.pt"
-        tmp = path.with_suffix(f".{os.getpid()}.tmp")
-        torch.save({"step": step, "model": state.model.state_dict(),
-                    "optimizer": state.tx.state_dict()}, tmp)
-        os.replace(tmp, path)
-        for old in self.steps()[:-self._keep]:
-            (self._dir / f"ckpt-{old}.pt").unlink(missing_ok=True)
+        """Write ``state`` (a ``TrainState``) as step ``step`` (rank 0
+        of a gang writes; every rank returns after the write)."""
+        if rank_of(self._group) == 0:
+            path = self._dir / f"ckpt-{step}.pt"
+            tmp = path.with_suffix(f".{os.getpid()}.tmp")
+            torch.save({"step": step, "model": state.model.state_dict(),
+                        "optimizer": state.tx.state_dict()}, tmp)
+            os.replace(tmp, path)
+            for old in self.steps()[:-self._keep]:
+                (self._dir / f"ckpt-{old}.pt").unlink(missing_ok=True)
+        if self._group is not None:
+            import torch.distributed as dist
+
+            dist.barrier(group=self._group)
 
     def restore(self, state, step: int | None = None):
         """Load step ``step`` (default: the latest) into ``state``'s model

@@ -2,14 +2,15 @@
 
 Counterpart of ``kubeflow_tpu/training/data.py``.  Batches are host
 tensors (the Trainer moves them to the device); each process loads only
-its rows of the global batch (``shard_rows``).
+its rows of the global batch (``elastic.protocol.shard_rows``).
 
 - ``SyntheticDataset``: batch k is drawn from a ``torch.Generator`` keyed
   off (seed + k, rank), so a resumed run continues the schedule and ranks
   never collide.  The reference keys ``jax.random`` the same way; the two
   streams differ (see ``models/registry.py``).
 - ``NpzDataset``: pure numpy, batch for batch identical to the
-  reference's for the same file, seed, rank and world (numpy arrays).
+  reference's for the same file, seed, rank and world (numpy arrays);
+  ``iter_from(step, rank=, world=)`` re-keys the shard at a resize.
 - ``DevicePrefetcher``: a thread that assembles the next batches and
   copies them to the device from pinned memory while a step runs.
 """
@@ -24,15 +25,7 @@ from typing import Any, Callable, Iterator
 import numpy as np
 import torch
 
-
-def shard_rows(global_batch: int, rank: int, world: int) -> range:
-    """Rank ``rank`` of ``world``'s rows of one global batch: the strided
-    partition ``idx[rank::world]`` (the port's copy of
-    ``elastic/protocol.shard_rows``).  Unions over ranks cover
-    ``range(global_batch)`` exactly; shards differ by at most one row."""
-    if not 0 <= rank < world:
-        raise ValueError(f"rank {rank} outside world {world}")
-    return range(rank, global_batch, world)
+from kubeflow_tpu_torch.elastic.protocol import shard_rows
 
 
 def _step_seed(seed: int, step: int, rank: int) -> int:

@@ -886,3 +886,61 @@ def test_int8_restore_peak_stays_near_the_int8_size(cuda_device, tmp_path):
             peak, held, pred.weight_bytes, largest)
     finally:
         pred.stop(timeout=30)
+
+
+GANG_BERT = r"""
+import json, os, torch
+from kubeflow_tpu_torch.models import registry
+from kubeflow_tpu_torch.ops import flash_attention as fa
+from kubeflow_tpu_torch.parallel import distributed as pd
+from kubeflow_tpu_torch.parallel import train_step as ts
+from kubeflow_tpu_torch.training.optim import make_optimizer
+
+rdv = pd.initialize_from_env()                      # the card, not the CPU
+group = pd.default_group()
+rank, world = pd.rank_of(group), pd.world_size(group)
+entry = registry.get("bert")
+model = entry.make_model(size="base", vocab_size=1024, hidden_size=256,
+                         num_layers=2, num_heads=4, intermediate_size=512,
+                         max_position=128, dtype="float32").init_weights(0)
+state = ts.init_train_state(model, make_optimizer(
+    {"name": "sgd", "learning_rate": 1e-2, "momentum": 0.9}))
+step = ts.build_train_step(entry.forward_loss, state.tx, group=group,
+                           loss_weight=entry.loss_weight)
+trail = []
+for i in range(3):
+    batch = entry.make_batch(8, torch.Generator().manual_seed(i), model,
+                             seq_len=128)
+    batch = {k: v[rank::world].cuda() for k, v in batch.items()}
+    state, m = step(state, batch)
+    trail.append([m["loss"].item(), m["grad_norm"].item()])
+print(json.dumps({"rdv": rdv, "trail": trail,
+                  "device": str(next(model.parameters()).device),
+                  "launches": [fa.flash_attention.launches,
+                               fa.flash_bwd_dq.launches,
+                               fa.flash_bwd_dkv.launches]}))
+"""
+
+
+@pytest.mark.cuda
+def test_two_rank_gloo_gang_on_one_card_trains_what_one_process_trains(
+        cuda_device):
+    # a 2-layer BERT at hidden 256 (4 heads of 64, float32: the f32 K1-K3
+    # instantiations), 3 momentum-sgd steps of 8 rows: a 2-rank gang over
+    # gloo on cuda:0 against one process; both ranks launch every kernel.
+    # Tolerance 1e-4 relative: float32 kernels and GEMMs at 4 rows
+    # against 8 sum in other orders
+    from kubeflow_tpu_torch.ops import _build
+    from kubeflow_tpu_torch.parallel import distributed as pd
+
+    _build.build_all()         # once, before the ranks load it
+    one = pd.spawn_local_gang(GANG_BERT, 1, timeout=300.0)[0]
+    outs = pd.spawn_local_gang(GANG_BERT, 2, timeout=300.0)
+    assert [o["rdv"]["backend"] for o in outs] == ["gloo", "gloo"]
+    assert all(o["device"] == "cuda:0" for o in outs)
+    assert outs[0]["trail"] == outs[1]["trail"]          # bitwise
+    for (gl, gn), (wl, wn) in zip(outs[0]["trail"], one["trail"]):
+        assert abs(gl - wl) <= 1e-4 * abs(wl), (outs, one)
+        assert abs(gn - wn) <= 1e-4 * abs(wn), (outs, one)
+    for o in outs:   # per step and layer: K1 twice (remat), K2, K3 once
+        assert o["launches"] == [3 * 4, 3 * 2, 3 * 2], o

@@ -77,6 +77,10 @@ def test_imports_load_no_jax_and_no_reference_package(which):
         "kubeflow_tpu_torch.models.bert",
         "kubeflow_tpu_torch.parallel.train_step",
         "kubeflow_tpu_torch.parallel.distributed",
+        "kubeflow_tpu_torch.elastic",
+        "kubeflow_tpu_torch.elastic.protocol",
+        "kubeflow_tpu_torch.elastic.checkpoint",
+        "kubeflow_tpu_torch.elastic.runtime",
         "kubeflow_tpu_torch.training.__main__",
         "kubeflow_tpu_torch.training.checkpoint",
         "kubeflow_tpu_torch.training.data",

@@ -3,8 +3,10 @@
 On the CPU at ``bert_tiny`` size: the Trainer on an ``.npz`` written here;
 ``NpzDataset`` batches against the reference's, batch for batch; resume
 (3 steps, then 3 more from the checkpoint) against 6 straight steps; the
-fields and gangs the port refuses, each by name; the profiler window; and
+fields the port refuses, each by name; the profiler window; and
 ``python -m kubeflow_tpu_torch.training --device cpu`` in a subprocess.
+Gangs and elastic membership: ``test_torch_dp.py`` and
+``test_torch_elastic.py``.
 """
 
 import json
@@ -18,7 +20,6 @@ import pytest
 import torch
 
 from kubeflow_tpu.training.data import NpzDataset as JNpzDataset
-from kubeflow_tpu_torch.parallel import distributed
 from kubeflow_tpu_torch.training import data as tdata
 from kubeflow_tpu_torch.training.checkpoint import CheckpointManager
 from kubeflow_tpu_torch.training.trainer import Trainer, TrainerConfig
@@ -163,28 +164,11 @@ def test_profile_window_writes_a_trace(tmp_path):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("fsdp", 2), ("tp", 2), ("sp", 2), ("dp", 2),
-    ("membership_file", "members.json"), ("worker_index", 0),
+    ("fsdp", 2), ("tp", 2), ("sp", 2),
 ])
 def test_unported_fields_are_refused_by_name(field, value):
     with pytest.raises(NotImplementedError, match=field):
         Trainer(tiny(steps=1, **{field: value}), device="cpu").run()
-
-
-def test_multi_process_gangs_are_refused_by_name():
-    assert distributed.initialize_from_env({})["num_processes"] == 1
-    with pytest.raises(NotImplementedError, match="JAXJOB_NUM_PROCESSES"):
-        distributed.initialize_from_env({"JAXJOB_NUM_PROCESSES": "2",
-                                         "JAXJOB_COORDINATOR": "h:1"})
-
-
-def test_multi_process_worlds_are_refused_by_the_trainer(monkeypatch):
-    import torch.distributed as dist
-
-    monkeypatch.setattr(dist, "is_initialized", lambda: True)
-    monkeypatch.setattr(dist, "get_world_size", lambda: 2)
-    with pytest.raises(NotImplementedError, match="multi-process"):
-        Trainer(tiny(steps=1), device="cpu").run()
 
 
 def test_models_without_a_training_loss_are_refused(monkeypatch):
