@@ -4,10 +4,10 @@
     python3 chip_smoke.py                 # every phase below
     python3 chip_smoke.py --kernel-times  # build, then K1-K3 times only
     python3 chip_smoke.py --phases 12,13  # build, then those phases only
-                                          # (9 to 17; no result line)
+                                          # (9 to 18; no result line)
 
 Phases, numbered as PERF.md cites them, run in the order 1, 2, 3, 7, 11,
-9, 12, 13, 14, 15, 4, 5, 10, 16, 6, 17, 8 (each phase frees its models
+9, 12, 13, 14, 15, 4, 5, 10, 16, 6, 17, 18, 8 (each phase frees its models
 before the next);
 any failure exits nonzero and prints no result:
 
@@ -19,10 +19,11 @@ any failure exits nonzero and prints no result:
    flash-attention forward kernel (K1) against its plain PyTorch version
    on O and lse, in bfloat16 and float32 (TF32 off for the plain
    version), at every shape the serving run of phase 2 and the training
-   runs of phases 4 and 5 give it and at a GQA, a strided and a non-causal
-   D=64 case; hold the backward kernels (K2 dQ, K3 dK/dV) against theirs
-   at both training shapes, a causal D=128, a ragged Sq = Sk = 200 and a
-   GQA (32 over 8 heads) case.  At D = 256 (phases 15 and 16): K1 at every
+   runs of phases 4, 5, 17 and 18 give it (18: every layout's rank shape)
+   and at a GQA, a strided and a non-causal D=64 case; hold the backward
+   kernels (K2 dQ, K3 dK/dV) against theirs at those training shapes, a
+   causal D=128, a ragged Sq = Sk = 200 and a GQA (32 over 8 heads)
+   case.  At D = 256 (phases 15 and 16): K1 at every
    shape of both phases, K1, K2 and K3 at phase 16's training shape, a
    causal multi-query 2048-token sequence, a ragged Sq = Sk = 200 case and
    a non-causal GQA case, and K1 at a strided GQA view.
@@ -82,7 +83,8 @@ any failure exits nonzero and prints no result:
    same function (``scaled_dot_product_attention`` forward, and its
    backward for K2 and K3: yardsticks the port never calls); K1, K2 and K3
    beside their bounds at a causal D=128 shape of one 2048-token sequence,
-   and at phase 17's per-rank shape (12 x 512) with the gang's launches;
+   at phase 17's per-rank shape (12 x 512) with the gang's launches, and
+   at each of phase 18's rank shapes with its layout's launches;
    TTFT and decode tokens/s of phases 2, 9 and 12; samples/s of every
    training run; phase 11's tokens/s per mode; phase 12's chunk and
    decode-step device times, dequantization time and weight bytes; phase
@@ -220,8 +222,9 @@ any failure exits nonzero and prints no result:
    refuses two ranks on one device, so the ranks meet over gloo, which
    moves every gradient through host memory).  (a) Phase 4's BERT-large
    and adamw at global batch 24 x 512 for 5 steps, from an .npz made from
-   seed 0, through the worker entrypoint as one process and as a gang of
-   2 from ``spawn_local_gang`` (both ranks on cuda:0): every rank launches
+   seed 0, through the worker entrypoint as one process (this one) and as
+   a gang of 2 from ``spawn_local_gang`` (both ranks on cuda:0): every
+   rank launches
    K1 48 and K2 and K3 24 times a step, the ranks' losses and grad_norms
    are bitwise equal, and each step's loss and grad_norm is held to the
    one process's within ``GANG_TOL``; per rank the launches, peak memory,
@@ -234,6 +237,24 @@ any failure exits nonzero and prints no result:
    epoch 1, members [0]), steps 1-12 logged in order and one resize for
    index 0, index 1 resigning at step 6; K1-K3 launch 48/24/24 a step on
    both sides of the barrier.
+18. Sharded training as gangs of processes on this card (gloo, as in 17).
+   Llama at Llama-2-7B's width (phase 5's model, float32 masters, bf16
+   compute, remat) cut to ``MESH_LAYERS`` layers, global batch 8 x 512,
+   ``MESH_STEPS`` adamw steps from an .npz made from seed 0, through the
+   worker entrypoint on four layouts: one process (this one), ``fsdp=2``
+   and ``tp=2`` (one after the other in a gang of 2) and ``fsdp=2,
+   tp=2`` (a gang of 4).  Each rank runs
+   K1, K2 and K3 on its own rows and heads (fsdp: 4 of the 8 rows; tp:
+   16 of the 32 heads; each layout's rank shape is held against the
+   plain versions, forward and backward, in phase 1) and must launch
+   them 2L, L and L times a step; the ranks' losses and grad_norms are
+   bitwise equal, and each layout's are held to one process's within
+   ``GANG_TOL``; per rank the peak memory of the steps and of the whole
+   run (the checkpoint's save included), samples/s of step 2, and step
+   2's all-reduce, all-gather and reduce-scatter
+   seconds, calls and bytes.  The last layout writes a checkpoint at its
+   end, which this process restores: every parameter bitwise the gang's
+   gathered one.
 
 The line before the last is the ``kernels`` JSON object (``name<256>``:
 the D = 256 instantiations on phases 15 and 16); the last line is
@@ -260,6 +281,7 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
+T_START = time.perf_counter()
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s of HBM3, bf16 and
 # fp32 rates in FLOP/s (the f32 kernels run on the CUDA cores)
@@ -375,8 +397,11 @@ TENANT_STORM, TENANT_PROMPT, TENANT_NEW = 16, 300, 16
 BERT_ROW = 128
 # phase 11: speculation at phase 2's settings.  Depth cut from 64 new
 # tokens per request to 32 when phase 14 joined: its 8 host-bound runs of
-# 5 requests took ~267 s of a 694 s run at 64 (an H100 80GB HBM3 call)
-SPEC_TOKENS, DRAFT_LAYERS, SPEC_NEW = 4, 4, 32
+# 5 requests took ~267 s of a 694 s run at 64 (an H100 80GB HBM3 call);
+# to 16 when phase 18 joined: at 32 they took ~101-103 s of whole runs of
+# 629.0, 687.7 and 647.2 s (H100 80GB HBM3 calls).  Each mode still meets
+# its verify rounds: a lone stream drafts once per decode chunk
+SPEC_TOKENS, DRAFT_LAYERS, SPEC_NEW = 4, 4, 16
 SPEC_BLOCK, SPEC_REPEATS = 64, 8
 # off first: the oracle drafts the off streams (speculation's ceiling)
 SPEC_MODES = ("off", "ngram", "draft", "oracle")
@@ -422,7 +447,22 @@ D256_SHAPES = [  # (name, B, Sq, Sk, H, Hkv, D, causal)
     ("ragged_200_d256", 2, 200, 200, 8, 1, 256, True),
     ("noncausal_gqa_d256", 2, 100, 300, 4, 2, 256, False),
 ]
-BWD_SHAPES = [TRAIN_SHAPE, GANG_SHAPE, LLAMA_SHAPE,  # (name, B, Sq, Sk, ...)
+# phase 18's layouts, (label, fsdp, tp), the first one process, of a
+# Llama-7B-wide global batch of 8 rows; each rank runs K1-K3 at its layout's
+# shape: the data ranks' rows, the tp group's heads
+MESH_BATCH = 8
+MESH_LAYOUTS = (("one process", 1, 1), ("fsdp=2", 2, 1), ("tp=2", 1, 2),
+                ("fsdp=2, tp=2", 2, 2))
+
+
+def mesh_shape(fsdp: int, tp: int) -> tuple:
+    return (f"llama7b_mesh_rank_fsdp{fsdp}_tp{tp}", MESH_BATCH // fsdp,
+            LLAMA_SEQ, LLAMA_SEQ, 32 // tp, 32 // tp, 128, True)
+
+
+MESH_SHAPES = [mesh_shape(fsdp, tp) for _, fsdp, tp in MESH_LAYOUTS]
+BWD_SHAPES = [TRAIN_SHAPE, GANG_SHAPE, LLAMA_SHAPE, *MESH_SHAPES,
+              # (name, B, Sq, Sk, ...)
               ("causal_d128", 2, 384, 384, 8, 8, 128, True),
               ("ragged_200_causal", 2, 200, 200, 16, 16, 64, True),
               ("gqa_32_over_8", 2, 256, 256, 32, 8, 128, True),
@@ -464,7 +504,9 @@ LOGITS_REL_TOL = {"kernel_plain_version": 1e-1, "plain_route": 1e-1}
 
 
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """``msg`` after the seconds since the run started (the phases' share
+    of the time limit)."""
+    print(f"[{time.perf_counter() - T_START:7.1f}s] {msg}", flush=True)
 
 
 def check(ok, what) -> None:
@@ -653,7 +695,8 @@ def phase_kernels(fa) -> dict:
     main_err = main_err_256 = 0.0
     cases = ([s[:8] for s in main_path_shapes() + prefix_path_shapes()
               + gemma_path_shapes()]
-             + [TRAIN_SHAPE, GANG_SHAPE, LLAMA_SHAPE, GEMMA_SHAPE]
+             + [TRAIN_SHAPE, GANG_SHAPE, LLAMA_SHAPE, GEMMA_SHAPE,
+                *MESH_SHAPES]
              + SPEC_SHAPES
              + EXTRA_SHAPES + D256_SHAPES)
     for i, (name, b, sq, sk, h, hkv, d, causal) in enumerate(cases):
@@ -676,7 +719,7 @@ def phase_kernels(fa) -> dict:
             check(ok, f"flash_fwd disagrees at {name} {dtype}")
             if dtype == torch.bfloat16 and name.startswith(
                     ("7b_prefill", "7b_prefix", "7b_spec", TRAIN_SHAPE[0],
-                     GANG_SHAPE[0], LLAMA_SHAPE[0])):
+                     GANG_SHAPE[0], LLAMA_SHAPE[0], "llama7b_mesh")):
                 main_err = max(main_err, e_o)
             if dtype == torch.bfloat16 and name.startswith(
                     ("gemma2b_prefill", GEMMA_SHAPE[0])):
@@ -689,7 +732,8 @@ def phase_kernels(fa) -> dict:
             e_dq, e_dkv = check_backward(fa, name, *shape, dtype, seed=50 + i)
             if dtype != torch.bfloat16:
                 continue
-            if name in (TRAIN_SHAPE[0], GANG_SHAPE[0], LLAMA_SHAPE[0]):
+            if name in (TRAIN_SHAPE[0], GANG_SHAPE[0], LLAMA_SHAPE[0],
+                        *(shape[0] for shape in MESH_SHAPES)):
                 errs["flash_bwd_dq"] = max(errs["flash_bwd_dq"], e_dq)
                 errs["flash_bwd_dkv"] = max(errs["flash_bwd_dkv"], e_dkv)
             elif name == GEMMA_SHAPE[0]:
@@ -2291,9 +2335,10 @@ def phase_vision(fa) -> dict:
 # steps, from an .npz made from the seed; (b) ResNet-50 at 224 x 224,
 # global batch 128, 3 steps of the ImageNet recipe's momentum sgd (lr 0.1
 # x 128 / 256), its BatchNorms on the gang's global statistics.  Each runs
-# through the worker entrypoint as one process and as a gang of GANG_RANKS
-# processes from spawn_local_gang on this card (gloo: NCCL refuses two
-# ranks on one device).  (c) The Trainer on BERT-large under the reference
+# through the worker entrypoint as one process (this one: a spawned one
+# spent ~15 s starting) and as a gang of GANG_RANKS processes from
+# spawn_local_gang on this card (gloo: NCCL refuses two ranks on one
+# device).  (c) The Trainer on BERT-large under the reference
 # test's membership schedule, world 2 -> 1 at step 6 of 12.
 GANG_BERT = {**TRAIN_CONFIG, "steps": 5}
 GANG_RESNET = {"model": "resnet50", "model_config": {},
@@ -2408,7 +2453,8 @@ def gang_data(home: Path) -> tuple[str, str]:
     return str(bert), str(resnet)
 
 
-def gang_compare(label: str, one: dict, ranks: list[dict]) -> None:
+def gang_compare(label: str, one: dict, ranks: list[dict],
+                 phase: int = 17) -> None:
     """Every rank's trail bitwise equal to rank 0's, rank 0's within
     GANG_TOL of one process's at every step."""
     trails = [r["trail"] for r in ranks]
@@ -2419,14 +2465,14 @@ def gang_compare(label: str, one: dict, ranks: list[dict]) -> None:
                                         strict=True)):
         rel = {k: abs(g - w) / abs(w)
                for k, g, w in zip(("loss", "grad_norm"), got, want)}
-        log(f"phase 17 {label} step {i + 1}: loss gang {got[0]:.6f} one "
+        log(f"phase {phase} {label} step {i + 1}: loss gang {got[0]:.6f} one "
             f"{want[0]:.6f} (rel {rel['loss']:.3e}), grad_norm gang "
             f"{got[1]:.6f} one {want[1]:.6f} (rel {rel['grad_norm']:.3e})")
         check(all(math.isfinite(x) for x in got + want), (label, got, want))
         worst = {k: max(worst[k], rel[k]) for k in worst}
     ok = all(worst[k] <= GANG_TOL[k] for k in worst)
-    log(f"phase 17 {label}: {len(ranks)} ranks bitwise equal; gang vs one "
-        f"process max rel loss {worst['loss']:.3e} grad_norm "
+    log(f"phase {phase} {label}: {len(ranks)} ranks bitwise equal; gang vs "
+        f"one process max rel loss {worst['loss']:.3e} grad_norm "
         f"{worst['grad_norm']:.3e} (tol {GANG_TOL['loss']:g}, "
         f"{GANG_TOL['grad_norm']:g}) {'ok' if ok else 'FAIL'}")
     check(ok, f"{label}: gang vs one process {worst}")
@@ -2516,8 +2562,13 @@ def phase_gang(fa) -> dict:
                "PYTHONPATH": os.pathsep.join(
                    [str(ROOT)] + [p for p in [os.environ.get("PYTHONPATH")]
                                   if p])}
-        one = spawn_local_gang(GANG_WORKER, 1, timeout=GANG_TIMEOUT_S,
-                               extra_env=env)[0]
+        one = {"jobs": [
+            one_process(fa, {**GANG_BERT, "data_path": bert_npz},
+                        TRAIN_LAUNCHES, "phase 17 BERT-large one process"),
+            one_process(fa, {**GANG_RESNET, "data_path": resnet_npz},
+                        dict.fromkeys(KERNEL_NAMES, 0),
+                        "phase 17 ResNet-50 one process")]}
+        free_memory()
         t1 = time.perf_counter()
         ranks = spawn_local_gang(GANG_WORKER, GANG_RANKS,
                                  timeout=GANG_TIMEOUT_S, extra_env=env)
@@ -2575,6 +2626,298 @@ def gang_numbers(fa, gang: dict, bert_rows: dict) -> dict[str, list[dict]]:
                 with_launches(bert_rows[n], resize[TRAIN_SHAPE[0]][n],
                               "17(c) world 1")]
             for n in KERNEL_NAMES}
+
+
+# -- phase 18: fsdp and tp training as gangs of processes on the card --------
+
+# Llama at Llama-2-7B's width (phase 5's model_config) cut to MESH_LAYERS of
+# its 32 layers: the gangs' gathers and reduce-scatters cross host memory
+# through gloo (a layer's float32 weights alone are ~0.8 GB); global batch
+# 8 x 512, MESH_STEPS adamw steps from an .npz made from the seed, through
+# the worker entrypoint as one process and as gangs on each layout below.
+# Steps cut from 3 to 2 to keep the whole run under half its limit (the
+# phase took 118.7 s of a 628.0 s run on an H100 at 3 steps, and about
+# 15 s of each spawn is start-up); the last layout's checkpoint is the
+# save at its end, which one process restores: every parameter bitwise
+# the gang's gathered one (SHA-256 of each tensor's bytes)
+MESH_LAYERS, MESH_STEPS = 2, 2
+MESH_CONFIG = {"model": "llama",
+               "model_config": {"size": "7b", "num_layers": MESH_LAYERS},
+               "global_batch": MESH_BATCH, "steps": MESH_STEPS,
+               "log_every": 1, "seed": 0,
+               "optimizer": {"name": "adamw", "learning_rate": 1e-4}}
+MESH_LAUNCHES = {"flash_fwd": 2 * MESH_LAYERS, "flash_bwd_dq": MESH_LAYERS,
+                 "flash_bwd_dkv": MESH_LAYERS}
+# each layout is held to one process by gang_compare within GANG_TOL (the
+# rows and heads of each rank's bf16 GEMMs differ, the row-parallel
+# products are summed over tp in bf16, gradients in another order)
+MESH_TIMEOUT_S = 600.0
+
+
+MESH_WORKER = r"""
+import os, time
+T0 = float(os.environ["MESH_SPAWNED"])
+import hashlib, json
+import torch
+import torch.distributed as dist
+from kubeflow_tpu_torch.ops import flash_attention as fa
+from kubeflow_tpu_torch.parallel import sharding as sh
+from kubeflow_tpu_torch.parallel import train_step as ts
+from kubeflow_tpu_torch.training import __main__ as worker
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+KERNELS = {"flash_fwd": fa.flash_attention, "flash_bwd_dq": fa.flash_bwd_dq,
+           "flash_bwd_dkv": fa.flash_bwd_dkv}
+comm, digests, trail, stamps, snaps, peaks = {}, {}, [], [], [], []
+
+
+def timed(kind, fn, payload):
+    # the collective alone, from an idle card to its result on the card
+    def call(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        rec = comm.setdefault(kind, {"s": 0.0, "bytes": 0, "calls": 0})
+        rec["s"] += time.perf_counter() - t0
+        t = payload(*args)
+        rec["bytes"] += t.numel() * t.element_size()
+        rec["calls"] += 1
+        return out
+    return call
+
+
+dist.all_reduce = timed("all_reduce", dist.all_reduce, lambda t: t)
+dist.all_gather_into_tensor = timed(
+    "all_gather", dist.all_gather_into_tensor, lambda out, x: out)
+dist.reduce_scatter_tensor = timed(
+    "reduce_scatter", dist.reduce_scatter_tensor, lambda out, x: x)
+_full_state_dict = sh.full_state_dict
+
+
+def full_state_dict(model):
+    # the checkpoint's own gather: what rank 0's file must hold
+    full = _full_state_dict(model)
+    if dist.get_rank() == 0:
+        digests.update({k: hashlib.sha256(v.cpu().contiguous().view(
+            torch.uint8).numpy()).hexdigest() for k, v in full.items()})
+    return full
+
+
+sh.full_state_dict = full_state_dict
+_build_step = ts.build_train_step
+
+
+def build_step(*args, **kwargs):
+    step = _build_step(*args, **kwargs)
+
+    def recorded(state, batch):
+        state, m = step(state, batch)
+        trail.append((m["loss"], m["grad_norm"]))
+        return state, m
+
+    return recorded
+
+
+ts.build_train_step = build_step
+imported = time.time() - T0
+jobs = []
+for config in json.loads(os.environ["MESH_CONFIGS"]):
+    os.environ["JAXJOB_TRAINER_CONFIG"] = json.dumps(config)
+    for kept in (comm, digests, trail, stamps, snaps, peaks):
+        kept.clear()
+    torch.cuda.reset_peak_memory_stats()
+    for kernel in KERNELS.values():
+        kernel.launches = 0                          # the path starts
+    start = time.time() - T0
+    rc = worker.main(["--device", "cuda"], metrics_hook=lambda s, r: (
+        stamps.append(time.time() - T0),
+        snaps.append(json.loads(json.dumps(comm))),
+        peaks.append(torch.cuda.max_memory_allocated() / 1e9)))
+    launches = {n: k.launches for n, k in KERNELS.items()}   # it ended
+    # step 2 alone: between the syncs that log steps 1 and 2 (a
+    # checkpoint may follow the last)
+    step2 = {kind: {k: v - snaps[0].get(kind, {}).get(k, 0)
+                    for k, v in rec.items()}
+             for kind, rec in snaps[1].items()}
+    jobs.append({
+        "rc": rc, "launches": launches,
+        "trail": [[float(loss), float(norm)] for loss, norm in trail],
+        "samples_per_s": config["global_batch"] / (stamps[1] - stamps[0]),
+        "comm": step2, "steps_peak_gb": peaks[-1],
+        "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "digests": dict(digests),
+        "times": {"imported": imported, "start": start, "step1": stamps[0],
+                  "last": stamps[-1], "ended": time.time() - T0}})
+print(json.dumps({
+    "device": torch.cuda.current_device(), "backend": dist.get_backend(),
+    "world": dist.get_world_size(), "jobs": jobs}))
+"""
+
+
+def mesh_data(home: Path) -> str:
+    """Phase 18's .npz from seed 0: MESH_STEPS global batches of 8 Llama
+    rows of 512 tokens (labels: the ids shifted by one)."""
+    rng = np.random.default_rng(0)
+    ids = rng.integers(0, 32000, (MESH_BATCH * MESH_STEPS, LLAMA_SEQ + 1),
+                       dtype=np.int32)
+    path = home / "llama.npz"
+    np.savez(path, input_ids=ids[:, :-1], labels=ids[:, 1:])
+    return str(path)
+
+
+def mesh_restore(home: Path, digests: dict) -> None:
+    """One process restores the last layout's checkpoint on the card:
+    every parameter bitwise the gang's gathered one (``digests``: SHA-256
+    of each tensor the gang's save gathered)."""
+    import hashlib
+
+    from kubeflow_tpu_torch.models import registry
+    from kubeflow_tpu_torch.parallel import train_step as ts
+    from kubeflow_tpu_torch.training.checkpoint import CheckpointManager
+    from kubeflow_tpu_torch.training.optim import make_optimizer
+
+    model = registry.get("llama").make_model(
+        device="cuda", **MESH_CONFIG["model_config"])
+    state = ts.init_train_state(model, make_optimizer(
+        MESH_CONFIG["optimizer"]))
+    state = CheckpointManager(str(home / "ckpt")).restore(state)
+    got = {k: hashlib.sha256(v.cpu().contiguous().view(torch.uint8)
+                             .numpy()).hexdigest()
+           for k, v in model.state_dict().items()}
+    same = got == digests
+    log(f"phase 18: the fsdp=2, tp=2 checkpoint of step {state.step} "
+        f"restored by one process: {len(got)} tensors "
+        f"{'bitwise equal' if same else 'DIFFER'} to the gang's gathered "
+        "ones")
+    check(same and state.step == MESH_STEPS, "phase 18 restore")
+
+
+def one_process(fa, config: dict, launches: dict, label: str) -> dict:
+    """The one-process reference of a gang phase: ``phase_training`` in
+    this process (its CUDA start-up is paid already) with every step's
+    loss and grad_norm recorded, shaped like a gang worker's job."""
+    from kubeflow_tpu_torch.parallel import train_step as ts
+
+    trail = []
+    build = ts.build_train_step
+
+    def recorded_build(*args, **kwargs):
+        step = build(*args, **kwargs)
+
+        def recorded(state, batch):
+            state, m = step(state, batch)
+            trail.append((m["loss"], m["grad_norm"]))
+            return state, m
+
+        return recorded
+
+    free_memory()
+    torch.cuda.reset_peak_memory_stats()
+    ts.build_train_step = recorded_build
+    try:
+        run = phase_training(fa, config, launches, label)
+    finally:
+        ts.build_train_step = build
+    return {"rc": 0, "launches": run["launches"],
+            "trail": [[float(loss), float(norm)] for loss, norm in trail],
+            "samples_per_s": run["samples_per_sec"], "allreduce_s": 0.0,
+            "allreduce_bytes": 0, "allreduce_calls": 0, "comm": {},
+            "steps_peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def mesh_gang(fa, configs: dict, ranks: int, path: str) -> dict:
+    """The layouts of ``configs`` ({label: Trainer config}) one after the
+    other in one gang of ``ranks`` processes on this card: per layout the
+    ranks' launches, trails, collectives, peak memory and samples/s, and
+    rank 0's checkpoint digests."""
+    from kubeflow_tpu_torch.parallel.distributed import spawn_local_gang
+
+    t0 = time.perf_counter()
+    outs = spawn_local_gang(
+        MESH_WORKER, ranks, timeout=MESH_TIMEOUT_S,
+        extra_env={"MESH_CONFIGS": json.dumps(list(configs.values())),
+                   "MESH_SPAWNED": repr(time.time()), "PYTHONPATH": path})
+    log(f"phase 18: gang of {ranks} for {', '.join(configs)}: "
+        f"{time.perf_counter() - t0:.1f}s")
+    want = {n: MESH_STEPS * v for n, v in MESH_LAUNCHES.items()}
+    results = {}
+    for j, label in enumerate(configs):
+        jobs = [out["jobs"][j] for out in outs]
+        for r, (out, job) in enumerate(zip(outs, jobs)):
+            comm = ", ".join(
+                f"{kind} {c['s']:.4f} s in {c['calls']} calls of "
+                f"{c['bytes']} B" for kind, c in sorted(job["comm"].items()))
+            log(f"phase 18 {label} rank {r}: seconds after the spawn "
+                + ", ".join(f"{k} {v:.1f}" for k, v in job["times"].items())
+                + f"; launches {job['launches']} (expected {want}), peak "
+                f"memory {job['steps_peak_gb']:.2f} GB over the steps, "
+                f"{job['peak_gb']:.2f} GB over the run, samples/s "
+                f"{job['samples_per_s']:.2f}; step 2: {comm}")
+            check(job["rc"] == 0 and job["launches"] == want
+                  and out["device"] == 0 and out["backend"] == "gloo"
+                  and out["world"] == ranks, (label, r, job["launches"]))
+        trails = [job["trail"] for job in jobs]
+        results[label] = {
+            "trail": trails[0], "trails": trails,
+            "digests": jobs[0]["digests"],
+            "samples_per_s": min(job["samples_per_s"] for job in jobs),
+            "steps_peak_gb": max(job["steps_peak_gb"] for job in jobs),
+            "peak_gb": max(job["peak_gb"] for job in jobs),
+            "comm": jobs[0]["comm"],
+            "launches": {n: sum(job["launches"][n] for job in jobs)
+                         for n in KERNEL_NAMES}}
+    return results
+
+
+def phase_mesh(fa) -> dict:
+    """Phase 18: the Llama run as one process (here) and on each sharded
+    layout (fsdp=2 then tp=2 in one gang of 2, fsdp=2 x tp=2 in a gang of
+    4, from spawn_local_gang on this card), then the checkpoint's
+    restore."""
+    import shutil
+    import tempfile
+
+    t0 = time.perf_counter()
+    home = Path(tempfile.mkdtemp(prefix=".kf_mesh_"))
+    path = os.pathsep.join([str(ROOT)] + [p for p in [
+        os.environ.get("PYTHONPATH")] if p])
+    try:
+        data = mesh_data(home)
+        configs = {label: {**MESH_CONFIG, "data_path": data, "fsdp": fsdp,
+                           "tp": tp}
+                   for label, fsdp, tp in MESH_LAYOUTS}
+        last = MESH_LAYOUTS[-1][0]
+        configs[last]["checkpoint_dir"] = str(home / "ckpt")
+        one, *twos = MESH_LAYOUTS[:-1]
+        results = {one[0]: one_process(fa, configs[one[0]], MESH_LAUNCHES,
+                                       f"phase 18 {one[0]}")}
+        results.update(mesh_gang(fa, {label: configs[label]
+                                      for label, *_ in twos}, 2, path))
+        results.update(mesh_gang(fa, {last: configs[last]}, 4, path))
+        for label, *_ in MESH_LAYOUTS[1:]:
+            gang_compare(label, results[one[0]],
+                         [{"trail": t} for t in results[label]["trails"]],
+                         phase=18)
+        mesh_restore(home, results[last]["digests"])
+    finally:
+        shutil.rmtree(home, ignore_errors=True)
+    log(f"phase 18: {time.perf_counter() - t0:.1f}s")
+    return results
+
+
+def mesh_numbers(fa, mesh: dict) -> dict[str, list[dict]]:
+    """K1-K3 rows of phase 18: each layout's launches at its rank shape."""
+    rows = {n: [] for n in KERNEL_NAMES}
+    for label, fsdp, tp in MESH_LAYOUTS:
+        got = training_numbers(fa, mesh_shape(fsdp, tp),
+                               mesh[label]["launches"], MESH_LAUNCHES)
+        for n in KERNEL_NAMES:
+            rows[n].append(got[n])
+    return rows
+
 
 
 def int8_pages_equal(engine, prompt: list[int], usable: int) -> bool:
@@ -3743,13 +4086,18 @@ def kernel_times_only(fa) -> int:
 
 def some_phases(fa, which: str) -> int:
     """``--phases 9,12,13``: build and check the kernels (phase 1), then
-    the named phases (9 to 16); prints no result line."""
+    the named phases (9 to 18); prints no result line."""
     wanted = {int(w) for w in which.split(",") if w}
-    if not wanted <= set(range(9, 18)):
-        print(f"chip_smoke: --phases takes 9 to 17, not {which}",
+    if not wanted <= set(range(9, 19)):
+        print(f"chip_smoke: --phases takes 9 to 18, not {which}",
               file=sys.stderr)
         return 2
     phase_kernels(fa)
+    if 18 in wanted:
+        mesh = phase_mesh(fa)
+        log(card_line())
+        mesh_numbers(fa, mesh)
+        free_memory()
     if 17 in wanted:
         gang = phase_gang(fa)
         log(card_line())
@@ -3853,6 +4201,8 @@ def main(argv: list[str]) -> int:
     gemma_train = phase_gemma_training(fa)
     vision = phase_vision(fa)
     gang = phase_gang(fa)
+    free_memory()
+    mesh = phase_mesh(fa)
     log(card_line())
     serving_rows = phase_numbers(fa, main_path_shapes(), num_layers=32)
     prefix_rows = phase_numbers(fa, prefix_path_shapes(), num_layers=32)
@@ -3864,6 +4214,7 @@ def main(argv: list[str]) -> int:
     fleet_rows = fleet_numbers(fa, fleet["calls"])
     gemma_rows = gemma_numbers(fa, gemma_serving, gemma_train)
     gang_rows = gang_numbers(fa, gang, bert_rows)
+    mesh_rows = mesh_numbers(fa, mesh)
     causal_numbers(fa)
     log(f"phase 2: TTFT mean {serving['ttft_mean_s'] * 1e3:.1f} ms over the "
         f"4 concurrent requests; decode "
@@ -3946,6 +4297,10 @@ def main(argv: list[str]) -> int:
         f"against {gang['ResNet-50']['one_samples_per_s']:.1f} (all-reduce "
         f"{gang['ResNet-50']['allreduce_s']:.4f} s and "
         f"{gang['ResNet-50']['allreduce_bytes']:.0f} bytes per step)"
+        + "; phase 18: " + ", ".join(
+            f"{label} {r['samples_per_s']:.2f} (peak {r['steps_peak_gb']:.2f}"
+            f" GB over the steps, {r['peak_gb']:.2f} GB with the save)"
+            for label, r in mesh.items())
         + f"; total {time.perf_counter() - t_start:.1f}s")
     check(serving["launches"] == sum(r["launches"] for r in serving_rows),
           "serving launches")
@@ -3973,10 +4328,11 @@ def main(argv: list[str]) -> int:
                             + shared_rows + spec_rows + fleet_rows
                             + [bert_rows["flash_fwd"], llama_rows["flash_fwd"],
                                moe_train_rows["flash_fwd"]]
-                            + gang_rows["flash_fwd"], errs["flash_fwd"])]
+                            + gang_rows["flash_fwd"]
+                            + mesh_rows["flash_fwd"], errs["flash_fwd"])]
     kernels += [kernel_entry(name, [bert_rows[name], llama_rows[name],
-                                    moe_train_rows[name]] + gang_rows[name],
-                             errs[name])
+                                    moe_train_rows[name]] + gang_rows[name]
+                             + mesh_rows[name], errs[name])
                 for name in ("flash_bwd_dq", "flash_bwd_dkv")]
     # the D = 256 instantiations: K1 on phases 15 and 16, K2 and K3 on 16
     train_256 = gemma_rows["training"]

@@ -26,6 +26,7 @@ from torch.utils.checkpoint import checkpoint
 
 from kubeflow_tpu_torch.device import dtype_of, resolve
 from kubeflow_tpu_torch.models import layers as kl
+from kubeflow_tpu_torch.models.mlp import label_log_probs
 from kubeflow_tpu_torch.ops.attention import dot_product_attention
 
 
@@ -75,17 +76,23 @@ class BertSelfAttention(nn.Module):
         self.cfg = cfg
         kw = dict(use_bias=True, dtype=cfg.torch_dtype, device=device)
         heads = (cfg.num_heads, cfg.head_dim)
-        self.query = kl.DenseGeneral(cfg.hidden_size, heads, **kw)
-        self.key = kl.DenseGeneral(cfg.hidden_size, heads, **kw)
-        self.value = kl.DenseGeneral(cfg.hidden_size, heads, **kw)
-        self.out = kl.DenseGeneral(cfg.hidden_size, cfg.hidden_size, **kw)
+        names = ("embed", "heads", "kv")
+        self.query = kl.DenseGeneral(cfg.hidden_size, heads,
+                                     axis_names=names, **kw)
+        self.key = kl.DenseGeneral(cfg.hidden_size, heads, axis_names=names,
+                                   **kw)
+        self.value = kl.DenseGeneral(cfg.hidden_size, heads,
+                                     axis_names=names, **kw)
+        self.out = kl.DenseGeneral(cfg.hidden_size, cfg.hidden_size,
+                                   axis_names=("heads", "embed"), **kw)
 
     def forward(self, x, mask):
         cfg = self.cfg
         q, k, v = self.query(x), self.key(x), self.value(x)
         out = dot_product_attention(q, k, v, mask=mask,
                                     use_flash=cfg.use_flash and mask is None)
-        return self.out(out.reshape(out.shape[:-2] + (cfg.hidden_size,)))
+        # this rank's heads under tensor parallelism (all of them without)
+        return self.out(out.reshape(out.shape[:-2] + (-1,)))
 
 
 class BertLayer(nn.Module):
@@ -96,9 +103,11 @@ class BertLayer(nn.Module):
         self.attention = BertSelfAttention(cfg, device=device)
         self.attention_ln = kl.LayerNorm(cfg.hidden_size, eps, device=device)
         self.intermediate = kl.DenseGeneral(cfg.hidden_size,
-                                            cfg.intermediate_size, **kw)
+                                            cfg.intermediate_size,
+                                            axis_names=("embed", "mlp"), **kw)
         self.output = kl.DenseGeneral(cfg.intermediate_size,
-                                      cfg.hidden_size, **kw)
+                                      cfg.hidden_size,
+                                      axis_names=("mlp", "embed"), **kw)
         self.output_ln = kl.LayerNorm(cfg.hidden_size, eps, device=device)
 
     def forward(self, x, mask):
@@ -124,18 +133,22 @@ class BertModel(nn.Module):
         self.word_embeddings = kl.Embed(cfg.vocab_size, h, dtype=dt,
                                         device=device)
         self.position_embeddings = kl.param((cfg.max_position, h),
-                                            torch.float32, device)
+                                            torch.float32, device,
+                                            (None, "embed"))
         self.token_type_embeddings = (
-            kl.param((cfg.type_vocab_size, h), torch.float32, device)
+            kl.param((cfg.type_vocab_size, h), torch.float32, device,
+                     (None, "embed"))
             if cfg.type_vocab_size else None)
         self.embeddings_ln = kl.LayerNorm(h, eps, device=device)
         self.layers = nn.ModuleList(BertLayer(cfg, device=device)
                                     for _ in range(cfg.num_layers))
-        self.pooler = kl.DenseGeneral(h, h, **kw)
-        self.mlm_transform = kl.DenseGeneral(h, h, **kw)
+        head = ("embed", None)
+        self.pooler = kl.DenseGeneral(h, h, axis_names=head, **kw)
+        self.mlm_transform = kl.DenseGeneral(h, h, axis_names=head, **kw)
         self.mlm_ln = kl.LayerNorm(h, eps, device=device)
-        self.mlm_bias = kl.param((cfg.vocab_size,), torch.float32, device)
-        self.nsp = kl.DenseGeneral(h, 2, **kw)
+        self.mlm_bias = kl.param((cfg.vocab_size,), torch.float32, device,
+                                 ("vocab",))
+        self.nsp = kl.DenseGeneral(h, 2, axis_names=head, **kw)
 
     @property
     def device(self) -> torch.device:
@@ -161,11 +174,11 @@ class BertModel(nn.Module):
         dt = cfg.torch_dtype
         s = input_ids.shape[1]
         x = self.word_embeddings(input_ids)
-        x = x + self.position_embeddings.to(dt)[:s][None]
+        x = x + kl.weight(self.position_embeddings, dt)[:s][None]
         if self.token_type_embeddings is not None:
             if token_type_ids is None:
                 token_type_ids = torch.zeros_like(input_ids)
-            x = x + self.token_type_embeddings.to(dt)[token_type_ids]
+            x = x + kl.weight(self.token_type_embeddings, dt)[token_type_ids]
         x = self.embeddings_ln(x)
 
         mask = None
@@ -189,13 +202,19 @@ class BertModel(nn.Module):
 
 
 def mlm_loss(outputs: dict, labels: torch.Tensor,
-             label_weights: torch.Tensor) -> torch.Tensor:
+             label_weights: torch.Tensor, vocab=None) -> torch.Tensor:
     """Masked-LM cross entropy; labels -100 or weight 0 positions
-    ignored (labels are clipped into the vocabulary, as the reference)."""
+    ignored (labels are clipped into the vocabulary, as the reference).
+    ``vocab``: the logits' tensor-parallel vocabulary split
+    (``mlp.label_log_probs``)."""
     logits = outputs["logits"]
-    vocab = logits.shape[-1]
-    labels_safe = labels.long().clamp(0, vocab - 1)
-    nll = F.cross_entropy(logits.reshape(-1, vocab).float(),
-                          labels_safe.reshape(-1), reduction="none")
+    n = logits.shape[-1]
+    if vocab is not None:
+        labels_safe = labels.long().clamp(0, n * vocab.size - 1)
+        nll = -label_log_probs(logits, labels_safe, vocab).reshape(-1)
+    else:
+        labels_safe = labels.long().clamp(0, n - 1)
+        nll = F.cross_entropy(logits.reshape(-1, n).float(),
+                              labels_safe.reshape(-1), reduction="none")
     weights = label_weights.float().reshape(-1)
     return (nll * weights).sum() / weights.sum().clamp_min(1.0)

@@ -38,7 +38,8 @@ from torch.nn import functional as F
 
 from kubeflow_tpu_torch.ops.matmul import matmul_f32
 from kubeflow_tpu_torch.parallel.distributed import (
-    data_parallel_group, sum_over_group)
+    copy_to_group, data_parallel_group, gather_cast, gather_from_group,
+    reduce_from_group, sum_over_group)
 
 
 def init_submodules(model: nn.Module, seed: int) -> torch.Generator:
@@ -53,17 +54,30 @@ def init_submodules(model: nn.Module, seed: int) -> torch.Generator:
 
 
 def weight(w, dtype: torch.dtype) -> torch.Tensor:
-    """A weight in ``dtype``: a parameter is cast; an int8 ``QTensor``
-    dequantizes to bf16 first (the reference's ``__jax_array__``, whatever
-    the compute dtype), then is cast."""
-    if isinstance(w, torch.Tensor):
-        return w.to(dtype)
-    return w.dequantize().to(dtype)
+    """A weight in ``dtype``: a parameter is cast; an fsdp-split one
+    (``parallel/sharding.py``) is cast and gathered whole over its fsdp
+    group; an int8 ``QTensor`` dequantizes to bf16 first (the reference's
+    ``__jax_array__``, whatever the compute dtype), then is cast."""
+    if not isinstance(w, torch.Tensor):
+        return w.dequantize().to(dtype)
+    split = getattr(w, "fsdp_split", None)
+    if split is not None:
+        return gather_cast(w, dtype, split.dim, split.group)
+    return w.to(dtype)
 
 
-def param(shape, dtype, device) -> nn.Parameter:
-    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
-                        requires_grad=False)
+def tp_split(w):
+    """The tensor-parallel split of parameter ``w`` (None: whole)."""
+    return getattr(w, "tp_split", None)
+
+
+def param(shape, dtype, device, names=None) -> nn.Parameter:
+    """A frozen parameter carrying ``names``, the logical axis names of
+    its reference counterpart's ``nn.Partitioned`` box (None: unboxed)."""
+    p = nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
+                     requires_grad=False)
+    p.logical_axes = names
+    return p
 
 
 def lecun_normal_(p: torch.Tensor, gen: torch.Generator) -> None:
@@ -93,19 +107,29 @@ class DenseGeneral(nn.Module):
     kernel ``[in, *features]``, output in the compute ``dtype``.  With
     ``use_bias`` (off by default, as every Llama projection is built), a
     bias ``[*features]`` held like the kernel is cast to the compute dtype
-    and added after the product, as the reference's ``DenseGeneral``."""
+    and added after the product, as the reference's ``DenseGeneral``.
+    ``axis_names`` are the kernel's logical names (the bias takes the
+    output dims'), None where the reference uses an unboxed ``nn.Dense``.
+
+    Under tensor parallelism (``parallel/sharding.py``) a kernel split on
+    an output dim is column-parallel: the input is replicated (gathered
+    first if a column-parallel layer left it split) and the output holds
+    this rank's features; a kernel split on its input dim is
+    row-parallel: the partial product is summed over the tp group before
+    the bias."""
 
     def __init__(self, in_features: int, features: int | Sequence[int], *,
                  use_bias: bool = False, dtype=torch.bfloat16,
-                 param_dtype=torch.float32, device=None):
+                 param_dtype=torch.float32, device=None, axis_names=None):
         super().__init__()
         self.features = ((features,) if isinstance(features, int)
                          else tuple(features))
         self.dtype = dtype
         self.kernel = param((in_features,) + self.features, param_dtype,
-                            device)
-        self.bias = (param(self.features, param_dtype, device) if use_bias
-                     else None)
+                            device, axis_names)
+        self.bias = (param(self.features, param_dtype, device,
+                           axis_names and axis_names[1:])
+                     if use_bias else None)
 
     def init_weights(self, gen: torch.Generator) -> None:
         lecun_normal_(self.kernel, gen)
@@ -114,15 +138,25 @@ class DenseGeneral(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         w = weight(self.kernel, self.dtype)
-        w = w.reshape(w.shape[0], -1)
-        y = (x.to(self.dtype) @ w).reshape(x.shape[:-1] + self.features)
+        tp = tp_split(self.kernel)
+        if tp is not None and tp.dim > 0:
+            if x.shape[-1] != w.shape[0]:
+                x = gather_from_group(x, tp.group)
+            x = copy_to_group(x, tp.group)
+        y = (x.to(self.dtype) @ w.reshape(w.shape[0], -1)).reshape(
+            x.shape[:-1] + w.shape[1:])
+        if tp is not None and tp.dim == 0:
+            y = reduce_from_group(y, tp.group)
         if self.bias is not None:
-            y = y + self.bias.to(self.dtype)
+            y = y + weight(self.bias, self.dtype)
         return y
 
 
 class Embed(nn.Module):
-    """Token embedding with the tied logit projection ``attend``."""
+    """Token embedding with the tied logit projection ``attend``.  Under
+    tensor parallelism the table's vocabulary rows are split: a lookup
+    takes this rank's rows (zeros elsewhere) summed over the tp group,
+    and ``attend`` gives this rank's slice of the logits."""
 
     def __init__(self, num_embeddings: int, features: int, *,
                  dtype=torch.bfloat16, param_dtype=torch.float32,
@@ -130,19 +164,36 @@ class Embed(nn.Module):
         super().__init__()
         self.dtype = dtype
         self.embedding = param((num_embeddings, features), param_dtype,
-                               device)
+                               device, ("vocab", "embed"))
 
     def init_weights(self, gen: torch.Generator) -> None:
         embed_normal_(self.embedding, gen)
 
+    def vocab_split(self):
+        """The tp split of the vocabulary (None: whole)."""
+        return tp_split(self.embedding)
+
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
-        return self.embedding.to(self.dtype)[ids]
+        table = weight(self.embedding, self.dtype)
+        tp = self.vocab_split()
+        if tp is None:
+            return table[ids]
+        rows = table.shape[0]
+        local = ids - tp.index * rows
+        mine = (local >= 0) & (local < rows)
+        x = torch.where(mine[..., None], table[local.clamp(0, rows - 1)],
+                        torch.zeros((), dtype=table.dtype,
+                                    device=table.device))
+        return reduce_from_group(x, tp.group)
 
     def attend(self, x: torch.Tensor) -> torch.Tensor:
         """Project hidden states onto the vocabulary: products of
         compute-dtype values accumulated in float32, float32 logits."""
         common = torch.promote_types(x.dtype, self.dtype)
-        table = self.embedding.to(self.dtype).to(common)
+        table = weight(self.embedding, self.dtype).to(common)
+        tp = self.vocab_split()
+        if tp is not None:
+            x = copy_to_group(x, tp.group)
         x2 = x.to(common).reshape(-1, x.shape[-1])
         return matmul_f32(x2, table.T).reshape(*x.shape[:-1], -1)
 
@@ -155,8 +206,8 @@ class LayerNorm(nn.Module):
                  param_dtype=torch.float32, device=None):
         super().__init__()
         self.epsilon = epsilon
-        self.scale = param((features,), param_dtype, device)
-        self.bias = param((features,), param_dtype, device)
+        self.scale = param((features,), param_dtype, device, ("embed",))
+        self.bias = param((features,), param_dtype, device, ("embed",))
 
     def init_weights(self, gen: torch.Generator) -> None:
         nn.init.ones_(self.scale)
@@ -168,7 +219,8 @@ class LayerNorm(nn.Module):
         mean = xf.mean(dim=-1, keepdim=True)
         var = (xf - mean).square().mean(dim=-1, keepdim=True)
         y = (xf - mean) * torch.rsqrt(var + self.epsilon)
-        return (y * self.scale.float() + self.bias.float()).to(orig)
+        return (y * weight(self.scale, torch.float32)
+                + weight(self.bias, torch.float32)).to(orig)
 
 
 class RMSNorm(nn.Module):
@@ -179,7 +231,7 @@ class RMSNorm(nn.Module):
                  param_dtype=torch.float32, device=None):
         super().__init__()
         self.epsilon = epsilon
-        self.scale = param((features,), param_dtype, device)
+        self.scale = param((features,), param_dtype, device, ("embed",))
 
     def init_weights(self, gen: torch.Generator) -> None:
         nn.init.ones_(self.scale)
@@ -189,7 +241,7 @@ class RMSNorm(nn.Module):
         xf = x.float()
         var = xf.square().mean(dim=-1, keepdim=True)
         y = xf * torch.rsqrt(var + self.epsilon)
-        return (y * self.scale.float()).to(orig)
+        return (y * weight(self.scale, torch.float32)).to(orig)
 
 
 def rotary_embedding(x: torch.Tensor, positions: torch.Tensor,

@@ -111,12 +111,15 @@ class LlamaAttention(nn.Module):
         dt = cfg.torch_dtype
         kw = dict(dtype=dt, param_dtype=param_dtype, device=device)
         hd = cfg.head_dim
-        self.q = kl.DenseGeneral(cfg.hidden_size, (cfg.num_heads, hd), **kw)
+        heads = ("embed", "heads", "kv")
+        self.q = kl.DenseGeneral(cfg.hidden_size, (cfg.num_heads, hd),
+                                 axis_names=heads, **kw)
         self.k = kl.DenseGeneral(cfg.hidden_size, (cfg.num_kv_heads, hd),
-                                 **kw)
+                                 axis_names=heads, **kw)
         self.v = kl.DenseGeneral(cfg.hidden_size, (cfg.num_kv_heads, hd),
-                                 **kw)
-        self.o = kl.DenseGeneral(cfg.num_heads * hd, cfg.hidden_size, **kw)
+                                 axis_names=heads, **kw)
+        self.o = kl.DenseGeneral(cfg.num_heads * hd, cfg.hidden_size,
+                                 axis_names=("heads", "embed"), **kw)
 
     def forward(self, x, positions, cache=None, attn_mask=None):
         cfg = self.cfg
@@ -166,7 +169,8 @@ class LlamaAttention(nn.Module):
         else:
             out = dot_product_attention(q, k, v, causal=True, mask=attn_mask,
                                         use_flash=cfg.use_flash)
-        out = out.reshape(out.shape[:-2] + (cfg.num_heads * cfg.head_dim,))
+        # this rank's heads under tensor parallelism (all of them without)
+        out = out.reshape(out.shape[:-2] + (-1,))
         return self.o(out), cache
 
     @staticmethod
@@ -218,12 +222,15 @@ class LlamaBlock(nn.Module):
                 num_experts=cfg.moe_experts, dtype=cfg.dtype),
                 param_dtype=param_dtype, device=device)
         else:
+            mlp = ("embed", "mlp")
             self.gate = kl.DenseGeneral(cfg.hidden_size,
-                                        cfg.intermediate_size, **kw)
+                                        cfg.intermediate_size,
+                                        axis_names=mlp, **kw)
             self.up = kl.DenseGeneral(cfg.hidden_size, cfg.intermediate_size,
-                                      **kw)
+                                      axis_names=mlp, **kw)
             self.down = kl.DenseGeneral(cfg.intermediate_size,
-                                        cfg.hidden_size, **kw)
+                                        cfg.hidden_size,
+                                        axis_names=("mlp", "embed"), **kw)
 
     def forward(self, x, positions, cache=None, attn_mask=None):
         h, cache = self.attention(self.attention_norm(x), positions, cache,

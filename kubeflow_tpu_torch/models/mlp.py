@@ -38,8 +38,10 @@ class MLP(nn.Module):
         dims = (cfg.input_dim,) + tuple(cfg.hidden_dims)
         self.hidden = [f"dense_{i}" for i in range(len(cfg.hidden_dims))]
         for name, n_in, n_out in zip(self.hidden, dims, dims[1:]):
-            self.add_module(name, kl.DenseGeneral(n_in, n_out, **kw))
-        self.logits = kl.DenseGeneral(dims[-1], cfg.num_classes, **kw)
+            self.add_module(name, kl.DenseGeneral(
+                n_in, n_out, axis_names=("embed", "mlp"), **kw))
+        self.logits = kl.DenseGeneral(dims[-1], cfg.num_classes,
+                                      axis_names=("mlp", None), **kw)
 
     @torch.no_grad()
     def init_weights(self, seed: int = 0) -> "MLP":
@@ -54,12 +56,40 @@ class MLP(nn.Module):
         return self.logits(x)
 
 
-def softmax_cross_entropy(logits: torch.Tensor,
-                          labels: torch.Tensor) -> torch.Tensor:
+def label_log_probs(logits: torch.Tensor, labels: torch.Tensor,
+                    vocab=None) -> torch.Tensor:
+    """``log_softmax(logits)`` at ``labels`` (float32), per position.
+
+    ``vocab`` is the tensor-parallel split of the last axis when
+    ``logits`` hold only this rank's slice of the vocabulary (the tied
+    head's output, ``layers.Embed.vocab_split``): the max, the sum of
+    exponentials and the label's logit are then reduced over the tp
+    group (a vocabulary-parallel log-softmax), so every rank gets the
+    whole vocabulary's value."""
+    logits = logits.float()
+    labels = labels.long()[..., None]
+    if vocab is None:
+        return F.log_softmax(logits, dim=-1).gather(-1, labels)[..., 0]
+    from kubeflow_tpu_torch.parallel import distributed as pd
+
+    top = logits.detach().amax(-1, keepdim=True)
+    pd.all_reduce_max(top, vocab.group)
+    shifted = logits - top
+    total = pd.reduce_from_group(shifted.exp().sum(-1), vocab.group)
+    n = logits.shape[-1]
+    local = labels - vocab.index * n
+    mine = (local >= 0) & (local < n)
+    at = shifted.gather(-1, local.clamp(0, n - 1))
+    at = pd.reduce_from_group(torch.where(mine, at, 0.0)[..., 0],
+                              vocab.group)
+    return at - total.log()
+
+
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                          vocab=None) -> torch.Tensor:
     """Mean negative log-likelihood of ``labels`` under a float32
-    log-softmax over the last axis."""
-    logp = F.log_softmax(logits.float(), dim=-1)
-    return -logp.gather(-1, labels.long()[..., None])[..., 0].mean()
+    log-softmax over the last axis (``vocab``: see ``label_log_probs``)."""
+    return -label_log_probs(logits, labels, vocab).mean()
 
 
 def accuracy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

@@ -113,9 +113,12 @@ class MoEBlock(nn.Module):
         self.router = kl.DenseGeneral(d, e, use_bias=True,
                                       dtype=torch.float32,
                                       param_dtype=torch.float32,
-                                      device=device)
-        self.w_in = kl.param((e, d, f), param_dtype, device)
-        self.w_out = kl.param((e, f, d), param_dtype, device)
+                                      device=device,
+                                      axis_names=("embed", "expert"))
+        self.w_in = kl.param((e, d, f), param_dtype, device,
+                             ("expert", "embed", "mlp"))
+        self.w_out = kl.param((e, f, d), param_dtype, device,
+                              ("expert", "mlp", "embed"))
         self.dropped: torch.Tensor | None = None
 
     def init_weights(self, gen: torch.Generator) -> None:

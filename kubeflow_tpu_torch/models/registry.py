@@ -159,7 +159,8 @@ def _bert_loss(module, batch):
     from kubeflow_tpu_torch.models.bert import mlm_loss
 
     out = module(batch["input_ids"])
-    return mlm_loss(out, batch["labels"], batch["weights"])
+    return mlm_loss(out, batch["labels"], batch["weights"],
+                    module.word_embeddings.vocab_split())
 
 
 def _bert_weight(batch):
@@ -198,7 +199,8 @@ def _llama_loss(module, batch):
     from kubeflow_tpu_torch.models.mlp import softmax_cross_entropy
 
     out = module(batch["input_ids"])
-    loss = softmax_cross_entropy(out["logits"], batch["labels"])
+    loss = softmax_cross_entropy(out["logits"], batch["labels"],
+                                 module.tok_embeddings.vocab_split())
     if "moe_aux" in out:   # the Switch load-balance regulariser
         loss = loss + 0.01 * out["moe_aux"]
     return loss

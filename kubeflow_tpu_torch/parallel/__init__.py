@@ -1,2 +1,3 @@
-"""Training-step construction, process rendezvous and the gang's
-collectives (data parallelism over a torch.distributed group)."""
+"""Training-step construction, process rendezvous, the gang's
+collectives, and the 6-axis mesh with its logical-axis sharding (data
+parallelism over a torch.distributed group; fsdp and tp over a mesh)."""

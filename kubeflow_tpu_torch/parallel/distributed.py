@@ -12,17 +12,23 @@ injects three variables into every worker pod of a gang:
 ``torch.distributed.init_process_group`` over ``tcp://<coordinator>``.
 The backend follows from the devices, not from a setting: ``nccl`` when
 every rank on this host has a CUDA device of its own, ``gloo`` when ranks
-share a device (two ranks on one card) or run on the CPU.  Gloo takes
-CUDA tensors for ``all_reduce``, ``broadcast`` and ``barrier`` only, so
-those three are the only collectives the port issues.  The group has a
+share a device (two ranks on one card) or run on the CPU.  Gloo (torch
+2.11) takes CUDA tensors in ``all_reduce`` (float32 and bf16),
+``broadcast``, ``barrier``, ``all_gather_into_tensor`` and
+``reduce_scatter_tensor``: the collectives the port issues.  The group has a
 timeout: a gang with a dead member raises instead of waiting in an
 all-reduce.
 
 Where the reference leaves gradient and statistics reduction to pjit,
 the port issues it here: ``all_reduce_sum`` (gradients, flattened into a
 few buckets), ``sum_over_group`` (differentiable, for BatchNorm's
-global-batch statistics) and ``data_parallel`` (binds the group that
-``models/layers.py::BatchNorm`` reduces over while a train step runs).
+global-batch statistics), ``data_parallel`` (binds the group that
+``models/layers.py::BatchNorm`` reduces over while a train step runs),
+and the sharded layers' differentiable collectives
+(``parallel/sharding.py``): ``gather_cast`` (an fsdp block gathered
+whole, its gradient reduce-scattered), ``copy_to_group`` and
+``reduce_from_group`` (tensor parallelism's f and g) and
+``gather_from_group``.
 """
 
 from __future__ import annotations
@@ -206,6 +212,126 @@ class _SumOverGroup(torch.autograd.Function):
 def sum_over_group(x: torch.Tensor, group) -> torch.Tensor:
     """``x`` summed over ``group``'s ranks, differentiably."""
     return _SumOverGroup.apply(x, group)
+
+
+def all_reduce_max(t: torch.Tensor, group) -> None:
+    """Elementwise max of ``t`` over ``group``'s ranks, in place."""
+    import torch.distributed as dist
+
+    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
+
+
+def all_gather_cat(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """Every rank's ``x`` (equal shapes) concatenated along ``dim`` in
+    rank order of ``group`` (one ``all_gather_into_tensor``)."""
+    import torch.distributed as dist
+
+    n = dist.get_world_size(group)
+    flat = x.new_empty((n * x.shape[0],) + x.shape[1:])
+    dist.all_gather_into_tensor(flat, x.contiguous(), group=group)
+    return flat.view((n,) + x.shape).movedim(0, dim).reshape(
+        x.shape[:dim] + (n * x.shape[dim],) + x.shape[dim + 1:])
+
+
+def reduce_scatter_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """This rank's block along ``dim`` of ``x`` summed over ``group``
+    (one ``reduce_scatter_tensor``)."""
+    import torch.distributed as dist
+
+    n = dist.get_world_size(group)
+    blocks = x.reshape(x.shape[:dim] + (n, x.shape[dim] // n)
+                       + x.shape[dim + 1:]).movedim(dim, 0).contiguous()
+    out = blocks.new_empty(blocks.shape[1:])
+    dist.reduce_scatter_tensor(out, blocks.flatten(0, 1), group=group)
+    return out
+
+
+class _GatherCast(torch.autograd.Function):
+    """``y`` = every rank's block of a parameter, cast to ``dtype`` and
+    concatenated along ``dim``; the cotangent of this rank's block is its
+    block of every rank's cotangent of ``y``, summed in float32 (the sum
+    the unsharded model's gradient is, rounded as a data-parallel
+    gang's)."""
+
+    @staticmethod
+    def forward(ctx, w, dtype, dim, group):
+        ctx.dim, ctx.group, ctx.dtype = dim, group, w.dtype
+        return all_gather_cat(w.to(dtype), dim, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        g = reduce_scatter_dim(grad.float(), ctx.dim, ctx.group)
+        return g.to(ctx.dtype), None, None, None
+
+
+def gather_cast(w: torch.Tensor, dtype: torch.dtype, dim: int,
+                group) -> torch.Tensor:
+    """An fsdp-split parameter whole, in ``dtype``, differentiably."""
+    return _GatherCast.apply(w, dtype, dim, group)
+
+
+class _CopyToGroup(torch.autograd.Function):
+    """Tensor parallelism's ``f``: the identity on a replicated input of
+    rank-local work; its cotangent is summed over the group."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        import torch.distributed as dist
+
+        grad = grad.contiguous().clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
+class _ReduceFromGroup(torch.autograd.Function):
+    """Tensor parallelism's ``g``: rank-local partial sums summed over the
+    group; the (replicated) cotangent passes through."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        import torch.distributed as dist
+
+        y = x.contiguous().clone()
+        dist.all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _GatherFromGroup(torch.autograd.Function):
+    """A last-dim-split activation made whole; the cotangent of this
+    rank's block is its block of the (replicated) cotangent."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        import torch.distributed as dist
+
+        ctx.group, ctx.n = group, x.shape[-1]
+        ctx.index = dist.get_rank(group)
+        return all_gather_cat(x, x.dim() - 1, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.narrow(-1, ctx.index * ctx.n, ctx.n), None
+
+
+def copy_to_group(x: torch.Tensor, group) -> torch.Tensor:
+    return _CopyToGroup.apply(x, group)
+
+
+def reduce_from_group(x: torch.Tensor, group) -> torch.Tensor:
+    return _ReduceFromGroup.apply(x, group)
+
+
+def gather_from_group(x: torch.Tensor, group) -> torch.Tensor:
+    return _GatherFromGroup.apply(x, group)
 
 
 _DATA_PARALLEL = contextvars.ContextVar("kf_data_parallel_group",

@@ -1,0 +1,306 @@
+"""Parameter and activation sharding rules for the 6-axis mesh.
+
+Counterpart of ``kubeflow_tpu/parallel/sharding.py``.  Models tag each
+weight with *logical axis names* (the reference's ``nn.Partitioned``
+boxes; here ``param.logical_axes``, set where ``models/layers.py``
+creates the parameter, None where the reference boxes nothing, as for
+conv kernels) and this module maps logical names -> mesh axes:
+
+  logical axis     mesh axes        meaning
+  ---------------  ---------------  ----------------------------------------
+  "batch"          ("dp", "fsdp")   data parallel over dp and fsdp
+  "seq"            "sp"             sequence/context parallelism
+  "embed"          "fsdp"           d_model dim: sharded for ZeRO-3 weights
+  "heads"          "tp"             attention heads: tensor parallel
+  "kv"             None             per-head dim: replicated
+  "mlp"            "tp"             FFN hidden dim: tensor parallel
+  "vocab"          "tp"             embedding/LM-head vocab dim
+  "stage"          "pp"             stacked pipeline layers
+  "expert"         "ep"             MoE experts
+
+``placements`` turns a parameter's spec into DTensor placements on the
+mesh (``Shard(d)`` on the mesh dim a rule names, ``Replicate()``
+elsewhere): the part the reference's ``logical_to_sharding`` plays.
+``shard_model`` then replaces every parameter with the block of it those
+placements give this rank, and records the split on it
+(``param.fsdp_split``, ``param.tp_split``).  Where the reference leaves
+the rest to GSPMD, the port's layers act on those records:
+
+- **fsdp** (ZeRO-3, the "embed" dim): a layer reads a parameter through
+  ``layers.weight``, which all-gathers the block over the fsdp group in
+  the compute dtype (``distributed.gather_cast``); its backward
+  reduce-scatters the float32 gradient, summed.  Under remat the gather
+  runs again in the recomputed forward, as FSDP's reshard after forward.
+- **tp** (Megatron column/row parallelism on "heads", "mlp", "vocab"): a
+  kernel whose output dims are tp-split computes this rank's heads or
+  FFN columns from a replicated input (``copy_to_group``: identity, the
+  gradient all-reduced); a kernel whose input dim is tp-split produces
+  a partial sum that ``reduce_from_group`` all-reduces.  The embedding
+  looks up this rank's vocabulary rows and all-reduces; the tied head
+  gives vocab-split logits, which the losses reduce with a
+  vocabulary-parallel cross entropy.  Attention runs K1/K2/K3 on plain
+  tensors holding this rank's ``Hq / tp`` query and ``Hkv / tp`` KV
+  heads.
+
+Every activation is this rank's rows with its hidden dim whole, so the
+reference's ``constrain``/``replicate``/``shard_activation`` pins have
+nothing to pin here: they return their input.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+from torch import nn
+
+from kubeflow_tpu_torch.parallel import distributed as pd
+from kubeflow_tpu_torch.parallel.mesh import DATA_AXES, MeshAxes
+from kubeflow_tpu_torch.training.optim import sum_of_squares
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardingRules:
+    """Mapping from logical axis names to mesh axis (or axes, or None)."""
+
+    rules: tuple[tuple[str, Any], ...] = (
+        ("batch", ("dp", "fsdp")),
+        ("seq", "sp"),
+        ("embed", "fsdp"),
+        ("heads", "tp"),
+        ("kv", None),
+        ("mlp", "tp"),
+        ("vocab", "tp"),
+        ("stage", "pp"),
+        ("expert", "ep"),
+    )
+
+    def mesh_axes(self, logical_name: str | None):
+        if logical_name is None:
+            return None
+        for name, axes in self.rules:
+            if name == logical_name:
+                return axes
+        return None
+
+    def spec(self, logical_axes: tuple[str | None, ...]) -> tuple:
+        """The PartitionSpec of the reference, as a tuple: per dim, the
+        mesh axis (or axes, or None) it is split over."""
+        return tuple(self.mesh_axes(a) for a in logical_axes)
+
+    def replace(self, **kv: Any) -> "ShardingRules":
+        rules = tuple((k, kv[k]) if k in kv else (k, v) for k, v in self.rules)
+        extra = tuple((k, v) for k, v in kv.items()
+                      if k not in dict(self.rules))
+        return ShardingRules(rules + extra)
+
+
+DEFAULT_RULES = ShardingRules()
+
+
+def batch_spec(rules: ShardingRules = DEFAULT_RULES, *,
+               seq_sharded: bool = False) -> tuple:
+    """Spec for a [batch, seq, ...] input batch."""
+    if seq_sharded:
+        return (rules.mesh_axes("batch"), rules.mesh_axes("seq"))
+    return (rules.mesh_axes("batch"),)
+
+
+def logical_axes(p: torch.Tensor) -> tuple | None:
+    """The logical names a parameter carries (None: the reference boxes
+    nothing there, and it stays replicated)."""
+    return getattr(p, "logical_axes", None)
+
+
+def shard_params_specs(model: nn.Module,
+                       rules: ShardingRules = DEFAULT_RULES) -> dict:
+    """``{parameter name: spec}``; a parameter without logical names is
+    replicated (``()``, the reference's ``P()``)."""
+    return {name: (rules.spec(logical_axes(p)) if logical_axes(p) else ())
+            for name, p in model.named_parameters()}
+
+
+def placements(spec: tuple) -> tuple:
+    """DTensor placements of ``spec`` over the mesh dims (``MeshAxes``
+    order): ``Shard(d)`` on every mesh dim that dim ``d``'s rule names,
+    ``Replicate()`` on the others."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    out = [Replicate()] * len(MeshAxes)
+    for d, axes in enumerate(spec):
+        for axis in (axes,) if isinstance(axes, str) else (axes or ()):
+            out[MeshAxes.index(axis)] = Shard(d)
+    return tuple(out)
+
+
+def constrain(x: torch.Tensor, spec: tuple) -> torch.Tensor:
+    """The reference's layout pin; the port's layouts are explicit (module
+    docstring), so ``x`` is returned as it is."""
+    return x
+
+
+def replicate(x: torch.Tensor) -> torch.Tensor:
+    """Constrain to fully replicated: ``x`` as it is (see ``constrain``)."""
+    return x
+
+
+def shard_activation(x: torch.Tensor,
+                     rules: ShardingRules = DEFAULT_RULES) -> torch.Tensor:
+    """The canonical [batch, seq, hidden] layout: ``x`` as it is (see
+    ``constrain``)."""
+    return x
+
+
+@dataclasses.dataclass(frozen=True)
+class Split:
+    """How a parameter's block sits in the full tensor along one mesh
+    axis: dim ``dim`` cut into ``size`` equal blocks over ``group``, this
+    rank holding block ``index``."""
+
+    axis: str
+    group: Any
+    dim: int
+    size: int
+    index: int
+
+
+_SHARDED_AXES = ("fsdp", "tp")
+
+
+def _plan(model: nn.Module, mesh, rules: ShardingRules) -> list:
+    """``(module, name, parameter, {axis: (dim, size)})`` for every
+    parameter that some axis splits; refuses a dim that does not divide
+    by its axis, naming the parameter and its logical dim."""
+    plan = []
+    for mod_name, module in model.named_modules():
+        for p_name, p in module.named_parameters(recurse=False):
+            names = logical_axes(p)
+            if not names:
+                continue
+            cuts = {}
+            for axis, place in zip(MeshAxes, placements(rules.spec(names))):
+                size = mesh.shape[axis]
+                if size == 1 or not place.is_shard():
+                    continue
+                if axis not in _SHARDED_AXES:
+                    raise NotImplementedError(
+                        f"{axis}={size} shards parameters only in a later "
+                        "slice of the port")
+                if p.shape[place.dim] % size:
+                    full = f"{mod_name}.{p_name}".lstrip(".")
+                    raise ValueError(
+                        f"{full}: its {names[place.dim]!r} dim of "
+                        f"{p.shape[place.dim]} does not divide by "
+                        f"{axis}={size}")
+                cuts[axis] = (place.dim, size)
+            if cuts:
+                plan.append((module, p_name, p, cuts))
+    return plan
+
+
+def shard_model(model: nn.Module, mesh,
+                rules: ShardingRules = DEFAULT_RULES) -> nn.Module:
+    """Replace every parameter of ``model`` by this rank's block of it
+    under ``rules`` on ``mesh`` (in place; returns the model).  A dim that
+    does not divide by its axis is refused before anything is split,
+    naming the parameter and its logical dim: a Llama whose
+    ``num_kv_heads`` does not divide by tp among them."""
+    for module, p_name, p, cuts in _plan(model, mesh, rules):
+        block, splits = p.detach(), {}
+        for axis, (d, size) in cuts.items():
+            n, index = p.shape[d] // size, mesh.coordinate(axis)
+            block = block.narrow(d, index * n, n)
+            splits[axis] = Split(axis, mesh.group(axis), d, size, index)
+        new = nn.Parameter(block.clone(), requires_grad=p.requires_grad)
+        new.logical_axes = p.logical_axes
+        new.fsdp_split = splits.get("fsdp")
+        new.tp_split = splits.get("tp")
+        module._parameters[p_name] = new
+    return model
+
+
+def _splits(p: torch.Tensor) -> list[Split]:
+    return [s for s in (getattr(p, "fsdp_split", None),
+                        getattr(p, "tp_split", None)) if s is not None]
+
+
+def is_sharded(model: nn.Module) -> bool:
+    return any(_splits(p) for p in model.parameters())
+
+
+def local_block(full: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """This rank's block of ``full`` for parameter ``p`` (the inverse of
+    ``gather_to_host``)."""
+    for s in _splits(p):
+        n = full.shape[s.dim] // s.size
+        full = full.narrow(s.dim, s.index * n, n)
+    return full
+
+
+def gather_to_host(t: torch.Tensor, p: torch.Tensor) -> torch.Tensor | None:
+    """The full tensor of which ``t`` is this rank's block (split like
+    parameter ``p``), on the host of the ranks at coordinate 0 on every
+    axis ``p`` is split over (rank 0 among them), None on the others (a
+    collective).  Each rank copies its block to the host, and each
+    split's blocks are gathered to its group's first rank, so only those
+    ranks receive: a save moves each tensor once, not to every rank, and
+    no rank holds a whole tensor on its card."""
+    import torch.distributed as dist
+
+    x = t.detach().cpu().contiguous()
+    for s in _splits(p):
+        blocks = ([torch.empty_like(x) for _ in range(s.size)]
+                  if s.index == 0 else None)
+        dist.gather(x, blocks, group=s.group, group_dst=0)
+        if s.index != 0:
+            # every rank of this rank's groups on the later axes shares
+            # this coordinate, so none of them gathers further
+            return None
+        x = torch.cat(blocks, s.dim)
+    return x
+
+
+def full_state_dict(model: nn.Module) -> dict[str, torch.Tensor | None]:
+    """``model.state_dict()`` with every parameter gathered whole on the
+    host (``gather_to_host``; a collective): on rank 0, the same keys and
+    shapes as the unsharded model's; elsewhere None where the rank is no
+    gather's root."""
+    params = dict(model.named_parameters())
+    return {k: gather_to_host(v, params.get(k, v))
+            for k, v in model.state_dict().items()}
+
+
+def load_full_state_dict(model: nn.Module, state: dict) -> None:
+    """Load an unsharded state dict (on any device) into a sharded (or
+    unsharded) model: each rank copies its block."""
+    params = dict(model.named_parameters())
+    model.load_state_dict({k: (local_block(v, params[k]) if k in params
+                               else v) for k, v in state.items()})
+
+
+def grad_groups(params: list[torch.Tensor], mesh) -> list:
+    """Per parameter, the group its gradient is still to be summed over
+    after the backward: the data axes it is not fsdp-split over (the
+    gather's reduce-scatter summed the fsdp axis), or None."""
+    over_dp = mesh.group("dp")
+    over_data = mesh.group(*DATA_AXES)
+    return [over_dp if getattr(p, "fsdp_split", None) is not None
+            else over_data for p in params]
+
+
+def global_norm(grads: list[torch.Tensor], params: list[torch.Tensor],
+                mesh) -> torch.Tensor:
+    """The norm of the whole gradient from each rank's blocks: a block is
+    counted by the one rank of its replicas whose coordinate is 0 on
+    every mesh axis the parameter is not split over, the squares summed
+    over the mesh.  On the CPU the sums are float64, as
+    ``training/optim.py::global_norm`` keeps them."""
+    coords = {a: mesh.coordinate(a) for a in MeshAxes}
+    mine = [g for g, p in zip(grads, params)
+            if all(coords[a] == 0 for a in MeshAxes
+                   if a not in {s.axis for s in _splits(p)})]
+    total = [sum_of_squares(mine, grads[0].device)]
+    if mesh.size > 1:
+        pd.all_reduce_sum(total, pd.default_group())
+    return total[0].sqrt().float()

@@ -16,10 +16,11 @@ gives, so the optimizer still decays it and ``grad_norm`` counts it.
 The update is in place (the reference returns new arrays; PyTorch keeps
 one copy of the weights and moments).
 
-**Data parallelism.**  With ``group`` of W > 1 ranks (each holding its
-rows of the global batch, as the Trainer's datasets give them) the step
-computes what the reference's pjit computes on the assembled global
-array, whose rows are rank-major (rank 0's rows, then rank 1's):
+**Data parallelism.**  With a mesh of W > 1 ranks, all on dp (each
+holding its rows of the global batch, as the Trainer's datasets give
+them) the step computes what the reference's pjit computes on the
+assembled global array, whose rows are rank-major (rank 0's rows, then
+rank 1's):
 
 - the loss is the global-batch loss.  ``loss_weight(batch)`` is the
   denominator of the model's loss on a batch (rows or tokens for a mean,
@@ -38,8 +39,25 @@ array, whose rows are rank-major (rank 0's rows, then rank 1's):
 - the group is bound (``distributed.data_parallel``) while forward and
   backward run, so BatchNorm takes global-batch statistics.
 
-Mesh objects, fsdp, tp, sp and MoE under dp wait for the multi-device
-slice.
+**A mesh** (``parallel/mesh.make_mesh``) with fsdp or tp above 1 takes a
+model that ``parallel/sharding.shard_model`` has split over it (before
+the optimizer's ``init``, so the moments are blocks too).  The batch's
+rows are split over the data axes (dp, fsdp): the ranks of one tp group
+hold the same rows, the loss weights and the loss are summed over the
+data group only, and BatchNorm binds that group.  The backward's
+reduce-scatters have summed each fsdp-split gradient over fsdp; what is
+left is summed here (over dp for those, over dp and fsdp for the
+others); tp-split gradients are whole per rank, and a tp-replicated
+one is the same on every rank of its tp group.  ``grad_norm`` is the
+norm of the whole gradient (``sharding.global_norm``), and the
+optimizer updates each rank's blocks in place.  Every rank runs every
+micro-batch, since its forward issues the mesh's collectives: a piece
+with no rows here runs a one-row stand-in with a zero cotangent (the
+empty piece itself for a model that reduces over the group).  A mesh
+that is only dp takes the data-parallel path above, over its dp group.
+
+sp, pp and ep above 1, and MoE under a data group or tp above one rank,
+wait for later slices of the port and are refused by name.
 """
 
 from __future__ import annotations
@@ -51,6 +69,8 @@ import torch
 from torch import nn
 
 from kubeflow_tpu_torch.parallel import distributed as pd
+from kubeflow_tpu_torch.parallel import sharding as sh
+from kubeflow_tpu_torch.parallel.mesh import DATA_AXES, Mesh, factor_axes
 from kubeflow_tpu_torch.training.optim import Optimizer, global_norm
 
 
@@ -61,24 +81,33 @@ class TrainState:
     tx: Optimizer
 
 
-def check_single_device(mesh=None, *, world: int = 1, **axes: int) -> None:
-    """Refuse, by name, a mesh object, fsdp / tp / sp above 1, and a
-    ``dp`` other than the gang's ``world`` (or -1, "every rank")."""
-    if mesh is not None and not isinstance(mesh, torch.device):
-        raise NotImplementedError(
-            f"mesh {mesh!r}: the port takes no mesh objects; meshes wait "
-            "for the multi-device slice")
-    for name, size in axes.items():
-        if name == "dp":
-            if size not in (-1, world):
-                raise ValueError(
-                    f"dp={size} but the process group has {world} "
-                    f"rank{'s' if world > 1 else ''}: dp is the gang's "
-                    "size (or -1)")
-        elif size != 1:
+# axes whose parallelism waits for a later slice of the port
+_LATER = {"sp": "sequence parallelism (ring attention)",
+          "pp": "pipeline parallelism", "ep": "expert parallelism"}
+
+
+def check_mesh(mesh: Mesh | None = None, *, world: int = 1,
+               **axes: int) -> tuple[int, ...]:
+    """Check a mesh (or its axis sizes as keywords) against a gang of
+    ``world`` ranks; returns the six axis sizes.  sp, pp and ep above 1
+    are refused by name, and the axes must multiply to the gang
+    (``factor_axes``'s rule: one axis may be -1, inferred)."""
+    if mesh is not None:
+        if not isinstance(mesh, Mesh):
+            raise TypeError(f"mesh {mesh!r} is not a parallel.mesh.Mesh")
+        axes = mesh.shape
+    for name, what in _LATER.items():
+        if axes.get(name, 1) != 1:
             raise NotImplementedError(
-                f"{name}={size}: the port trains data-parallel only; "
-                f"{name} waits for the multi-device slice")
+                f"{name}={axes[name]}: {what} waits for a later slice of "
+                "the port")
+    try:
+        return factor_axes(world, **axes)
+    except ValueError as e:
+        given = ", ".join(f"{k}={v}" for k, v in axes.items())
+        raise ValueError(
+            f"{given} on a process group of {world} "
+            f"rank{'s' if world > 1 else ''}: {e}") from None
 
 
 def init_train_state(model: nn.Module, tx: Optimizer) -> TrainState:
@@ -141,16 +170,18 @@ def _pieces(n_local: int, rank: int, world: int, grad_accum: int):
 
 
 def _gang_steps(forward, loss_weight, model, params, batch, grad_accum,
-                group):
-    """W ranks: this rank's share of the global-batch loss and gradients,
-    then both summed over the gang."""
-    world, rank = pd.world_size(group), pd.rank_of(group)
+                group, rank: int, world: int, run_all: bool = False):
+    """This rank's share of the global-batch loss and of its gradients,
+    as rank ``rank`` of the ``world`` data ranks of ``group`` (not yet
+    summed over them).  ``run_all``: every piece runs, an empty one as a
+    one-row stand-in with a zero cotangent (module docstring)."""
     pieces = _pieces(_rows(batch), rank, world, grad_accum)
     micro = [{k: v[lo:hi] for k, v in batch.items()} for lo, hi in pieces]
     local_w = torch.stack([torch.as_tensor(loss_weight(b)).float()
                            .to(params[0].device) for b in micro])
     global_w = local_w.clone()
-    pd.all_reduce_sum([global_w], group)
+    if group is not None:
+        pd.all_reduce_sum([global_w], group)
     scale = (local_w.clamp_min(1.0) / global_w.clamp_min(1.0)) / grad_accum
     reduces = any(getattr(m, "reduces_over_group", False)
                   for m in model.modules())
@@ -158,9 +189,12 @@ def _gang_steps(forward, loss_weight, model, params, batch, grad_accum,
     grads = None
     with pd.data_parallel(group):
         for i, (lo, hi) in enumerate(pieces):
+            piece = micro[i]
             if hi == lo and not reduces:
-                continue
-            m_loss = forward(model, micro[i])
+                if not run_all:
+                    continue
+                piece = {k: v[:1] for k, v in batch.items()}
+            m_loss = forward(model, piece)
             if hi > lo:
                 m_loss = m_loss * scale[i]
                 out = torch.ones_like(m_loss)
@@ -175,17 +209,34 @@ def _gang_steps(forward, loss_weight, model, params, batch, grad_accum,
                                         else x for x, p in zip(g, params)])
     if grads is None:
         grads = [torch.zeros_like(p) for p in params]
-    pd.all_reduce_sum(grads + [loss], group)
+    return loss, grads
+
+
+def _mesh_steps(forward, loss_weight, model, params, batch, grad_accum,
+                mesh: Mesh):
+    """The step's loss and gradients on a mesh with fsdp or tp above 1,
+    summed over the data axes (module docstring)."""
+    data = mesh.group(*DATA_AXES)
+    index, count = mesh.data_index()
+    loss, grads = _gang_steps(forward, loss_weight, model, params, batch,
+                              grad_accum, data, index, count, run_all=True)
+    due: dict[int, tuple] = {}
+    for g, group in zip(grads, sh.grad_groups(params, mesh)):
+        if group is not None:
+            due.setdefault(id(group), (group, []))[1].append(g)
+    if data is not None:
+        due.setdefault(id(data), (data, []))[1].append(loss)
+    for group, tensors in due.values():
+        pd.all_reduce_sum(tensors, group)
     return loss, grads
 
 
 def build_train_step(
     forward: Callable[[nn.Module, Any], torch.Tensor],
     tx: Optimizer,
-    mesh=None,
+    mesh: Mesh | None = None,
     *,
     grad_accum: int = 1,
-    group=None,
     loss_weight: Callable[[dict], Any] | None = None,
 ) -> Callable[[TrainState, dict], tuple[TrainState, dict]]:
     """``step(state, batch) -> (state, {"loss", "grad_norm"})``.
@@ -193,35 +244,52 @@ def build_train_step(
     ``grad_accum`` > 1 splits the (global) batch's leading axis into that
     many contiguous micro-batches and takes the mean of their losses and
     gradients, as the reference's scan.  ``grad_norm`` is the global norm
-    of those gradients before any clipping.  ``group`` (W > 1 ranks) and
-    ``loss_weight`` make the step data-parallel (module docstring).  Both
-    metrics are float32 device scalars: reading them syncs, so the caller
-    chooses when."""
-    check_single_device(mesh)
+    of those gradients before any clipping.  A ``mesh`` over the joined
+    gang decides the layout: one rank, data-parallel when only dp is
+    above 1, sharded with fsdp or tp above 1 (module docstring); more
+    than one rank needs ``loss_weight``.  Both metrics are float32 device
+    scalars: reading them syncs, so the caller chooses when."""
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
-    if pd.world_size(group) == 1:
-        group = None
-    elif loss_weight is None:
+    group = sharded = None
+    if mesh is not None:
+        check_mesh(mesh, world=pd.world_size(pd.default_group()))
+        if mesh.axis_size("fsdp", "tp") > 1:
+            sharded = mesh
+            if tx.name == "lamb":
+                raise NotImplementedError(
+                    "lamb under fsdp or tp: its per-tensor trust ratio "
+                    "needs every block's norm")
+        else:
+            group = mesh.group("dp")
+    if (sharded is not None or group is not None) and loss_weight is None:
         raise ValueError("a data-parallel step needs the model's "
                          "loss_weight (the denominator of its loss)")
 
     def step(state: TrainState, batch: dict) -> tuple[TrainState, dict]:
         model = state.model
         params = list(model.parameters())
-        if group is None:
-            loss, grads = _local_steps(forward, model, params, batch,
-                                       grad_accum)
+        if getattr(getattr(model, "config", None), "moe_experts", 0) and (
+                group is not None or sharded is not None):
+            # the Switch aux loss is a product of global means and the
+            # capacity positions run over the global token set
+            raise NotImplementedError(
+                "moe_experts under data or tensor parallelism waits for "
+                "expert parallelism (ep) in a later slice of the port")
+        if sharded is not None:
+            loss, grads = _mesh_steps(forward, loss_weight, model, params,
+                                      batch, grad_accum, sharded)
+            grad_norm = sh.global_norm(grads, params, sharded)
         else:
-            if getattr(getattr(model, "config", None), "moe_experts", 0):
-                # the Switch aux loss is a product of global means and the
-                # capacity positions run over the global token set
-                raise NotImplementedError(
-                    "moe_experts under data parallelism waits for expert "
-                    "parallelism (ep) in the multi-device slice")
-            loss, grads = _gang_steps(forward, loss_weight, model, params,
-                                      batch, grad_accum, group)
-        grad_norm = global_norm(grads)
+            if group is None:
+                loss, grads = _local_steps(forward, model, params, batch,
+                                           grad_accum)
+            else:
+                loss, grads = _gang_steps(
+                    forward, loss_weight, model, params, batch, grad_accum,
+                    group, pd.rank_of(group), pd.world_size(group))
+                pd.all_reduce_sum(grads + [loss], group)
+            grad_norm = global_norm(grads)
         tx.update(params, grads, grad_norm)
         return (TrainState(step=state.step + 1, model=model, tx=state.tx),
                 {"loss": loss.float(), "grad_norm": grad_norm})
@@ -233,8 +301,10 @@ def build_eval_step(
     forward_metrics: Callable[[nn.Module, Any], dict],
     mesh=None,
 ) -> Callable[[nn.Module, Any], dict]:
-    """``eval_step(model, batch) -> metrics``, without gradients."""
-    check_single_device(mesh)
+    """``eval_step(model, batch) -> metrics``, without gradients (a
+    sharded model's forward issues its mesh's collectives)."""
+    if mesh is not None:
+        check_mesh(mesh, world=pd.world_size(pd.default_group()))
 
     @torch.no_grad()
     def eval_step(model, batch):

@@ -12,6 +12,14 @@ In a gang (``group`` of more than one rank) every rank calls ``save``:
 rank 0 writes, and the gang then meets at a barrier, so no rank's
 ``latest_step`` can pick a step another rank is still writing; every
 rank restores the same file.
+
+Checkpoints are layout-free, as orbax's are in the reference: a model
+split over a mesh (``parallel/sharding.py``) has every parameter and
+optimizer moment gathered whole, one tensor at a time, to rank 0's
+host before it writes, so no rank holds the whole model on its card and
+the file is the one an unsharded run writes.  ``restore`` maps
+the file into host memory and copies each rank's block of it to the
+card.  A run saved at one layout resumes at another, or at none.
 """
 
 from __future__ import annotations
@@ -22,6 +30,7 @@ from pathlib import Path
 
 import torch
 
+from kubeflow_tpu_torch.parallel import sharding as sh
 from kubeflow_tpu_torch.parallel.distributed import rank_of
 
 _NAME = re.compile(r"^ckpt-(\d+)\.pt$")
@@ -46,11 +55,18 @@ class CheckpointManager:
     def save(self, step: int, state, *, wait: bool = False) -> None:
         """Write ``state`` (a ``TrainState``) as step ``step`` (rank 0
         of a gang writes; every rank returns after the write)."""
+        model, tx = state.model.state_dict(), state.tx.state_dict()
+        if sh.is_sharded(state.model):
+            params = list(state.model.parameters())
+            model = sh.full_state_dict(state.model)
+            tx = {**tx, "moments": {
+                key: [sh.gather_to_host(m, p)
+                      for m, p in zip(moments, params)]
+                for key, moments in tx["moments"].items()}}
         if rank_of(self._group) == 0:
             path = self._dir / f"ckpt-{step}.pt"
             tmp = path.with_suffix(f".{os.getpid()}.tmp")
-            torch.save({"step": step, "model": state.model.state_dict(),
-                        "optimizer": state.tx.state_dict()}, tmp)
+            torch.save({"step": step, "model": model, "optimizer": tx}, tmp)
             os.replace(tmp, path)
             for old in self.steps()[:-self._keep]:
                 (self._dir / f"ckpt-{old}.pt").unlink(missing_ok=True)
@@ -65,11 +81,15 @@ class CheckpointManager:
         step = self.latest_step() if step is None else step
         if step is None:
             raise FileNotFoundError(f"no checkpoint in {self._dir}")
-        blob = torch.load(self._dir / f"ckpt-{step}.pt",
-                          map_location=next(state.model.parameters()).device,
-                          weights_only=True)
-        state.model.load_state_dict(blob["model"])
-        state.tx.load_state_dict(blob["optimizer"])
+        blob = torch.load(self._dir / f"ckpt-{step}.pt", map_location="cpu",
+                          mmap=True, weights_only=True)
+        params = list(state.model.parameters())
+        sh.load_full_state_dict(state.model, blob["model"])
+        tx = blob["optimizer"]
+        state.tx.load_state_dict({**tx, "moments": {
+            key: [sh.local_block(m, p).to(p.device)
+                  for m, p in zip(moments, params)]
+            for key, moments in tx["moments"].items()}})
         state.step = int(blob["step"])
         return state
 

@@ -75,17 +75,27 @@ def make_schedule(cfg: dict[str, Any]) -> Callable[[int], float]:
 
 
 def global_norm(tensors: list[torch.Tensor]) -> torch.Tensor:
-    """``sqrt(sum |t|^2)`` over all tensors, float32, on their device.  On
-    the CPU each tensor's norm is summed in float64: PyTorch's float32 CPU
-    norm of a large tensor drifts by ~1e-5 relative (1.6e-5 for a 512 x
-    512 gradient), where the reference's reduction and the card's
-    ``_foreach_norm`` stay near float32 rounding."""
-    if tensors and tensors[0].device.type == "cpu":
-        norms = [torch.linalg.vector_norm(t, dtype=torch.float64)
-                 for t in tensors]
-        return torch.linalg.vector_norm(torch.stack(norms)).float()
+    """``sqrt(sum |t|^2)`` over all tensors, float32, on their device."""
+    return sum_of_squares(tensors, tensors[0].device).sqrt().float()
+
+
+def sum_of_squares(tensors: list[torch.Tensor],
+                   device: torch.device) -> torch.Tensor:
+    """``sum |t|^2`` over all tensors (zero for none) as a scalar on
+    ``device``: each tensor's norm squared and summed.  On the CPU the
+    sum is float64: PyTorch's float32 CPU norm of a large tensor drifts
+    by ~1e-5 relative (1.6e-5 for a 512 x 512 gradient), where the
+    reference's reduction and the card's ``_foreach_norm`` stay near
+    float32 rounding."""
+    if device.type == "cpu":
+        return torch.stack([torch.linalg.vector_norm(t, dtype=torch.float64)
+                            for t in tensors]
+                           or [torch.zeros((), dtype=torch.float64)]
+                           ).square().sum()
+    if not tensors:
+        return torch.zeros((), device=device)
     norms = torch._foreach_norm([t.float() for t in tensors])
-    return torch.linalg.vector_norm(torch.stack(norms))
+    return torch.stack(norms).square().sum()
 
 
 def _chunks(n_elements: list[int]) -> list[range]:

@@ -22,8 +22,15 @@ shrunk out resigns.  The reference keeps one process world across a
 resize and defines no re-formed group, so an epoch change inside a
 process group of more than one rank is refused by name.
 
-Refused by name until the multi-device slice: ``fsdp``, ``tp`` or ``sp``
-above 1, and MoE models under data parallelism.
+The mesh is built from ``dp``, ``fsdp``, ``tp`` and ``sp`` over the
+gang (``parallel/mesh.make_mesh``).  With fsdp or tp above 1 the model
+is split over it (``parallel/sharding.shard_model``) before the
+optimizer's ``init``; the data axes (dp x fsdp) index the batch shards,
+so the ranks of one tp group read the same rows; checkpoints hold whole
+tensors, whatever the layout.  Refused by name: ``sp`` above 1 (ring
+attention waits for a later slice), MoE models under data or tensor
+parallelism, and an elastic membership under fsdp or tp above 1 (a
+resize would re-shard the weights; the reference defines none).
 """
 
 from __future__ import annotations
@@ -73,11 +80,15 @@ class TrainerConfig:
         return cls(**{k: v for k, v in d.items() if k in fields})
 
 
-def _check_config(cfg: TrainerConfig, world: int) -> None:
-    from kubeflow_tpu_torch.parallel.train_step import check_single_device
+def _check_config(cfg: TrainerConfig, world: int, elastic: bool) -> None:
+    from kubeflow_tpu_torch.parallel.train_step import check_mesh
 
-    check_single_device(world=world, dp=cfg.dp, fsdp=cfg.fsdp, tp=cfg.tp,
-                        sp=cfg.sp)
+    check_mesh(world=world, dp=cfg.dp, fsdp=cfg.fsdp, tp=cfg.tp, sp=cfg.sp)
+    if elastic and (cfg.fsdp > 1 or cfg.tp > 1):
+        raise NotImplementedError(
+            f"an elastic membership under fsdp={cfg.fsdp}, tp={cfg.tp}: a "
+            "resize would re-shard the weights, and the reference defines "
+            "no resize of a sharded mesh")
     if cfg.fault_kill_at_step and not (
             cfg.checkpoint_dir and cfg.checkpoint_every and cfg.resume
             and cfg.checkpoint_every <= cfg.fault_kill_at_step
@@ -110,13 +121,15 @@ class Trainer:
         self.history: list[dict] = []
         self.resizes: list[dict] = []
 
-    def _rank_world(self, group) -> tuple[Any, int, int]:
-        """(initial membership or None, rank, world) with the reference's
-        checks."""
+    def _rank_world(self, group, mesh) -> tuple[Any, int, int]:
+        """(initial membership or None, data rank, data world) with the
+        reference's checks: a rank's index on the mesh's data axes, or
+        its membership rank."""
         from kubeflow_tpu_torch.parallel import distributed as pd
 
         cfg = self.cfg
-        member, rank, world = None, pd.rank_of(group), pd.world_size(group)
+        member = None
+        rank, world = mesh.data_index()
         if self._membership is not None:
             # ragged worlds are admitted (shard_rows differ by one row)
             member = self._membership.current(0)
@@ -137,10 +150,10 @@ class Trainer:
                     f"group rank {pd.rank_of(group)} of "
                     f"{pd.world_size(group)}")
         if (member is None or group is not None) and cfg.global_batch % world:
-            # a gang's ranks hold equal shards of the global batch
+            # a gang's data ranks hold equal shards of the global batch
             raise ValueError(
                 f"global_batch {cfg.global_batch} must divide by process "
-                f"count {world}")
+                f"count {world} (the ranks that hold distinct rows)")
         return member, rank, world
 
     def run(self) -> dict:
@@ -150,6 +163,8 @@ class Trainer:
         from kubeflow_tpu_torch.models import registry
         from kubeflow_tpu_torch.parallel import distributed as pd
         from kubeflow_tpu_torch.parallel import train_step as ts
+        from kubeflow_tpu_torch.parallel.mesh import make_mesh
+        from kubeflow_tpu_torch.parallel.sharding import shard_model
         from kubeflow_tpu_torch.training.data import (
             DevicePrefetcher, NpzDataset, SyntheticDataset, to_device)
         from kubeflow_tpu_torch.training.optim import make_optimizer
@@ -157,15 +172,20 @@ class Trainer:
 
         cfg = self.cfg
         group = pd.default_group()
-        _check_config(cfg, pd.world_size(group))
-        member, rank, world = self._rank_world(group)
+        _check_config(cfg, pd.world_size(group),
+                      self._membership is not None)
         device = resolve(self.device)
+        mesh = make_mesh(pd.world_size(group), dp=cfg.dp, fsdp=cfg.fsdp,
+                         tp=cfg.tp, sp=cfg.sp, device_type=device.type)
+        member, rank, world = self._rank_world(group, mesh)
         entry = registry.get(cfg.model)
         if entry.forward_loss is None:
             raise NotImplementedError(
                 f"model {cfg.model!r} has no training loss in the port yet")
         module = entry.make_model(**cfg.model_config, device=device)
         module.init_weights(cfg.seed)
+        if mesh.axis_size("fsdp", "tp") > 1:
+            shard_model(module, mesh)
         tx = make_optimizer(cfg.optimizer)
         state = ts.init_train_state(module, tx)
 
@@ -188,7 +208,7 @@ class Trainer:
                             "already_complete": True}
 
         step_fn = ts.build_train_step(
-            entry.forward_loss, tx, grad_accum=cfg.grad_accum, group=group,
+            entry.forward_loss, tx, mesh, grad_accum=cfg.grad_accum,
             loss_weight=entry.loss_weight)
         if cfg.data_path:
             dataset = NpzDataset(cfg.data_path, cfg.global_batch,

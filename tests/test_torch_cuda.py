@@ -894,6 +894,7 @@ from kubeflow_tpu_torch.models import registry
 from kubeflow_tpu_torch.ops import flash_attention as fa
 from kubeflow_tpu_torch.parallel import distributed as pd
 from kubeflow_tpu_torch.parallel import train_step as ts
+from kubeflow_tpu_torch.parallel.mesh import make_mesh
 from kubeflow_tpu_torch.training.optim import make_optimizer
 
 rdv = pd.initialize_from_env()                      # the card, not the CPU
@@ -905,7 +906,7 @@ model = entry.make_model(size="base", vocab_size=1024, hidden_size=256,
                          max_position=128, dtype="float32").init_weights(0)
 state = ts.init_train_state(model, make_optimizer(
     {"name": "sgd", "learning_rate": 1e-2, "momentum": 0.9}))
-step = ts.build_train_step(entry.forward_loss, state.tx, group=group,
+step = ts.build_train_step(entry.forward_loss, state.tx, make_mesh(),
                            loss_weight=entry.loss_weight)
 trail = []
 for i in range(3):
@@ -943,4 +944,70 @@ def test_two_rank_gloo_gang_on_one_card_trains_what_one_process_trains(
         assert abs(gl - wl) <= 1e-4 * abs(wl), (outs, one)
         assert abs(gn - wn) <= 1e-4 * abs(wn), (outs, one)
     for o in outs:   # per step and layer: K1 twice (remat), K2, K3 once
+        assert o["launches"] == [3 * 4, 3 * 2, 3 * 2], o
+
+
+MESH_LLAMA = r"""
+import json, os, torch
+from kubeflow_tpu_torch.models import registry
+from kubeflow_tpu_torch.ops import flash_attention as fa
+from kubeflow_tpu_torch.parallel import distributed as pd
+from kubeflow_tpu_torch.parallel import sharding as sh
+from kubeflow_tpu_torch.parallel import train_step as ts
+from kubeflow_tpu_torch.parallel.mesh import make_mesh
+from kubeflow_tpu_torch.training.optim import make_optimizer
+
+rdv = pd.initialize_from_env()                      # the card, not the CPU
+mesh = make_mesh(dp=1, fsdp=int(os.environ["FSDP"]), tp=int(os.environ["TP"]))
+index, count = mesh.data_index()
+entry = registry.get("llama")
+model = entry.make_model(size="7b", vocab_size=1024, hidden_size=512,
+                         num_layers=2, num_heads=8, num_kv_heads=4,
+                         intermediate_size=1024, dtype="float32"
+                         ).init_weights(0)
+sh.shard_model(model, mesh)
+state = ts.init_train_state(model, make_optimizer(
+    {"name": "sgd", "learning_rate": 1e-2, "momentum": 0.9}))
+step = ts.build_train_step(entry.forward_loss, state.tx, mesh,
+                           loss_weight=entry.loss_weight)
+trail = []
+for i in range(3):
+    batch = entry.make_batch(8, torch.Generator().manual_seed(i), model,
+                             seq_len=128)
+    n = 8 // count
+    batch = {k: v[index * n:(index + 1) * n].cuda() for k, v in batch.items()}
+    state, m = step(state, batch)
+    trail.append([m["loss"].item(), m["grad_norm"].item()])
+print(json.dumps({"rdv": rdv, "trail": trail,
+                  "device": str(next(model.parameters()).device),
+                  "launches": [fa.flash_attention.launches,
+                               fa.flash_bwd_dq.launches,
+                               fa.flash_bwd_dkv.launches]}))
+"""
+
+
+@pytest.mark.cuda
+def test_fsdp_and_tp_gang_on_one_card_trains_what_one_process_trains(
+        cuda_device):
+    # a 2-layer Llama at hidden 512 (8 query heads over 4 KV heads of 64,
+    # float32), 3 momentum-sgd steps of 8 rows of 128 tokens: a 4-rank
+    # fsdp=2 x tp=2 gloo gang on cuda:0 against one process; every rank
+    # launches K1-K3 at its 2 data rows' 4 rows and 4 of the 8 heads.
+    # Tolerance 1e-4 relative: float32 kernels and GEMMs at other rows
+    # and heads sum in other orders
+    from kubeflow_tpu_torch.ops import _build
+    from kubeflow_tpu_torch.parallel import distributed as pd
+
+    _build.build_all()         # once, before the ranks load it
+    one = pd.spawn_local_gang(MESH_LLAMA, 1, timeout=300.0,
+                              extra_env={"FSDP": "1", "TP": "1"})[0]
+    outs = pd.spawn_local_gang(MESH_LLAMA, 4, timeout=300.0,
+                               extra_env={"FSDP": "2", "TP": "2"})
+    assert all(o["rdv"]["backend"] == "gloo" for o in outs)
+    assert all(o["device"] == "cuda:0" for o in outs)
+    assert all(o["trail"] == outs[0]["trail"] for o in outs)   # bitwise
+    for (gl, gn), (wl, wn) in zip(outs[0]["trail"], one["trail"]):
+        assert abs(gl - wl) <= 1e-4 * abs(wl), (outs, one)
+        assert abs(gn - wn) <= 1e-4 * abs(wn), (outs, one)
+    for o in outs + [one]:   # per step and layer: K1 twice (remat), K2, K3
         assert o["launches"] == [3 * 4, 3 * 2, 3 * 2], o

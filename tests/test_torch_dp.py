@@ -86,22 +86,23 @@ import json, os, torch
 from kubeflow_tpu_torch.models import registry
 from kubeflow_tpu_torch.parallel import distributed as pd
 from kubeflow_tpu_torch.parallel import train_step as ts
+from kubeflow_tpu_torch.parallel.mesh import make_mesh
 from kubeflow_tpu_torch.training.data import NpzDataset, to_device
 from kubeflow_tpu_torch.training.optim import make_optimizer
 
 torch.set_num_threads(1)
 rdv = pd.initialize_from_env(device="cpu")
 spec = json.loads(os.environ["GANG_SPEC"])
-group = pd.default_group()
-rank, world = pd.rank_of(group), pd.world_size(group)
+mesh = make_mesh(device_type="cpu")
+rank, world = mesh.data_index()
 trails = {}
 for name, case in spec["cases"].items():
     entry = registry.get(case["model"])
     model = entry.make_model(device="cpu", **case["config"])
     model.load_state_dict(torch.load(case["weights"], weights_only=True))
     state = ts.init_train_state(model, make_optimizer(spec["opt"]))
-    step = ts.build_train_step(entry.forward_loss, state.tx,
-                               grad_accum=case["accum"], group=group,
+    step = ts.build_train_step(entry.forward_loss, state.tx, mesh,
+                               grad_accum=case["accum"],
                                loss_weight=entry.loss_weight)
     it = NpzDataset(case["data"], spec["global_batch"], seed=0,
                     process_index=rank, process_count=world).iter_from(0)
@@ -355,13 +356,22 @@ def test_all_reduce_sum_buckets_by_size_dtype_and_device(monkeypatch):
     assert all(torch.equal(t, 2 * torch.ones_like(t)) for t in ts)
 
 
+def dp_mesh(world: int):
+    """A mesh of ``world`` ranks all on dp, this process rank 0, whose dp
+    group is a stand-in (no collective is reached)."""
+    from kubeflow_tpu_torch.parallel import mesh as tmesh
+
+    return tmesh.Mesh(np.arange(world).reshape(world, 1, 1, 1, 1, 1),
+                      device_mesh=object(), _groups={("dp",): "dp"})
+
+
 def test_moe_under_dp_is_refused_by_name(monkeypatch):
     model = treg.get("llama").make_model(size="tiny", moe_experts=2,
                                          device="cpu").init_weights(0)
     state = tts.init_train_state(model, toptim.make_optimizer(OPT))
     monkeypatch.setattr(pd, "world_size", lambda group: 2)
     step = tts.build_train_step(treg.get("llama").forward_loss, state.tx,
-                                group="dp", loss_weight=lambda b: 1)
+                                dp_mesh(2), loss_weight=lambda b: 1)
     batch = treg.get("llama").make_batch(2, torch.Generator().manual_seed(0),
                                          model, seq_len=8)
     with pytest.raises(NotImplementedError, match="moe_experts"):
@@ -371,17 +381,28 @@ def test_moe_under_dp_is_refused_by_name(monkeypatch):
 def test_a_data_parallel_step_needs_a_loss_weight(monkeypatch):
     monkeypatch.setattr(pd, "world_size", lambda group: 2)
     with pytest.raises(ValueError, match="loss_weight"):
-        tts.build_train_step(lambda m, b: None, None, group="dp")
+        tts.build_train_step(lambda m, b: None, None, dp_mesh(2))
 
 
 def test_dp_must_be_the_gang_size():
-    tts.check_single_device(world=2, dp=2)
-    tts.check_single_device(world=2, dp=-1)
+    tts.check_mesh(world=2, dp=2)
+    tts.check_mesh(world=2, dp=-1)
     with pytest.raises(ValueError, match="dp=2"):
-        tts.check_single_device(dp=2)
-    for axis in ("fsdp", "tp", "sp"):
-        with pytest.raises(NotImplementedError, match=axis):
-            tts.check_single_device(world=2, **{axis: 2})
+        tts.check_mesh(dp=2)
+    # fsdp and tp are admitted; the axes must multiply to the gang
+    assert tts.check_mesh(world=4, fsdp=2, tp=2) == (1, 2, 2, 1, 1, 1)
+    for axis in ("fsdp", "tp"):
+        with pytest.raises(ValueError, match=f"{axis}=2.*do not multiply "
+                           "to 2 devices"):
+            tts.check_mesh(world=2, dp=2, **{axis: 2})
+    with pytest.raises(NotImplementedError, match="sp=2"):
+        tts.check_mesh(world=2, sp=2)
+
+
+@pytest.mark.parametrize("axis", ["pp", "ep"])
+def test_pipeline_and_expert_axes_are_refused_by_name(axis):
+    with pytest.raises(NotImplementedError, match=f"{axis}=2"):
+        tts.check_mesh(world=2, **{axis: 2})
 
 
 DYING = r"""

@@ -267,9 +267,14 @@ class Flipping:
 
 
 def fake_gang(monkeypatch, world: int):
+    from kubeflow_tpu_torch.parallel import mesh as tmesh
+
     monkeypatch.setattr(pd, "default_group", lambda: "group")
     monkeypatch.setattr(pd, "world_size", lambda g: 1 if g is None else world)
     monkeypatch.setattr(pd, "rank_of", lambda g: 0)
+    # the Trainer's mesh names the fake gang as its dp group
+    monkeypatch.setattr(tmesh.Mesh, "group", lambda self, *axes: (
+        "group" if self.axis_size(*axes) > 1 else None))
 
 
 def test_a_resize_inside_a_process_group_is_refused(monkeypatch):

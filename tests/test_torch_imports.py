@@ -77,6 +77,8 @@ def test_imports_load_no_jax_and_no_reference_package(which):
         "kubeflow_tpu_torch.models.bert",
         "kubeflow_tpu_torch.parallel.train_step",
         "kubeflow_tpu_torch.parallel.distributed",
+        "kubeflow_tpu_torch.parallel.mesh",
+        "kubeflow_tpu_torch.parallel.sharding",
         "kubeflow_tpu_torch.elastic",
         "kubeflow_tpu_torch.elastic.protocol",
         "kubeflow_tpu_torch.elastic.checkpoint",

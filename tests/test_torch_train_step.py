@@ -137,9 +137,11 @@ def test_grad_accum_splits_the_leading_axis_into_contiguous_micro_batches():
 
 
 def test_meshes_are_refused_by_name():
-    with pytest.raises(NotImplementedError, match="mesh"):
+    # the port's own parallel.mesh.Mesh is taken (tests/test_torch_mesh.py,
+    # tests/test_torch_sharded_train.py); any other mesh object is refused
+    with pytest.raises(TypeError, match="mesh"):
         tts.build_train_step(lambda m, b: None, None, mesh=object())
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="mesh"):
         tts.build_eval_step(lambda m, b: None, mesh=object())
 
 
