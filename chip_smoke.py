@@ -4,11 +4,11 @@
     python3 chip_smoke.py                 # every phase below
     python3 chip_smoke.py --kernel-times  # build, then K1-K3 times only
     python3 chip_smoke.py --phases 12,13  # build, then those phases only
-                                          # (9 to 18; no result line)
+                                          # (9 to 19; no result line)
 
 Phases, numbered as PERF.md cites them, run in the order 1, 2, 3, 7, 11,
-9, 12, 13, 14, 15, 4, 5, 10, 16, 6, 17, 18, 8 (each phase frees its models
-before the next);
+9, 12, 13, 14, 15, 4, 5, 10, 16, 6, 17, 18, 19, 8 (each phase frees its
+models before the next);
 any failure exits nonzero and prints no result:
 
 1. Build every CUDA kernel of the port from ``kubeflow_tpu_torch/ops/csrc``
@@ -19,8 +19,10 @@ any failure exits nonzero and prints no result:
    flash-attention forward kernel (K1) against its plain PyTorch version
    on O and lse, in bfloat16 and float32 (TF32 off for the plain
    version), at every shape the serving run of phase 2 and the training
-   runs of phases 4, 5, 17 and 18 give it (18: every layout's rank shape)
-   and at a GQA, a strided and a non-causal D=64 case; hold the backward
+   runs of phases 4, 5, 17, 18 and 19 give it (18: every layout's rank
+   shape; 19: the ring's diagonal and earlier blocks, one process's whole
+   sequence, the pipeline's microbatch) and at a GQA, a strided and a
+   non-causal D=64 case; hold the backward
    kernels (K2 dQ, K3 dK/dV) against theirs at those training shapes, a
    causal D=128, a ragged Sq = Sk = 200 and a GQA (32 over 8 heads)
    case.  At D = 256 (phases 15 and 16): K1 at every
@@ -255,6 +257,28 @@ any failure exits nonzero and prints no result:
    seconds, calls and bytes.  The last layout writes a checkpoint at its
    end, which this process restores: every parameter bitwise the gang's
    gathered one.
+19. Sequence and pipeline parallelism as one gang of 2 processes on this
+   card (gloo, as in 17; its point-to-point takes no CUDA tensor, so each
+   neighbour exchange goes through pinned host memory).  (a) Ring
+   attention at the sp = 2 run's chunk (2 x 2048 tokens, 32 heads of 128,
+   causal, bf16), forward and backward (after (b), whose first step paid
+   the gang's first launches and exchanges), against
+   ``ring_attention_reference`` on the same rank: O per element within 2^-7 (|O| + P|V|), dQ, dK and dV
+   within 2e-2 of max |ref|; rank r launches K1, K2 and K3 r + 1 times
+   (its diagonal block and r earlier ones; a later block launches
+   nothing).  (b) Phase 18's Llama at 7B width, ``SP_LAYERS`` layers, a
+   batch of 2 x 4096 tokens (Llama-2's max_seq_len), ``SP_STEPS`` adamw
+   steps from an .npz made from seed 0 through the worker entrypoint as
+   one process (this one) and with ``sp=2`` (each rank 2 x 2048 tokens):
+   launches per step and rank as in (a) per layer and pass, ranks bitwise
+   equal, held to one process within ``GANG_TOL``; samples/s and tokens/s
+   of each, per rank the exchange's and the all-reduce's seconds, calls
+   and bytes of step 2 and the peak memory.  (c) pp = 2 over 4 blocks at
+   that width (2 per stage), x [8, 512, 4096] bf16 in 4 microbatches
+   (``pipeline_forward``; 5 ticks, bubble share 1/5), forward and
+   backward against the 4 blocks in sequence on each rank: output within
+   1e-1 of max |out|, stage gradients within 2e-2 of max |ref|, K1, K2 and
+   K3 8 times per rank.
 
 The line before the last is the ``kernels`` JSON object (``name<256>``:
 the D = 256 instantiations on phases 15 and 16); the last line is
@@ -461,7 +485,26 @@ def mesh_shape(fsdp: int, tp: int) -> tuple:
 
 
 MESH_SHAPES = [mesh_shape(fsdp, tp) for _, fsdp, tp in MESH_LAYOUTS]
-BWD_SHAPES = [TRAIN_SHAPE, GANG_SHAPE, LLAMA_SHAPE, *MESH_SHAPES,
+# phase 19: (b) Llama at Llama-2-7B's width, SP_LAYERS layers, a batch of
+# SP_BATCH x SP_SEQ tokens (Llama-2's max_seq_len) as one process and on
+# sp = 2 (each rank a chunk of SP_SEQ / 2); (a) the ring's check at the
+# rank's chunk; (c) pp = 2 over PP_BLOCKS blocks at that width, x
+# [PP_BATCH, PP_SEQ, 4096] in PP_MICRO microbatches
+SP_RANKS, SP_LAYERS, SP_STEPS, SP_BATCH, SP_SEQ = 2, 2, 2, 2, 4096
+PP_BLOCKS, PP_BATCH, PP_SEQ, PP_MICRO = 4, 8, 512, 4
+# each rank's ring blocks: the diagonal one (causal at offset 0) and, on
+# rank 1, the earlier one (fully visible); one process holds the sequence
+SP_BLOCK_SHAPES = [
+    ("llama7b_sp_block_diagonal", SP_BATCH, SP_SEQ // SP_RANKS,
+     SP_SEQ // SP_RANKS, 32, 32, 128, True),
+    ("llama7b_sp_block_earlier", SP_BATCH, SP_SEQ // SP_RANKS,
+     SP_SEQ // SP_RANKS, 32, 32, 128, False)]
+SP_ONE_SHAPE = ("llama7b_sp_one_process", SP_BATCH, SP_SEQ, SP_SEQ, 32, 32,
+                128, True)
+PP_SHAPE = ("llama7b_pp_microbatch", PP_BATCH // PP_MICRO, PP_SEQ, PP_SEQ,
+            32, 32, 128, True)
+SP_SHAPES = [*SP_BLOCK_SHAPES, SP_ONE_SHAPE, PP_SHAPE]
+BWD_SHAPES = [TRAIN_SHAPE, GANG_SHAPE, LLAMA_SHAPE, *MESH_SHAPES, *SP_SHAPES,
               # (name, B, Sq, Sk, ...)
               ("causal_d128", 2, 384, 384, 8, 8, 128, True),
               ("ragged_200_causal", 2, 200, 200, 16, 16, 64, True),
@@ -696,7 +739,7 @@ def phase_kernels(fa) -> dict:
     cases = ([s[:8] for s in main_path_shapes() + prefix_path_shapes()
               + gemma_path_shapes()]
              + [TRAIN_SHAPE, GANG_SHAPE, LLAMA_SHAPE, GEMMA_SHAPE,
-                *MESH_SHAPES]
+                *MESH_SHAPES, *SP_SHAPES]
              + SPEC_SHAPES
              + EXTRA_SHAPES + D256_SHAPES)
     for i, (name, b, sq, sk, h, hkv, d, causal) in enumerate(cases):
@@ -719,7 +762,8 @@ def phase_kernels(fa) -> dict:
             check(ok, f"flash_fwd disagrees at {name} {dtype}")
             if dtype == torch.bfloat16 and name.startswith(
                     ("7b_prefill", "7b_prefix", "7b_spec", TRAIN_SHAPE[0],
-                     GANG_SHAPE[0], LLAMA_SHAPE[0], "llama7b_mesh")):
+                     GANG_SHAPE[0], LLAMA_SHAPE[0], "llama7b_mesh",
+                     "llama7b_sp", "llama7b_pp")):
                 main_err = max(main_err, e_o)
             if dtype == torch.bfloat16 and name.startswith(
                     ("gemma2b_prefill", GEMMA_SHAPE[0])):
@@ -733,12 +777,15 @@ def phase_kernels(fa) -> dict:
             if dtype != torch.bfloat16:
                 continue
             if name in (TRAIN_SHAPE[0], GANG_SHAPE[0], LLAMA_SHAPE[0],
-                        *(shape[0] for shape in MESH_SHAPES)):
+                        *(shape[0] for shape in MESH_SHAPES + SP_SHAPES)):
                 errs["flash_bwd_dq"] = max(errs["flash_bwd_dq"], e_dq)
                 errs["flash_bwd_dkv"] = max(errs["flash_bwd_dkv"], e_dkv)
             elif name == GEMMA_SHAPE[0]:
                 errs["flash_bwd_dq<256>"] = e_dq
                 errs["flash_bwd_dkv<256>"] = e_dkv
+    # the plain versions' temporaries (~20 GB at the 4096-token shape)
+    # leave cached segments; later phases allocate from a clean cache
+    free_memory()
     return errs
 
 
@@ -1686,21 +1733,26 @@ def phase_numbers(fa, shapes: list[tuple], num_layers: int) -> list[dict]:
 
 
 def training_numbers(fa, shape_row: tuple, launches: dict,
-                     per_step: dict) -> dict[str, dict]:
+                     per_step: dict | None,
+                     plain_reps: int = 20) -> dict[str, dict]:
     """Each kernel's times at a training shape: kernel, plain version,
     bound, and the library yardstick (SDPA forward for K1; SDPA's
     backward, which computes dQ, dK and dV in one call, for K2 and K3).
-    Rows carry the main path's ``launches`` of each kernel."""
+    Rows carry the main path's ``launches`` of each kernel (``per_step``
+    None: a phase whose launches are not per step)."""
     name, b, sq, sk, h, hkv, d, causal = shape_row
     shape = (b, sq, sk, h, hkv, d, causal)
-    ms, plain, library = kernel_times(fa, shape, seed=12)
+    ms, plain, library = kernel_times(fa, shape, seed=12,
+                                      plain_reps=plain_reps)
     rows = {}
     for kernel in KERNEL_NAMES:
         rows[kernel] = row = {
             "shape": name, "launches": launches[kernel], "ms": ms[kernel],
             "plain_ms": plain[kernel], "library_ms": library[kernel],
             **bound_fields(kernel, shape, torch.bfloat16)}
-        log(f"{kernel} {name} bf16 (x{per_step[kernel]} per step): "
+        count = (f"x{per_step[kernel]} per step" if per_step is not None
+                 else f"x{launches[kernel]} in the phase")
+        log(f"{kernel} {name} bf16 ({count}): "
             f"kernel {row['ms']:.5f} ms, bound {row['bound_ms']:.5f} ms "
             f"({row['bound_by']}), plain {row['plain_ms']:.5f} ms, "
             f"library {row['library_ms']:.5f} ms")
@@ -1711,10 +1763,12 @@ def training_numbers(fa, shape_row: tuple, launches: dict,
     return rows
 
 
-def kernel_times(fa, shape: tuple, seed: int, plain_too: bool = True):
+def kernel_times(fa, shape: tuple, seed: int, plain_too: bool = True,
+                 plain_reps: int = 20):
     """({kernel: ms}, {kernel: plain ms}, {kernel: SDPA ms}) of K1, K2 and
     K3 on bf16 inputs of ``shape`` (B, Sq, Sk, H, Hkv, D, causal); the
-    launches made here are not counted."""
+    launches made here are not counted.  ``plain_reps``: calls per timing
+    window of the plain versions (fewer where one call takes ~0.1 s)."""
     from torch.nn.attention.bias import causal_lower_right
     from torch.nn.functional import scaled_dot_product_attention as sdpa
 
@@ -1735,12 +1789,16 @@ def kernel_times(fa, shape: tuple, seed: int, plain_too: bool = True):
     set_counters(fa, saved)                      # timing is not the path
     if not plain_too:
         return ms, {}, {}
+    windows = 7 if plain_reps >= 20 else 3
     plain = {"flash_fwd": time_ms(
-                 lambda: fa.flash_attention_reference(q, k, v, causal=causal)),
+                 lambda: fa.flash_attention_reference(q, k, v, causal=causal),
+                 plain_reps, windows),
              "flash_bwd_dq": time_ms(lambda: fa.flash_bwd_dq_reference(
-                 q, k, v, do, lse, delta, causal=causal)),
+                 q, k, v, do, lse, delta, causal=causal), plain_reps,
+                 windows),
              "flash_bwd_dkv": time_ms(lambda: fa.flash_bwd_dkv_reference(
-                 q, k, v, do, lse, delta, causal=causal))}
+                 q, k, v, do, lse, delta, causal=causal), plain_reps,
+                 windows)}
     qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
                   for t in (q, k, v))
     mask = causal_lower_right(sq, sk) if causal else None
@@ -2920,6 +2978,359 @@ def mesh_numbers(fa, mesh: dict) -> dict[str, list[dict]]:
 
 
 
+# -- phase 19: sequence and pipeline parallelism, a gang of 2 on the card ---
+
+# (b): phase 18's model at SP_LAYERS layers, a global batch of SP_BATCH rows
+# of SP_SEQ tokens, SP_STEPS adamw steps from an .npz made from seed 0,
+# through the worker entrypoint as one process (here) and with sp = 2 (each
+# rank holds SP_SEQ / 2 tokens of every row; ring attention joins them)
+SP_CONFIG = {"model": "llama",
+             "model_config": {"size": "7b", "num_layers": SP_LAYERS},
+             "global_batch": SP_BATCH, "steps": SP_STEPS, "log_every": 1,
+             "seed": 0,
+             "optimizer": {"name": "adamw", "learning_rate": 1e-4}}
+SP_ONE_LAUNCHES = {"flash_fwd": 2 * SP_LAYERS, "flash_bwd_dq": SP_LAYERS,
+                   "flash_bwd_dkv": SP_LAYERS}
+SP_TIMEOUT_S = 600.0
+# (c): the pipeline's output against the blocks in sequence, relative to max
+# |out| (the bf16 whole-model bound, LOGITS_REL_TOL's reasoning: the
+# microbatches' bf16 GEMMs run at a quarter of the rows), and its stage
+# gradients within BWD_TOL's bf16 bound of max |ref|
+PP_OUT_REL_TOL = 1e-1
+
+SP_WORKER = r"""
+import os, time
+T0 = float(os.environ["SP_SPAWNED"])
+import dataclasses, gc, json
+import torch
+import torch.distributed as dist
+from torch.func import functional_call
+from kubeflow_tpu_torch.models import llama
+from kubeflow_tpu_torch.ops import flash_attention as fa
+from kubeflow_tpu_torch.ops import ring_attention as ring
+from kubeflow_tpu_torch.parallel import distributed as pd
+from kubeflow_tpu_torch.parallel import pipeline as pipe
+from kubeflow_tpu_torch.parallel import train_step as ts
+from kubeflow_tpu_torch.parallel.mesh import make_mesh
+from kubeflow_tpu_torch.training import __main__ as worker
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+spec = json.loads(os.environ["SP_SPEC"])
+KERNELS = {"flash_fwd": fa.flash_attention, "flash_bwd_dq": fa.flash_bwd_dq,
+           "flash_bwd_dkv": fa.flash_bwd_dkv}
+comm, trail, stamps, snaps = {}, [], [], []
+
+
+def timed(kind, fn, nbytes):
+    # the call alone, from an idle card to its result on the card
+    def call(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        rec = comm.setdefault(kind, {"s": 0.0, "bytes": 0, "calls": 0})
+        rec["s"] += time.perf_counter() - t0
+        rec["bytes"] += nbytes(*args)
+        rec["calls"] += 1
+        return out
+    return call
+
+
+dist.all_reduce = timed("all_reduce", dist.all_reduce,
+                        lambda t, *a: t.numel() * t.element_size())
+# the bytes this rank sends (and receives) in a neighbour exchange
+pd.ppermute = timed("exchange", pd.ppermute, lambda tensors, *a: sum(
+    t.numel() * t.element_size() for t in tensors))
+_build_step = ts.build_train_step
+
+
+def build_step(*args, **kwargs):
+    step = _build_step(*args, **kwargs)
+
+    def recorded(state, batch):
+        state, m = step(state, batch)
+        trail.append((m["loss"], m["grad_norm"]))
+        return state, m
+
+    return recorded
+
+
+ts.build_train_step = build_step
+
+
+def launched():
+    return {n: k.launches for n, k in KERNELS.items()}
+
+
+def zero():
+    for kernel in KERNELS.values():
+        kernel.launches = 0
+
+
+def rel(a, b):
+    return ((a.float() - b.float()).abs().max()
+            / b.float().abs().max()).item()
+
+
+pd.initialize_from_env()
+rank = dist.get_rank()
+times = {"imported": time.time() - T0}
+out = {"device": torch.cuda.current_device(), "backend": dist.get_backend(),
+       "world": dist.get_world_size()}
+
+# (b) training with sp = 2 through the worker entrypoint
+os.environ["JAXJOB_TRAINER_CONFIG"] = json.dumps(spec["config"])
+comm.clear()
+torch.cuda.reset_peak_memory_stats()
+zero()                                                   # the path starts
+rc = worker.main(["--device", "cuda"], metrics_hook=lambda s, r: (
+    stamps.append(time.time() - T0),
+    snaps.append(json.loads(json.dumps(comm)))))
+sp_launches = launched()                                 # it ended
+step2 = {kind: {k: v - snaps[0].get(kind, {}).get(k, 0)
+                for k, v in rec.items()}
+         for kind, rec in snaps[1].items()}
+rows = spec["config"]["global_batch"]
+out["sp"] = {
+    "rc": rc, "launches": sp_launches,
+    "trail": [[float(loss), float(norm)] for loss, norm in trail],
+    "samples_per_s": rows / (stamps[1] - stamps[0]), "comm": step2,
+    "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+times["step1"], times["last"] = stamps[0], stamps[-1]
+gc.collect()
+torch.cuda.empty_cache()
+
+# (a) the ring at this rank's chunk, against the plain ring on it (after
+# (b), whose first step paid the process's first launches and exchanges)
+mesh = make_mesh(dp=1, sp=spec["sp"])
+group = mesh.group("sp")
+b, s, h, d = spec["block"]
+g = torch.Generator(device="cuda").manual_seed(190 + rank)
+q, k, v, do = (torch.randn(b, s, h, d, generator=g, device="cuda")
+               .to(torch.bfloat16) for _ in range(4))
+q, k, v = (t.requires_grad_() for t in (q, k, v))
+comm.clear()
+zero()                                                   # the check starts
+torch.cuda.synchronize()
+t0 = time.perf_counter()
+o = ring.ring_attention(q, k, v, group=group, causal=True)
+got = [o.detach(), *torch.autograd.grad(o, (q, k, v), do)]
+torch.cuda.synchronize()
+ring_s = time.perf_counter() - t0
+ring_launches = launched()                               # it ended
+ring_comm = comm.pop("exchange")
+ref = ring.ring_attention_reference(q, k, v, group=group, causal=True)
+want = [ref.detach(), *torch.autograd.grad(ref, (q, k, v), do)]
+with torch.no_grad():   # P|V|: the plain ring of |V|, the same weights
+    pv = ring.ring_attention_reference(q, k, v.abs(), group=group,
+                                       causal=True).float()
+allow = 2 ** -7 * (want[0].float().abs() + pv)
+out["ring"] = {
+    "launches": ring_launches, "s": ring_s, "exchange": ring_comm,
+    "o_ratio": ((got[0].float() - want[0].float()).abs() / allow).max().item(),
+    "grad_rel": [rel(a, w) for a, w in zip(got[1:], want[1:])]}
+del q, k, v, do, o, got, ref, want, pv, allow
+gc.collect()
+torch.cuda.empty_cache()
+times["ring"] = time.time() - T0
+
+# (c) pp = 2: the blocks of a model at that width, 2 per stage, pipelined,
+# against all of them in sequence on this rank
+pmesh = make_mesh(dp=1, pp=spec["sp"])
+cfg = dataclasses.replace(llama.llama2_7b(), num_layers=spec["pp_blocks"])
+model = llama.LlamaModel(cfg, device="cuda").init_weights(0)
+blocks = list(model.layers)
+stacked = pipe.stack_layer_params([
+    {k: v.detach() for k, v in blk.named_parameters()} for blk in blocks])
+template = blocks[0]
+del model, blocks
+g = torch.Generator(device="cuda").manual_seed(191)
+x = torch.randn(spec["pp_batch"], spec["pp_seq"], cfg.hidden_size,
+                generator=g, device="cuda").to(torch.bfloat16)
+
+
+def block(layer, h):
+    positions = torch.arange(h.shape[1], device="cuda")[None].expand(
+        h.shape[0], -1)
+    return functional_call(template, layer, (h, positions))[0]
+
+
+mine = {k: v.clone().requires_grad_() for k, v in
+        pipe.stage_slice(stacked, pmesh).items()}
+comm.clear()
+torch.cuda.reset_peak_memory_stats()
+zero()                                                   # the path starts
+torch.cuda.synchronize()
+t0 = time.perf_counter()
+y = pipe.pipeline_forward(block, mine, x, mesh=pmesh,
+                          num_microbatches=spec["pp_micro"])
+grads = torch.autograd.grad(y.float().pow(2).mean(), list(mine.values()))
+torch.cuda.synchronize()
+pipe_s = time.perf_counter() - t0
+pp_launches = launched()                                 # it ended
+pp_comm = dict(comm)
+full = {k: v.clone().requires_grad_() for k, v in stacked.items()}
+h = x
+for i in range(spec["pp_blocks"]):
+    h = block({k: v[i] for k, v in full.items()}, h)
+ref_grads = dict(zip(full, torch.autograd.grad(h.float().pow(2).mean(),
+                                               list(full.values()))))
+ref_mine = pipe.stage_slice(ref_grads, pmesh)
+out["pp"] = {
+    "launches": pp_launches, "s": pipe_s, "comm": pp_comm,
+    "out_rel": rel(y, h),
+    "grad_rel": max(rel(a, ref_mine[k]) for k, a in zip(mine, grads)),
+    "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+times["ended"] = time.time() - T0
+out["times"] = times
+print(json.dumps(out))
+"""
+
+
+def sp_data(home: Path) -> str:
+    """Phase 19's .npz from seed 0: SP_STEPS global batches of SP_BATCH
+    Llama rows of SP_SEQ tokens (labels: the ids shifted by one)."""
+    rng = np.random.default_rng(0)
+    ids = rng.integers(0, 32000, (SP_BATCH * SP_STEPS, SP_SEQ + 1),
+                       dtype=np.int32)
+    path = home / "llama_sp.npz"
+    np.savez(path, input_ids=ids[:, :-1], labels=ids[:, 1:])
+    return str(path)
+
+
+def sp_expected(rank: int) -> dict:
+    """Rank ``rank``'s launches of phase 19: its ring blocks (the diagonal
+    one and ``rank`` earlier ones; a later block launches nothing) per
+    check, per layer and pass of (b), and (c)'s blocks per microbatch."""
+    blocks = rank + 1
+    return {
+        "ring": dict.fromkeys(KERNEL_NAMES, blocks),
+        "sp": {"flash_fwd": 2 * blocks * SP_LAYERS * SP_STEPS,
+               "flash_bwd_dq": blocks * SP_LAYERS * SP_STEPS,
+               "flash_bwd_dkv": blocks * SP_LAYERS * SP_STEPS},
+        "pp": dict.fromkeys(KERNEL_NAMES,
+                            PP_BLOCKS // SP_RANKS * PP_MICRO)}
+
+
+def phase_sp(fa) -> dict:
+    """Phase 19: (b)'s one process here, then one gang of SP_RANKS on this
+    card for (a), (b) and (c)."""
+    import shutil
+    import tempfile
+
+    from kubeflow_tpu_torch.parallel.distributed import spawn_local_gang
+
+    t0 = time.perf_counter()
+    free_memory()
+    home = Path(tempfile.mkdtemp(prefix=".kf_sp_"))
+    path = os.pathsep.join([str(ROOT)] + [p for p in [
+        os.environ.get("PYTHONPATH")] if p])
+    try:
+        config = {**SP_CONFIG, "data_path": sp_data(home)}
+        one = one_process(fa, config, SP_ONE_LAUNCHES,
+                          "phase 19 one process")
+        free_memory()
+        t1 = time.perf_counter()
+        spec = {"sp": SP_RANKS, "block": SP_BLOCK_SHAPES[0][1:3] + (32, 128),
+                "config": {**config, "sp": SP_RANKS},
+                "pp_blocks": PP_BLOCKS, "pp_batch": PP_BATCH,
+                "pp_seq": PP_SEQ, "pp_micro": PP_MICRO}
+        outs = spawn_local_gang(
+            SP_WORKER, SP_RANKS, timeout=SP_TIMEOUT_S,
+            extra_env={"SP_SPEC": json.dumps(spec),
+                       "SP_SPAWNED": repr(time.time()), "PYTHONPATH": path})
+        log(f"phase 19: one process {t1 - t0:.1f}s, gang of {SP_RANKS} "
+            f"{time.perf_counter() - t1:.1f}s")
+    finally:
+        shutil.rmtree(home, ignore_errors=True)
+    ticks = PP_MICRO + SP_RANKS - 1
+    for r, out in enumerate(outs):
+        want = sp_expected(r)
+        ring, sp, pp = out["ring"], out["sp"], out["pp"]
+        comm = ", ".join(f"{kind} {c['s']:.4f} s in {c['calls']} calls of "
+                         f"{c['bytes']} B"
+                         for kind, c in sorted(sp["comm"].items()))
+        log(f"phase 19 rank {r}: seconds after the spawn " + ", ".join(
+            f"{k} {v:.1f}" for k, v in out["times"].items()))
+        log(f"phase 19(a) rank {r}: ring on {SP_BLOCK_SHAPES[0][1:3]} x 32 "
+            f"heads of 128, causal, bf16: launches {ring['launches']} "
+            f"(expected {want['ring']}); O within "
+            f"{ring['o_ratio']:.3f} of 2^-7 (|O| + P|V|) (tol "
+            f"{IN_MODEL_TOL['o']:g}); dQ, dK, dV / max|ref| "
+            + " ".join(f"{x:.3e}" for x in ring["grad_rel"])
+            + f" (tol {BWD_TOL[torch.bfloat16]:g}); forward and backward "
+            f"{ring['s']:.4f} s with "
+            f"{ring['exchange']['calls']} exchanges "
+            f"of {ring['exchange']['bytes']} B in "
+            f"{ring['exchange']['s']:.4f} s")
+        check(out["device"] == 0 and out["backend"] == "gloo"
+              and out["world"] == SP_RANKS, (r, out["backend"]))
+        check(ring["launches"] == want["ring"]
+              and ring["o_ratio"] <= IN_MODEL_TOL["o"]
+              and max(ring["grad_rel"]) <= BWD_TOL[torch.bfloat16],
+              f"phase 19(a) rank {r}: {ring}")
+        log(f"phase 19(b) sp={SP_RANKS} rank {r}: launches "
+            f"{sp['launches']} (expected {want['sp']}), peak memory "
+            f"{sp['peak_gb']:.2f} GB, samples/s {sp['samples_per_s']:.3f} "
+            f"({sp['samples_per_s'] * SP_SEQ:.0f} tokens/s); step 2: "
+            f"{comm}")
+        check(sp["rc"] == 0 and sp["launches"] == want["sp"],
+              f"phase 19(b) rank {r}: {sp['rc']} {sp['launches']}")
+        log(f"phase 19(c) pp={SP_RANKS} rank {r}: {PP_BLOCKS} blocks, x "
+            f"[{PP_BATCH}, {PP_SEQ}, 4096] bf16 in {PP_MICRO} microbatches: "
+            f"{ticks} ticks, bubble share {(SP_RANKS - 1) / ticks:.3f}, "
+            f"forward and backward {pp['s']:.4f} s ("
+            + ", ".join(f"{kind} {c['s']:.4f} s in {c['calls']} calls of "
+                        f"{c['bytes']} B"
+                        for kind, c in sorted(pp["comm"].items()))
+            + f"); launches {pp['launches']} (expected {want['pp']}); out vs "
+            f"in sequence / max|ref| {pp['out_rel']:.3e} (tol "
+            f"{PP_OUT_REL_TOL:g}), stage gradients {pp['grad_rel']:.3e} "
+            f"(tol {BWD_TOL[torch.bfloat16]:g}); peak memory "
+            f"{pp['peak_gb']:.2f} GB")
+        check(pp["launches"] == want["pp"]
+              and pp["out_rel"] <= PP_OUT_REL_TOL
+              and pp["grad_rel"] <= BWD_TOL[torch.bfloat16],
+              f"phase 19(c) rank {r}: {pp}")
+    gang_compare(f"sp={SP_RANKS}", one,
+                 [{"trail": out["sp"]["trail"]} for out in outs], phase=19)
+    sp_rate = min(out["sp"]["samples_per_s"] for out in outs)
+    log(f"phase 19(b): samples/s one process {one['samples_per_s']:.3f} "
+        f"({one['samples_per_s'] * SP_SEQ:.0f} tokens/s), sp={SP_RANKS} "
+        f"{sp_rate:.3f} ({sp_rate * SP_SEQ:.0f} tokens/s); peak memory one "
+        f"process {one['steps_peak_gb']:.2f} GB")
+    log(f"phase 19: {time.perf_counter() - t0:.1f}s")
+    total = {part: {n: sum(out[part]["launches"][n] for out in outs)
+                    for n in KERNEL_NAMES} for part in ("sp", "pp")}
+    # (b)'s launches by block: every rank one diagonal block per layer and
+    # pass, the rest earlier ones
+    diagonal = {n: sum(v // (r + 1) for r, v in enumerate(
+        out["sp"]["launches"][n] for out in outs)) for n in KERNEL_NAMES}
+    return {"one": one, "sp_samples_per_s": sp_rate,
+            "launches": {SP_BLOCK_SHAPES[0][0]: diagonal,
+                         SP_BLOCK_SHAPES[1][0]: {
+                             n: total["sp"][n] - diagonal[n]
+                             for n in KERNEL_NAMES},
+                         SP_ONE_SHAPE[0]: one["launches"],
+                         PP_SHAPE[0]: total["pp"]}}
+
+
+def sp_numbers(fa, sp: dict) -> dict[str, list[dict]]:
+    """K1-K3 rows of phase 19: its launches at each of its shapes (the
+    ring's blocks, one process's whole sequence, the pipeline's
+    microbatch)."""
+    rows = {n: [] for n in KERNEL_NAMES}
+    for shape in SP_SHAPES:
+        # the plain versions of the ring's blocks and of the whole sequence
+        # take 6-50 ms a call: a few calls a window
+        got = training_numbers(fa, shape, sp["launches"][shape[0]], None,
+                               plain_reps=20 if shape is PP_SHAPE else 2)
+        for n in KERNEL_NAMES:
+            rows[n].append(got[n])
+    return rows
+
+
 def int8_pages_equal(engine, prompt: list[int], usable: int) -> bool:
     """Whether the int8 pages ``engine`` committed for ``prompt`` past its
     reused prefix equal ``quantize_kv`` of the scratch rows they were cut
@@ -4086,13 +4497,18 @@ def kernel_times_only(fa) -> int:
 
 def some_phases(fa, which: str) -> int:
     """``--phases 9,12,13``: build and check the kernels (phase 1), then
-    the named phases (9 to 18); prints no result line."""
+    the named phases (9 to 19); prints no result line."""
     wanted = {int(w) for w in which.split(",") if w}
-    if not wanted <= set(range(9, 19)):
-        print(f"chip_smoke: --phases takes 9 to 18, not {which}",
+    if not wanted <= set(range(9, 20)):
+        print(f"chip_smoke: --phases takes 9 to 19, not {which}",
               file=sys.stderr)
         return 2
     phase_kernels(fa)
+    if 19 in wanted:
+        sp = phase_sp(fa)
+        log(card_line())
+        sp_numbers(fa, sp)
+        free_memory()
     if 18 in wanted:
         mesh = phase_mesh(fa)
         log(card_line())
@@ -4203,6 +4619,8 @@ def main(argv: list[str]) -> int:
     gang = phase_gang(fa)
     free_memory()
     mesh = phase_mesh(fa)
+    free_memory()
+    sp = phase_sp(fa)
     log(card_line())
     serving_rows = phase_numbers(fa, main_path_shapes(), num_layers=32)
     prefix_rows = phase_numbers(fa, prefix_path_shapes(), num_layers=32)
@@ -4215,6 +4633,7 @@ def main(argv: list[str]) -> int:
     gemma_rows = gemma_numbers(fa, gemma_serving, gemma_train)
     gang_rows = gang_numbers(fa, gang, bert_rows)
     mesh_rows = mesh_numbers(fa, mesh)
+    sp_rows = sp_numbers(fa, sp)
     causal_numbers(fa)
     log(f"phase 2: TTFT mean {serving['ttft_mean_s'] * 1e3:.1f} ms over the "
         f"4 concurrent requests; decode "
@@ -4301,6 +4720,9 @@ def main(argv: list[str]) -> int:
             f"{label} {r['samples_per_s']:.2f} (peak {r['steps_peak_gb']:.2f}"
             f" GB over the steps, {r['peak_gb']:.2f} GB with the save)"
             for label, r in mesh.items())
+        + f"; phase 19: one process {sp['one']['samples_per_s']:.3f}, "
+        f"sp={SP_RANKS} {sp['sp_samples_per_s']:.3f} (rows of {SP_SEQ} "
+        f"tokens)"
         + f"; total {time.perf_counter() - t_start:.1f}s")
     check(serving["launches"] == sum(r["launches"] for r in serving_rows),
           "serving launches")
@@ -4329,10 +4751,11 @@ def main(argv: list[str]) -> int:
                             + [bert_rows["flash_fwd"], llama_rows["flash_fwd"],
                                moe_train_rows["flash_fwd"]]
                             + gang_rows["flash_fwd"]
-                            + mesh_rows["flash_fwd"], errs["flash_fwd"])]
+                            + mesh_rows["flash_fwd"] + sp_rows["flash_fwd"],
+                            errs["flash_fwd"])]
     kernels += [kernel_entry(name, [bert_rows[name], llama_rows[name],
                                     moe_train_rows[name]] + gang_rows[name]
-                             + mesh_rows[name], errs[name])
+                             + mesh_rows[name] + sp_rows[name], errs[name])
                 for name in ("flash_bwd_dq", "flash_bwd_dkv")]
     # the D = 256 instantiations: K1 on phases 15 and 16, K2 and K3 on 16
     train_256 = gemma_rows["training"]

@@ -27,7 +27,8 @@ from torch.utils.checkpoint import checkpoint
 from kubeflow_tpu_torch.device import dtype_of, resolve
 from kubeflow_tpu_torch.models import layers as kl
 from kubeflow_tpu_torch.models.mlp import label_log_probs
-from kubeflow_tpu_torch.ops.attention import dot_product_attention
+from kubeflow_tpu_torch.ops.attention import (
+    dot_product_attention, recompute_context, sequence_offset)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -174,7 +175,10 @@ class BertModel(nn.Module):
         dt = cfg.torch_dtype
         s = input_ids.shape[1]
         x = self.word_embeddings(input_ids)
-        x = x + kl.weight(self.position_embeddings, dt)[:s][None]
+        # under sequence parallelism this rank's chunk holds positions
+        # [off, off + s) of the sequence
+        off = sequence_offset(s)
+        x = x + kl.weight(self.position_embeddings, dt)[off:off + s][None]
         if self.token_type_embeddings is not None:
             if token_type_ids is None:
                 token_type_ids = torch.zeros_like(input_ids)
@@ -186,9 +190,13 @@ class BertModel(nn.Module):
             mask = attention_mask[:, None, None, :].bool()
         remat = cfg.remat and torch.is_grad_enabled()
         for layer in self.layers:
-            x = (checkpoint(layer, x, mask, use_reentrant=False) if remat
+            x = (checkpoint(layer, x, mask, use_reentrant=False,
+                            context_fn=recompute_context) if remat
                  else layer(x, mask))
 
+        # x[:, 0] is the CLS token only on sp rank 0; elsewhere the pooler
+        # reads another token, which the MLM loss never reaches (its
+        # gradient is 0 there, as in the reference)
         pooled = torch.tanh(self.pooler(x[:, 0]))
         h = x
         if masked_positions is not None:

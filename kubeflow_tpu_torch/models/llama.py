@@ -51,7 +51,8 @@ from torch.utils.checkpoint import checkpoint
 from kubeflow_tpu_torch.device import dtype_of, resolve
 from kubeflow_tpu_torch.models import layers as kl
 from kubeflow_tpu_torch.models.moe import MoEBlock, MoEConfig
-from kubeflow_tpu_torch.ops.attention import dot_product_attention
+from kubeflow_tpu_torch.ops.attention import (
+    dot_product_attention, recompute_context, sequence_offset)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -286,7 +287,10 @@ class LlamaModel(nn.Module):
     def forward(self, input_ids, positions=None, cache=None, attn_mask=None):
         b, s = input_ids.shape
         if positions is None:
-            start = 0 if cache is None else cache["layers"][0]["index"]
+            # under sequence parallelism this rank's chunk starts at its
+            # global position, so RoPE sees global positions
+            start = (sequence_offset(s) if cache is None
+                     else cache["layers"][0]["index"])
             steps = torch.arange(s, device=input_ids.device)
             if isinstance(start, int):
                 positions = (start + steps)[None, :].expand(b, s)
@@ -301,7 +305,8 @@ class LlamaModel(nn.Module):
             if remat:
                 # the recomputed forward routes exactly as the first did
                 x, layer_cache, aux = checkpoint(
-                    block, x, positions, None, attn_mask, use_reentrant=False)
+                    block, x, positions, None, attn_mask, use_reentrant=False,
+                    context_fn=recompute_context)
             else:
                 x, layer_cache, aux = block(x, positions, layer_cache,
                                             attn_mask)

@@ -15,6 +15,9 @@ the module.  ``loss_weight(batch)`` is the denominator of that loss on
 ``batch``: its label count for the mean losses, the summed mask weight
 for BERT's masked LM.  A data-parallel step scales each rank's loss by it
 (``parallel/train_step.py``) so the gang's loss is the global batch's.
+``sequence_keys`` names the batch tensors whose axis 1 is the sequence,
+which sequence parallelism cuts into chunks (Llama's batch carries its
+labels shifted already, so no label crosses a chunk's edge).
 """
 
 from __future__ import annotations
@@ -33,6 +36,8 @@ class ModelEntry:
     forward_loss: Callable[..., Any] | None = None  # (module, batch)
     generative: bool = False         # decoder LM: served by the engine
     loss_weight: Callable[[dict], Any] | None = None  # (batch)
+    # the batch tensors whose axis 1 is the sequence (sp splits them)
+    sequence_keys: tuple[str, ...] = ()
 
 
 def _label_count(key: str) -> Callable[[dict], int]:
@@ -169,7 +174,8 @@ def _bert_weight(batch):
 
 
 register(ModelEntry("bert", _make_bert, make_batch=_bert_batch,
-                    forward_loss=_bert_loss, loss_weight=_bert_weight))
+                    forward_loss=_bert_loss, loss_weight=_bert_weight,
+                    sequence_keys=("input_ids", "labels", "weights")))
 
 
 # --- Llama -------------------------------------------------------------------
@@ -208,4 +214,5 @@ def _llama_loss(module, batch):
 
 register(ModelEntry("llama", _make_llama, make_batch=_llama_batch,
                     forward_loss=_llama_loss, generative=True,
-                    loss_weight=_label_count("labels")))
+                    loss_weight=_label_count("labels"),
+                    sequence_keys=("input_ids", "labels")))

@@ -316,17 +316,24 @@ flash_bwd_dq.launches = 0
 flash_bwd_dkv.launches = 0
 
 
+def cotangent_view(do, dtype) -> torch.Tensor:
+    """A cotangent in ``dtype`` that K2 and K3 can read: a view with a unit
+    innermost stride and, in bf16 on the card, ``_tma_compatible`` goes in
+    as it is, any other is made contiguous."""
+    do = do.to(dtype)
+    if do.stride(3) != 1 or (do.is_cuda and dtype == torch.bfloat16
+                             and not _tma_compatible(do)):
+        do = do.contiguous()
+    return do
+
+
 def flash_attention_backward(q, k, v, o, lse, do, *, causal: bool = False):
     """``(dQ, dK, dV)`` of ``flash_attention`` at cotangent ``do``: delta,
     then K2 and K3 (their plain versions on a CPU tensor).  ``do`` is
     taken in the input dtype, as the reference rounds it (:280).  It is
-    the cotangent autograd hands over, in whatever layout: a view the
-    kernels can read (a unit innermost stride and, in bf16 on the card,
-    ``_tma_compatible``) goes in as it is, any other is made contiguous."""
-    do = do.to(q.dtype)
-    if do.stride(3) != 1 or (do.is_cuda and q.dtype == torch.bfloat16
-                             and not _tma_compatible(do)):
-        do = do.contiguous()
+    the cotangent autograd hands over, in whatever layout
+    (``cotangent_view``)."""
+    do = cotangent_view(do, q.dtype)
     delta = flash_bwd_delta(o, do)
     dq = flash_bwd_dq(q, k, v, do, lse, delta, causal=causal)
     dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, causal=causal)

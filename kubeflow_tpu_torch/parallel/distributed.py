@@ -28,7 +28,13 @@ and the sharded layers' differentiable collectives
 (``parallel/sharding.py``): ``gather_cast`` (an fsdp block gathered
 whole, its gradient reduce-scattered), ``copy_to_group`` and
 ``reduce_from_group`` (tensor parallelism's f and g) and
-``gather_from_group``.
+``gather_from_group``; and the neighbour exchange of ring attention
+and the pipeline, ``ppermute`` (``jax.lax.ppermute`` with a cyclic
+shift) and its differentiable form ``permute`` (``_Ppermute``).
+Gloo's point-to-point refuses a CUDA tensor (its TCP transport writes
+from the device pointer: "writev ... Bad address", torch 2.11 on an
+H100), so under gloo a CUDA exchange goes through pinned host buffers,
+in ``ppermute`` alone; under NCCL the device tensors go as they are.
 """
 
 from __future__ import annotations
@@ -332,6 +338,69 @@ def reduce_from_group(x: torch.Tensor, group) -> torch.Tensor:
 
 def gather_from_group(x: torch.Tensor, group) -> torch.Tensor:
     return _GatherFromGroup.apply(x, group)
+
+
+def ppermute(tensors: list[torch.Tensor], group,
+             shift: int = 1) -> list[torch.Tensor]:
+    """Every tensor of ``tensors`` sent to rank ``(i + shift) % n`` of
+    ``group`` and replaced by the one rank ``(i - shift) % n`` sent: new
+    tensors of the same shapes, dtypes and device.  They travel as one
+    flat byte buffer, one send and one receive paired in
+    ``batch_isend_irecv`` so that no rank blocks; group ranks are mapped
+    to global ranks here, and nowhere else.  Under gloo a CUDA buffer is
+    staged through pinned host memory (module docstring)."""
+    import torch.distributed as dist
+
+    n, me = world_size(group), rank_of(group)
+    if n == 1 or shift % n == 0:
+        return [t.clone() for t in tensors]
+    # each tensor's bytes start on a 16-byte boundary, so that every
+    # received block can be viewed in its own dtype
+    pieces = []
+    for t in tensors:
+        raw = t.reshape(-1).view(torch.uint8)
+        pieces += [raw, raw.new_zeros(-raw.numel() % 16)]
+    flat = torch.cat(pieces)
+    staged = flat.is_cuda and dist.get_backend(group) == "gloo"
+    send = flat
+    if staged:
+        send = torch.empty(flat.shape, dtype=torch.uint8, pin_memory=True)
+        send.copy_(flat)
+    recv = torch.empty_like(send)
+    ops = [dist.P2POp(dist.isend, send,
+                      dist.get_global_rank(group, (me + shift) % n), group),
+           dist.P2POp(dist.irecv, recv,
+                      dist.get_global_rank(group, (me - shift) % n), group)]
+    for work in dist.batch_isend_irecv(ops):
+        work.wait()
+    if staged:
+        recv = recv.to(flat.device, non_blocking=True)
+    out, offset = [], 0
+    for t in tensors:
+        nbytes = t.numel() * t.element_size()
+        out.append(recv[offset:offset + nbytes].view(t.dtype).view(t.shape))
+        offset += nbytes + (-nbytes % 16)
+    return out
+
+
+class _Ppermute(torch.autograd.Function):
+    """``ppermute`` of one tensor; its cotangent goes back by the reverse
+    shift (the transpose of a permutation, as JAX transposes
+    ``ppermute``)."""
+
+    @staticmethod
+    def forward(ctx, x, group, shift):
+        ctx.group, ctx.shift = group, shift
+        return ppermute([x], group, shift)[0]
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ppermute([grad], ctx.group, -ctx.shift)[0], None, None
+
+
+def permute(x: torch.Tensor, group, shift: int = 1) -> torch.Tensor:
+    """``ppermute`` of ``x``, differentiably."""
+    return _Ppermute.apply(x, group, shift)
 
 
 _DATA_PARALLEL = contextvars.ContextVar("kf_data_parallel_group",

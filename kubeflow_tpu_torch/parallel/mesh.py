@@ -31,6 +31,10 @@ MeshAxes = ("dp", "fsdp", "tp", "sp", "pp", "ep")
 # the axes a batch's rows are split over: every rank of one (dp, fsdp)
 # coordinate holds the same rows
 DATA_AXES = ("dp", "fsdp")
+# the sets of axes a step sums over together, each with a group of its
+# own: the data axes, and under sequence parallelism the data axes and
+# sp (a replicated gradient) or dp and sp (an fsdp-split one)
+JOINT_AXES = (DATA_AXES, ("dp", "fsdp", "sp"), ("dp", "sp"))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -157,20 +161,26 @@ def _world() -> tuple[int, int]:
 
 
 def _axis_groups(device_mesh, ranks: np.ndarray, rank: int) -> dict:
-    """This rank's group for every axis (the DeviceMesh's) and for the
-    data axes together (a subgroup per (dp, fsdp) plane: every rank
-    creates every subgroup, as ``new_group`` requires)."""
+    """This rank's group for every axis (the DeviceMesh's) and for each
+    set of ``JOINT_AXES`` that spans more than one of them (a subgroup per
+    coordinate of the other axes: every rank creates every subgroup, as
+    ``new_group`` requires)."""
     import torch.distributed as dist
 
     groups = {(a,): device_mesh.get_group(a) for a in MeshAxes
               if ranks.shape[MeshAxes.index(a)] > 1}
-    d, f = ranks.shape[0], ranks.shape[1]
-    if d > 1 and f > 1:
-        # ranks of one (tp, sp, pp, ep) coordinate, over every dp and fsdp
-        planes = ranks.reshape(d * f, -1).T
+    for axes in JOINT_AXES:
+        key = tuple(a for a in axes if ranks.shape[MeshAxes.index(a)] > 1)
+        if len(key) < 2 or key in groups:
+            continue
+        # ranks of one coordinate of the other axes, over every one of key's
+        dims = [MeshAxes.index(a) for a in key]
+        rest = [i for i in range(len(MeshAxes)) if i not in dims]
+        planes = ranks.transpose(rest + dims).reshape(
+            -1, math.prod(ranks.shape[i] for i in dims))
         mine, _ = dist.new_subgroups_by_enumeration(
             [[int(r) for r in plane] for plane in planes])
-        groups[DATA_AXES] = mine
+        groups[key] = mine
     return groups
 
 

@@ -42,9 +42,11 @@ the rest to GSPMD, the port's layers act on those records:
   tensors holding this rank's ``Hq / tp`` query and ``Hkv / tp`` KV
   heads.
 
-Every activation is this rank's rows with its hidden dim whole, so the
-reference's ``constrain``/``replicate``/``shard_activation`` pins have
-nothing to pin here: they return their input.
+Every activation is this rank's rows (under sp, of its sequence chunk,
+which ``parallel/train_step.py`` cuts and ring attention joins) with its
+hidden dim whole, so the reference's
+``constrain``/``replicate``/``shard_activation`` pins have nothing to
+pin here: they return their input.
 """
 
 from __future__ import annotations
@@ -279,12 +281,16 @@ def load_full_state_dict(model: nn.Module, state: dict) -> None:
                                else v) for k, v in state.items()})
 
 
-def grad_groups(params: list[torch.Tensor], mesh) -> list:
+def grad_groups(params: list[torch.Tensor], mesh, *,
+                seq_split: bool = False) -> list:
     """Per parameter, the group its gradient is still to be summed over
     after the backward: the data axes it is not fsdp-split over (the
-    gather's reduce-scatter summed the fsdp axis), or None."""
-    over_dp = mesh.group("dp")
-    over_data = mesh.group(*DATA_AXES)
+    gather's reduce-scatter summed the fsdp axis), and sp when
+    ``seq_split`` (each sp rank's gradient is its sequence chunk's
+    share), or None."""
+    sp = ("sp",) if seq_split else ()
+    over_dp = mesh.group("dp", *sp)
+    over_data = mesh.group(*DATA_AXES, *sp)
     return [over_dp if getattr(p, "fsdp_split", None) is not None
             else over_data for p in params]
 

@@ -56,18 +56,35 @@ with no rows here runs a one-row stand-in with a zero cotangent (the
 empty piece itself for a model that reduces over the group).  A mesh
 that is only dp takes the data-parallel path above, over its dp group.
 
-sp, pp and ep above 1, and MoE under a data group or tp above one rank,
-wait for later slices of the port and are refused by name.
+**Sequence parallelism** (sp above 1) takes the mesh path too, whatever
+the other axes.  Each sp rank cuts the batch tensors named by
+``sequence_keys`` (the registry model's ``sequence_keys``: BERT's and
+Llama's ``[B, S]`` tensors) to its chunk of the sequence, positions
+``[i S / sp, (i + 1) S / sp)``; forward and backward run under
+``ops/attention.ring_context``, so self-attention is ring attention over
+the sp group and the models place their chunk at its global positions.
+The loss weights and the loss are summed over the data axes and sp, and
+so are the gradients (an fsdp-split one over dp and sp).  A model
+without ``sequence_keys`` (mlp, convnet, resnet) runs whole on every sp
+rank, as the reference's replicated layout does: nothing is cut, and
+nothing is summed over sp.
+
+pp and ep above 1 are refused by name: the reference's step has no path
+for either (``parallel/pipeline.py`` runs pp on its own).  MoE under a
+data group, tp or sp waits for expert parallelism and is refused by
+name.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Callable
 
 import torch
 from torch import nn
 
+from kubeflow_tpu_torch.ops.attention import ring_context
 from kubeflow_tpu_torch.parallel import distributed as pd
 from kubeflow_tpu_torch.parallel import sharding as sh
 from kubeflow_tpu_torch.parallel.mesh import DATA_AXES, Mesh, factor_axes
@@ -81,26 +98,26 @@ class TrainState:
     tx: Optimizer
 
 
-# axes whose parallelism waits for a later slice of the port
-_LATER = {"sp": "sequence parallelism (ring attention)",
-          "pp": "pipeline parallelism", "ep": "expert parallelism"}
+# axes a train step refuses above 1, and why
+_REFUSED = {"pp": "pipeline parallelism has no train-step path in the "
+                  "reference either; parallel/pipeline.pipeline_forward "
+                  "runs it",
+            "ep": "expert parallelism waits for a later slice of the port"}
 
 
 def check_mesh(mesh: Mesh | None = None, *, world: int = 1,
                **axes: int) -> tuple[int, ...]:
     """Check a mesh (or its axis sizes as keywords) against a gang of
-    ``world`` ranks; returns the six axis sizes.  sp, pp and ep above 1
-    are refused by name, and the axes must multiply to the gang
+    ``world`` ranks; returns the six axis sizes.  pp and ep above 1 are
+    refused by name, and the axes must multiply to the gang
     (``factor_axes``'s rule: one axis may be -1, inferred)."""
     if mesh is not None:
         if not isinstance(mesh, Mesh):
             raise TypeError(f"mesh {mesh!r} is not a parallel.mesh.Mesh")
         axes = mesh.shape
-    for name, what in _LATER.items():
+    for name, why in _REFUSED.items():
         if axes.get(name, 1) != 1:
-            raise NotImplementedError(
-                f"{name}={axes[name]}: {what} waits for a later slice of "
-                "the port")
+            raise NotImplementedError(f"{name}={axes[name]}: {why}")
     try:
         return factor_axes(world, **axes)
     except ValueError as e:
@@ -170,18 +187,23 @@ def _pieces(n_local: int, rank: int, world: int, grad_accum: int):
 
 
 def _gang_steps(forward, loss_weight, model, params, batch, grad_accum,
-                group, rank: int, world: int, run_all: bool = False):
+                group, rank: int, world: int, run_all: bool = False,
+                weight_group=None):
     """This rank's share of the global-batch loss and of its gradients,
     as rank ``rank`` of the ``world`` data ranks of ``group`` (not yet
     summed over them).  ``run_all``: every piece runs, an empty one as a
-    one-row stand-in with a zero cotangent (module docstring)."""
+    one-row stand-in with a zero cotangent (module docstring).  The loss
+    weights are summed over ``weight_group`` (default ``group``; under
+    sequence parallelism the data axes and sp)."""
     pieces = _pieces(_rows(batch), rank, world, grad_accum)
     micro = [{k: v[lo:hi] for k, v in batch.items()} for lo, hi in pieces]
     local_w = torch.stack([torch.as_tensor(loss_weight(b)).float()
                            .to(params[0].device) for b in micro])
     global_w = local_w.clone()
-    if group is not None:
-        pd.all_reduce_sum([global_w], group)
+    if weight_group is None:
+        weight_group = group
+    if weight_group is not None:
+        pd.all_reduce_sum([global_w], weight_group)
     scale = (local_w.clamp_min(1.0) / global_w.clamp_min(1.0)) / grad_accum
     reduces = any(getattr(m, "reduces_over_group", False)
                   for m in model.modules())
@@ -212,20 +234,45 @@ def _gang_steps(forward, loss_weight, model, params, batch, grad_accum,
     return loss, grads
 
 
+def _sequence_chunk(batch: dict, keys, mesh: Mesh) -> dict:
+    """The batch with every tensor of ``keys`` cut to this sp rank's chunk
+    of its sequence axis (axis 1)."""
+    n, i = mesh.shape["sp"], mesh.coordinate("sp")
+    out = dict(batch)
+    for key in keys:
+        s = batch[key].shape[1]
+        if s % n:
+            raise ValueError(f"{key}: sequence length {s} does not divide "
+                             f"by sp={n}")
+        out[key] = batch[key][:, i * (s // n):(i + 1) * (s // n)]
+    return out
+
+
 def _mesh_steps(forward, loss_weight, model, params, batch, grad_accum,
-                mesh: Mesh):
-    """The step's loss and gradients on a mesh with fsdp or tp above 1,
-    summed over the data axes (module docstring)."""
+                mesh: Mesh, sequence_keys=()):
+    """The step's loss and gradients on a mesh with fsdp, tp or sp above
+    1, summed over the data axes and, where the sequence is split, sp
+    (module docstring)."""
     data = mesh.group(*DATA_AXES)
     index, count = mesh.data_index()
-    loss, grads = _gang_steps(forward, loss_weight, model, params, batch,
-                              grad_accum, data, index, count, run_all=True)
+    seq_split = mesh.shape["sp"] > 1 and bool(sequence_keys)
+    over = data
+    ring = contextlib.nullcontext()
+    if seq_split:
+        batch = _sequence_chunk(batch, sequence_keys, mesh)
+        over = mesh.group(*DATA_AXES, "sp")
+        ring = ring_context(mesh)
+    with ring:
+        loss, grads = _gang_steps(forward, loss_weight, model, params, batch,
+                                  grad_accum, data, index, count,
+                                  run_all=True, weight_group=over)
     due: dict[int, tuple] = {}
-    for g, group in zip(grads, sh.grad_groups(params, mesh)):
+    for g, group in zip(grads, sh.grad_groups(params, mesh,
+                                              seq_split=seq_split)):
         if group is not None:
             due.setdefault(id(group), (group, []))[1].append(g)
-    if data is not None:
-        due.setdefault(id(data), (data, []))[1].append(loss)
+    if over is not None:
+        due.setdefault(id(over), (over, []))[1].append(loss)
     for group, tensors in due.values():
         pd.all_reduce_sum(tensors, group)
     return loss, grads
@@ -238,6 +285,7 @@ def build_train_step(
     *,
     grad_accum: int = 1,
     loss_weight: Callable[[dict], Any] | None = None,
+    sequence_keys: tuple[str, ...] = (),
 ) -> Callable[[TrainState, dict], tuple[TrainState, dict]]:
     """``step(state, batch) -> (state, {"loss", "grad_norm"})``.
 
@@ -246,17 +294,19 @@ def build_train_step(
     gradients, as the reference's scan.  ``grad_norm`` is the global norm
     of those gradients before any clipping.  A ``mesh`` over the joined
     gang decides the layout: one rank, data-parallel when only dp is
-    above 1, sharded with fsdp or tp above 1 (module docstring); more
-    than one rank needs ``loss_weight``.  Both metrics are float32 device
-    scalars: reading them syncs, so the caller chooses when."""
+    above 1, on the mesh path with fsdp, tp or sp above 1 (module
+    docstring; ``sequence_keys`` names the batch tensors whose axis 1 sp
+    splits); more than one rank needs ``loss_weight``.  Both metrics are
+    float32 device scalars: reading them syncs, so the caller chooses
+    when."""
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
     group = sharded = None
     if mesh is not None:
         check_mesh(mesh, world=pd.world_size(pd.default_group()))
-        if mesh.axis_size("fsdp", "tp") > 1:
+        if mesh.axis_size("fsdp", "tp", "sp") > 1:
             sharded = mesh
-            if tx.name == "lamb":
+            if tx.name == "lamb" and mesh.axis_size("fsdp", "tp") > 1:
                 raise NotImplementedError(
                     "lamb under fsdp or tp: its per-tensor trust ratio "
                     "needs every block's norm")
@@ -274,11 +324,13 @@ def build_train_step(
             # the Switch aux loss is a product of global means and the
             # capacity positions run over the global token set
             raise NotImplementedError(
-                "moe_experts under data or tensor parallelism waits for "
-                "expert parallelism (ep) in a later slice of the port")
+                "moe_experts under data, tensor or sequence parallelism "
+                "waits for expert parallelism (ep) in a later slice of "
+                "the port")
         if sharded is not None:
             loss, grads = _mesh_steps(forward, loss_weight, model, params,
-                                      batch, grad_accum, sharded)
+                                      batch, grad_accum, sharded,
+                                      sequence_keys)
             grad_norm = sh.global_norm(grads, params, sharded)
         else:
             if group is None:

@@ -26,11 +26,15 @@ The mesh is built from ``dp``, ``fsdp``, ``tp`` and ``sp`` over the
 gang (``parallel/mesh.make_mesh``).  With fsdp or tp above 1 the model
 is split over it (``parallel/sharding.shard_model``) before the
 optimizer's ``init``; the data axes (dp x fsdp) index the batch shards,
-so the ranks of one tp group read the same rows; checkpoints hold whole
-tensors, whatever the layout.  Refused by name: ``sp`` above 1 (ring
-attention waits for a later slice), MoE models under data or tensor
-parallelism, and an elastic membership under fsdp or tp above 1 (a
-resize would re-shard the weights; the reference defines none).
+so the ranks of one tp or sp group read the same rows; checkpoints hold
+whole tensors, whatever the layout.  With sp above 1 the step cuts each
+row's sequence into the sp ranks' chunks and runs forward and backward
+under ``ring_context`` (ring attention over the sp group: what the
+reference's Trainer turns on for sp > 1), since only the step knows
+where it cut.  Refused by name: MoE models under data, tensor or
+sequence parallelism, and an elastic membership under fsdp, tp or sp
+above 1 (a resize would re-shard the weights or the sequence; the
+reference defines none).
 """
 
 from __future__ import annotations
@@ -84,11 +88,12 @@ def _check_config(cfg: TrainerConfig, world: int, elastic: bool) -> None:
     from kubeflow_tpu_torch.parallel.train_step import check_mesh
 
     check_mesh(world=world, dp=cfg.dp, fsdp=cfg.fsdp, tp=cfg.tp, sp=cfg.sp)
-    if elastic and (cfg.fsdp > 1 or cfg.tp > 1):
+    if elastic and (cfg.fsdp > 1 or cfg.tp > 1 or cfg.sp > 1):
         raise NotImplementedError(
-            f"an elastic membership under fsdp={cfg.fsdp}, tp={cfg.tp}: a "
-            "resize would re-shard the weights, and the reference defines "
-            "no resize of a sharded mesh")
+            f"an elastic membership under fsdp={cfg.fsdp}, tp={cfg.tp}, "
+            f"sp={cfg.sp}: a resize would re-shard the weights or the "
+            "sequence, and the reference defines no resize of a sharded "
+            "mesh")
     if cfg.fault_kill_at_step and not (
             cfg.checkpoint_dir and cfg.checkpoint_every and cfg.resume
             and cfg.checkpoint_every <= cfg.fault_kill_at_step
@@ -209,7 +214,8 @@ class Trainer:
 
         step_fn = ts.build_train_step(
             entry.forward_loss, tx, mesh, grad_accum=cfg.grad_accum,
-            loss_weight=entry.loss_weight)
+            loss_weight=entry.loss_weight,
+            sequence_keys=entry.sequence_keys)
         if cfg.data_path:
             dataset = NpzDataset(cfg.data_path, cfg.global_batch,
                                  seed=cfg.seed, process_index=rank,

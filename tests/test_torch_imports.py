@@ -79,6 +79,8 @@ def test_imports_load_no_jax_and_no_reference_package(which):
         "kubeflow_tpu_torch.parallel.distributed",
         "kubeflow_tpu_torch.parallel.mesh",
         "kubeflow_tpu_torch.parallel.sharding",
+        "kubeflow_tpu_torch.parallel.pipeline",
+        "kubeflow_tpu_torch.ops.ring_attention",
         "kubeflow_tpu_torch.elastic",
         "kubeflow_tpu_torch.elastic.protocol",
         "kubeflow_tpu_torch.elastic.checkpoint",

@@ -167,11 +167,7 @@ def test_profile_window_writes_a_trace(tmp_path):
     ("fsdp", 2), ("tp", 2), ("sp", 2),
 ])
 def test_unported_fields_are_refused_by_name(field, value):
-    if field == "sp":       # ring attention waits for a later slice
-        with pytest.raises(NotImplementedError, match=field):
-            Trainer(tiny(steps=1, **{field: value}), device="cpu").run()
-        return
-    # fsdp and tp are admitted; one process cannot hold a mesh of two
+    # fsdp, tp and sp are admitted; one process cannot hold a mesh of two
     with pytest.raises(ValueError, match=f"{field}=2.*1 devices not "
                        "divisible by fixed axes product 2"):
         Trainer(tiny(steps=1, **{field: value}), device="cpu").run()
