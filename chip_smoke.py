@@ -4,11 +4,13 @@
     python3 chip_smoke.py                 # every phase below
     python3 chip_smoke.py --kernel-times  # build, then K1-K3 times only
     python3 chip_smoke.py --phases 12,13  # build, then those phases only
-                                          # (9 to 19; no result line)
+                                          # (9 to 20; no result line)
 
 Phases, numbered as PERF.md cites them, run in the order 1, 2, 3, 7, 11,
-9, 12, 13, 14, 15, 4, 5, 10, 16, 6, 17, 18, 19, 8 (each phase frees its
-models before the next);
+9, 12, 13, 14, 15, 4, 5, 10, 16, 6, 17-20, 8 (each phase frees its
+models before the next; phases 17-20 run their one-process references
+here first, then every 2-rank layout of the four in one gang of 2, then
+their checks, phase 18's gang of 4 among them);
 any failure exits nonzero and prints no result:
 
 1. Build every CUDA kernel of the port from ``kubeflow_tpu_torch/ops/csrc``
@@ -19,9 +21,10 @@ any failure exits nonzero and prints no result:
    flash-attention forward kernel (K1) against its plain PyTorch version
    on O and lse, in bfloat16 and float32 (TF32 off for the plain
    version), at every shape the serving run of phase 2 and the training
-   runs of phases 4, 5, 17, 18 and 19 give it (18: every layout's rank
-   shape; 19: the ring's diagonal and earlier blocks, one process's whole
-   sequence, the pipeline's microbatch) and at a GQA, a strided and a
+   runs of phases 4, 5, 17, 18, 19 and 20 give it (18: every layout's rank
+   shape, which are 20's too; 19: the ring's diagonal and earlier blocks,
+   one process's whole sequence, the pipeline's microbatch) and at a GQA,
+   a strided and a
    non-causal D=64 case; hold the backward
    kernels (K2 dQ, K3 dK/dV) against theirs at those training shapes, a
    causal D=128, a ragged Sq = Sk = 200 and a GQA (32 over 8 heads)
@@ -86,7 +89,8 @@ any failure exits nonzero and prints no result:
    backward for K2 and K3: yardsticks the port never calls); K1, K2 and K3
    beside their bounds at a causal D=128 shape of one 2048-token sequence,
    at phase 17's per-rank shape (12 x 512) with the gang's launches, and
-   at each of phase 18's rank shapes with its layout's launches;
+   at each of phase 18's rank shapes with its layout's launches (and
+   phase 20's layouts' launches at the same shapes);
    TTFT and decode tokens/s of phases 2, 9 and 12; samples/s of every
    training run; phase 11's tokens/s per mode; phase 12's chunk and
    decode-step device times, dequantization time and weight bytes; phase
@@ -195,9 +199,8 @@ any failure exits nonzero and prints no result:
    requests to a parked model make one load and 3 coalesced; with b
    resident and idle and most of a's pages held, a request to a relieves
    b, whose bytes become ``DONATED_PAGES`` page slots, with no prefix
-   eviction; b's next load reclaims only free donated slots; a second
-   relieve and reclaim reuse the rows the first reclaim left reserved.
-   The one-token full prefix hit to a holds every K1 call against the
+   eviction; b's next load reclaims only free donated slots.  The
+   one-token full prefix hit to a holds every K1 call against the
    plain version and its token against phase 2's stream.  (e)
    ``:predict`` for ``mnist_mlp`` over HTTP (logits within 1e-4 of the
    CPU's) and BERT-large on one 128-token row: K1 launches 24, every call
@@ -224,9 +227,9 @@ any failure exits nonzero and prints no result:
    refuses two ranks on one device, so the ranks meet over gloo, which
    moves every gradient through host memory).  (a) Phase 4's BERT-large
    and adamw at global batch 24 x 512 for 5 steps, from an .npz made from
-   seed 0, through the worker entrypoint as one process (this one) and as
-   a gang of 2 from ``spawn_local_gang`` (both ranks on cuda:0): every
-   rank launches
+   seed 0, through the worker entrypoint as one process (this one) and in
+   the gang of 2 from ``spawn_local_gang`` (both ranks on cuda:0) that
+   also runs phases 18-20's 2-rank layouts: every rank launches
    K1 48 and K2 and K3 24 times a step, the ranks' losses and grad_norms
    are bitwise equal, and each step's loss and grad_norm is held to the
    one process's within ``GANG_TOL``; per rank the launches, peak memory,
@@ -244,7 +247,7 @@ any failure exits nonzero and prints no result:
    compute, remat) cut to ``MESH_LAYERS`` layers, global batch 8 x 512,
    ``MESH_STEPS`` adamw steps from an .npz made from seed 0, through the
    worker entrypoint on four layouts: one process (this one), ``fsdp=2``
-   and ``tp=2`` (one after the other in a gang of 2) and ``fsdp=2,
+   and ``tp=2`` (one after the other in the gang of 2) and ``fsdp=2,
    tp=2`` (a gang of 4).  Each rank runs
    K1, K2 and K3 on its own rows and heads (fsdp: 4 of the 8 rows; tp:
    16 of the 32 heads; each layout's rank shape is held against the
@@ -257,7 +260,7 @@ any failure exits nonzero and prints no result:
    seconds, calls and bytes.  The last layout writes a checkpoint at its
    end, which this process restores: every parameter bitwise the gang's
    gathered one.
-19. Sequence and pipeline parallelism as one gang of 2 processes on this
+19. Sequence and pipeline parallelism in the gang of 2 processes on this
    card (gloo, as in 17; its point-to-point takes no CUDA tensor, so each
    neighbour exchange goes through pinned host memory).  (a) Ring
    attention at the sp = 2 run's chunk (2 x 2048 tokens, 32 heads of 128,
@@ -279,6 +282,25 @@ any failure exits nonzero and prints no result:
    backward against the 4 blocks in sequence on each rank: output within
    1e-1 of max |out|, stage gradients within 2e-2 of max |ref|, K1, K2 and
    K3 8 times per rank.
+20. MoE training under a data group and under expert parallelism in the
+   gang of 2 (gloo, as in 17).  Phase 10's MoE Llama at Llama-2-7B's width
+   (8 GELU experts, top-2, Mixtral's routing) cut to ``MOE_EP_LAYERS``
+   layers (layer 0 MoE, layer 1 dense), float32 masters, bf16 compute,
+   remat, global batch 8 x 512, ``MOE_EP_STEPS`` adamw steps from an .npz
+   made from seed 0: one process (this one, through the worker
+   entrypoint), dp = 2 (the worker entrypoint: each rank 4 rows; the MoE
+   block gathers the ranks' expert counts, so capacity, positions and aux
+   are the global batch's) and ep = 2 (``build_train_step`` on
+   ``make_mesh(dp=1, ep=2)``: each rank all 8 rows and 4 of the 8
+   experts, their outputs all-gathered).  Per layout and rank: K1 2L and
+   K2, K3 L launches a step, every MoE layer's dropped (token, choice)
+   count equal to one process's at step 1 (the same weights; later steps'
+   are printed beside one process's), the ranks' losses and
+   grad_norms bitwise equal and held to one process's within
+   ``GANG_TOL``, samples/s of step 2, step 2's all-reduce and all-gather
+   seconds, calls and bytes, peak memory; ep's expert blocks after the
+   last step against one process's rows of the same experts
+   (``MOE_EP_EXPERT_TOL`` on the norm of the difference).
 
 The line before the last is the ``kernels`` JSON object (``name<256>``:
 the D = 256 instantiations on phases 15 and 16); the last line is
@@ -417,7 +439,11 @@ CHILD_START_S = 240
 STAGING_MB, WEIGHT_BUDGET_MB = 64, 20000
 CKPT_BYTES, INT8_BYTES = 13_214_687_232, 6_744_121_344
 DONATED_PAGES = CKPT_BYTES // (8 << 20)       # 1575
-TENANT_STORM, TENANT_PROMPT, TENANT_NEW = 16, 300, 16
+# phase 14(c)'s requests, each TENANT_NEW tokens long: cut from 16 to 8 to
+# keep the whole run under half its limit (its two host-bound rounds took
+# 18.4 s of a 757.6 s run on an H100 80GB HBM3 call); admission order,
+# the point of the cell, does not depend on it
+TENANT_STORM, TENANT_PROMPT, TENANT_NEW = 16, 300, 8
 BERT_ROW = 128
 # phase 11: speculation at phase 2's settings.  Depth cut from 64 new
 # tokens per request to 32 when phase 14 joined: its 8 host-bound runs of
@@ -1734,7 +1760,7 @@ def phase_numbers(fa, shapes: list[tuple], num_layers: int) -> list[dict]:
 
 def training_numbers(fa, shape_row: tuple, launches: dict,
                      per_step: dict | None,
-                     plain_reps: int = 20) -> dict[str, dict]:
+                     plain_reps: int = 5) -> dict[str, dict]:
     """Each kernel's times at a training shape: kernel, plain version,
     bound, and the library yardstick (SDPA forward for K1; SDPA's
     backward, which computes dQ, dK and dV in one call, for K2 and K3).
@@ -1764,11 +1790,14 @@ def training_numbers(fa, shape_row: tuple, launches: dict,
 
 
 def kernel_times(fa, shape: tuple, seed: int, plain_too: bool = True,
-                 plain_reps: int = 20):
+                 plain_reps: int = 5):
     """({kernel: ms}, {kernel: plain ms}, {kernel: SDPA ms}) of K1, K2 and
     K3 on bf16 inputs of ``shape`` (B, Sq, Sk, H, Hkv, D, causal); the
     launches made here are not counted.  ``plain_reps``: calls per timing
-    window of the plain versions (fewer where one call takes ~0.1 s)."""
+    window of the plain versions, in 3 windows below 20 (a plain call at a
+    training shape takes 2-50 ms: 20 calls in 7 windows took ~9 s of the
+    numbers over the training shapes; cut to keep the whole run under half
+    its limit)."""
     from torch.nn.attention.bias import causal_lower_right
     from torch.nn.functional import scaled_dot_product_attention as sdpa
 
@@ -2192,11 +2221,14 @@ def phase_speculation(fa) -> dict:
             forwards[0] = 0
             saved = counters(fa)
             set_counters(fa, dict.fromkeys(KERNEL_NAMES, 0))  # path starts
-            # two passes in turns (off, ngram, draft, oracle, then back):
-            # host-timed rates move between minutes of one call
+            # one pass a mode, then off again (its streams must repeat;
+            # host-timed rates move between minutes of one call, so the
+            # two off passes bracket the others).  The second pass of
+            # ngram, draft and oracle was cut to keep the whole run under
+            # half its limit (PERF.md section 4)
             runs = {m: [] for m in SPEC_MODES}
             with flash_route(recording_flash(fa, shapes)):
-                for m in SPEC_MODES + SPEC_MODES[::-1]:
+                for m in SPEC_MODES + SPEC_MODES[:1]:
                     runs[m].append(serve_mode(
                         engines[m], prompts,
                         over_http if m == "draft" else None))
@@ -2243,7 +2275,8 @@ def phase_speculation(fa) -> dict:
                    for p, st in zip(prompts, off)]
         set_counters(fa, saved)
         same = {}
-        for m, k in ((m, k) for m in SPEC_MODES[1:] for k in range(2)):
+        for m, k in ((m, k) for m in SPEC_MODES[1:]
+                     for k in range(len(runs[m]))):
             same[m] = same.get(m, 0)
             for i, (p, ref, got, mg) in enumerate(zip(
                     prompts, off, runs[m][k]["streams"], margins)):
@@ -2273,10 +2306,12 @@ def phase_speculation(fa) -> dict:
             rates = " and ".join(
                 f"{r['tok_per_s']:.2f} ({r['wall_s']:.2f} s wall; decode "
                 f"{r['decode_tok_per_s']:.2f})" for r in runs[m])
+            passes = " and ".join(str(k + 1) for k in range(len(runs[m])))
+            n = len(runs[m]) * len(prompts)
             log(f"phase 11 {m}: {spec}tok/s over the {len(prompts)} requests "
-                f"one at a time, passes 1 and 2: {rates}; streams identical "
-                f"to off {same.get(m, 2 * len(prompts))} of "
-                f"{2 * len(prompts)}")
+                f"one at a time, pass{'es' if len(runs[m]) > 1 else ''} "
+                f"{passes}: {rates}; streams identical to off "
+                f"{same.get(m, n)} of {n}")
         cache_bytes = draft_cache_bytes(draft)
         log(f"draft model: {DRAFT_LAYERS} of {cfg.num_layers} layers, "
             f"parameters shared with the target; memory added by building "
@@ -2387,24 +2422,19 @@ def phase_vision(fa) -> dict:
     return results
 
 
-# -- phase 17: data-parallel training as a gang of processes on the card ------
+# -- phases 17-20: gangs of processes on the card ---------------------------
 
-# (a) phase 4's BERT-large and optimizer at global batch 24 x 512 for 5
-# steps, from an .npz made from the seed; (b) ResNet-50 at 224 x 224,
-# global batch 128, 3 steps of the ImageNet recipe's momentum sgd (lr 0.1
-# x 128 / 256), its BatchNorms on the gang's global statistics.  Each runs
-# through the worker entrypoint as one process (this one: a spawned one
-# spent ~15 s starting) and as a gang of GANG_RANKS processes from
-# spawn_local_gang on this card (gloo: NCCL refuses two ranks on one
-# device).  (c) The Trainer on BERT-large under the reference
-# test's membership schedule, world 2 -> 1 at step 6 of 12.
-GANG_BERT = {**TRAIN_CONFIG, "steps": 5}
-GANG_RESNET = {"model": "resnet50", "model_config": {},
-               "global_batch": VISION_BATCH, "steps": 3, "log_every": 1,
-               "seed": 0, "optimizer": {"name": "sgd", "learning_rate": 0.05,
-                                        "momentum": 0.9}}
-# a whole gang run (start-up, both models, 5 + 3 steps) must end in this
-GANG_TIMEOUT_S = 600.0
+# Every 2-rank layout of phases 17-20 runs in ONE gang of GANG_RANKS
+# processes from spawn_local_gang on this card (gloo: NCCL refuses two
+# ranks on one device), one section after the other, and phase 18's
+# fsdp=2 x tp=2 in a gang of 4.  Each spawn paid ~9 s of imports and
+# CUDA start-up and ~15-19 s more before its first step (the flash
+# library's load, cuBLAS handles, gloo's first connections): three gangs
+# of 2 became one to keep the whole run under half its limit (PERF.md
+# section 4).  Each phase's one-process reference runs in this process
+# first (its CUDA start-up is paid already).
+# the gang of 2 (start-up and every section) must end in this
+GANG_TIMEOUT_S = 900.0
 # the gang against one process, relative, every step: the same rows and
 # weights, but each rank's bf16 GEMMs and convolutions run at half the
 # rows (other cuBLAS and cuDNN kernels, other rounding) and the gradients
@@ -2413,38 +2443,170 @@ GANG_TIMEOUT_S = 600.0
 # 2.5e-5 on the loss and 1.3e-3 on grad_norm over 5 steps, ResNet-50
 # 3.1e-5 and 9.9e-5 over 3)
 GANG_TOL = STEP_TOL
+
+# -- phase 17: data-parallel training ---------------------------------------
+
+# (a) phase 4's BERT-large and optimizer at global batch 24 x 512 for 5
+# steps, from an .npz made from the seed; (b) ResNet-50 at 224 x 224,
+# global batch 128, 3 steps of the ImageNet recipe's momentum sgd (lr 0.1
+# x 128 / 256), its BatchNorms on the gang's global statistics.  Each runs
+# through the worker entrypoint as one process (this one) and in the gang
+# of 2.  (c) The Trainer on BERT-large under the reference test's
+# membership schedule, world 2 -> 1 at step 6 of 12.
+GANG_BERT = {**TRAIN_CONFIG, "steps": 5}
+GANG_RESNET = {"model": "resnet50", "model_config": {},
+               "global_batch": VISION_BATCH, "steps": 3, "log_every": 1,
+               "seed": 0, "optimizer": {"name": "sgd", "learning_rate": 0.05,
+                                        "momentum": 0.9}}
 RESIZE_SCHEDULE = {0: (0, (0, 1)), 6: (1, (0,))}   # step: (epoch, members)
 
+# -- phase 18: fsdp and tp training -----------------------------------------
+
+# Llama at Llama-2-7B's width (phase 5's model_config) cut to MESH_LAYERS of
+# its 32 layers: the gangs' gathers and reduce-scatters cross host memory
+# through gloo (a layer's float32 weights alone are ~0.8 GB); global batch
+# 8 x 512, MESH_STEPS adamw steps from an .npz made from the seed, through
+# the worker entrypoint as one process and as gangs on each layout below.
+# Steps cut from 3 to 2 to keep the whole run under half its limit (the
+# phase took 118.7 s of a 628.0 s run on an H100 at 3 steps, and about
+# 15 s of each spawn is start-up); the last layout's checkpoint is the
+# save at its end, which one process restores: every parameter bitwise
+# the gang's gathered one (SHA-256 of each tensor's bytes)
+MESH_LAYERS, MESH_STEPS = 2, 2
+MESH_CONFIG = {"model": "llama",
+               "model_config": {"size": "7b", "num_layers": MESH_LAYERS},
+               "global_batch": MESH_BATCH, "steps": MESH_STEPS,
+               "log_every": 1, "seed": 0,
+               "optimizer": {"name": "adamw", "learning_rate": 1e-4}}
+MESH_LAUNCHES = {"flash_fwd": 2 * MESH_LAYERS, "flash_bwd_dq": MESH_LAYERS,
+                 "flash_bwd_dkv": MESH_LAYERS}
+# each layout is held to one process by gang_compare within GANG_TOL (the
+# rows and heads of each rank's bf16 GEMMs differ, the row-parallel
+# products are summed over tp in bf16, gradients in another order)
+
+# -- phase 19: sequence and pipeline parallelism ----------------------------
+
+# (b): phase 18's model at SP_LAYERS layers, a global batch of SP_BATCH rows
+# of SP_SEQ tokens, SP_STEPS adamw steps from an .npz made from seed 0,
+# through the worker entrypoint as one process (here) and with sp = 2 (each
+# rank holds SP_SEQ / 2 tokens of every row; ring attention joins them)
+SP_CONFIG = {"model": "llama",
+             "model_config": {"size": "7b", "num_layers": SP_LAYERS},
+             "global_batch": SP_BATCH, "steps": SP_STEPS, "log_every": 1,
+             "seed": 0,
+             "optimizer": {"name": "adamw", "learning_rate": 1e-4}}
+SP_ONE_LAUNCHES = {"flash_fwd": 2 * SP_LAYERS, "flash_bwd_dq": SP_LAYERS,
+                   "flash_bwd_dkv": SP_LAYERS}
+# (c): the pipeline's output against the blocks in sequence, relative to max
+# |out| (the bf16 whole-model bound, LOGITS_REL_TOL's reasoning: the
+# microbatches' bf16 GEMMs run at a quarter of the rows), and its stage
+# gradients within BWD_TOL's bf16 bound of max |ref|
+PP_OUT_REL_TOL = 1e-1
+
+# -- phase 20: MoE training under dp and ep ---------------------------------
+
+# phase 10's MoE Llama at Llama-2-7B's width (8 GELU experts, top-2, on every
+# second layer: Mixtral's routing, arXiv:2401.04088) cut to MOE_EP_LAYERS of
+# its 32 layers (layer 0 MoE, layer 1 dense), global batch 8 x 512,
+# MOE_EP_STEPS adamw steps from an .npz made from seed 0: one process (here,
+# build_train_step), then in the gang of 2 dp = 2 through the worker
+# entrypoint and ep = 2 (4 experts a rank; the reference's Trainer has no ep
+# axis, so build_train_step on make_mesh(dp=1, ep=2)).  All three see the
+# global batch a gang of 2 assembles: each rank's strided NpzDataset rows,
+# rank-major, as the reference's make_array_from_process_local_data
+# assembles them; capacity priority follows that order (one process in
+# the file's order keeps another set: 7.4e-05 of the loss apart on an
+# H100).  Each rank's K1-K3 shapes are phase 18's (dp = 2: fsdp=2's 4
+# rows; ep = 2: all 8 rows)
+MOE_EP_LAYERS, MOE_EP_STEPS = 2, 2
+MOE_EP_CONFIG = {"model": "llama",
+                 "model_config": {"size": "7b", "num_layers": MOE_EP_LAYERS,
+                                  "moe_experts": MOE_EXPERTS},
+                 "global_batch": MESH_BATCH, "steps": MOE_EP_STEPS,
+                 "log_every": 1, "seed": 0,
+                 "optimizer": {"name": "adamw", "learning_rate": 1e-4}}
+MOE_EP_LAUNCHES = {"flash_fwd": 2 * MOE_EP_LAYERS,
+                   "flash_bwd_dq": MOE_EP_LAYERS,
+                   "flash_bwd_dkv": MOE_EP_LAYERS}
+# (label, data ranks) and each layout's rank shape (phase 18's)
+MOE_EP_LAYOUTS = (("one process", 1), ("dp=2", 2), ("ep=2", 1))
+MOE_EP_SHAPES = {label: mesh_shape(dp, 1) for label, dp in MOE_EP_LAYOUTS}
+# ep's expert blocks after the last step against one process's rows of the
+# same experts: ||w_ep - w_one|| / ||w_one|| within the loss's GANG_TOL (two
+# adamw steps move the weights by ~1e-2 of their norm, so a wrong block or
+# a missing update is that far off, while adam's lr-sized steps on gradient
+# elements that round to the other sign stay far below it)
+MOE_EP_EXPERT_TOL = GANG_TOL["loss"]
+
 GANG_WORKER = r"""
-import gc, json, os, time
+import os, time
+T0 = float(os.environ["GANG_SPAWNED"])
+import dataclasses, gc, hashlib, json
 import torch
 import torch.distributed as dist
+from torch.func import functional_call
+from kubeflow_tpu_torch.models import llama, registry
 from kubeflow_tpu_torch.ops import flash_attention as fa
+from kubeflow_tpu_torch.ops import ring_attention as ring
+from kubeflow_tpu_torch.parallel import distributed as pd
+from kubeflow_tpu_torch.parallel import pipeline as pipe
+from kubeflow_tpu_torch.parallel import sharding as sh
 from kubeflow_tpu_torch.parallel import train_step as ts
+from kubeflow_tpu_torch.parallel.mesh import make_mesh
 from kubeflow_tpu_torch.training import __main__ as worker
+from kubeflow_tpu_torch.training.data import NpzDataset, to_device
+from kubeflow_tpu_torch.training.optim import make_optimizer
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
+spec = json.loads(os.environ["GANG_SPEC"])
 KERNELS = {"flash_fwd": fa.flash_attention, "flash_bwd_dq": fa.flash_bwd_dq,
            "flash_bwd_dkv": fa.flash_bwd_dkv}
-reduced = {"s": 0.0, "bytes": 0, "calls": 0}
-_all_reduce = dist.all_reduce
+comm, trail, dropped, digests, stamps, snaps, peaks = ({}, [], [], {}, [],
+                                                       [], [])
 
 
-def timed_all_reduce(tensor, *args, **kwargs):
-    # the collective alone, from an idle card to its result on the card
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    out = _all_reduce(tensor, *args, **kwargs)
-    torch.cuda.synchronize()
-    reduced["s"] += time.perf_counter() - t0
-    reduced["bytes"] += tensor.numel() * tensor.element_size()
-    reduced["calls"] += 1
-    return out
+def timed(kind, fn, nbytes):
+    # the call alone, from an idle card to its result on the card
+    def call(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        rec = comm.setdefault(kind, {"s": 0.0, "bytes": 0, "calls": 0})
+        rec["s"] += time.perf_counter() - t0
+        rec["bytes"] += nbytes(*args)
+        rec["calls"] += 1
+        return out
+    return call
 
 
-dist.all_reduce = timed_all_reduce
-trail = []
+def size(t):
+    return t.numel() * t.element_size()
+
+
+dist.all_reduce = timed("all_reduce", dist.all_reduce,
+                        lambda t, *a: size(t))
+dist.all_gather_into_tensor = timed(
+    "all_gather", dist.all_gather_into_tensor, lambda out, x, *a: size(out))
+dist.reduce_scatter_tensor = timed(
+    "reduce_scatter", dist.reduce_scatter_tensor, lambda out, x, *a: size(x))
+# the bytes this rank sends (and receives) in a neighbour exchange
+pd.ppermute = timed("exchange", pd.ppermute,
+                    lambda tensors, *a: sum(size(t) for t in tensors))
+_full_state_dict = sh.full_state_dict
+
+
+def full_state_dict(model):
+    # the checkpoint's own gather: what rank 0's file must hold
+    full = _full_state_dict(model)
+    if dist.get_rank() == 0:
+        digests.update({k: hashlib.sha256(v.cpu().contiguous().view(
+            torch.uint8).numpy()).hexdigest() for k, v in full.items()})
+    return full
+
+
+sh.full_state_dict = full_state_dict
 _build_step = ts.build_train_step
 
 
@@ -2454,41 +2616,245 @@ def build_step(*args, **kwargs):
     def recorded(state, batch):
         state, m = step(state, batch)
         trail.append((m["loss"], m["grad_norm"]))
+        if getattr(getattr(state.model, "config", None), "moe_experts", 0):
+            dropped.append([blk.moe.dropped for blk in state.model.layers
+                            if blk.use_moe])
         return state, m
 
     return recorded
 
 
 ts.build_train_step = build_step
-jobs = []
-for config in json.loads(os.environ["GANG_CONFIGS"]):
-    os.environ["JAXJOB_TRAINER_CONFIG"] = json.dumps(config)
-    trail.clear()
-    reduced.update(s=0.0, bytes=0, calls=0)
-    stamps = []
+
+
+def logged(step=None, rec=None):
+    # the sync that logs a step (the Trainer's metrics hook)
+    stamps.append(time.time() - T0)
+    snaps.append(json.loads(json.dumps(comm)))
+    peaks.append(torch.cuda.max_memory_allocated() / 1e9)
+
+
+def launched():
+    return {n: k.launches for n, k in KERNELS.items()}
+
+
+def job(run):
+    # one path: counts set to 0 just before it, read just after
+    for kept in (comm, trail, dropped, digests, stamps, snaps, peaks):
+        kept.clear()
     torch.cuda.reset_peak_memory_stats()
     for kernel in KERNELS.values():
         kernel.launches = 0                          # the path starts
-    rc = worker.main(["--device", "cuda"], metrics_hook=lambda s, r:
-                     stamps.append(time.perf_counter()))
-    launches = {n: k.launches for n, k in KERNELS.items()}   # it ended
-    steps, batch = config["steps"], config["global_batch"]
-    jobs.append({
-        "model": config["model"], "rc": rc, "launches": launches,
-        "trail": [[float(loss), float(norm)] for loss, norm in trail],
-        "samples_per_s": batch * (len(stamps) - 1) / (stamps[-1] - stamps[0]),
-        "allreduce_s": reduced["s"] / steps,
-        "allreduce_bytes": reduced["bytes"] / steps,
-        "allreduce_calls": reduced["calls"] / steps,
-        "peak_gb": torch.cuda.max_memory_allocated() / 1e9})
+    start = time.time() - T0
+    rc, extra = run()
+    launches = launched()                            # it ended
+    out = {"rc": rc, "launches": launches,
+           "trail": [[float(loss), float(norm)] for loss, norm in trail],
+           "dropped": [[int(d) for d in step] for step in dropped],
+           "stamps": list(stamps), "snaps": list(snaps),
+           "peaks": list(peaks), "comm": json.loads(json.dumps(comm)),
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "digests": dict(digests), "extra": extra,
+           "times": {"start": start, "ended": time.time() - T0}}
     gc.collect()
     torch.cuda.empty_cache()
+    return out
+
+
+def trainer(config):
+    def run():
+        os.environ["JAXJOB_TRAINER_CONFIG"] = json.dumps(config)
+        return worker.main(["--device", "cuda"], metrics_hook=logged), None
+    return run
+
+
+def rel(a, b):
+    return ((a.float() - b.float()).abs().max()
+            / b.float().abs().max()).item()
+
+
+def ring_check(sp):
+    # (a) the ring at this rank's chunk, against the plain ring on it
+    mesh = make_mesh(dp=1, sp=sp["sp"])
+    group = mesh.group("sp")
+    rank = dist.get_rank()
+    b, s, h, d = sp["block"]
+    g = torch.Generator(device="cuda").manual_seed(190 + rank)
+    q, k, v, do = (torch.randn(b, s, h, d, generator=g, device="cuda")
+                   .to(torch.bfloat16) for _ in range(4))
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    o = ring.ring_attention(q, k, v, group=group, causal=True)
+    got = [o.detach(), *torch.autograd.grad(o, (q, k, v), do)]
+    torch.cuda.synchronize()
+    ring_s = time.perf_counter() - t0
+    exchange = dict(comm.get("exchange", {}))
+    launches = launched()           # the check's own, before the plain ring
+    ref = ring.ring_attention_reference(q, k, v, group=group, causal=True)
+    want = [ref.detach(), *torch.autograd.grad(ref, (q, k, v), do)]
+    with torch.no_grad():   # P|V|: the plain ring of |V|, the same weights
+        pv = ring.ring_attention_reference(q, k, v.abs(), group=group,
+                                           causal=True).float()
+    allow = 2 ** -7 * (want[0].float().abs() + pv)
+    return 0, {"launches": launches, "s": ring_s, "exchange": exchange,
+               "o_ratio": ((got[0].float() - want[0].float()).abs()
+                           / allow).max().item(),
+               "grad_rel": [rel(a, w) for a, w in zip(got[1:], want[1:])]}
+
+
+def pipeline_check(sp):
+    # (c) pp = 2: the blocks of a model at that width, 2 per stage,
+    # pipelined, against all of them in sequence on this rank
+    pmesh = make_mesh(dp=1, pp=sp["sp"])
+    cfg = dataclasses.replace(llama.llama2_7b(), num_layers=sp["pp_blocks"])
+    model = llama.LlamaModel(cfg, device="cuda").init_weights(0)
+    blocks = list(model.layers)
+    stacked = pipe.stack_layer_params([
+        {k: v.detach() for k, v in blk.named_parameters()} for blk in blocks])
+    template = blocks[0]
+    del model, blocks
+    g = torch.Generator(device="cuda").manual_seed(191)
+    x = torch.randn(sp["pp_batch"], sp["pp_seq"], cfg.hidden_size,
+                    generator=g, device="cuda").to(torch.bfloat16)
+
+    def block(layer, h):
+        positions = torch.arange(h.shape[1], device="cuda")[None].expand(
+            h.shape[0], -1)
+        return functional_call(template, layer, (h, positions))[0]
+
+    mine = {k: v.clone().requires_grad_() for k, v in
+            pipe.stage_slice(stacked, pmesh).items()}
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    y = pipe.pipeline_forward(block, mine, x, mesh=pmesh,
+                              num_microbatches=sp["pp_micro"])
+    grads = torch.autograd.grad(y.float().pow(2).mean(), list(mine.values()))
+    torch.cuda.synchronize()
+    pipe_s = time.perf_counter() - t0
+    launches = launched()        # the path's own, before the blocks in turn
+    pp_comm = json.loads(json.dumps(comm))
+    full = {k: v.clone().requires_grad_() for k, v in stacked.items()}
+    h = x
+    for i in range(sp["pp_blocks"]):
+        h = block({k: v[i] for k, v in full.items()}, h)
+    ref_grads = dict(zip(full, torch.autograd.grad(h.float().pow(2).mean(),
+                                                   list(full.values()))))
+    ref_mine = pipe.stage_slice(ref_grads, pmesh)
+    return 0, {"launches": launches, "s": pipe_s, "comm": pp_comm,
+               "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "out_rel": rel(y, h),
+               "grad_rel": max(rel(a, ref_mine[k])
+                               for k, a in zip(mine, grads))}
+
+
+def expert_parallel(moe):
+    # ep = 2 through build_train_step; then this rank's experts against
+    # one process's rows of them
+    config = moe["config"]
+    mesh = make_mesh(dp=1, ep=moe["ep"])
+    entry = registry.get(config["model"])
+    model = entry.make_model(**config["model_config"],
+                             device=torch.device("cuda"))
+    model.init_weights(config["seed"])
+    sh.shard_model(model, mesh)
+    state = ts.init_train_state(model, make_optimizer(config["optimizer"]))
+    step = ts.build_train_step(entry.forward_loss, state.tx, mesh,
+                               loss_weight=entry.loss_weight)
+    # the global batch a data-parallel gang of moe["ranks"] assembles: its
+    # ranks' rows, rank-major (each rank's NpzDataset shard)
+    shards = [NpzDataset(config["data_path"], config["global_batch"],
+                         seed=config["seed"], process_index=r,
+                         process_count=moe["ranks"]).iter_from(0)
+              for r in range(moe["ranks"])]
+    for i in range(config["steps"]):
+        rows = [next(shard) for shard in shards]
+        batch = {k: torch.cat([torch.as_tensor(r[k]) for r in rows])
+                 for k in rows[0]}
+        state, m = step(state, to_device(batch, torch.device("cuda")))
+        float(m["loss"])
+        logged(i + 1)
+    one = torch.load(moe["experts"], mmap=True, weights_only=True)
+    out = {}
+    for name, p in model.named_parameters():
+        split = getattr(p, "ep_split", None)
+        if split is None:
+            continue
+        n = p.shape[0]
+        want = one[name][split.index * n:(split.index + 1) * n].to(p.device)
+        diff = (p.detach() - want).float()
+        out[name] = {"experts": [split.index * n, (split.index + 1) * n],
+                     "norm_rel": (diff.norm() / want.norm()).item(),
+                     "max_rel": (diff.abs().max()
+                                 / want.abs().max()).item(),
+                     "lr_steps": int((diff.abs()
+                                      > config["optimizer"]["learning_rate"]
+                                      / 2).sum())}
+    return 0, out
+
+
+pd.initialize_from_env()
+out = {}
+times = {"imported": time.time() - T0}
+# phase 17 (a, b) and 18's 2-rank layouts: the worker entrypoint
+for phase in ("17", "18"):
+    if phase in spec:
+        out[phase] = [job(trainer(config)) for config in spec[phase]]
+        times[phase] = time.time() - T0
+if "19" in spec:
+    sp = spec["19"]
+    # (b) first: its first step pays the process's first launches and
+    # exchanges
+    out["19"] = {"sp": job(trainer(sp["config"])),
+                 "ring": job(lambda: ring_check(sp)),
+                 "pp": job(lambda: pipeline_check(sp))}
+    times["19"] = time.time() - T0
+if "20" in spec:
+    moe = spec["20"]
+    out["20"] = {"dp=2": job(trainer({**moe["config"], "dp": 2})),
+                 "ep=2": job(lambda: expert_parallel(moe))}
+    times["20"] = time.time() - T0
 print(json.dumps({
-    "device": torch.cuda.current_device(),
-    "backend": dist.get_backend() if dist.is_initialized() else None,
-    "world": dist.get_world_size() if dist.is_initialized() else 1,
-    "jobs": jobs}))
+    "device": torch.cuda.current_device(), "backend": dist.get_backend(),
+    "world": dist.get_world_size(), "times": times, **out}))
 """
+
+
+def gang_path() -> str:
+    """PYTHONPATH for a gang's workers: this checkout first."""
+    return os.pathsep.join([str(ROOT)] + [p for p in [
+        os.environ.get("PYTHONPATH")] if p])
+
+
+def spawn_gang(spec: dict, ranks: int) -> list[dict]:
+    """``GANG_WORKER`` with ``spec``'s sections in a gang of ``ranks`` on
+    this card; every rank's output."""
+    from kubeflow_tpu_torch.parallel.distributed import spawn_local_gang
+
+    outs = spawn_local_gang(
+        GANG_WORKER, ranks, timeout=GANG_TIMEOUT_S,
+        extra_env={"GANG_SPEC": json.dumps(spec),
+                   "GANG_SPAWNED": repr(time.time()),
+                   "PYTHONPATH": gang_path()})
+    for r, out in enumerate(outs):
+        check(out["backend"] == "gloo" and out["device"] == 0
+              and out["world"] == ranks, (r, out["backend"], out["device"]))
+    return outs
+
+
+def step2(job: dict) -> dict:
+    """A job's collectives of step 2 alone: between the syncs that log
+    steps 1 and 2 (a checkpoint may follow the last)."""
+    first, second = job["snaps"][:2]
+    return {kind: {k: v - first.get(kind, {}).get(k, 0)
+                   for k, v in rec.items()}
+            for kind, rec in second.items()}
+
+
+def comm_line(comm: dict) -> str:
+    return ", ".join(f"{kind} {c['s']:.4f} s in {c['calls']} calls of "
+                     f"{c['bytes']} B" for kind, c in sorted(comm.items()))
 
 
 def gang_data(home: Path) -> tuple[str, str]:
@@ -2601,74 +2967,60 @@ def gang_resize(fa, data: str, home: Path) -> dict:
     return {"workers": out, "launches": launches}
 
 
-def phase_gang(fa) -> dict:
-    """Phase 17: (a) and (b) as one process and as a gang (every job of
-    both runs in the same processes, one after the other), then (c)."""
-    import shutil
-    import tempfile
+def gang_prepare(fa, home: Path) -> tuple[dict, list]:
+    """Phase 17's data and one-process runs; its section of the gang."""
+    bert_npz, resnet_npz = gang_data(home)
+    configs = [{**GANG_BERT, "data_path": bert_npz},
+               {**GANG_RESNET, "data_path": resnet_npz}]
+    one = [one_process(fa, configs[0], TRAIN_LAUNCHES,
+                       "phase 17 BERT-large one process"),
+           one_process(fa, configs[1], dict.fromkeys(KERNEL_NAMES, 0),
+                       "phase 17 ResNet-50 one process")]
+    return {"one": one, "bert_npz": bert_npz}, configs
 
-    from kubeflow_tpu_torch.parallel.distributed import spawn_local_gang
 
-    t0 = time.perf_counter()
-    free_memory()
-    home = Path(tempfile.mkdtemp(prefix=".kf_gang_"))
-    try:
-        bert_npz, resnet_npz = gang_data(home)
-        env = {"GANG_CONFIGS": json.dumps([
-                   {**GANG_BERT, "data_path": bert_npz},
-                   {**GANG_RESNET, "data_path": resnet_npz}]),
-               "PYTHONPATH": os.pathsep.join(
-                   [str(ROOT)] + [p for p in [os.environ.get("PYTHONPATH")]
-                                  if p])}
-        one = {"jobs": [
-            one_process(fa, {**GANG_BERT, "data_path": bert_npz},
-                        TRAIN_LAUNCHES, "phase 17 BERT-large one process"),
-            one_process(fa, {**GANG_RESNET, "data_path": resnet_npz},
-                        dict.fromkeys(KERNEL_NAMES, 0),
-                        "phase 17 ResNet-50 one process")]}
-        free_memory()
-        t1 = time.perf_counter()
-        ranks = spawn_local_gang(GANG_WORKER, GANG_RANKS,
-                                 timeout=GANG_TIMEOUT_S, extra_env=env)
-        t2 = time.perf_counter()
-        log(f"phase 17: one process {t1 - t0:.1f}s, gang of {GANG_RANKS} "
-            f"{t2 - t1:.1f}s (start-up, model builds and both jobs)")
-        for r, out in enumerate(ranks):
-            check(out["backend"] == "gloo" and out["device"] == 0
-                  and out["world"] == GANG_RANKS, (r, out["backend"],
-                                                   out["device"]))
-        results = {}
-        for j, (label, config) in enumerate(
-                (("BERT-large", GANG_BERT), ("ResNet-50", GANG_RESNET))):
-            jobs = [out["jobs"][j] for out in ranks]
-            want = ({n: config["steps"] * v for n, v in
-                     TRAIN_LAUNCHES.items()} if j == 0
-                    else dict.fromkeys(KERNEL_NAMES, 0))
-            for r, job in enumerate(jobs + [one["jobs"][j]]):
-                who = f"rank {r}" if r < len(jobs) else "one process"
-                log(f"phase 17 {label} {who}: launches {job['launches']} "
-                    f"(expected {want}), peak memory {job['peak_gb']:.2f} "
-                    f"GB, samples/s {job['samples_per_s']:.2f}, all-reduce "
-                    f"{job['allreduce_s']:.4f} s per step in "
-                    f"{job['allreduce_calls']:.0f} calls of "
-                    f"{job['allreduce_bytes']:.0f} bytes in all")
-                check(job["rc"] == 0 and job["launches"] == want,
-                      (label, who, job["launches"]))
-            gang_compare(label, one["jobs"][j], jobs)
-            results[label] = {
-                "one_samples_per_s": one["jobs"][j]["samples_per_s"],
-                "gang_samples_per_s": min(j_["samples_per_s"]
-                                          for j_ in jobs),
-                "allreduce_s": max(j_["allreduce_s"] for j_ in jobs),
-                "allreduce_bytes": jobs[0]["allreduce_bytes"],
-                "peak_gb": max(j_["peak_gb"] for j_ in jobs),
-                "launches": {n: sum(j_["launches"][n] for j_ in jobs)
-                             for n in KERNEL_NAMES}}
-        resize = gang_resize(fa, bert_npz, home)
-    finally:
-        shutil.rmtree(home, ignore_errors=True)
-    log(f"phase 17: {time.perf_counter() - t0:.1f}s")
-    return {**results, "resize": resize}
+def gang_finish(fa, prep: dict, ranks: list[list], home: Path) -> dict:
+    """Phase 17's checks on the gang's jobs, then (c)."""
+    results = {}
+    for j, (label, config) in enumerate(
+            (("BERT-large", GANG_BERT), ("ResNet-50", GANG_RESNET))):
+        steps, batch = config["steps"], config["global_batch"]
+        jobs = []
+        for rank in ranks:
+            job, stamps = rank[j], rank[j]["stamps"]
+            reduced = job["comm"].get("all_reduce",
+                                      {"s": 0.0, "bytes": 0, "calls": 0})
+            jobs.append({
+                "rc": job["rc"], "launches": job["launches"],
+                "trail": job["trail"], "peak_gb": job["peak_gb"],
+                "samples_per_s": batch * (len(stamps) - 1)
+                / (stamps[-1] - stamps[0]),
+                "allreduce_s": reduced["s"] / steps,
+                "allreduce_bytes": reduced["bytes"] / steps,
+                "allreduce_calls": reduced["calls"] / steps})
+        one = prep["one"][j]
+        want = ({n: steps * v for n, v in TRAIN_LAUNCHES.items()} if j == 0
+                else dict.fromkeys(KERNEL_NAMES, 0))
+        for r, job in enumerate(jobs + [one]):
+            who = f"rank {r}" if r < len(jobs) else "one process"
+            log(f"phase 17 {label} {who}: launches {job['launches']} "
+                f"(expected {want}), peak memory {job['peak_gb']:.2f} "
+                f"GB, samples/s {job['samples_per_s']:.2f}, all-reduce "
+                f"{job['allreduce_s']:.4f} s per step in "
+                f"{job['allreduce_calls']:.0f} calls of "
+                f"{job['allreduce_bytes']:.0f} bytes in all")
+            check(job["rc"] == 0 and job["launches"] == want,
+                  (label, who, job["launches"]))
+        gang_compare(label, one, jobs)
+        results[label] = {
+            "one_samples_per_s": one["samples_per_s"],
+            "gang_samples_per_s": min(j_["samples_per_s"] for j_ in jobs),
+            "allreduce_s": max(j_["allreduce_s"] for j_ in jobs),
+            "allreduce_bytes": jobs[0]["allreduce_bytes"],
+            "peak_gb": max(j_["peak_gb"] for j_ in jobs),
+            "launches": {n: sum(j_["launches"][n] for j_ in jobs)
+                         for n in KERNEL_NAMES}}
+    return {**results, "resize": gang_resize(fa, prep["bert_npz"], home)}
 
 
 def gang_numbers(fa, gang: dict, bert_rows: dict) -> dict[str, list[dict]]:
@@ -2684,134 +3036,6 @@ def gang_numbers(fa, gang: dict, bert_rows: dict) -> dict[str, list[dict]]:
                 with_launches(bert_rows[n], resize[TRAIN_SHAPE[0]][n],
                               "17(c) world 1")]
             for n in KERNEL_NAMES}
-
-
-# -- phase 18: fsdp and tp training as gangs of processes on the card --------
-
-# Llama at Llama-2-7B's width (phase 5's model_config) cut to MESH_LAYERS of
-# its 32 layers: the gangs' gathers and reduce-scatters cross host memory
-# through gloo (a layer's float32 weights alone are ~0.8 GB); global batch
-# 8 x 512, MESH_STEPS adamw steps from an .npz made from the seed, through
-# the worker entrypoint as one process and as gangs on each layout below.
-# Steps cut from 3 to 2 to keep the whole run under half its limit (the
-# phase took 118.7 s of a 628.0 s run on an H100 at 3 steps, and about
-# 15 s of each spawn is start-up); the last layout's checkpoint is the
-# save at its end, which one process restores: every parameter bitwise
-# the gang's gathered one (SHA-256 of each tensor's bytes)
-MESH_LAYERS, MESH_STEPS = 2, 2
-MESH_CONFIG = {"model": "llama",
-               "model_config": {"size": "7b", "num_layers": MESH_LAYERS},
-               "global_batch": MESH_BATCH, "steps": MESH_STEPS,
-               "log_every": 1, "seed": 0,
-               "optimizer": {"name": "adamw", "learning_rate": 1e-4}}
-MESH_LAUNCHES = {"flash_fwd": 2 * MESH_LAYERS, "flash_bwd_dq": MESH_LAYERS,
-                 "flash_bwd_dkv": MESH_LAYERS}
-# each layout is held to one process by gang_compare within GANG_TOL (the
-# rows and heads of each rank's bf16 GEMMs differ, the row-parallel
-# products are summed over tp in bf16, gradients in another order)
-MESH_TIMEOUT_S = 600.0
-
-
-MESH_WORKER = r"""
-import os, time
-T0 = float(os.environ["MESH_SPAWNED"])
-import hashlib, json
-import torch
-import torch.distributed as dist
-from kubeflow_tpu_torch.ops import flash_attention as fa
-from kubeflow_tpu_torch.parallel import sharding as sh
-from kubeflow_tpu_torch.parallel import train_step as ts
-from kubeflow_tpu_torch.training import __main__ as worker
-
-torch.backends.cuda.matmul.allow_tf32 = False
-torch.backends.cudnn.allow_tf32 = False
-KERNELS = {"flash_fwd": fa.flash_attention, "flash_bwd_dq": fa.flash_bwd_dq,
-           "flash_bwd_dkv": fa.flash_bwd_dkv}
-comm, digests, trail, stamps, snaps, peaks = {}, {}, [], [], [], []
-
-
-def timed(kind, fn, payload):
-    # the collective alone, from an idle card to its result on the card
-    def call(*args, **kwargs):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn(*args, **kwargs)
-        torch.cuda.synchronize()
-        rec = comm.setdefault(kind, {"s": 0.0, "bytes": 0, "calls": 0})
-        rec["s"] += time.perf_counter() - t0
-        t = payload(*args)
-        rec["bytes"] += t.numel() * t.element_size()
-        rec["calls"] += 1
-        return out
-    return call
-
-
-dist.all_reduce = timed("all_reduce", dist.all_reduce, lambda t: t)
-dist.all_gather_into_tensor = timed(
-    "all_gather", dist.all_gather_into_tensor, lambda out, x: out)
-dist.reduce_scatter_tensor = timed(
-    "reduce_scatter", dist.reduce_scatter_tensor, lambda out, x: x)
-_full_state_dict = sh.full_state_dict
-
-
-def full_state_dict(model):
-    # the checkpoint's own gather: what rank 0's file must hold
-    full = _full_state_dict(model)
-    if dist.get_rank() == 0:
-        digests.update({k: hashlib.sha256(v.cpu().contiguous().view(
-            torch.uint8).numpy()).hexdigest() for k, v in full.items()})
-    return full
-
-
-sh.full_state_dict = full_state_dict
-_build_step = ts.build_train_step
-
-
-def build_step(*args, **kwargs):
-    step = _build_step(*args, **kwargs)
-
-    def recorded(state, batch):
-        state, m = step(state, batch)
-        trail.append((m["loss"], m["grad_norm"]))
-        return state, m
-
-    return recorded
-
-
-ts.build_train_step = build_step
-imported = time.time() - T0
-jobs = []
-for config in json.loads(os.environ["MESH_CONFIGS"]):
-    os.environ["JAXJOB_TRAINER_CONFIG"] = json.dumps(config)
-    for kept in (comm, digests, trail, stamps, snaps, peaks):
-        kept.clear()
-    torch.cuda.reset_peak_memory_stats()
-    for kernel in KERNELS.values():
-        kernel.launches = 0                          # the path starts
-    start = time.time() - T0
-    rc = worker.main(["--device", "cuda"], metrics_hook=lambda s, r: (
-        stamps.append(time.time() - T0),
-        snaps.append(json.loads(json.dumps(comm))),
-        peaks.append(torch.cuda.max_memory_allocated() / 1e9)))
-    launches = {n: k.launches for n, k in KERNELS.items()}   # it ended
-    # step 2 alone: between the syncs that log steps 1 and 2 (a
-    # checkpoint may follow the last)
-    step2 = {kind: {k: v - snaps[0].get(kind, {}).get(k, 0)
-                    for k, v in rec.items()}
-             for kind, rec in snaps[1].items()}
-    jobs.append({
-        "rc": rc, "launches": launches,
-        "trail": [[float(loss), float(norm)] for loss, norm in trail],
-        "samples_per_s": config["global_batch"] / (stamps[1] - stamps[0]),
-        "comm": step2, "steps_peak_gb": peaks[-1],
-        "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
-        "digests": dict(digests),
-        "times": {"imported": imported, "start": start, "step1": stamps[0],
-                  "last": stamps[-1], "ended": time.time() - T0}})
-print(json.dumps({
-    "device": torch.cuda.current_device(), "backend": dist.get_backend(),
-    "world": dist.get_world_size(), "jobs": jobs}))
-"""
 
 
 def mesh_data(home: Path) -> str:
@@ -2886,83 +3110,74 @@ def one_process(fa, config: dict, launches: dict, label: str) -> dict:
             "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
 
 
-def mesh_gang(fa, configs: dict, ranks: int, path: str) -> dict:
-    """The layouts of ``configs`` ({label: Trainer config}) one after the
-    other in one gang of ``ranks`` processes on this card: per layout the
-    ranks' launches, trails, collectives, peak memory and samples/s, and
-    rank 0's checkpoint digests."""
-    from kubeflow_tpu_torch.parallel.distributed import spawn_local_gang
+def mesh_prepare(fa, home: Path) -> tuple[dict, list]:
+    """Phase 18's data and one-process run; its section of the gang of 2
+    (fsdp=2, then tp=2)."""
+    data = mesh_data(home)
+    configs = {label: {**MESH_CONFIG, "data_path": data, "fsdp": fsdp,
+                       "tp": tp}
+               for label, fsdp, tp in MESH_LAYOUTS}
+    last = MESH_LAYOUTS[-1][0]
+    configs[last]["checkpoint_dir"] = str(home / "ckpt")
+    one = MESH_LAYOUTS[0][0]
+    results = {one: one_process(fa, configs[one], MESH_LAUNCHES,
+                                f"phase 18 {one}")}
+    twos = [label for label, *_ in MESH_LAYOUTS[1:-1]]
+    return ({"configs": configs, "results": results, "twos": twos},
+            [configs[label] for label in twos])
 
-    t0 = time.perf_counter()
-    outs = spawn_local_gang(
-        MESH_WORKER, ranks, timeout=MESH_TIMEOUT_S,
-        extra_env={"MESH_CONFIGS": json.dumps(list(configs.values())),
-                   "MESH_SPAWNED": repr(time.time()), "PYTHONPATH": path})
-    log(f"phase 18: gang of {ranks} for {', '.join(configs)}: "
-        f"{time.perf_counter() - t0:.1f}s")
+
+def mesh_jobs(labels: list[str], ranks: list[list], gang: int) -> dict:
+    """Phase 18's layouts ``labels`` from the gang's jobs (one list per
+    rank, in ``labels``' order): launches, trails, collectives of step 2,
+    peak memory, samples/s of step 2, rank 0's checkpoint digests."""
     want = {n: MESH_STEPS * v for n, v in MESH_LAUNCHES.items()}
     results = {}
-    for j, label in enumerate(configs):
-        jobs = [out["jobs"][j] for out in outs]
-        for r, (out, job) in enumerate(zip(outs, jobs)):
-            comm = ", ".join(
-                f"{kind} {c['s']:.4f} s in {c['calls']} calls of "
-                f"{c['bytes']} B" for kind, c in sorted(job["comm"].items()))
-            log(f"phase 18 {label} rank {r}: seconds after the spawn "
-                + ", ".join(f"{k} {v:.1f}" for k, v in job["times"].items())
-                + f"; launches {job['launches']} (expected {want}), peak "
-                f"memory {job['steps_peak_gb']:.2f} GB over the steps, "
+    for j, label in enumerate(labels):
+        jobs = [rank[j] for rank in ranks]
+        for r, job in enumerate(jobs):
+            job["samples_per_s"] = MESH_BATCH / (job["stamps"][1]
+                                                 - job["stamps"][0])
+            job["steps_peak_gb"] = job["peaks"][-1]
+            log(f"phase 18 {label} rank {r} (gang of {gang}): seconds after "
+                f"the spawn start {job['times']['start']:.1f}, step1 "
+                f"{job['stamps'][0]:.1f}, last {job['stamps'][-1]:.1f}, "
+                f"ended {job['times']['ended']:.1f}; launches "
+                f"{job['launches']} (expected {want}), peak memory "
+                f"{job['steps_peak_gb']:.2f} GB over the steps, "
                 f"{job['peak_gb']:.2f} GB over the run, samples/s "
-                f"{job['samples_per_s']:.2f}; step 2: {comm}")
-            check(job["rc"] == 0 and job["launches"] == want
-                  and out["device"] == 0 and out["backend"] == "gloo"
-                  and out["world"] == ranks, (label, r, job["launches"]))
-        trails = [job["trail"] for job in jobs]
+                f"{job['samples_per_s']:.2f}; step 2: "
+                f"{comm_line(step2(job))}")
+            check(job["rc"] == 0 and job["launches"] == want,
+                  (label, r, job["launches"]))
         results[label] = {
-            "trail": trails[0], "trails": trails,
+            "trail": jobs[0]["trail"], "trails": [j_["trail"] for j_ in jobs],
             "digests": jobs[0]["digests"],
-            "samples_per_s": min(job["samples_per_s"] for job in jobs),
-            "steps_peak_gb": max(job["steps_peak_gb"] for job in jobs),
-            "peak_gb": max(job["peak_gb"] for job in jobs),
-            "comm": jobs[0]["comm"],
-            "launches": {n: sum(job["launches"][n] for job in jobs)
+            "samples_per_s": min(j_["samples_per_s"] for j_ in jobs),
+            "steps_peak_gb": max(j_["steps_peak_gb"] for j_ in jobs),
+            "peak_gb": max(j_["peak_gb"] for j_ in jobs),
+            "comm": step2(jobs[0]),
+            "launches": {n: sum(j_["launches"][n] for j_ in jobs)
                          for n in KERNEL_NAMES}}
     return results
 
 
-def phase_mesh(fa) -> dict:
-    """Phase 18: the Llama run as one process (here) and on each sharded
-    layout (fsdp=2 then tp=2 in one gang of 2, fsdp=2 x tp=2 in a gang of
-    4, from spawn_local_gang on this card), then the checkpoint's
-    restore."""
-    import shutil
-    import tempfile
-
+def mesh_finish(prep: dict, ranks: list[list], home: Path) -> dict:
+    """Phase 18: the 2-rank layouts' results, the gang of 4 for the last
+    layout, every layout against one process, the checkpoint's restore."""
+    results = dict(prep["results"])
+    results.update(mesh_jobs(prep["twos"], ranks, GANG_RANKS))
+    last = MESH_LAYOUTS[-1][0]
     t0 = time.perf_counter()
-    home = Path(tempfile.mkdtemp(prefix=".kf_mesh_"))
-    path = os.pathsep.join([str(ROOT)] + [p for p in [
-        os.environ.get("PYTHONPATH")] if p])
-    try:
-        data = mesh_data(home)
-        configs = {label: {**MESH_CONFIG, "data_path": data, "fsdp": fsdp,
-                           "tp": tp}
-                   for label, fsdp, tp in MESH_LAYOUTS}
-        last = MESH_LAYOUTS[-1][0]
-        configs[last]["checkpoint_dir"] = str(home / "ckpt")
-        one, *twos = MESH_LAYOUTS[:-1]
-        results = {one[0]: one_process(fa, configs[one[0]], MESH_LAUNCHES,
-                                       f"phase 18 {one[0]}")}
-        results.update(mesh_gang(fa, {label: configs[label]
-                                      for label, *_ in twos}, 2, path))
-        results.update(mesh_gang(fa, {last: configs[last]}, 4, path))
-        for label, *_ in MESH_LAYOUTS[1:]:
-            gang_compare(label, results[one[0]],
-                         [{"trail": t} for t in results[label]["trails"]],
-                         phase=18)
-        mesh_restore(home, results[last]["digests"])
-    finally:
-        shutil.rmtree(home, ignore_errors=True)
-    log(f"phase 18: {time.perf_counter() - t0:.1f}s")
+    fours = spawn_gang({"18": [prep["configs"][last]]}, 4)
+    log(f"phase 18: gang of 4 for {last}: {time.perf_counter() - t0:.1f}s")
+    results.update(mesh_jobs([last], [out["18"] for out in fours], 4))
+    one = MESH_LAYOUTS[0][0]
+    for label, *_ in MESH_LAYOUTS[1:]:
+        gang_compare(label, results[one],
+                     [{"trail": t} for t in results[label]["trails"]],
+                     phase=18)
+    mesh_restore(home, results[last]["digests"])
     return results
 
 
@@ -2975,217 +3190,6 @@ def mesh_numbers(fa, mesh: dict) -> dict[str, list[dict]]:
         for n in KERNEL_NAMES:
             rows[n].append(got[n])
     return rows
-
-
-
-# -- phase 19: sequence and pipeline parallelism, a gang of 2 on the card ---
-
-# (b): phase 18's model at SP_LAYERS layers, a global batch of SP_BATCH rows
-# of SP_SEQ tokens, SP_STEPS adamw steps from an .npz made from seed 0,
-# through the worker entrypoint as one process (here) and with sp = 2 (each
-# rank holds SP_SEQ / 2 tokens of every row; ring attention joins them)
-SP_CONFIG = {"model": "llama",
-             "model_config": {"size": "7b", "num_layers": SP_LAYERS},
-             "global_batch": SP_BATCH, "steps": SP_STEPS, "log_every": 1,
-             "seed": 0,
-             "optimizer": {"name": "adamw", "learning_rate": 1e-4}}
-SP_ONE_LAUNCHES = {"flash_fwd": 2 * SP_LAYERS, "flash_bwd_dq": SP_LAYERS,
-                   "flash_bwd_dkv": SP_LAYERS}
-SP_TIMEOUT_S = 600.0
-# (c): the pipeline's output against the blocks in sequence, relative to max
-# |out| (the bf16 whole-model bound, LOGITS_REL_TOL's reasoning: the
-# microbatches' bf16 GEMMs run at a quarter of the rows), and its stage
-# gradients within BWD_TOL's bf16 bound of max |ref|
-PP_OUT_REL_TOL = 1e-1
-
-SP_WORKER = r"""
-import os, time
-T0 = float(os.environ["SP_SPAWNED"])
-import dataclasses, gc, json
-import torch
-import torch.distributed as dist
-from torch.func import functional_call
-from kubeflow_tpu_torch.models import llama
-from kubeflow_tpu_torch.ops import flash_attention as fa
-from kubeflow_tpu_torch.ops import ring_attention as ring
-from kubeflow_tpu_torch.parallel import distributed as pd
-from kubeflow_tpu_torch.parallel import pipeline as pipe
-from kubeflow_tpu_torch.parallel import train_step as ts
-from kubeflow_tpu_torch.parallel.mesh import make_mesh
-from kubeflow_tpu_torch.training import __main__ as worker
-
-torch.backends.cuda.matmul.allow_tf32 = False
-torch.backends.cudnn.allow_tf32 = False
-spec = json.loads(os.environ["SP_SPEC"])
-KERNELS = {"flash_fwd": fa.flash_attention, "flash_bwd_dq": fa.flash_bwd_dq,
-           "flash_bwd_dkv": fa.flash_bwd_dkv}
-comm, trail, stamps, snaps = {}, [], [], []
-
-
-def timed(kind, fn, nbytes):
-    # the call alone, from an idle card to its result on the card
-    def call(*args, **kwargs):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn(*args, **kwargs)
-        torch.cuda.synchronize()
-        rec = comm.setdefault(kind, {"s": 0.0, "bytes": 0, "calls": 0})
-        rec["s"] += time.perf_counter() - t0
-        rec["bytes"] += nbytes(*args)
-        rec["calls"] += 1
-        return out
-    return call
-
-
-dist.all_reduce = timed("all_reduce", dist.all_reduce,
-                        lambda t, *a: t.numel() * t.element_size())
-# the bytes this rank sends (and receives) in a neighbour exchange
-pd.ppermute = timed("exchange", pd.ppermute, lambda tensors, *a: sum(
-    t.numel() * t.element_size() for t in tensors))
-_build_step = ts.build_train_step
-
-
-def build_step(*args, **kwargs):
-    step = _build_step(*args, **kwargs)
-
-    def recorded(state, batch):
-        state, m = step(state, batch)
-        trail.append((m["loss"], m["grad_norm"]))
-        return state, m
-
-    return recorded
-
-
-ts.build_train_step = build_step
-
-
-def launched():
-    return {n: k.launches for n, k in KERNELS.items()}
-
-
-def zero():
-    for kernel in KERNELS.values():
-        kernel.launches = 0
-
-
-def rel(a, b):
-    return ((a.float() - b.float()).abs().max()
-            / b.float().abs().max()).item()
-
-
-pd.initialize_from_env()
-rank = dist.get_rank()
-times = {"imported": time.time() - T0}
-out = {"device": torch.cuda.current_device(), "backend": dist.get_backend(),
-       "world": dist.get_world_size()}
-
-# (b) training with sp = 2 through the worker entrypoint
-os.environ["JAXJOB_TRAINER_CONFIG"] = json.dumps(spec["config"])
-comm.clear()
-torch.cuda.reset_peak_memory_stats()
-zero()                                                   # the path starts
-rc = worker.main(["--device", "cuda"], metrics_hook=lambda s, r: (
-    stamps.append(time.time() - T0),
-    snaps.append(json.loads(json.dumps(comm)))))
-sp_launches = launched()                                 # it ended
-step2 = {kind: {k: v - snaps[0].get(kind, {}).get(k, 0)
-                for k, v in rec.items()}
-         for kind, rec in snaps[1].items()}
-rows = spec["config"]["global_batch"]
-out["sp"] = {
-    "rc": rc, "launches": sp_launches,
-    "trail": [[float(loss), float(norm)] for loss, norm in trail],
-    "samples_per_s": rows / (stamps[1] - stamps[0]), "comm": step2,
-    "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
-times["step1"], times["last"] = stamps[0], stamps[-1]
-gc.collect()
-torch.cuda.empty_cache()
-
-# (a) the ring at this rank's chunk, against the plain ring on it (after
-# (b), whose first step paid the process's first launches and exchanges)
-mesh = make_mesh(dp=1, sp=spec["sp"])
-group = mesh.group("sp")
-b, s, h, d = spec["block"]
-g = torch.Generator(device="cuda").manual_seed(190 + rank)
-q, k, v, do = (torch.randn(b, s, h, d, generator=g, device="cuda")
-               .to(torch.bfloat16) for _ in range(4))
-q, k, v = (t.requires_grad_() for t in (q, k, v))
-comm.clear()
-zero()                                                   # the check starts
-torch.cuda.synchronize()
-t0 = time.perf_counter()
-o = ring.ring_attention(q, k, v, group=group, causal=True)
-got = [o.detach(), *torch.autograd.grad(o, (q, k, v), do)]
-torch.cuda.synchronize()
-ring_s = time.perf_counter() - t0
-ring_launches = launched()                               # it ended
-ring_comm = comm.pop("exchange")
-ref = ring.ring_attention_reference(q, k, v, group=group, causal=True)
-want = [ref.detach(), *torch.autograd.grad(ref, (q, k, v), do)]
-with torch.no_grad():   # P|V|: the plain ring of |V|, the same weights
-    pv = ring.ring_attention_reference(q, k, v.abs(), group=group,
-                                       causal=True).float()
-allow = 2 ** -7 * (want[0].float().abs() + pv)
-out["ring"] = {
-    "launches": ring_launches, "s": ring_s, "exchange": ring_comm,
-    "o_ratio": ((got[0].float() - want[0].float()).abs() / allow).max().item(),
-    "grad_rel": [rel(a, w) for a, w in zip(got[1:], want[1:])]}
-del q, k, v, do, o, got, ref, want, pv, allow
-gc.collect()
-torch.cuda.empty_cache()
-times["ring"] = time.time() - T0
-
-# (c) pp = 2: the blocks of a model at that width, 2 per stage, pipelined,
-# against all of them in sequence on this rank
-pmesh = make_mesh(dp=1, pp=spec["sp"])
-cfg = dataclasses.replace(llama.llama2_7b(), num_layers=spec["pp_blocks"])
-model = llama.LlamaModel(cfg, device="cuda").init_weights(0)
-blocks = list(model.layers)
-stacked = pipe.stack_layer_params([
-    {k: v.detach() for k, v in blk.named_parameters()} for blk in blocks])
-template = blocks[0]
-del model, blocks
-g = torch.Generator(device="cuda").manual_seed(191)
-x = torch.randn(spec["pp_batch"], spec["pp_seq"], cfg.hidden_size,
-                generator=g, device="cuda").to(torch.bfloat16)
-
-
-def block(layer, h):
-    positions = torch.arange(h.shape[1], device="cuda")[None].expand(
-        h.shape[0], -1)
-    return functional_call(template, layer, (h, positions))[0]
-
-
-mine = {k: v.clone().requires_grad_() for k, v in
-        pipe.stage_slice(stacked, pmesh).items()}
-comm.clear()
-torch.cuda.reset_peak_memory_stats()
-zero()                                                   # the path starts
-torch.cuda.synchronize()
-t0 = time.perf_counter()
-y = pipe.pipeline_forward(block, mine, x, mesh=pmesh,
-                          num_microbatches=spec["pp_micro"])
-grads = torch.autograd.grad(y.float().pow(2).mean(), list(mine.values()))
-torch.cuda.synchronize()
-pipe_s = time.perf_counter() - t0
-pp_launches = launched()                                 # it ended
-pp_comm = dict(comm)
-full = {k: v.clone().requires_grad_() for k, v in stacked.items()}
-h = x
-for i in range(spec["pp_blocks"]):
-    h = block({k: v[i] for k, v in full.items()}, h)
-ref_grads = dict(zip(full, torch.autograd.grad(h.float().pow(2).mean(),
-                                               list(full.values()))))
-ref_mine = pipe.stage_slice(ref_grads, pmesh)
-out["pp"] = {
-    "launches": pp_launches, "s": pipe_s, "comm": pp_comm,
-    "out_rel": rel(y, h),
-    "grad_rel": max(rel(a, ref_mine[k]) for k, a in zip(mine, grads)),
-    "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
-times["ended"] = time.time() - T0
-out["times"] = times
-print(json.dumps(out))
-"""
 
 
 def sp_data(home: Path) -> str:
@@ -3213,46 +3217,29 @@ def sp_expected(rank: int) -> dict:
                             PP_BLOCKS // SP_RANKS * PP_MICRO)}
 
 
-def phase_sp(fa) -> dict:
-    """Phase 19: (b)'s one process here, then one gang of SP_RANKS on this
-    card for (a), (b) and (c)."""
-    import shutil
-    import tempfile
+def sp_prepare(fa, home: Path) -> tuple[dict, dict]:
+    """Phase 19's data and (b)'s one process; its section of the gang."""
+    config = {**SP_CONFIG, "data_path": sp_data(home)}
+    one = one_process(fa, config, SP_ONE_LAUNCHES, "phase 19 one process")
+    return {"one": one}, {
+        "sp": SP_RANKS, "block": SP_BLOCK_SHAPES[0][1:3] + (32, 128),
+        "config": {**config, "sp": SP_RANKS}, "pp_blocks": PP_BLOCKS,
+        "pp_batch": PP_BATCH, "pp_seq": PP_SEQ, "pp_micro": PP_MICRO}
 
-    from kubeflow_tpu_torch.parallel.distributed import spawn_local_gang
 
-    t0 = time.perf_counter()
-    free_memory()
-    home = Path(tempfile.mkdtemp(prefix=".kf_sp_"))
-    path = os.pathsep.join([str(ROOT)] + [p for p in [
-        os.environ.get("PYTHONPATH")] if p])
-    try:
-        config = {**SP_CONFIG, "data_path": sp_data(home)}
-        one = one_process(fa, config, SP_ONE_LAUNCHES,
-                          "phase 19 one process")
-        free_memory()
-        t1 = time.perf_counter()
-        spec = {"sp": SP_RANKS, "block": SP_BLOCK_SHAPES[0][1:3] + (32, 128),
-                "config": {**config, "sp": SP_RANKS},
-                "pp_blocks": PP_BLOCKS, "pp_batch": PP_BATCH,
-                "pp_seq": PP_SEQ, "pp_micro": PP_MICRO}
-        outs = spawn_local_gang(
-            SP_WORKER, SP_RANKS, timeout=SP_TIMEOUT_S,
-            extra_env={"SP_SPEC": json.dumps(spec),
-                       "SP_SPAWNED": repr(time.time()), "PYTHONPATH": path})
-        log(f"phase 19: one process {t1 - t0:.1f}s, gang of {SP_RANKS} "
-            f"{time.perf_counter() - t1:.1f}s")
-    finally:
-        shutil.rmtree(home, ignore_errors=True)
+def sp_finish(prep: dict, outs: list[dict]) -> dict:
+    """Phase 19's checks on the gang's (a), (b) and (c)."""
+    one = prep["one"]
     ticks = PP_MICRO + SP_RANKS - 1
     for r, out in enumerate(outs):
         want = sp_expected(r)
-        ring, sp, pp = out["ring"], out["sp"], out["pp"]
-        comm = ", ".join(f"{kind} {c['s']:.4f} s in {c['calls']} calls of "
-                         f"{c['bytes']} B"
-                         for kind, c in sorted(sp["comm"].items()))
-        log(f"phase 19 rank {r}: seconds after the spawn " + ", ".join(
-            f"{k} {v:.1f}" for k, v in out["times"].items()))
+        sp, pp = out["sp"], out["pp"]["extra"]
+        ring = {**out["ring"]["extra"]}
+        sp["samples_per_s"] = SP_BATCH / (sp["stamps"][1] - sp["stamps"][0])
+        log(f"phase 19 rank {r}: seconds after the spawn: (b) "
+            f"{sp['times']['start']:.1f} to {sp['times']['ended']:.1f}, (a) "
+            f"to {out['ring']['times']['ended']:.1f}, (c) to "
+            f"{out['pp']['times']['ended']:.1f}")
         log(f"phase 19(a) rank {r}: ring on {SP_BLOCK_SHAPES[0][1:3]} x 32 "
             f"heads of 128, causal, bf16: launches {ring['launches']} "
             f"(expected {want['ring']}); O within "
@@ -3264,9 +3251,7 @@ def phase_sp(fa) -> dict:
             f"{ring['exchange']['calls']} exchanges "
             f"of {ring['exchange']['bytes']} B in "
             f"{ring['exchange']['s']:.4f} s")
-        check(out["device"] == 0 and out["backend"] == "gloo"
-              and out["world"] == SP_RANKS, (r, out["backend"]))
-        check(ring["launches"] == want["ring"]
+        check(out["ring"]["rc"] == 0 and ring["launches"] == want["ring"]
               and ring["o_ratio"] <= IN_MODEL_TOL["o"]
               and max(ring["grad_rel"]) <= BWD_TOL[torch.bfloat16],
               f"phase 19(a) rank {r}: {ring}")
@@ -3274,22 +3259,19 @@ def phase_sp(fa) -> dict:
             f"{sp['launches']} (expected {want['sp']}), peak memory "
             f"{sp['peak_gb']:.2f} GB, samples/s {sp['samples_per_s']:.3f} "
             f"({sp['samples_per_s'] * SP_SEQ:.0f} tokens/s); step 2: "
-            f"{comm}")
+            f"{comm_line(step2(sp))}")
         check(sp["rc"] == 0 and sp["launches"] == want["sp"],
               f"phase 19(b) rank {r}: {sp['rc']} {sp['launches']}")
         log(f"phase 19(c) pp={SP_RANKS} rank {r}: {PP_BLOCKS} blocks, x "
             f"[{PP_BATCH}, {PP_SEQ}, 4096] bf16 in {PP_MICRO} microbatches: "
             f"{ticks} ticks, bubble share {(SP_RANKS - 1) / ticks:.3f}, "
-            f"forward and backward {pp['s']:.4f} s ("
-            + ", ".join(f"{kind} {c['s']:.4f} s in {c['calls']} calls of "
-                        f"{c['bytes']} B"
-                        for kind, c in sorted(pp["comm"].items()))
-            + f"); launches {pp['launches']} (expected {want['pp']}); out vs "
+            f"forward and backward {pp['s']:.4f} s ({comm_line(pp['comm'])}"
+            f"); launches {pp['launches']} (expected {want['pp']}); out vs "
             f"in sequence / max|ref| {pp['out_rel']:.3e} (tol "
             f"{PP_OUT_REL_TOL:g}), stage gradients {pp['grad_rel']:.3e} "
             f"(tol {BWD_TOL[torch.bfloat16]:g}); peak memory "
             f"{pp['peak_gb']:.2f} GB")
-        check(pp["launches"] == want["pp"]
+        check(out["pp"]["rc"] == 0 and pp["launches"] == want["pp"]
               and pp["out_rel"] <= PP_OUT_REL_TOL
               and pp["grad_rel"] <= BWD_TOL[torch.bfloat16],
               f"phase 19(c) rank {r}: {pp}")
@@ -3300,9 +3282,10 @@ def phase_sp(fa) -> dict:
         f"({one['samples_per_s'] * SP_SEQ:.0f} tokens/s), sp={SP_RANKS} "
         f"{sp_rate:.3f} ({sp_rate * SP_SEQ:.0f} tokens/s); peak memory one "
         f"process {one['steps_peak_gb']:.2f} GB")
-    log(f"phase 19: {time.perf_counter() - t0:.1f}s")
-    total = {part: {n: sum(out[part]["launches"][n] for out in outs)
-                    for n in KERNEL_NAMES} for part in ("sp", "pp")}
+    total = {"sp": {n: sum(out["sp"]["launches"][n] for out in outs)
+                    for n in KERNEL_NAMES},
+             "pp": {n: sum(out["pp"]["extra"]["launches"][n] for out in outs)
+                    for n in KERNEL_NAMES}}
     # (b)'s launches by block: every rank one diagonal block per layer and
     # pass, the rest earlier ones
     diagonal = {n: sum(v // (r + 1) for r, v in enumerate(
@@ -3325,10 +3308,206 @@ def sp_numbers(fa, sp: dict) -> dict[str, list[dict]]:
         # the plain versions of the ring's blocks and of the whole sequence
         # take 6-50 ms a call: a few calls a window
         got = training_numbers(fa, shape, sp["launches"][shape[0]], None,
-                               plain_reps=20 if shape is PP_SHAPE else 2)
+                               plain_reps=5 if shape is PP_SHAPE else 2)
         for n in KERNEL_NAMES:
             rows[n].append(got[n])
     return rows
+
+
+def moe_ep_data(home: Path) -> str:
+    """Phase 20's .npz from seed 0: MOE_EP_STEPS global batches of 8 Llama
+    rows of 512 tokens (labels: the ids shifted by one)."""
+    rng = np.random.default_rng(0)
+    ids = rng.integers(0, 32000, (MESH_BATCH * MOE_EP_STEPS, LLAMA_SEQ + 1),
+                       dtype=np.int32)
+    path = home / "llama_moe.npz"
+    np.savez(path, input_ids=ids[:, :-1], labels=ids[:, 1:])
+    return str(path)
+
+
+def moe_ep_prepare(fa, home: Path) -> tuple[dict, dict]:
+    """Phase 20's one process here, on the global batches a data-parallel
+    gang of 2 assembles (its ranks' strided ``NpzDataset`` shards,
+    rank-major: capacity positions follow the rows' order, so this is the
+    batch the gang's layouts see): every step's loss, grad_norm,
+    launches and MoE layers' dropped counts, and its expert weights after
+    the last step written to ``home`` for the ep ranks' check; its
+    section of the gang."""
+    from kubeflow_tpu_torch.models import registry
+    from kubeflow_tpu_torch.parallel import train_step as ts
+    from kubeflow_tpu_torch.training.data import NpzDataset, to_device
+    from kubeflow_tpu_torch.training.optim import make_optimizer
+
+    config = {**MOE_EP_CONFIG, "data_path": moe_ep_data(home)}
+    free_memory()
+    torch.cuda.reset_peak_memory_stats()
+    entry = registry.get(config["model"])
+    model = entry.make_model(**config["model_config"], device="cuda")
+    model.init_weights(config["seed"])
+    state = ts.init_train_state(model, make_optimizer(config["optimizer"]))
+    step = ts.build_train_step(entry.forward_loss, state.tx)
+    shards = [NpzDataset(config["data_path"], config["global_batch"],
+                         seed=config["seed"], process_index=r,
+                         process_count=GANG_RANKS).iter_from(0)
+              for r in range(GANG_RANKS)]
+    trail, dropped, stamps, launches = [], [], [], []
+    set_counters(fa, dict.fromkeys(KERNEL_NAMES, 0))     # the path starts
+    for _ in range(config["steps"]):
+        rows = [next(shard) for shard in shards]
+        batch = to_device({k: torch.cat([torch.as_tensor(r[k]) for r in rows])
+                           for k in rows[0]}, torch.device("cuda"))
+        seen = counters(fa)
+        state, m = step(state, batch)
+        trail.append([m["loss"].item(), m["grad_norm"].item()])
+        stamps.append(time.perf_counter())
+        now = counters(fa)
+        launches.append({n: now[n] - seen[n] for n in KERNEL_NAMES})
+        dropped.append([int(b.moe.dropped) for b in model.layers
+                        if b.use_moe])
+    total = counters(fa)                                 # the path ended
+    for i, got in enumerate(launches):
+        check(got == MOE_EP_LAUNCHES, f"phase 20 one process step {i + 1} "
+              f"launches {got}, expected {MOE_EP_LAUNCHES}")
+    check(all(math.isfinite(x) for t in trail for x in t), trail)
+    torch.save({k: p.detach().cpu() for k, p in model.named_parameters()
+                if k.endswith(("moe.w_in", "moe.w_out"))},
+               home / "experts.pt")
+    one = {"rc": 0, "launches": total, "trail": trail, "dropped": dropped,
+           "samples_per_s": config["global_batch"] / (stamps[1]
+                                                      - stamps[0]),
+           "steps_peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del model, state, step
+    return {"one": one}, {"config": config, "ep": GANG_RANKS,
+                          "ranks": GANG_RANKS,
+                          "experts": str(home / "experts.pt")}
+
+
+def moe_ep_finish(prep: dict, outs: list[dict]) -> dict:
+    """Phase 20's checks: every layout's launches, dropped counts and
+    trail against one process, ep's expert blocks against its rows."""
+    one = prep["one"]
+    want = {n: MOE_EP_STEPS * v for n, v in MOE_EP_LAUNCHES.items()}
+    log(f"phase 20 one process: launches {one['launches']} (expected "
+        f"{want}), samples/s {one['samples_per_s']:.3f}, peak memory "
+        f"{one['steps_peak_gb']:.2f} GB, dropped (token, choice) per MoE "
+        f"layer and step {one['dropped']}")
+    results = {"one process": one}
+    for label, _ in MOE_EP_LAYOUTS[1:]:
+        jobs = [out["20"][label] for out in outs]
+        for r, job in enumerate(jobs):
+            job["samples_per_s"] = MESH_BATCH / (job["stamps"][1]
+                                                 - job["stamps"][0])
+            log(f"phase 20 {label} rank {r}: seconds after the spawn start "
+                f"{job['times']['start']:.1f}, step1 {job['stamps'][0]:.1f},"
+                f" last {job['stamps'][-1]:.1f}, ended "
+                f"{job['times']['ended']:.1f}; launches {job['launches']} "
+                f"(expected {want}), peak memory {job['peak_gb']:.2f} GB, "
+                f"samples/s {job['samples_per_s']:.3f}; dropped per MoE "
+                f"layer and step {job['dropped']} (one process "
+                f"{one['dropped']}); step 2: {comm_line(step2(job))}")
+            check(job["rc"] == 0 and job["launches"] == want,
+                  (label, r, job["launches"]))
+            # step 1 routes the same rows with the same weights, so every
+            # MoE layer's dropped count is one process's unless capacity or
+            # positions differ; later steps route with weights that adam's
+            # lr-sized steps on rounding-level gradient elements moved
+            # apart, so near-ties may flip (printed, not held)
+            check(job["dropped"][0] == one["dropped"][0],
+                  f"phase 20 {label} rank {r}: step 1 dropped "
+                  f"{job['dropped'][0]} against one process's "
+                  f"{one['dropped'][0]}")
+            experts = job["extra"] or {}
+            for name, e in experts.items():
+                log(f"phase 20 {label} rank {r}: {name} experts "
+                    f"{e['experts']} after step {MOE_EP_STEPS} against one "
+                    f"process's: ||d||/||w|| {e['norm_rel']:.3e} (tol "
+                    f"{MOE_EP_EXPERT_TOL:g}), max|d|/max|w| "
+                    f"{e['max_rel']:.3e}, {e['lr_steps']} elements apart by "
+                    f"more than lr/2")
+                check(e["norm_rel"] <= MOE_EP_EXPERT_TOL, (label, r, name, e))
+            if label == "ep=2":
+                check(sorted(experts) == [f"layers.0.moe.{w}"
+                                          for w in ("w_in", "w_out")],
+                      (label, r, sorted(experts)))
+        gang_compare(label, one, jobs, phase=20)
+        results[label] = {
+            "samples_per_s": min(job["samples_per_s"] for job in jobs),
+            "peak_gb": max(job["peak_gb"] for job in jobs),
+            "comm": step2(jobs[0]),
+            "launches": {n: sum(job["launches"][n] for job in jobs)
+                         for n in KERNEL_NAMES}}
+    log(f"phase 20: samples/s of step 2: " + ", ".join(
+        f"{label} {r['samples_per_s']:.3f}" for label, r in results.items()))
+    return results
+
+
+def moe_ep_numbers(fa, moe_ep: dict,
+                   mesh_rows: dict | None = None) -> dict[str, list[dict]]:
+    """K1-K3 rows of phase 20: each layout's launches at its rank shape,
+    whose times phase 18's rows hold (``mesh_rows``; timed here without
+    them)."""
+    if mesh_rows is None:
+        mesh_rows = {n: [] for n in KERNEL_NAMES}
+        for shape in {v[0]: v for v in MOE_EP_SHAPES.values()}.values():
+            got = training_numbers(fa, shape, dict.fromkeys(KERNEL_NAMES, 0),
+                                   None)
+            for n in KERNEL_NAMES:
+                mesh_rows[n].append(got[n])
+    rows = {n: [] for n in KERNEL_NAMES}
+    for label, _ in MOE_EP_LAYOUTS:
+        shape = MOE_EP_SHAPES[label][0]
+        for n in KERNEL_NAMES:
+            row = next(r for r in mesh_rows[n] if r["shape"] == shape)
+            rows[n].append(with_launches(row, moe_ep[label]["launches"][n],
+                                         f"phase 20 {label}"))
+    return rows
+
+
+def phase_gangs(fa, wanted=(17, 18, 19, 20)) -> dict:
+    """Phases 17-20 (``wanted`` of them): each one's one-process runs
+    here, then one gang of GANG_RANKS on this card for all their 2-rank
+    layouts, then each phase's checks (phase 17's (c) in this process,
+    phase 18's gang of 4 and restore)."""
+    import shutil
+    import tempfile
+
+    t0 = time.perf_counter()
+    free_memory()
+    home = Path(tempfile.mkdtemp(prefix=".kf_gangs_"))
+    prepare = {17: gang_prepare, 18: mesh_prepare, 19: sp_prepare,
+               20: moe_ep_prepare}
+    preps, spec, out = {}, {}, {}
+    try:
+        for phase in wanted:
+            t1 = time.perf_counter()
+            preps[phase], spec[str(phase)] = prepare[phase](fa, home)
+            free_memory()
+            log(f"phase {phase}: one process {time.perf_counter() - t1:.1f}s")
+        t1 = time.perf_counter()
+        ranks = spawn_gang(spec, GANG_RANKS)
+        log(f"phases {', '.join(map(str, wanted))}: gang of {GANG_RANKS} "
+            f"{time.perf_counter() - t1:.1f}s; seconds after the spawn "
+            + "; ".join(f"rank {r} " + ", ".join(
+                f"{k} {v:.1f}" for k, v in o["times"].items())
+                for r, o in enumerate(ranks)))
+        for phase in wanted:
+            t1 = time.perf_counter()
+            got = [o[str(phase)] for o in ranks]
+            if phase == 17:
+                out[17] = gang_finish(fa, preps[17], got, home)
+            elif phase == 18:
+                out[18] = mesh_finish(preps[18], got, home)
+            elif phase == 19:
+                out[19] = sp_finish(preps[19], got)
+            else:
+                out[20] = moe_ep_finish(preps[20], ranks)
+            log(f"phase {phase}: checks and what follows the gang of "
+                f"{GANG_RANKS} {time.perf_counter() - t1:.1f}s")
+    finally:
+        shutil.rmtree(home, ignore_errors=True)
+    log(f"phases {', '.join(map(str, wanted))}: "
+        f"{time.perf_counter() - t0:.1f}s")
+    return out
 
 
 def int8_pages_equal(engine, prompt: list[int], usable: int) -> bool:
@@ -4290,43 +4469,6 @@ def fleet_residency(fa, ckpt: Path, bodies: list[dict], streams: list,
             f"rows stay {st['device_rows']}")
         check(reclaimed == min(DONATED_PAGES, headroom) and st["in_use"]
               == in_use and evicted == [], (reclaimed, headroom, st))
-        # a second cycle: a loads beside the pinned b, a fresh prompt finds
-        # a's pool dry, b's weights are donated again into the rows the
-        # reclaim left reserved (the tensors grow only by the slots still
-        # donated), and b's return reclaims again
-        rows1, donated1 = st["device_rows"], pool.stats()["donated_pages"]
-        pool.acquire("b")
-        pool.acquire("a")
-        pool.release("a")
-        pool.release("b")
-        held += pages.alloc(pages.free_count)
-        fresh = dict(bodies[2], ids=[np.random.default_rng(14).integers(
-            1, a.cfg.vocab_size, PROMPT_LENS[2]).tolist()])
-        status, out = post(port, "/v1/models/a:generate", fresh)
-        check(status == 200 and len(out["ids"][0]) > PROMPT_LENS[2]
-              and out["ids"][0][:PROMPT_LENS[2]] == fresh["ids"][0], status)
-        st2 = pages.stats()
-        donated2 = pool.stats()["donated_pages"]
-        relieved = b.parked
-        in_use = st2["in_use"]
-        headroom = pages.free_count
-        status, _ = post(port, "/v1/models/b:generate", one)
-        check(status == 200, status)
-        st3 = pages.stats()
-        reclaimed2 = donated2 - pool.stats()["donated_pages"]
-        log(f"phase 14(b): second cycle: {donated2 - donated1} pages "
-            f"donated (b parked {relieved}); pool {st2['pages']} pages over "
-            f"{st2['device_rows']} device rows (first cycle "
-            f"{rows1}; a growth by every donation would give "
-            f"{rows1 + DONATED_PAGES}); b warmed again: reclaimed "
-            f"{reclaimed2} (free headroom {headroom}); device rows stay "
-            f"{st3['device_rows']}; prefix evictions {len(evicted)}")
-        check(relieved and donated2 - donated1 == DONATED_PAGES
-              and st2["device_rows"] == max(rows1, st2["pages"] + 1)
-              and reclaimed2 == min(donated2, headroom)
-              and st3["device_rows"] == st2["device_rows"]
-              and st3["in_use"] == in_use and evicted == [],
-              (donated1, donated2, reclaimed2, headroom, st2, st3))
         # every park freed the weights: memory_allocated falls by
         # weight_bytes, each tensor's block rounded up to 512 bytes
         n_tensors = len(a._shapes)
@@ -4340,7 +4482,7 @@ def fleet_residency(fa, ckpt: Path, bodies: list[dict], streams: list,
                 "resident_ttft_s": resident_ttft,
                 "cold_ttft_s": max(w for _, w in walls),
                 "donated": donated, "reclaimed": reclaimed,
-                "device_rows": [rows1, st2["device_rows"]],
+                "device_rows": st["device_rows"],
                 "parks": parks}
     finally:
         if held:
@@ -4497,29 +4639,27 @@ def kernel_times_only(fa) -> int:
 
 def some_phases(fa, which: str) -> int:
     """``--phases 9,12,13``: build and check the kernels (phase 1), then
-    the named phases (9 to 19); prints no result line."""
+    the named phases (9 to 20); prints no result line."""
     wanted = {int(w) for w in which.split(",") if w}
-    if not wanted <= set(range(9, 20)):
-        print(f"chip_smoke: --phases takes 9 to 19, not {which}",
+    if not wanted <= set(range(9, 21)):
+        print(f"chip_smoke: --phases takes 9 to 20, not {which}",
               file=sys.stderr)
         return 2
     phase_kernels(fa)
-    if 19 in wanted:
-        sp = phase_sp(fa)
-        log(card_line())
-        sp_numbers(fa, sp)
+    gang_phases = tuple(p for p in (17, 18, 19, 20) if p in wanted)
+    if gang_phases:
+        gangs = phase_gangs(fa, gang_phases)
         free_memory()
-    if 18 in wanted:
-        mesh = phase_mesh(fa)
         log(card_line())
-        mesh_numbers(fa, mesh)
-        free_memory()
-    if 17 in wanted:
-        gang = phase_gang(fa)
-        log(card_line())
-        gang_numbers(fa, gang, training_numbers(
-            fa, TRAIN_SHAPE, dict.fromkeys(KERNEL_NAMES, 0), TRAIN_LAUNCHES))
-        free_memory()
+        if 17 in gangs:
+            gang_numbers(fa, gangs[17], training_numbers(
+                fa, TRAIN_SHAPE, dict.fromkeys(KERNEL_NAMES, 0),
+                TRAIN_LAUNCHES))
+        mesh_rows = mesh_numbers(fa, gangs[18]) if 18 in gangs else None
+        if 19 in gangs:
+            sp_numbers(fa, gangs[19])
+        if 20 in gangs:
+            moe_ep_numbers(fa, gangs[20], mesh_rows)
     gemma = {}
     if 15 in wanted:
         gemma["serving"] = phase_gemma_serving(fa)
@@ -4616,11 +4756,8 @@ def main(argv: list[str]) -> int:
     free_memory()
     gemma_train = phase_gemma_training(fa)
     vision = phase_vision(fa)
-    gang = phase_gang(fa)
-    free_memory()
-    mesh = phase_mesh(fa)
-    free_memory()
-    sp = phase_sp(fa)
+    gangs = phase_gangs(fa)
+    gang, mesh, sp, moe_ep = (gangs[p] for p in (17, 18, 19, 20))
     log(card_line())
     serving_rows = phase_numbers(fa, main_path_shapes(), num_layers=32)
     prefix_rows = phase_numbers(fa, prefix_path_shapes(), num_layers=32)
@@ -4634,6 +4771,7 @@ def main(argv: list[str]) -> int:
     gang_rows = gang_numbers(fa, gang, bert_rows)
     mesh_rows = mesh_numbers(fa, mesh)
     sp_rows = sp_numbers(fa, sp)
+    moe_ep_rows = moe_ep_numbers(fa, moe_ep, mesh_rows)
     causal_numbers(fa)
     log(f"phase 2: TTFT mean {serving['ttft_mean_s'] * 1e3:.1f} ms over the "
         f"4 concurrent requests; decode "
@@ -4690,7 +4828,7 @@ def main(argv: list[str]) -> int:
         f"{fleet['tracing']['tok_s_rate0']:.1f} tok/s untraced, "
         f"{fleet['tracing']['tok_s_rate1']:.1f} traced; BERT-large logits "
         f"kernel vs plain route {fleet['bert_rel']:.3e}")
-    log("phase 11 (tok/s, passes 1 and 2): " + "; ".join(
+    log("phase 11 (tok/s; off passes 1 and 2): " + "; ".join(
         f"{m} " + " and ".join(f"{x:.2f}" for x in spec[m]["tok_per_s"])
         + (f", accept rate {spec[m]['accept_rate']:.3f} ({spec[m]['accepted']}"
            f" of {spec[m]['proposed']} in {spec[m]['rounds']} rounds)"
@@ -4723,6 +4861,9 @@ def main(argv: list[str]) -> int:
         + f"; phase 19: one process {sp['one']['samples_per_s']:.3f}, "
         f"sp={SP_RANKS} {sp['sp_samples_per_s']:.3f} (rows of {SP_SEQ} "
         f"tokens)"
+        + "; phase 20 (MoE): " + ", ".join(
+            f"{label} {r['samples_per_s']:.3f}"
+            for label, r in moe_ep.items())
         + f"; total {time.perf_counter() - t_start:.1f}s")
     check(serving["launches"] == sum(r["launches"] for r in serving_rows),
           "serving launches")
@@ -4751,11 +4892,13 @@ def main(argv: list[str]) -> int:
                             + [bert_rows["flash_fwd"], llama_rows["flash_fwd"],
                                moe_train_rows["flash_fwd"]]
                             + gang_rows["flash_fwd"]
-                            + mesh_rows["flash_fwd"] + sp_rows["flash_fwd"],
+                            + mesh_rows["flash_fwd"] + sp_rows["flash_fwd"]
+                            + moe_ep_rows["flash_fwd"],
                             errs["flash_fwd"])]
     kernels += [kernel_entry(name, [bert_rows[name], llama_rows[name],
                                     moe_train_rows[name]] + gang_rows[name]
-                             + mesh_rows[name] + sp_rows[name], errs[name])
+                             + mesh_rows[name] + sp_rows[name]
+                             + moe_ep_rows[name], errs[name])
                 for name in ("flash_bwd_dq", "flash_bwd_dkv")]
     # the D = 256 instantiations: K1 on phases 15 and 16, K2 and K3 on 16
     train_256 = gemma_rows["training"]

@@ -23,6 +23,8 @@ import torch
 
 from kubeflow_tpu_torch.ops.flash_attention import HEAD_DIMS, flash_attention
 from kubeflow_tpu_torch.ops.matmul import matmul_f32
+from kubeflow_tpu_torch.parallel.distributed import (
+    data_parallel, data_parallel_state)
 
 
 _ring_state = threading.local()
@@ -69,12 +71,22 @@ def sequence_offset(s_local: int) -> int:
 
 def recompute_context():
     """``context_fn`` for ``torch.utils.checkpoint``: the first forward as
-    it is, the recomputed one under the ring (or none) that the first
-    forward ran under."""
+    it is, the recomputed one under the ring (or none) and the
+    data-parallel binding (``distributed.data_parallel``: the MoE
+    block's counts and aux reduce over it) that the first forward ran
+    under."""
     ring = getattr(_ring_state, "ring", None)
-    again = (contextlib.nullcontext() if ring is None
-             else ring_context(*ring))
-    return contextlib.nullcontext(), again
+    bound = data_parallel_state()
+
+    @contextlib.contextmanager
+    def again():
+        with contextlib.ExitStack() as stack:
+            if ring is not None:
+                stack.enter_context(ring_context(*ring))
+            stack.enter_context(data_parallel(*bound))
+            yield
+
+    return contextlib.nullcontext(), again()
 
 
 def plain_attention(q, k, v, *, causal: bool, mask=None) -> torch.Tensor:

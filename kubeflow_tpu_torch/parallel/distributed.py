@@ -27,8 +27,10 @@ global-batch statistics), ``data_parallel`` (binds the group that
 and the sharded layers' differentiable collectives
 (``parallel/sharding.py``): ``gather_cast`` (an fsdp block gathered
 whole, its gradient reduce-scattered), ``copy_to_group`` and
-``reduce_from_group`` (tensor parallelism's f and g) and
-``gather_from_group``; and the neighbour exchange of ring attention
+``reduce_from_group`` (tensor parallelism's f and g; ``copy_to_group``
+also sums the MoE experts' input gradient over ep) and
+``gather_from_group`` (a tp-split activation, and the ep ranks' expert
+outputs); and the neighbour exchange of ring attention
 and the pipeline, ``ppermute`` (``jax.lax.ppermute`` with a cyclic
 shift) and its differentiable form ``permute`` (``_Ppermute``).
 Gloo's point-to-point refuses a CUDA tensor (its TCP transport writes
@@ -312,20 +314,21 @@ class _ReduceFromGroup(torch.autograd.Function):
 
 
 class _GatherFromGroup(torch.autograd.Function):
-    """A last-dim-split activation made whole; the cotangent of this
+    """An activation split along ``dim`` made whole; the cotangent of this
     rank's block is its block of the (replicated) cotangent."""
 
     @staticmethod
-    def forward(ctx, x, group):
+    def forward(ctx, x, group, dim):
         import torch.distributed as dist
 
-        ctx.group, ctx.n = group, x.shape[-1]
+        dim %= x.dim()
+        ctx.dim, ctx.n = dim, x.shape[dim]
         ctx.index = dist.get_rank(group)
-        return all_gather_cat(x, x.dim() - 1, group)
+        return all_gather_cat(x, dim, group)
 
     @staticmethod
     def backward(ctx, grad):
-        return grad.narrow(-1, ctx.index * ctx.n, ctx.n), None
+        return grad.narrow(ctx.dim, ctx.index * ctx.n, ctx.n), None, None
 
 
 def copy_to_group(x: torch.Tensor, group) -> torch.Tensor:
@@ -336,8 +339,9 @@ def reduce_from_group(x: torch.Tensor, group) -> torch.Tensor:
     return _ReduceFromGroup.apply(x, group)
 
 
-def gather_from_group(x: torch.Tensor, group) -> torch.Tensor:
-    return _GatherFromGroup.apply(x, group)
+def gather_from_group(x: torch.Tensor, group, dim: int = -1
+                      ) -> torch.Tensor:
+    return _GatherFromGroup.apply(x, group, dim)
 
 
 def ppermute(tensors: list[torch.Tensor], group,
@@ -404,14 +408,17 @@ def permute(x: torch.Tensor, group, shift: int = 1) -> torch.Tensor:
 
 
 _DATA_PARALLEL = contextvars.ContextVar("kf_data_parallel_group",
-                                        default=None)
+                                        default=(None, True))
 
 
 @contextlib.contextmanager
-def data_parallel(group):
+def data_parallel(group, counted: bool = True):
     """Bind ``group`` as the data-parallel group for the enclosed forward
-    and backward (what a train step does under a gang)."""
-    token = _DATA_PARALLEL.set(group)
+    and backward (what a train step does under a gang).  ``counted``
+    False: the rows are a stand-in that a rank runs only to issue the
+    group's collectives (a micro-batch with no rows here), which a model
+    must count as no rows (the MoE block's expert counts)."""
+    token = _DATA_PARALLEL.set((group, counted))
     try:
         yield
     finally:
@@ -420,6 +427,17 @@ def data_parallel(group):
 
 def data_parallel_group():
     """The group bound by ``data_parallel``, or None."""
+    return _DATA_PARALLEL.get()[0]
+
+
+def rows_counted() -> bool:
+    """False while ``data_parallel`` binds a stand-in's rows."""
+    return _DATA_PARALLEL.get()[1]
+
+
+def data_parallel_state() -> tuple:
+    """``(group, counted)`` as bound now, for re-entering the binding on
+    another thread (``ops/attention.recompute_context``)."""
     return _DATA_PARALLEL.get()
 
 

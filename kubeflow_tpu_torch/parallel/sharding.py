@@ -23,8 +23,9 @@ mesh (``Shard(d)`` on the mesh dim a rule names, ``Replicate()``
 elsewhere): the part the reference's ``logical_to_sharding`` plays.
 ``shard_model`` then replaces every parameter with the block of it those
 placements give this rank, and records the split on it
-(``param.fsdp_split``, ``param.tp_split``).  Where the reference leaves
-the rest to GSPMD, the port's layers act on those records:
+(``param.fsdp_split``, ``param.tp_split``, ``param.ep_split``).  Where
+the reference leaves the rest to GSPMD, the port's layers act on those
+records:
 
 - **fsdp** (ZeRO-3, the "embed" dim): a layer reads a parameter through
   ``layers.weight``, which all-gathers the block over the fsdp group in
@@ -41,6 +42,12 @@ the rest to GSPMD, the port's layers act on those records:
   vocabulary-parallel cross entropy.  Attention runs K1/K2/K3 on plain
   tensors holding this rank's ``Hq / tp`` query and ``Hkv / tp`` KV
   heads.
+- **ep** (the stacked expert weights' leading "expert" dim): each ep
+  rank holds ``E / ep`` experts of ``w_in``/``w_out`` and runs only
+  those on the rows it shares with its ep group (``models/moe.py``);
+  with fsdp the "embed" dim is split too and gathered on read.  The
+  router's "expert" dim is its output (the logits every rank routes
+  its tokens by), so the router stays whole on every ep rank.
 
 Every activation is this rank's rows (under sp, of its sequence chunk,
 which ``parallel/train_step.py`` cuts and ring attention joins) with its
@@ -167,7 +174,14 @@ class Split:
     index: int
 
 
-_SHARDED_AXES = ("fsdp", "tp")
+_SHARDED_AXES = ("fsdp", "tp", "ep")
+
+
+def _replicated_over(axis: str, p: torch.Tensor, dim: int) -> bool:
+    """Whether ``axis`` leaves ``p`` whole although a rule names its dim
+    ``dim``: ep splits only a stacked expert weight's leading dim (the
+    router's "expert" dim is its logits; module docstring)."""
+    return axis == "ep" and (dim != 0 or p.dim() < 2)
 
 
 def _plan(model: nn.Module, mesh, rules: ShardingRules) -> list:
@@ -183,7 +197,8 @@ def _plan(model: nn.Module, mesh, rules: ShardingRules) -> list:
             cuts = {}
             for axis, place in zip(MeshAxes, placements(rules.spec(names))):
                 size = mesh.shape[axis]
-                if size == 1 or not place.is_shard():
+                if (size == 1 or not place.is_shard()
+                        or _replicated_over(axis, p, place.dim)):
                     continue
                 if axis not in _SHARDED_AXES:
                     raise NotImplementedError(
@@ -218,13 +233,14 @@ def shard_model(model: nn.Module, mesh,
         new.logical_axes = p.logical_axes
         new.fsdp_split = splits.get("fsdp")
         new.tp_split = splits.get("tp")
+        new.ep_split = splits.get("ep")
         module._parameters[p_name] = new
     return model
 
 
 def _splits(p: torch.Tensor) -> list[Split]:
-    return [s for s in (getattr(p, "fsdp_split", None),
-                        getattr(p, "tp_split", None)) if s is not None]
+    return [s for s in (getattr(p, f"{axis}_split", None)
+                        for axis in _SHARDED_AXES) if s is not None]
 
 
 def is_sharded(model: nn.Module) -> bool:
@@ -287,7 +303,9 @@ def grad_groups(params: list[torch.Tensor], mesh, *,
     after the backward: the data axes it is not fsdp-split over (the
     gather's reduce-scatter summed the fsdp axis), and sp when
     ``seq_split`` (each sp rank's gradient is its sequence chunk's
-    share), or None."""
+    share), or None.  Never ep: the ep ranks hold the same rows, so an
+    expert block's gradient is whole on the rank that holds it and every
+    other gradient is the same on every ep rank."""
     sp = ("sp",) if seq_split else ()
     over_dp = mesh.group("dp", *sp)
     over_data = mesh.group(*DATA_AXES, *sp)

@@ -34,10 +34,14 @@ rank 1's):
   the rank-major global batch of n rows, as the reference's reshape of
   the assembled array takes it; each rank runs its piece of it.  A rank
   whose piece is empty skips it, unless the model reduces over the group
-  in its forward (BatchNorm's global statistics): then it runs the empty
-  piece so that every rank issues the same collectives;
+  in its forward: then it runs the empty piece (BatchNorm's global
+  statistics, to which it adds nothing), or for a model whose
+  forward gathers over the group (the MoE block's expert counts) a
+  one-row stand-in bound as uncounted, with a zero cotangent, so that
+  every rank issues the same collectives;
 - the group is bound (``distributed.data_parallel``) while forward and
-  backward run, so BatchNorm takes global-batch statistics.
+  backward run, so BatchNorm takes global-batch statistics and the MoE
+  block routes with the global batch's capacity, positions and aux.
 
 **A mesh** (``parallel/mesh.make_mesh``) with fsdp or tp above 1 takes a
 model that ``parallel/sharding.shard_model`` has split over it (before
@@ -69,10 +73,19 @@ without ``sequence_keys`` (mlp, convnet, resnet) runs whole on every sp
 rank, as the reference's replicated layout does: nothing is cut, and
 nothing is summed over sp.
 
-pp and ep above 1 are refused by name: the reference's step has no path
-for either (``parallel/pipeline.py`` runs pp on its own).  MoE under a
-data group, tp or sp waits for expert parallelism and is refused by
-name.
+**Expert parallelism** (ep above 1) takes the mesh path too.  The rows
+are split over the data axes only, so the ranks of one ep group hold the
+same rows; a MoE model split by ``shard_model`` holds ``E / ep`` experts
+a rank (``models/moe.py`` gathers their outputs over ep).  An expert
+block's gradient is summed over the data axes only, never over ep, and
+every other gradient, identical on the ep ranks, likewise;
+``grad_norm`` counts each expert block once.
+
+pp above 1 is refused by name: the reference's step has no path for it
+(``parallel/pipeline.py`` runs pp on its own).  A MoE model trains on
+dp, fsdp and ep; under tp or sp above 1 it is refused by name (the
+global positions over a sequence split need per-(row, chunk) counts,
+and the router and experts have no tp layout yet).
 """
 
 from __future__ import annotations
@@ -101,16 +114,21 @@ class TrainState:
 # axes a train step refuses above 1, and why
 _REFUSED = {"pp": "pipeline parallelism has no train-step path in the "
                   "reference either; parallel/pipeline.pipeline_forward "
-                  "runs it",
-            "ep": "expert parallelism waits for a later slice of the port"}
+                  "runs it"}
+# axes a MoE model is refused on above 1, and why
+_MOE_REFUSED = {
+    "tp": "the router and the experts have no tensor-parallel layout in "
+          "the port yet (ROADMAP queue A item 6b)",
+    "sp": "the global capacity positions over a sequence split need "
+          "per-(row, chunk) expert counts (ROADMAP queue A item 6b)"}
 
 
 def check_mesh(mesh: Mesh | None = None, *, world: int = 1,
                **axes: int) -> tuple[int, ...]:
     """Check a mesh (or its axis sizes as keywords) against a gang of
-    ``world`` ranks; returns the six axis sizes.  pp and ep above 1 are
-    refused by name, and the axes must multiply to the gang
-    (``factor_axes``'s rule: one axis may be -1, inferred)."""
+    ``world`` ranks; returns the six axis sizes.  pp above 1 is refused
+    by name, and the axes must multiply to the gang (``factor_axes``'s
+    rule: one axis may be -1, inferred)."""
     if mesh is not None:
         if not isinstance(mesh, Mesh):
             raise TypeError(f"mesh {mesh!r} is not a parallel.mesh.Mesh")
@@ -191,7 +209,8 @@ def _gang_steps(forward, loss_weight, model, params, batch, grad_accum,
                 weight_group=None):
     """This rank's share of the global-batch loss and of its gradients,
     as rank ``rank`` of the ``world`` data ranks of ``group`` (not yet
-    summed over them).  ``run_all``: every piece runs, an empty one as a
+    summed over them).  ``run_all`` (or a model whose forward gathers
+    over the group): every piece runs, an empty one as an uncounted
     one-row stand-in with a zero cotangent (module docstring).  The loss
     weights are summed over ``weight_group`` (default ``group``; under
     sequence parallelism the data axes and sp)."""
@@ -207,28 +226,31 @@ def _gang_steps(forward, loss_weight, model, params, batch, grad_accum,
     scale = (local_w.clamp_min(1.0) / global_w.clamp_min(1.0)) / grad_accum
     reduces = any(getattr(m, "reduces_over_group", False)
                   for m in model.modules())
+    run_all = run_all or any(getattr(m, "forward_collectives", False)
+                             for m in model.modules())
     loss = torch.zeros((), device=params[0].device)
     grads = None
-    with pd.data_parallel(group):
-        for i, (lo, hi) in enumerate(pieces):
-            piece = micro[i]
-            if hi == lo and not reduces:
-                if not run_all:
-                    continue
-                piece = {k: v[:1] for k, v in batch.items()}
+    for i, (lo, hi) in enumerate(pieces):
+        piece, counted = micro[i], True
+        if hi == lo and not reduces:
+            if not run_all:
+                continue
+            piece, counted = {k: v[:1] for k, v in batch.items()}, False
+        with pd.data_parallel(group, counted):
             m_loss = forward(model, piece)
             if hi > lo:
                 m_loss = m_loss * scale[i]
                 out = torch.ones_like(m_loss)
                 loss = loss + m_loss.detach().float()
             else:
-                # the empty piece's loss is a mean over no rows (nan); a
-                # zero cotangent runs its backward's collectives only
+                # the empty piece's loss is a mean over no rows (nan), a
+                # stand-in's counts no row of this micro-batch: a zero
+                # cotangent runs their backward's collectives only
                 out = torch.zeros_like(m_loss)
             g = torch.autograd.grad(m_loss, params, grad_outputs=out,
                                     allow_unused=True)
-            grads = _accumulate(grads, [torch.zeros_like(p) if x is None
-                                        else x for x, p in zip(g, params)])
+        grads = _accumulate(grads, [torch.zeros_like(p) if x is None
+                                    else x for x, p in zip(g, params)])
     if grads is None:
         grads = [torch.zeros_like(p) for p in params]
     return loss, grads
@@ -294,7 +316,7 @@ def build_train_step(
     gradients, as the reference's scan.  ``grad_norm`` is the global norm
     of those gradients before any clipping.  A ``mesh`` over the joined
     gang decides the layout: one rank, data-parallel when only dp is
-    above 1, on the mesh path with fsdp, tp or sp above 1 (module
+    above 1, on the mesh path with fsdp, tp, sp or ep above 1 (module
     docstring; ``sequence_keys`` names the batch tensors whose axis 1 sp
     splits); more than one rank needs ``loss_weight``.  Both metrics are
     float32 device scalars: reading them syncs, so the caller chooses
@@ -304,7 +326,7 @@ def build_train_step(
     group = sharded = None
     if mesh is not None:
         check_mesh(mesh, world=pd.world_size(pd.default_group()))
-        if mesh.axis_size("fsdp", "tp", "sp") > 1:
+        if mesh.axis_size("fsdp", "tp", "sp", "ep") > 1:
             sharded = mesh
             if tx.name == "lamb" and mesh.axis_size("fsdp", "tp") > 1:
                 raise NotImplementedError(
@@ -319,14 +341,13 @@ def build_train_step(
     def step(state: TrainState, batch: dict) -> tuple[TrainState, dict]:
         model = state.model
         params = list(model.parameters())
-        if getattr(getattr(model, "config", None), "moe_experts", 0) and (
-                group is not None or sharded is not None):
-            # the Switch aux loss is a product of global means and the
-            # capacity positions run over the global token set
-            raise NotImplementedError(
-                "moe_experts under data, tensor or sequence parallelism "
-                "waits for expert parallelism (ep) in a later slice of "
-                "the port")
+        if (getattr(getattr(model, "config", None), "moe_experts", 0)
+                and sharded is not None):
+            for axis, why in _MOE_REFUSED.items():
+                if sharded.shape[axis] > 1:
+                    raise NotImplementedError(
+                        f"moe_experts under {axis}={sharded.shape[axis]}: "
+                        f"{why}")
         if sharded is not None:
             loss, grads = _mesh_steps(forward, loss_weight, model, params,
                                       batch, grad_accum, sharded,

@@ -18,7 +18,20 @@ long sequences ``supported()`` admits).
   chunk.
 
 Tolerances, float32 (summation order only): logits within 1e-5 of max
-|logit|; loss and grad_norm of every step within 1e-5 relative.
+|logit|; loss and grad_norm within 1e-5 relative at step 0 and within
+``step_tolerance(k)`` at step k.  Step 0's gradients agree to 2.9e-6 of
+each tensor's max |g| (both routes), and the port's adamw applied to the
+reference's step-0 gradients gives the reference's parameters within
+1.2e-7: the two compute the same thing.  But adam's first update is
+``lr * sign(g)`` wherever ``|g| >> eps``, so a gradient element whose
+rounding error exceeds its value (3 elements of ~1e-9, against a max |g|
+of ~3e-2) steps by ``2 lr`` the other way: the parameter gap
+``||p - p_ref|| / ||p_ref||`` is 3.0e-5 after step 0 (3x the step-0
+tolerance) and grows by 1.08-1.17x a step after it, and the metrics of
+step k move by ~0.3x the gap after step k - 1 (measured gaps: 1.3e-7,
+9.3e-6, 1.04e-5, 7.3e-6, 3.3e-6 for steps 0-4).  Which elements flip
+depends on the host's float32 sums, so the later steps are held to the
+step-0 tolerance times 3 (the first update's jump) times 1.2 a step.
 """
 
 import functools
@@ -137,6 +150,12 @@ def reference_run():
     return params0, tuple(trail)
 
 
+def step_tolerance(k: int) -> float:
+    """Relative tolerance of step ``k``'s loss and grad_norm: 1e-5 at step
+    0, then 1e-5 x 3 x 1.2 ** (k - 1) (module docstring)."""
+    return 1e-5 if k == 0 else 3e-5 * 1.2 ** (k - 1)
+
+
 @pytest.mark.parametrize("use_flash", [True, False])
 def test_five_steps_match_reference(use_flash):
     params0, want = reference_run()
@@ -147,9 +166,10 @@ def test_five_steps_match_reference(use_flash):
     for i in range(STEPS):
         state, m = step(state, torch_batch(numpy_batch(i)))
         got.append((m["loss"].item(), m["grad_norm"].item()))
-    for (gl, gn), (wl, wn) in zip(got, want):
-        assert abs(gl - wl) <= 1e-5 * abs(wl), (got, want)
-        assert abs(gn - wn) <= 1e-5 * abs(wn), (got, want)
+    for k, ((gl, gn), (wl, wn)) in enumerate(zip(got, want)):
+        tol = step_tolerance(k)
+        assert abs(gl - wl) <= tol * abs(wl), (k, got, want)
+        assert abs(gn - wn) <= tol * abs(wn), (k, got, want)
 
 
 def test_greedy_streams_identical_to_jax_engine(reference):

@@ -243,11 +243,36 @@ def test_kv_heads_that_do_not_divide_by_tp_are_refused_by_name():
 
 
 def test_pp_and_ep_shard_parameters_in_a_later_slice():
+    """ep shards parameters now: each rank holds its half of the stacked
+    experts, the router stays whole (its "expert" dim is the logits every
+    rank routes by).  pp still shards them only in a later slice (the
+    stacked "stage" layout is ``parallel/pipeline.py``'s)."""
+    import torch
+
+    from kubeflow_tpu_torch.models import layers as tl_layers
+
     model = treg.get("llama").make_model(device="cpu", size="tiny",
-                                         moe_experts=2)
-    layout = tmesh.Mesh(tmesh.make_mesh(2, dp=1, ep=2).ranks)
-    with pytest.raises(NotImplementedError, match="ep=2"):
-        tsh.shard_model(model, layout)
+                                         moe_experts=2).init_weights(0)
+    full = {k: v.clone() for k, v in model.state_dict().items()}
+    # rank 1 of a two-rank ep layout, its group a stand-in (no
+    # collective is reached)
+    layout = tmesh.Mesh(tmesh.make_mesh(2, dp=1, ep=2).ranks, rank=1,
+                        device_mesh=object(), _groups={("ep",): "ep"})
+    tsh.shard_model(model, layout)
+    for name, p in model.named_parameters():
+        if name.endswith(("moe.w_in", "moe.w_out")):
+            assert p.ep_split.index == 1 and p.shape[0] == 1
+            assert torch.equal(p, full[name][1:])
+            assert torch.equal(tsh.local_block(full[name], p), p)
+        else:
+            assert getattr(p, "ep_split", None) is None, name
+            assert torch.equal(p, full[name])
+    stacked = torch.nn.Module()
+    stacked.w = tl_layers.param((2, 4), torch.float32, "cpu",
+                                ("stage", "embed"))
+    with pytest.raises(NotImplementedError, match="pp=2"):
+        tsh.shard_model(stacked, tmesh.Mesh(
+            tmesh.make_mesh(2, dp=1, pp=2).ranks))
 
 
 def test_the_activation_pins_return_their_input():

@@ -278,7 +278,8 @@ def test_moe_under_sp_is_refused_by_name(monkeypatch):
                                 loss_weight=entry.loss_weight,
                                 sequence_keys=entry.sequence_keys)
     with pytest.raises(NotImplementedError,
-                       match="moe_experts under data, tensor or sequence"):
+                       match="moe_experts under sp=2: the global capacity "
+                       "positions over a sequence split"):
         step(state, {})
 
 
