@@ -4,13 +4,13 @@
     python3 chip_smoke.py                 # every phase below
     python3 chip_smoke.py --kernel-times  # build, then K1-K3 times only
     python3 chip_smoke.py --phases 12,13  # build, then those phases only
-                                          # (9 to 20; no result line)
+                                          # (9 to 21; no result line)
 
 Phases, numbered as PERF.md cites them, run in the order 1, 2, 3, 7, 11,
-9, 12, 13, 14, 15, 4, 5, 10, 16, 6, 17-20, 8 (each phase frees its
-models before the next; phases 17-20 run their one-process references
-here first, then every 2-rank layout of the four in one gang of 2, then
-their checks, phase 18's gang of 4 among them);
+9, 12, 13, 14, 15, 4, 5, 10, 16, 6, 17-21, 8 (each phase frees its
+models before the next; phases 17-21 run their one-process references
+here first, then every 2-rank layout of the five in one gang of 2, then
+their checks, with phase 18's and 21's 4-rank layouts in one gang of 4);
 any failure exits nonzero and prints no result:
 
 1. Build every CUDA kernel of the port from ``kubeflow_tpu_torch/ops/csrc``
@@ -23,8 +23,9 @@ any failure exits nonzero and prints no result:
    version), at every shape the serving run of phase 2 and the training
    runs of phases 4, 5, 17, 18, 19 and 20 give it (18: every layout's rank
    shape, which are 20's too; 19: the ring's diagonal and earlier blocks,
-   one process's whole sequence, the pipeline's microbatch) and at a GQA,
-   a strided and a
+   one process's whole sequence, the pipeline's microbatch), at phase
+   21's rank shapes (4 x 512 at 32 heads, 4 x 512 and 2 x 512 at 16) and
+   at a GQA, a strided and a
    non-causal D=64 case; hold the backward
    kernels (K2 dQ, K3 dK/dV) against theirs at those training shapes, a
    causal D=128, a ragged Sq = Sk = 200 and a GQA (32 over 8 heads)
@@ -68,9 +69,10 @@ any failure exits nonzero and prints no result:
    of 64, 200 and 700 tokens (a miss, two hits that seed 64 pages and
    prefill only the suffix through K1 at a causal offset of 1024), then
    the first turn again (a full-prefix hit: one prefill dispatch of one
-   token).  Before the counted run, as a warm-up at its shapes, the same
-   traffic on other system prompts runs through both engines, and on the
-   warm one every K1 call is held against the plain version.  In the
+   token).  Before the counted run, as a warm-up at its shapes, the
+   first turn on another system prompt runs through the cache-less engine
+   and the same traffic on another system prompt through the warm engine,
+   every K1 call held against the plain version.  In the
    counted run K1 must launch 32 x the prefill chunks; the seeded scratch
    must equal the cold run's rows and every committed page the scratch
    rows it was cut from, bitwise; the warm first-token logits must agree
@@ -130,7 +132,9 @@ any failure exits nonzero and prints no result:
    drafter proposes the stream without speculation (the oracle: the
    ceiling of speculation on this traffic).  Each serves phase 2's four
    prompts and a 512-token prompt of one 64-token block repeated 8 times,
-   one request at a time, ``SPEC_NEW`` greedy tokens each.  Every token a
+   one request at a time, ``SPEC_NEW`` greedy tokens each; then the
+   512-token prompt again without speculation, whose stream must repeat.
+   Every token a
    verify round keeps must be that round's own choice; one verify forward's
    logits must agree with sequential decode's within 1e-1 of max |logit|;
    each speculative stream must equal the stream without speculation up to
@@ -161,10 +165,13 @@ any failure exits nonzero and prints no result:
 13. Disaggregated prefill/decode at full width.  (a) A ``--role decode``
    predictor as a child process through the CLI (phase 2's model, seed and
    settings, this card) and an in-process ``--role prefill`` predictor
-   over HTTP take phase 2's four requests with ``X-KF-Decode-Peer`` naming
-   the child: every stream (the sampled one included) equals phase 2's
-   colocated stream, the child counts 4 resumed handoffs and the prefill
-   side none resumed locally, K1 launches here 32 x the chunks; per
+   over HTTP take phase 2's four requests, the 17-, 300- and 700-token
+   ones with ``X-KF-Decode-Peer`` naming the child and the 1500-token one
+   without (it resumes on the prefill side: its 1.05 GB JSON handoff is
+   cut): every stream (the sampled one included) equals phase 2's
+   colocated stream, the child counts 3 resumed handoffs and the prefill
+   side 1 resumed locally, K1 launches here 32 x the chunks;
+   per handed-off
    request the handoff's JSON bytes, serialize, POST and deserialize
    times and TTFT.  Then the child stops and one more request completes
    through the colocated fallback with the colocated stream.  (b) A
@@ -192,11 +199,14 @@ any failure exits nonzero and prints no result:
    requests at sample rates 0 and 1 give the same tokens, decode tokens/s
    of both.  (b) Two 7B models from the checkpoint behind one
    ``PredictorApp`` under a ``WEIGHT_BUDGET_MB`` budget (room for one):
-   "a" with a 2048 MB prefix cache, "b" started parked.  Requests a, b, a
-   over HTTP (each switch parks one, whose ``memory_allocated`` falls by
-   its ``weight_bytes``, and warms the other; every stream equals phase
-   2's; ``residency`` reads right without warming); 4 concurrent cold
-   requests to a parked model make one load and 3 coalesced; with b
+   "a" with a 2048 MB prefix cache, "b" started parked.  A request to a,
+   then 4 concurrent cold one-token requests to the parked b, which make
+   one load and 3 coalesced and park a, then b's whole stream over HTTP
+   (every switch parks one, whose ``memory_allocated`` falls by its
+   ``weight_bytes``, and warms the other; every stream equals phase 2's;
+   ``residency`` reads right without warming; the a, b, a round before
+   the cold requests was cut to keep the whole run under half its
+   limit); with b
    resident and idle and most of a's pages held, a request to a relieves
    b, whose bytes become ``DONATED_PAGES`` page slots, with no prefix
    eviction; b's next load reclaims only free donated slots.  The
@@ -301,6 +311,31 @@ any failure exits nonzero and prints no result:
    seconds, calls and bytes, peak memory; ep's expert blocks after the
    last step against one process's rows of the same experts
    (``MOE_EP_EXPERT_TOL`` on the norm of the difference).
+
+21. Multi-host serving: phase 2's Llama-2-7B (32 layers, bf16, seed 0),
+   ``max_seq`` 2048, through ``MultiHostPredictor`` as one process (this
+   one), tp = 2 in the gang of 2 and dp = 2 x tp = 2 in the gang of 4
+   (phase 18's), and at ``MH_SHALLOW_LAYERS`` layers in bf16 and with
+   int8 weights, each as one process and at tp = 2 in the gang of 2.  4
+   prompts of 17, 128, 300 and 500 tokens (one bucket of 512), ``MH_NEW``
+   greedy tokens each, held by rank 0 and broadcast
+   (``broadcast_prompts``).  Each layout's ranks return identical tokens;
+   each prefills through K1 once per layer at its rank shape ([4, 512] at
+   16 heads under tp = 2, [2, 512] under dp x tp); its first-token
+   logits, gathered over the vocabulary, are within 1e-1 of max |logit|
+   of one process's at 32 layers and within ``MH_SHALLOW_REL_TOL`` at
+   ``MH_SHALLOW_LAYERS`` (the int8 layout's every token one process's);
+   each row's first token is one process's wherever one process's top-2
+   margin exceeds twice the logit gap (printed, with each stream's
+   agreeing length).  One process also prefills once more in bf16 with
+   each row-parallel product cut as tp = 2 cuts it, two bf16 halves summed
+   in bf16 (``tp2_partial_sums``): every bf16 tp layout's logits must
+   equal that bitwise; each rank's memory
+   after loading is at most 0.55 of one process's weight bytes; the int8
+   ``q`` and ``scale`` blocks are bitwise the local blocks of one process's
+   whole-tensor quantization (SHA-256).  Per layout and rank: load and
+   prefill seconds, decode tokens/s, one decode step's all-reduce and
+   all-gather seconds, calls and bytes, peak memory.
 
 The line before the last is the ``kernels`` JSON object (``name<256>``:
 the D = 256 instantiations on phases 15 and 16); the last line is
@@ -430,8 +465,13 @@ INT8_CHECK_LAYERS = (0, 31)
 PPL_HEAD, PPL_TAIL = 1024, 64
 KV_QUANT_PPL_TOL = 0.02
 # phase 13: the decode child's start-up budget (a fresh interpreter,
-# CUDA, the 7B init) and its HTTP port's polling
+# CUDA, the 7B init) and its HTTP port's polling; the prompts whose
+# handoffs cross to the child in (a): the 17-, 300- and 700-token ones (the
+# 700-token handoff resumes a prompt of two prefill chunks); the
+# 1500-token one resumes locally (its handoff is 1.05 GB of JSON; cut to
+# keep the whole run under half its limit when phase 21 joined)
 CHILD_START_S = 240
+DISAGG_HANDED_OFF = PROMPT_LENS[:3]
 # phase 14: multi-model, multi-tenant serving at 7B.  Phase 2's model in
 # bf16 is 13,214,687,232 B of weights (6,744,121,344 B in int8): one model
 # fits WEIGHT_BUDGET_MB, two do not, and an eviction donates that many
@@ -765,7 +805,7 @@ def phase_kernels(fa) -> dict:
     cases = ([s[:8] for s in main_path_shapes() + prefix_path_shapes()
               + gemma_path_shapes()]
              + [TRAIN_SHAPE, GANG_SHAPE, LLAMA_SHAPE, GEMMA_SHAPE,
-                *MESH_SHAPES, *SP_SHAPES]
+                *MESH_SHAPES, *SP_SHAPES, *MH_SHAPES]
              + SPEC_SHAPES
              + EXTRA_SHAPES + D256_SHAPES)
     for i, (name, b, sq, sk, h, hkv, d, causal) in enumerate(cases):
@@ -787,7 +827,8 @@ def phase_kernels(fa) -> dict:
                 f"{e_l:.3e} (tol {tol['lse']:g}) {'ok' if ok else 'FAIL'}")
             check(ok, f"flash_fwd disagrees at {name} {dtype}")
             if dtype == torch.bfloat16 and name.startswith(
-                    ("7b_prefill", "7b_prefix", "7b_spec", TRAIN_SHAPE[0],
+                    ("7b_prefill", "7b_prefix", "7b_spec", "7b_multihost",
+                     TRAIN_SHAPE[0],
                      GANG_SHAPE[0], LLAMA_SHAPE[0], "llama7b_mesh",
                      "llama7b_sp", "llama7b_pp")):
                 main_err = max(main_err, e_o)
@@ -841,14 +882,15 @@ def serving_bodies(vocab: int, seed: int) -> list[dict]:
 
 
 def concurrent_round(port: int, bodies: list[dict],
-                     headers: dict | None = None) -> list:
-    """The bodies as concurrent ``:generate`` requests: (status, body)
-    each."""
+                     headers: dict | list | None = None) -> list:
+    """The bodies as concurrent ``:generate`` requests (``headers``: for
+    every request, or a list of each one's): (status, body) each."""
     results: list = [None] * len(bodies)
+    each = headers if isinstance(headers, list) else [headers] * len(bodies)
 
     def call(i):
         results[i] = post(port, "/v1/models/llama:generate", bodies[i],
-                          headers)
+                          each[i])
 
     threads = [threading.Thread(target=call, args=(i,))
                for i in range(len(bodies))]
@@ -1230,12 +1272,15 @@ def phase_prefix_cache(fa) -> dict:
     check([len(p) for p in prompts] == [n for n, _ in plan], "plan")
     store: list = []
     with torch.no_grad(), first_token_logits(store):
-        # warm-up at the counted run's shapes on both engines, off it: on
-        # the cache-less engine, the same traffic on another system
-        # prompt; on the warm engine, the same again with every K1 call
-        # held against the plain version on the same inputs
-        for prompt in turns(69):
-            serve_one(cold, prompt, store)
+        # warm-up at the counted run's shapes, off it: on the cache-less
+        # engine, the first turn on another system prompt (its own first
+        # use; the model's GEMM and kernel shapes are the warm engine's,
+        # whose warm-up warms them all; the rest of this engine's round was
+        # cut to keep the whole run under half its limit when phase 21
+        # joined); on the warm engine, the same traffic on another system
+        # prompt with every K1 call held against the plain version on the
+        # same inputs
+        serve_one(cold, turns(69)[0], store)
         worst, shapes = {"o": 0.0, "lse": 0.0}, set()
         saved = counters(fa)
         with flash_route(checked_flash(fa, worst, shapes)):
@@ -1442,8 +1487,9 @@ def profile_device(label: str, fn, top: int = 6) -> float:
 
     fn()                                  # warm
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    # the device's activity alone: every number here reads device kernels,
+    # and recording the host's operators too took seconds a profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     # device kernels only: operator rows repeat their kernels' time
@@ -2221,22 +2267,23 @@ def phase_speculation(fa) -> dict:
             forwards[0] = 0
             saved = counters(fa)
             set_counters(fa, dict.fromkeys(KERNEL_NAMES, 0))  # path starts
-            # one pass a mode, then off again (its streams must repeat;
-            # host-timed rates move between minutes of one call, so the
-            # two off passes bracket the others).  The second pass of
-            # ngram, draft and oracle was cut to keep the whole run under
-            # half its limit (PERF.md section 4)
+            # one pass a mode, then the last prompt off again (its stream
+            # must repeat).  The second pass of every mode (off's whole
+            # second pass too) was cut to keep the whole run under half its
+            # limit (PERF.md section 4)
             runs = {m: [] for m in SPEC_MODES}
             with flash_route(recording_flash(fa, shapes)):
-                for m in SPEC_MODES + SPEC_MODES[:1]:
+                for m in SPEC_MODES:
                     runs[m].append(serve_mode(
                         engines[m], prompts,
                         over_http if m == "draft" else None))
-                    if m == "off" and not off_streams:
+                    if m == "off":
                         off_streams.extend(runs[m][0]["streams"])
+                again = serve_mode(engines["off"], prompts[-1:])
             launches = counters(fa)                          # path ended
             set_counters(fa, {k: saved[k] + launches[k] for k in saved})
-        chunks = sum(r["prefill_chunks"] for rs in runs.values() for r in rs)
+        chunks = again["prefill_chunks"] + sum(
+            r["prefill_chunks"] for rs in runs.values() for r in rs)
         total = {m: {k: sum(r.get(k, 0) for r in rs)
                      for k in ("rounds", "proposed", "accepted")}
                  for m, rs in runs.items()}
@@ -2261,7 +2308,7 @@ def phase_speculation(fa) -> dict:
         for i, (p, stream) in enumerate(zip(prompts, off)):
             check(len(stream) == len(p) + SPEC_NEW and stream[:len(p)] == p,
                   ("off stream", i))
-        check(runs["off"][1]["streams"] == off, "off streams repeat")
+        check(again["streams"] == off[-1:], "the off stream repeats")
         # verify logits against sequential decode, on the repeated prompt
         with torch.no_grad():
             diff, scale = verify_vs_sequential(model, prompts[-1], off[-1])
@@ -2537,6 +2584,49 @@ MOE_EP_SHAPES = {label: mesh_shape(dp, 1) for label, dp in MOE_EP_LAYOUTS}
 # a missing update is that far off, while adam's lr-sized steps on gradient
 # elements that round to the other sign stay far below it)
 MOE_EP_EXPERT_TOL = GANG_TOL["loss"]
+
+# -- phase 21: multi-host serving --------------------------------------------
+
+# phase 2's Llama-2-7B (32 layers, bf16, random weights from seed 0),
+# max_seq MAX_SEQ, through MultiHostPredictor: one process (here), tp = 2 in
+# the gang of 2 and dp = 2 x tp = 2 in phase 18's gang of 4.  Traffic: 4
+# prompts that pad to one bucket of MH_PAD positions, MH_NEW greedy tokens
+# each, held by rank 0 alone and broadcast (a chat service whose model is
+# sharded over cards).  (d): bf16 and int8 weights at tp = 2, at
+# MESH_LAYERS layers
+MH_PROMPT_LENS, MH_NEW, MH_PAD = (17, 128, 300, 500), 16, 512
+MH_LAYOUTS = (("one process", 1, 1), ("tp=2", 1, 2), ("dp=2 x tp=2", 2, 2))
+MH_SHALLOW_LAYERS = MESH_LAYERS
+# (label, its one-process reference, int8 weights) of the layouts at
+# MH_SHALLOW_LAYERS: one process here, tp = 2 in the gang of 2
+MH_SHALLOW = (("2-layer tp=2", "2-layer one process", False),
+              ("int8 tp=2", "int8 one process", True))
+# each rank's memory after loading over one process's weight bytes: a tp=2
+# rank holds half of every matmul weight and of the embedding, the norms
+# whole (0.5000 of the bytes and a little)
+MH_WEIGHT_SHARE = 0.55
+# prefill logits against one process's, relative to max |logit|: the rank's
+# GEMMs run at other shapes and the row-parallel products are summed over
+# tp in bf16; 32 random-weight bf16 layers amplify such rounding
+# (LOGITS_REL_TOL's reasoning)
+MH_LOGITS_REL_TOL = 1e-1
+# the same at MH_SHALLOW_LAYERS layers, where little amplifies the rounding:
+# about 3x the gaps an H100 showed there (tp = 2 9.432e-03 of max |logit|
+# in bf16, 9.491e-03 in int8); the int8 layout's every token is held to one
+# process's (the bf16 one's 300-token row is a near-tie there: a top-2
+# margin of 5.1e-03).  The bf16 tp layouts are held bitwise to one process
+# under tp2_partial_sums (what an H100 showed for tp = 2 at 2 and 32 layers
+# and dp = 2 x tp = 2: the tp split changes the logits only by those sums)
+MH_SHALLOW_REL_TOL = 3e-2
+
+
+def mh_shape(dp: int, tp: int) -> tuple:
+    """K1's shape on a rank of the (dp, tp) layout: its rows and heads."""
+    return (f"7b_multihost_rank_dp{dp}_tp{tp}", len(MH_PROMPT_LENS) // dp,
+            MH_PAD, MH_PAD, 32 // tp, 32 // tp, 128, True)
+
+
+MH_SHAPES = [mh_shape(dp, tp) for _, dp, tp in MH_LAYOUTS]
 
 GANG_WORKER = r"""
 import os, time
@@ -2815,6 +2905,12 @@ if "20" in spec:
     out["20"] = {"dp=2": job(trainer({**moe["config"], "dp": 2})),
                  "ep=2": job(lambda: expert_parallel(moe))}
     times["20"] = time.time() - T0
+if "21" in spec:
+    # phase 21's runs, shared with the one-process runs of chip_smoke.py
+    import chip_smoke as smoke
+    out["21"] = [job(lambda run=run: (0, smoke.multihost_run(fa, run, comm)))
+                 for run in spec["21"]]
+    times["21"] = time.time() - T0
 print(json.dumps({
     "device": torch.cuda.current_device(), "backend": dist.get_backend(),
     "world": dist.get_world_size(), "times": times, **out}))
@@ -3162,16 +3258,15 @@ def mesh_jobs(labels: list[str], ranks: list[list], gang: int) -> dict:
     return results
 
 
-def mesh_finish(prep: dict, ranks: list[list], home: Path) -> dict:
-    """Phase 18: the 2-rank layouts' results, the gang of 4 for the last
-    layout, every layout against one process, the checkpoint's restore."""
+def mesh_finish(prep: dict, ranks: list[list], fours: list[list],
+                home: Path) -> dict:
+    """Phase 18: the 2-rank layouts' results, the last layout's from the
+    gang of 4, every layout against one process, the last layout's
+    checkpoint restored by one process."""
     results = dict(prep["results"])
     results.update(mesh_jobs(prep["twos"], ranks, GANG_RANKS))
     last = MESH_LAYOUTS[-1][0]
-    t0 = time.perf_counter()
-    fours = spawn_gang({"18": [prep["configs"][last]]}, 4)
-    log(f"phase 18: gang of 4 for {last}: {time.perf_counter() - t0:.1f}s")
-    results.update(mesh_jobs([last], [out["18"] for out in fours], 4))
+    results.update(mesh_jobs([last], fours, 4))
     one = MESH_LAYOUTS[0][0]
     for label, *_ in MESH_LAYOUTS[1:]:
         gang_compare(label, results[one],
@@ -3463,11 +3558,348 @@ def moe_ep_numbers(fa, moe_ep: dict,
     return rows
 
 
-def phase_gangs(fa, wanted=(17, 18, 19, 20)) -> dict:
-    """Phases 17-20 (``wanted`` of them): each one's one-process runs
+def sha256_of(t: torch.Tensor) -> str:
+    import hashlib
+
+    return hashlib.sha256(t.detach().cpu().contiguous().view(torch.uint8)
+                          .numpy()).hexdigest()
+
+
+def tp_block_digests(module, tp: int) -> dict[str, list[list[str]]]:
+    """Per int8 ``QTensor`` of a whole (one-process) model, the SHA-256 of
+    the ``q`` and ``scale`` blocks tp rank r must hold: ``q`` cut where
+    its kernel's serving spec says tp, ``scale`` where ``_scale_spec``
+    of it does."""
+    from kubeflow_tpu_torch.serving import sharded
+    from kubeflow_tpu_torch.serving.quant import QTensor
+
+    out = {}
+    for name, qt in module.named_modules():
+        if not isinstance(qt, QTensor):
+            continue
+        spec = sharded.SERVING_RULES.spec(qt.logical_axes)
+        blocks = []
+        for r in range(tp):
+            parts = []
+            for t, t_spec in ((qt.q, spec),
+                              (qt.scale, sharded._scale_spec(
+                                  spec, tuple(qt.scale.shape)))):
+                for d, axis in enumerate(t_spec):
+                    if axis == "tp":
+                        n = t.shape[d] // tp
+                        t = t.narrow(d, r * n, n)
+                parts.append(sha256_of(t))
+            blocks.append(parts)
+        out[name] = blocks
+    return out
+
+
+@contextlib.contextmanager
+def tp2_partial_sums(model):
+    """Every row-parallel product of a whole (one-process) bf16 ``model``
+    computed as tp = 2 computes it: the two halves of the contraction each
+    a bf16 product, summed in bf16 (gloo's sum of two bf16 tensors rounds
+    their float sum once), as long as the block lasts."""
+    from kubeflow_tpu_torch.models.layers import DenseGeneral, weight
+    from kubeflow_tpu_torch.serving import sharded
+
+    specs = sharded.param_specs(model)
+    patched = [m for name, m in model.named_modules()
+               if isinstance(m, DenseGeneral)
+               and specs.get(f"{name}.kernel", ())[:1] == ("tp",)]
+
+    def halves(m):
+        def forward(x):
+            w = weight(m.kernel, m.dtype)
+            w2, xs = w.reshape(w.shape[0], -1), x.to(m.dtype)
+            k = w2.shape[0] // 2
+            y = xs[..., :k] @ w2[:k] + xs[..., k:] @ w2[k:]
+            return y.reshape(x.shape[:-1] + w.shape[1:])
+        return forward
+
+    for m in patched:
+        m.forward = halves(m)
+    try:
+        yield patched
+    finally:
+        for m in patched:
+            del m.forward
+
+
+def multihost_run(fa, run: dict, comm: dict | None = None) -> dict:
+    """One run of phase 21 in this process (one process, or a rank of a
+    gang whose collectives ``comm`` records): ``MultiHostPredictor`` of
+    ``run``'s layout, rank 0's prompts through ``broadcast_prompts``, and
+    one ``generate`` with the kernels' counts set to 0 just before it and
+    read just after, each forward entered after a ``synchronize``.
+    Writes the rank's first-token logits to ``run["out"]`` (and, where
+    ``run`` names ``emulated_out``, those of one more prefill under
+    ``tp2_partial_sums`` there); returns the tokens, launches, K1 calls,
+    times, memory and, with int8 weights, each ``QTensor`` block's
+    SHA-256."""
+    from kubeflow_tpu_torch.parallel import distributed as pd
+    from kubeflow_tpu_torch.serving.multihost import (MultiHostPredictor,
+                                                      broadcast_prompts)
+    from kubeflow_tpu_torch.serving.quant import QTensor, quantized_bytes
+
+    rank = pd.rank_of(pd.default_group())
+    free_memory()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    config = {} if run["layers"] is None else {"num_layers": run["layers"]}
+    t0 = time.perf_counter()
+    mh = MultiHostPredictor("llama", size="7b", tp=run["tp"], dp=run["dp"],
+                            max_seq=MAX_SEQ, seed=0,
+                            quantize=run["quantize"], model_config=config)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    loaded = torch.cuda.memory_allocated() - base
+    prompts = broadcast_prompts(run["prompts"] if rank == 0 else None,
+                                max_items=len(MH_PROMPT_LENS),
+                                max_len=MH_PAD)
+    stamps, calls = [], []
+    forward = mh.module.forward
+
+    def entered(*args, **kwargs):
+        torch.cuda.synchronize()
+        stamps.append((time.perf_counter(), json.loads(json.dumps(
+            comm or {}))))
+        return forward(*args, **kwargs)
+
+    mh.module.forward = entered
+    with flash_route(recording_flash(fa, calls)):
+        set_counters(fa, dict.fromkeys(KERNEL_NAMES, 0))  # the path starts
+        t1 = time.perf_counter()
+        ids = mh.generate(prompts, max_new_tokens=MH_NEW)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        launches = counters(fa)                           # it ended
+    mh.module.forward = forward
+    torch.save(mh.prefill_logits.float().cpu(),
+               run["out"].format(rank=rank))
+    if run.get("emulated_out"):
+        saved = counters(fa)
+        with tp2_partial_sums(mh.module):
+            mh.generate(prompts, max_new_tokens=1)
+        set_counters(fa, saved)                  # a diagnosis, not the path
+        torch.save(mh.prefill_logits.float().cpu(), run["emulated_out"])
+    (s1, c1), (_, c2) = stamps[1], stamps[2]
+    out = {"rank": rank, "prompts": prompts, "ids": ids,
+           "launches": launches, "calls": sorted(set(map(tuple, calls))),
+           "n_calls": len(calls), "load_s": load_s, "loaded": loaded,
+           "weight_bytes": quantized_bytes(mh.module),
+           "prefill_s": s1 - t1, "decode_s": t2 - s1,
+           "decode_tokens": len(prompts) * (MH_NEW - 1),
+           "step_comm": {kind: {k: v - c1.get(kind, {}).get(k, 0)
+                                for k, v in rec.items()}
+                         for kind, rec in c2.items()},
+           "peak_gb": (torch.cuda.max_memory_allocated() - base) / 1e9,
+           "rows": [mh.rows.start, mh.rows.stop],
+           "digests": {n: [sha256_of(m.q), sha256_of(m.scale)]
+                       for n, m in mh.module.named_modules()
+                       if isinstance(m, QTensor)}}
+    if run["quantize"] and run["tp"] == 1:
+        out["tp2_digests"] = tp_block_digests(mh.module, 2)
+    del mh
+    free_memory()
+    return out
+
+
+def mh_prepare(fa, home: Path) -> tuple[dict, list]:
+    """Phase 21's runs and prompts, one process's three (7B, and bf16 and
+    int8 at MH_SHALLOW_LAYERS layers) here, the bf16 ones with their
+    ``tp2_partial_sums`` prefill; the gang of 2's section (tp = 2, then
+    the MH_SHALLOW layouts) and the gang of 4's (dp = 2 x tp = 2)."""
+    rng = np.random.default_rng(21)
+    prompts = [rng.integers(1, 32000, n).tolist() for n in MH_PROMPT_LENS]
+
+    def run(label, dp, tp, layers=None, quantize=False):
+        slug = re.sub(r"\W+", "_", label)
+        return {"label": label, "dp": dp, "tp": tp, "quantize": quantize,
+                "layers": layers, "prompts": prompts,
+                "out": str(home / f"mh_{slug}_rank{{rank}}.pt")}
+
+    runs = {label: run(label, dp, tp) for label, dp, tp in MH_LAYOUTS}
+    for label, ref, int8 in MH_SHALLOW:
+        runs[label] = run(label, 1, 2, MH_SHALLOW_LAYERS, int8)
+        runs[ref] = run(ref, 1, 1, MH_SHALLOW_LAYERS, int8)
+    one = {}
+    for label in ("one process", *(ref for _, ref, _ in MH_SHALLOW)):
+        if not runs[label]["quantize"]:
+            runs[label]["emulated_out"] = runs[label]["out"].format(
+                rank="_tp2_partial_sums")
+        one[label] = r = multihost_run(fa, runs[label])
+        mh_log(label, [r])
+        layers = runs[label]["layers"] or 32
+        check(r["launches"]["flash_fwd"] == r["n_calls"] == layers
+              and r["calls"] == [mh_shape(1, 1)[1:]], (label, r["calls"]))
+    return ({"runs": runs, "one": one, "fours": [runs["dp=2 x tp=2"]]},
+            [runs["tp=2"], *(runs[label] for label, _, _ in MH_SHALLOW)])
+
+
+def mh_log(label: str, ranks: list[dict]) -> None:
+    for r in ranks:
+        comm = r["step_comm"]
+        log(f"phase 21 {label} rank {r['rank']}: load {r['load_s']:.2f} s "
+            f"({r['loaded']} B allocated, weight_bytes {r['weight_bytes']}),"
+            f" prefill {r['prefill_s']:.3f} s, decode "
+            f"{r['decode_tokens'] / r['decode_s']:.1f} tok/s "
+            f"({r['decode_tokens']} tokens in {r['decode_s']:.3f} s), peak "
+            f"{r['peak_gb']:.2f} GB over the run; one decode step's "
+            f"collectives: {comm_line(comm) if comm else 'none'}; K1 "
+            f"{r['launches']['flash_fwd']} launches at {r['calls']}")
+
+
+def mh_check(label: str, run: dict, ranks: list[dict], one: dict,
+             emulated: str | None = None) -> dict:
+    """One layout of phase 21 against one process (``one``, at the same
+    depth and weights): identical tokens on every rank, K1 once per layer
+    at the rank's shape, logits within MH_LOGITS_REL_TOL at 32 layers and
+    MH_SHALLOW_REL_TOL at fewer, first tokens equal where one process's
+    top-2 margin exceeds twice the logit gap (int8: every token), weight
+    memory within MH_WEIGHT_SHARE, int8 blocks bitwise.  ``emulated``: one
+    process's logits under ``tp2_partial_sums``, whose gap to the
+    layout's is printed beside one process's and must be 0."""
+    mh_log(label, ranks)
+    layers = run["layers"] or 32
+    shallow = run["layers"] is not None
+    tol = MH_SHALLOW_REL_TOL if shallow else MH_LOGITS_REL_TOL
+    dp, tp = run["dp"], run["tp"]
+    rows = len(MH_PROMPT_LENS) // dp
+    ids = ranks[0]["ids"]
+    check(all(r["ids"] == ids for r in ranks), f"phase 21 {label}: ranks' "
+          "tokens differ")
+    want_call = (rows, MH_PAD, MH_PAD, 32 // tp, 32 // tp, 128, True)
+    for r in ranks:
+        check(r["launches"] == {"flash_fwd": layers, "flash_bwd_dq": 0,
+                                "flash_bwd_dkv": 0}
+              and [tuple(c) for c in r["calls"]] == [want_call]
+              and r["n_calls"] == layers,
+              (label, r["rank"], r["launches"], r["calls"]))
+        share = r["loaded"] / one["weight_bytes"]
+        log(f"phase 21 {label} rank {r['rank']}: memory after loading "
+            f"{share:.4f} of one process's weight bytes (at most "
+            f"{MH_WEIGHT_SHARE})")
+        check(share <= MH_WEIGHT_SHARE, (label, r["rank"], share))
+    whole = torch.load(one["out"], weights_only=True)
+    emu = (torch.load(emulated, weights_only=True) if emulated is not None
+           else None)
+    worst = worst_emu = 0.0
+    for r in ranks:
+        start, stop = r["rows"]
+        got = torch.load(run["out"].format(rank=r["rank"]), weights_only=True)
+        want = whole[start:stop]
+        gap = (got - want).abs().amax(dim=-1)
+        rel = (gap.max() / want.abs().max()).item()
+        worst = max(worst, rel)
+        if emu is not None:
+            worst_emu = max(worst_emu, ((got - emu[start:stop]).abs().max()
+                                        / want.abs().max()).item())
+        top2 = want.topk(2, dim=-1).values
+        margin = top2[:, 0] - top2[:, 1]
+        for i in range(stop - start):
+            row = start + i
+            n = MH_PROMPT_LENS[row]
+            agree = next((j for j, (a, b) in enumerate(zip(
+                ids[row][n:], one["ids"][row][n:])) if a != b), MH_NEW)
+            held = margin[i].item() > 2 * gap[i].item()
+            log(f"  {label} rank {r['rank']} row {row} ({n} tokens): max "
+                f"|d logit| {gap[i].item():.4e}, one process's top-2 "
+                f"margin {margin[i].item():.4e}; first token "
+                f"{ids[row][n]} against {one['ids'][row][n]} "
+                f"({'held' if held else 'not held: margin under 2 gaps'});"
+                f" stream agrees with one process for {agree} of {MH_NEW}")
+            check(not held or ids[row][n] == one["ids"][row][n],
+                  (label, row, ids[row][n], one["ids"][row][n]))
+    log(f"phase 21 {label}: {len(ranks)} ranks' tokens identical; prefill "
+        f"logits max rel err {worst:.3e} against one process (tol "
+        f"{tol:g})" + ("" if emu is None else
+                       f", {worst_emu:.3e} against one process with tp = "
+                       "2's bf16 partial sums (tp2_partial_sums)"))
+    check(math.isfinite(worst) and worst <= tol, (label, worst))
+    if emu is not None:
+        check(worst_emu == 0.0, (label, "against tp2_partial_sums", worst_emu))
+    if shallow and run["quantize"]:
+        same = sum(ids[row] == one["ids"][row]
+                   for row in range(len(MH_PROMPT_LENS)))
+        log(f"phase 21 {label}: {same} of {len(MH_PROMPT_LENS)} streams "
+            f"equal one process's at {layers} layers (held: all, int8)")
+        check(same == len(MH_PROMPT_LENS), (label, "streams", same))
+    if run["quantize"]:
+        want = one["tp2_digests"]
+        same = all(r["digests"][n] == blocks[r["rank"]]
+                   for r in ranks for n, blocks in want.items())
+        log(f"phase 21 {label}: the int8 q and scale blocks of "
+            f"{len(want)} kernels on {len(ranks)} ranks "
+            f"{'bitwise equal' if same else 'DIFFER from'} the local blocks "
+            "of one process's whole-tensor quantization (SHA-256)")
+        check(same and all(set(r["digests"]) == set(want) for r in ranks),
+              f"phase 21 {label}: int8 blocks")
+    return {"ranks": ranks, "launches": sum(r["launches"]["flash_fwd"]
+                                            for r in ranks),
+            "decode_tok_s": min(r["decode_tokens"] / r["decode_s"]
+                                for r in ranks),
+            "load_s": max(r["load_s"] for r in ranks),
+            "prefill_s": max(r["prefill_s"] for r in ranks)}
+
+
+def mh_finish(prep: dict, twos: list[list], fours: list[list]) -> dict:
+    """Phase 21's checks: tp = 2 and the MH_SHALLOW layouts from the gang
+    of 2, dp = 2 x tp = 2 from the gang of 4, each against one process at
+    its depth and weights."""
+    runs, one = prep["runs"], prep["one"]
+    jobs = {"tp=2": ([r[0] for r in twos], "one process"),
+            **{label: ([r[i] for r in twos], ref)
+               for i, (label, ref, _) in enumerate(MH_SHALLOW, 1)},
+            "dp=2 x tp=2": ([r[0] for r in fours], "one process")}
+    out = {"one process": {"launches": one["one process"]["launches"][
+                               "flash_fwd"],
+                           "load_s": one["one process"]["load_s"],
+                           "prefill_s": one["one process"]["prefill_s"],
+                           "decode_tok_s": one["one process"]["decode_tokens"]
+                           / one["one process"]["decode_s"]},
+           **{ref: {"launches": one[ref]["launches"]["flash_fwd"]}
+              for _, ref, _ in MH_SHALLOW}}
+    for label, (ranks, ref) in jobs.items():
+        for j in ranks:
+            check(j["rc"] == 0, (label, j["rc"]))
+        out[label] = mh_check(label, runs[label], [j["extra"] for j in ranks],
+                              {**one[ref],
+                               "out": runs[ref]["out"].format(rank=0)},
+                              runs[ref].get("emulated_out"))
+    return out
+
+
+def mh_numbers(fa, mh: dict) -> list[dict]:
+    """K1 rows of phase 21: each layout's rank shape with its launches
+    (the MH_SHALLOW layouts' at the same shapes, MH_SHALLOW_LAYERS
+    layers)."""
+    rows = []
+    for (label, dp, tp), shape in zip(MH_LAYOUTS, MH_SHAPES):
+        name, *dims = shape
+        ms, plain_ms, library_ms = k1_times(fa, *dims)
+        row = {"shape": name, "launches": mh[label]["launches"], "ms": ms,
+               "plain_ms": plain_ms, "library_ms": library_ms,
+               **bound_fields("flash_fwd", tuple(dims), torch.bfloat16)}
+        log(f"flash_fwd {name} bf16 (x{row['launches']} in phase 21 "
+            f"{label}): kernel {ms:.4f} ms, bound {row['bound_ms']:.4f} ms "
+            f"({row['bound_by']}), plain {plain_ms:.4f} ms, sdpa "
+            f"{library_ms:.4f} ms")
+        rows.append(row)
+        if dp == 1:
+            for label, ref, _ in MH_SHALLOW:
+                shallow = label if tp == 2 else ref
+                rows.append(with_launches(row, mh[shallow]["launches"],
+                                          f"phase 21 {shallow}"))
+    return rows
+
+
+def phase_gangs(fa, wanted=(17, 18, 19, 20, 21)) -> dict:
+    """Phases 17-21 (``wanted`` of them): each one's one-process runs
     here, then one gang of GANG_RANKS on this card for all their 2-rank
-    layouts, then each phase's checks (phase 17's (c) in this process,
-    phase 18's gang of 4 and restore)."""
+    layouts, then each phase's checks (phase 17's (c) in this process);
+    phase 18's and 21's 4-rank layouts run in one gang of 4, spawned
+    when the first of them is checked, and phase 18's restore follows."""
     import shutil
     import tempfile
 
@@ -3475,8 +3907,8 @@ def phase_gangs(fa, wanted=(17, 18, 19, 20)) -> dict:
     free_memory()
     home = Path(tempfile.mkdtemp(prefix=".kf_gangs_"))
     prepare = {17: gang_prepare, 18: mesh_prepare, 19: sp_prepare,
-               20: moe_ep_prepare}
-    preps, spec, out = {}, {}, {}
+               20: moe_ep_prepare, 21: mh_prepare}
+    preps, spec, out, four = {}, {}, {}, []
     try:
         for phase in wanted:
             t1 = time.perf_counter()
@@ -3490,17 +3922,37 @@ def phase_gangs(fa, wanted=(17, 18, 19, 20)) -> dict:
             + "; ".join(f"rank {r} " + ", ".join(
                 f"{k} {v:.1f}" for k, v in o["times"].items())
                 for r, o in enumerate(ranks)))
+
+        def fours(phase: str) -> list[list]:
+            # phase 18's fsdp=2 x tp=2 and phase 21's dp=2 x tp=2
+            if not four:
+                spec4 = {}
+                if 18 in wanted:
+                    spec4["18"] = [preps[18]["configs"][MESH_LAYOUTS[-1][0]]]
+                if 21 in wanted:
+                    spec4["21"] = preps[21]["fours"]
+                t2 = time.perf_counter()
+                four.extend(spawn_gang(spec4, 4))
+                log(f"phases {', '.join(spec4)}: gang of 4 "
+                    f"{time.perf_counter() - t2:.1f}s; seconds after the "
+                    "spawn " + "; ".join(f"rank {r} " + ", ".join(
+                        f"{k} {v:.1f}" for k, v in o["times"].items())
+                        for r, o in enumerate(four)))
+            return [o[phase] for o in four]
+
         for phase in wanted:
             t1 = time.perf_counter()
             got = [o[str(phase)] for o in ranks]
             if phase == 17:
                 out[17] = gang_finish(fa, preps[17], got, home)
             elif phase == 18:
-                out[18] = mesh_finish(preps[18], got, home)
+                out[18] = mesh_finish(preps[18], got, fours("18"), home)
             elif phase == 19:
                 out[19] = sp_finish(preps[19], got)
-            else:
+            elif phase == 20:
                 out[20] = moe_ep_finish(preps[20], ranks)
+            else:
+                out[21] = mh_finish(preps[21], got, fours("21"))
             log(f"phase {phase}: checks and what follows the gang of "
                 f"{GANG_RANKS} {time.perf_counter() - t1:.1f}s")
     finally:
@@ -3894,10 +4346,14 @@ def phase_disagg(fa, colocated: list | None = None,
         httpd, thread = serve(PredictorApp({"llama": pred}), 0)
         peer = {"X-KF-Decode-Peer": f"127.0.0.1:{child_port}"}
         chunks = len(prefill_shapes())
+        # the longest prompt goes without a peer and resumes here: its
+        # 1 GB JSON handoff is off the run (DISAGG_HANDED_OFF)
+        headers = [peer if n in DISAGG_HANDED_OFF else None
+                   for n in PROMPT_LENS]
         with wire.timed_serialize():
             set_counters(fa, dict.fromkeys(KERNEL_NAMES, 0))  # path starts
             t0 = time.perf_counter()
-            results = concurrent_round(httpd.server_port, bodies, peer)
+            results = concurrent_round(httpd.server_port, bodies, headers)
             wall = time.perf_counter() - t0
             launches = counters(fa)                           # path ended
         if child.poll() is not None:
@@ -3924,12 +4380,14 @@ def phase_disagg(fa, colocated: list | None = None,
         check(all(same), "disaggregated streams != colocated streams")
         check(launches == {"flash_fwd": cfg.num_layers * chunks,
                            "flash_bwd_dq": 0, "flash_bwd_dkv": 0}, launches)
+        local = len(PROMPT_LENS) - len(DISAGG_HANDED_OFF)
         check(child_stats.get("role") == "decode"
-              and child_stats.get("resumed") == 4, child_stats)
-        check(pre_stats["handoffs"] == 4 and pre_stats["resumed"] == 0,
+              and child_stats.get("resumed") == len(DISAGG_HANDED_OFF),
+              child_stats)
+        check(pre_stats["handoffs"] == 4 and pre_stats["resumed"] == local,
               pre_stats)
         log(f"  {card_line()}")
-        for n in PROMPT_LENS:
+        for n in DISAGG_HANDED_OFF:
             row = wire.rows[n]
             row["ttft_s"] = ttft[n]
             log(f"  handoff of the {n}-token prompt: "
@@ -3949,7 +4407,7 @@ def phase_disagg(fa, colocated: list | None = None,
             f"colocated one {status == 200 and body['ids'][0] == colocated[1]}"
             f", resumed locally {after['resumed']}")
         check(status == 200 and body["ids"][0] == colocated[1]
-              and after["resumed"] == 1, (status, after))
+              and after["resumed"] == local + 1, (status, after))
         httpd.shutdown()
         httpd.server_close()
         thread.join(timeout=10)
@@ -4352,32 +4810,21 @@ def fleet_residency(fa, ckpt: Path, bodies: list[dict], streams: list,
     held: list = []
     try:
         body = bodies[1]
-        seq = []
-        # a's second request takes another prompt: its prefix cache (which
-        # a park keeps) would serve the first one warm, and a warm stream
-        # is not held to the cold one on the card (phase 7)
-        for name, i in (("a", 1), ("b", 1), ("a", 0)):
-            t0 = time.perf_counter()
-            status, out = post(port, f"/v1/models/{name}:generate",
-                               bodies[i])
-            check(status == 200 and out["ids"][0] == streams[i],
-                  (name, i, status, out.get("ids", [None])[0]))
-            res = {n: get_json(port, f"/v1/models/{n}")["residency"]
-                   for n in ("a", "b")}
-            seq.append((name, time.perf_counter() - t0, res))
-        check([r for _, _, r in seq] == [
-            {"a": "resident", "b": "parked"},
-            {"a": "parked", "b": "resident"},
-            {"a": "resident", "b": "parked"}], seq)
-        check(b.parked, "a metadata probe warmed b")
-        log("phase 14(b): a, b, a over HTTP (streams equal the seed-0 "
-            "model's: True); " + "; ".join(
-                f"{n} {dt:.2f}s (then {r})" for n, dt, r in seq))
-        loads = {n: pool.stats()["models"][n]["last_load_seconds"]
-                 for n in ("a", "b")}
+
+        def residency() -> dict:
+            return {n: get_json(port, f"/v1/models/{n}")["residency"]
+                    for n in ("a", "b")}
+
+        # a serves while b stays parked (a metadata probe must not warm b)
+        status, out = post(port, "/v1/models/a:generate", body)
+        check(status == 200 and out["ids"][0] == streams[1],
+              ("a", status, out.get("ids", [None])[0]))
+        res0 = residency()
+        check(res0 == {"a": "resident", "b": "parked"} and b.parked,
+              (res0, b.parked))
         # TTFT: a one-token request to the resident a (a prompt it has
-        # not cached), then 4 concurrent ones to the parked b (its load
-        # included)
+        # not cached), then 4 concurrent ones to the parked b (its load,
+        # which parks a, included)
         one = dict(body, max_new_tokens=1)
         t0 = time.perf_counter()
         status, out = post(port, "/v1/models/a:generate",
@@ -4406,12 +4853,19 @@ def fleet_residency(fa, ckpt: Path, bodies: list[dict], streams: list,
                   == streams[1][:len(body["ids"][0]) + 1], status)
         coalesced = after["coalesced"] - before["coalesced"]
         n_loads = mp.COLDSTART_LOADS.get() - loads0
-        log(f"phase 14(b): 4 concurrent cold requests to parked b: loads "
+        res1 = residency()
+        check(res1 == {"a": "parked", "b": "resident"}, res1)
+        # the switched-to b serves the whole stream
+        status, out = post(port, "/v1/models/b:generate", body)
+        check(status == 200 and out["ids"][0] == streams[1],
+              ("b", status, out.get("ids", [None])[0]))
+        log(f"phase 14(b): a, then b from parked over HTTP (streams equal "
+            f"the seed-0 model's: True; residency {res0}, then "
+            f"{res1}); 4 concurrent cold requests to parked b: loads "
             f"{n_loads:.0f}, coalesced {coalesced}; b loaded in "
             f"{after['last_load_seconds']:.3f}s; cold TTFT (parked to first "
             f"token, wall) {max(w for _, w in walls) * 1e3:.1f} ms against "
-            f"resident TTFT {resident_ttft * 1e3:.1f} ms; a's last load "
-            f"{loads['a']:.3f}s")
+            f"resident TTFT {resident_ttft * 1e3:.1f} ms")
         check(n_loads == 1 and coalesced == 3, (n_loads, coalesced))
         # a's page pool runs dry while b is resident and idle: b is pinned
         # by a held lease while a loads (the pool overshoots its budget),
@@ -4436,6 +4890,10 @@ def fleet_residency(fa, ckpt: Path, bodies: list[dict], streams: list,
         check(same and shapes and in_model_ok(worst), (status, worst, shapes))
         check(pool.state_of("a") == pool.state_of("b") == "resident",
               pool.stats())
+        loads = {n: pool.stats()["models"][n]["last_load_seconds"]
+                 for n in ("a", "b")}
+        log(f"phase 14(b): a loaded in {loads['a']:.3f}s while b was "
+            "pinned (the budget overshoots)")
         pages = a.engine.pool
         cap0 = pages.stats()["pages"]
         free0 = pages.free_count
@@ -4639,14 +5097,14 @@ def kernel_times_only(fa) -> int:
 
 def some_phases(fa, which: str) -> int:
     """``--phases 9,12,13``: build and check the kernels (phase 1), then
-    the named phases (9 to 20); prints no result line."""
+    the named phases (9 to 21); prints no result line."""
     wanted = {int(w) for w in which.split(",") if w}
-    if not wanted <= set(range(9, 21)):
-        print(f"chip_smoke: --phases takes 9 to 20, not {which}",
+    if not wanted <= set(range(9, 22)):
+        print(f"chip_smoke: --phases takes 9 to 21, not {which}",
               file=sys.stderr)
         return 2
     phase_kernels(fa)
-    gang_phases = tuple(p for p in (17, 18, 19, 20) if p in wanted)
+    gang_phases = tuple(p for p in (17, 18, 19, 20, 21) if p in wanted)
     if gang_phases:
         gangs = phase_gangs(fa, gang_phases)
         free_memory()
@@ -4660,6 +5118,8 @@ def some_phases(fa, which: str) -> int:
             sp_numbers(fa, gangs[19])
         if 20 in gangs:
             moe_ep_numbers(fa, gangs[20], mesh_rows)
+        if 21 in gangs:
+            mh_numbers(fa, gangs[21])
     gemma = {}
     if 15 in wanted:
         gemma["serving"] = phase_gemma_serving(fa)
@@ -4757,7 +5217,8 @@ def main(argv: list[str]) -> int:
     gemma_train = phase_gemma_training(fa)
     vision = phase_vision(fa)
     gangs = phase_gangs(fa)
-    gang, mesh, sp, moe_ep = (gangs[p] for p in (17, 18, 19, 20))
+    gang, mesh, sp, moe_ep, multihost = (gangs[p]
+                                         for p in (17, 18, 19, 20, 21))
     log(card_line())
     serving_rows = phase_numbers(fa, main_path_shapes(), num_layers=32)
     prefix_rows = phase_numbers(fa, prefix_path_shapes(), num_layers=32)
@@ -4772,6 +5233,7 @@ def main(argv: list[str]) -> int:
     mesh_rows = mesh_numbers(fa, mesh)
     sp_rows = sp_numbers(fa, sp)
     moe_ep_rows = moe_ep_numbers(fa, moe_ep, mesh_rows)
+    mh_rows = mh_numbers(fa, multihost)
     causal_numbers(fa)
     log(f"phase 2: TTFT mean {serving['ttft_mean_s'] * 1e3:.1f} ms over the "
         f"4 concurrent requests; decode "
@@ -4828,7 +5290,7 @@ def main(argv: list[str]) -> int:
         f"{fleet['tracing']['tok_s_rate0']:.1f} tok/s untraced, "
         f"{fleet['tracing']['tok_s_rate1']:.1f} traced; BERT-large logits "
         f"kernel vs plain route {fleet['bert_rel']:.3e}")
-    log("phase 11 (tok/s; off passes 1 and 2): " + "; ".join(
+    log("phase 11 (tok/s): " + "; ".join(
         f"{m} " + " and ".join(f"{x:.2f}" for x in spec[m]["tok_per_s"])
         + (f", accept rate {spec[m]['accept_rate']:.3f} ({spec[m]['accepted']}"
            f" of {spec[m]['proposed']} in {spec[m]['rounds']} rounds)"
@@ -4856,7 +5318,7 @@ def main(argv: list[str]) -> int:
         f"{gang['ResNet-50']['allreduce_bytes']:.0f} bytes per step)"
         + "; phase 18: " + ", ".join(
             f"{label} {r['samples_per_s']:.2f} (peak {r['steps_peak_gb']:.2f}"
-            f" GB over the steps, {r['peak_gb']:.2f} GB with the save)"
+            f" GB over the steps, {r['peak_gb']:.2f} GB over the run)"
             for label, r in mesh.items())
         + f"; phase 19: one process {sp['one']['samples_per_s']:.3f}, "
         f"sp={SP_RANKS} {sp['sp_samples_per_s']:.3f} (rows of {SP_SEQ} "
@@ -4864,6 +5326,11 @@ def main(argv: list[str]) -> int:
         + "; phase 20 (MoE): " + ", ".join(
             f"{label} {r['samples_per_s']:.3f}"
             for label, r in moe_ep.items())
+        + "; phase 21 (load s, prefill s, decode tok/s): " + ", ".join(
+            f"{label} {multihost[label]['load_s']:.2f} / "
+            f"{multihost[label]['prefill_s']:.3f} / "
+            f"{multihost[label]['decode_tok_s']:.1f}"
+            for label, *_ in MH_LAYOUTS)
         + f"; total {time.perf_counter() - t_start:.1f}s")
     check(serving["launches"] == sum(r["launches"] for r in serving_rows),
           "serving launches")
@@ -4893,7 +5360,7 @@ def main(argv: list[str]) -> int:
                                moe_train_rows["flash_fwd"]]
                             + gang_rows["flash_fwd"]
                             + mesh_rows["flash_fwd"] + sp_rows["flash_fwd"]
-                            + moe_ep_rows["flash_fwd"],
+                            + moe_ep_rows["flash_fwd"] + mh_rows,
                             errs["flash_fwd"])]
     kernels += [kernel_entry(name, [bert_rows[name], llama_rows[name],
                                     moe_train_rows[name]] + gang_rows[name]

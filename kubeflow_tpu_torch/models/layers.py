@@ -38,8 +38,8 @@ from torch.nn import functional as F
 
 from kubeflow_tpu_torch.ops.matmul import matmul_f32
 from kubeflow_tpu_torch.parallel.distributed import (
-    copy_to_group, data_parallel_group, gather_cast, gather_from_group,
-    reduce_from_group, sum_over_group)
+    all_gather_cat, copy_to_group, data_parallel_group, gather_cast,
+    gather_from_group, reduce_from_group, sum_over_group)
 
 
 def init_submodules(model: nn.Module, seed: int) -> torch.Generator:
@@ -67,7 +67,8 @@ def weight(w, dtype: torch.dtype) -> torch.Tensor:
 
 
 def tp_split(w):
-    """The tensor-parallel split of parameter ``w`` (None: whole)."""
+    """The tensor-parallel split of parameter or int8 ``QTensor`` ``w``
+    (None: whole)."""
     return getattr(w, "tp_split", None)
 
 
@@ -156,7 +157,8 @@ class Embed(nn.Module):
     """Token embedding with the tied logit projection ``attend``.  Under
     tensor parallelism the table's vocabulary rows are split: a lookup
     takes this rank's rows (zeros elsewhere) summed over the tp group,
-    and ``attend`` gives this rank's slice of the logits."""
+    ``attend`` gives this rank's slice of the logits, and
+    ``whole_vocab`` gathers such a slice whole."""
 
     def __init__(self, num_embeddings: int, features: int, *,
                  dtype=torch.bfloat16, param_dtype=torch.float32,
@@ -196,6 +198,15 @@ class Embed(nn.Module):
             x = copy_to_group(x, tp.group)
         x2 = x.to(common).reshape(-1, x.shape[-1])
         return matmul_f32(x2, table.T).reshape(*x.shape[:-1], -1)
+
+    def whole_vocab(self, logits: torch.Tensor) -> torch.Tensor:
+        """``attend``'s logits over the whole vocabulary: this rank's
+        slice all-gathered over tp in vocabulary order (as they are
+        without a split).  Gather only the positions that are read."""
+        tp = self.vocab_split()
+        if tp is None:
+            return logits
+        return all_gather_cat(logits, logits.dim() - 1, tp.group)
 
 
 class LayerNorm(nn.Module):

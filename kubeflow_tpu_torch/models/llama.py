@@ -6,9 +6,10 @@ a contiguous KV cache and a paged one.  Four attention branches:
 
 - no cache: causal self-attention, through the flash kernel when
   ``use_flash``;
-- cache with a scalar ``index`` (the serving engine's batch-1 prefill from
-  position ``start``): the new K/V are written at ``[start, start+s)`` and
-  the queries attend to ``cache[:, :start+s]`` causally, which is the flash
+- cache with a scalar ``index`` (a prefill from position ``start``: the
+  serving engine's batch-1 chunks, and ``serving/multihost.py``'s padded
+  rows from 0): the new K/V are written at ``[start, start+s)`` and the
+  queries attend to ``cache[:, :start+s]`` causally, which is the flash
   kernel's contract (offset ``sk - sq = start``).  Padded tail queries sit
   after every real one, so causality hides them from the real rows;
 - cache with a ``[B]`` index (decode, ragged rows): each row writes at its
@@ -370,16 +371,20 @@ def kv_page_nbytes(cfg: LlamaConfig, page_size: int) -> int:
 
 
 def init_cache(cfg: LlamaConfig, batch: int, max_len: int | None = None,
-               per_sequence: bool = False, *, device=None):
-    """Contiguous KV cache ``[B, max_len, Hkv, D]`` per layer.  The index is
-    a Python int (equal-length rows) or, with ``per_sequence``, a ``[B]``
-    int64 tensor so each row sits at its own length."""
+               per_sequence: bool = False, *, device=None, tp: int = 1):
+    """Contiguous KV cache ``[B, max_len, Hkv / tp, D]`` per layer: with
+    ``tp`` > 1, a tensor-parallel rank's KV heads.  The index is a Python
+    int (equal-length rows) or, with ``per_sequence``, a ``[B]`` int64
+    tensor so each row sits at its own length."""
+    if cfg.num_kv_heads % tp:
+        raise ValueError(
+            f"num_kv_heads={cfg.num_kv_heads} not divisible by tp={tp}")
     device = resolve(device)
     max_len = max_len or cfg.max_seq_len
     dtype = cfg.torch_dtype
     index = (torch.zeros((batch,), dtype=torch.int64, device=device)
              if per_sequence else 0)
-    shape = (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+    shape = (batch, max_len, cfg.num_kv_heads // tp, cfg.head_dim)
     return {"layers": [
         {"k": torch.zeros(shape, dtype=dtype, device=device),
          "v": torch.zeros(shape, dtype=dtype, device=device),

@@ -32,7 +32,9 @@ also sums the MoE experts' input gradient over ep) and
 ``gather_from_group`` (a tp-split activation, and the ep ranks' expert
 outputs); and the neighbour exchange of ring attention
 and the pipeline, ``ppermute`` (``jax.lax.ppermute`` with a cyclic
-shift) and its differentiable form ``permute`` (``_Ppermute``).
+shift) and its differentiable form ``permute`` (``_Ppermute``); and
+``broadcast_one_to_all`` (rank 0's fixed-shape buffer on every rank: the
+multi-host serving front door's prompts).
 Gloo's point-to-point refuses a CUDA tensor (its TCP transport writes
 from the device pointer: "writev ... Bad address", torch 2.11 on an
 H100), so under gloo a CUDA exchange goes through pinned host buffers,
@@ -227,6 +229,25 @@ def all_reduce_max(t: torch.Tensor, group) -> None:
     import torch.distributed as dist
 
     dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
+
+
+def broadcast_one_to_all(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as rank 0 of the gang holds it, on every rank: one
+    ``broadcast`` of a buffer of the same shape and dtype on each (the
+    reference's ``multihost_utils.broadcast_one_to_all``); ``t`` itself
+    without a gang.  Under NCCL a CPU buffer travels through the rank's
+    card and comes back to the host."""
+    import torch.distributed as dist
+
+    group = default_group()
+    if group is None:
+        return t
+    buf = t
+    if dist.get_backend(group) == "nccl" and not t.is_cuda:
+        buf = t.to(torch.device("cuda", torch.cuda.current_device()))
+    buf = buf.contiguous().clone()
+    dist.broadcast(buf, group_src=0, group=group)
+    return buf.to(t.device)
 
 
 def all_gather_cat(x: torch.Tensor, dim: int, group) -> torch.Tensor:

@@ -41,7 +41,10 @@ records:
   gives vocab-split logits, which the losses reduce with a
   vocabulary-parallel cross entropy.  Attention runs K1/K2/K3 on plain
   tensors holding this rank's ``Hq / tp`` query and ``Hkv / tp`` KV
-  heads.
+  heads.  An int8 ``QTensor`` (``models/quant_tensor.py``, quantized
+  whole by ``serving/quant.py``) splits as its kernel: ``q`` by the
+  kernel's spec, ``scale`` by ``scale_spec`` of it (its size-1
+  contraction axis whole).
 - **ep** (the stacked expert weights' leading "expert" dim): each ep
   rank holds ``E / ep`` experts of ``w_in``/``w_out`` and runs only
   those on the rows it shares with its ep group (``models/moe.py``);
@@ -64,6 +67,7 @@ from typing import Any
 import torch
 from torch import nn
 
+from kubeflow_tpu_torch.models.quant_tensor import QTensor
 from kubeflow_tpu_torch.parallel import distributed as pd
 from kubeflow_tpu_torch.parallel.mesh import DATA_AXES, MeshAxes
 from kubeflow_tpu_torch.training.optim import sum_of_squares
@@ -124,10 +128,11 @@ def logical_axes(p: torch.Tensor) -> tuple | None:
 
 def shard_params_specs(model: nn.Module,
                        rules: ShardingRules = DEFAULT_RULES) -> dict:
-    """``{parameter name: spec}``; a parameter without logical names is
-    replicated (``()``, the reference's ``P()``)."""
-    return {name: (rules.spec(logical_axes(p)) if logical_axes(p) else ())
-            for name, p in model.named_parameters()}
+    """``{weight name: spec}`` of every parameter and int8 ``QTensor``
+    (``named_weights``); a weight without logical names is replicated
+    (``()``, the reference's ``P()``)."""
+    return {name: (rules.spec(logical_axes(w)) if logical_axes(w) else ())
+            for _, _, name, w in named_weights(model)}
 
 
 def placements(spec: tuple) -> tuple:
@@ -177,64 +182,124 @@ class Split:
 _SHARDED_AXES = ("fsdp", "tp", "ep")
 
 
-def _replicated_over(axis: str, p: torch.Tensor, dim: int) -> bool:
-    """Whether ``axis`` leaves ``p`` whole although a rule names its dim
-    ``dim``: ep splits only a stacked expert weight's leading dim (the
-    router's "expert" dim is its logits; module docstring)."""
-    return axis == "ep" and (dim != 0 or p.dim() < 2)
+def _replicated_over(axis: str, dim: int, ndim: int) -> bool:
+    """Whether ``axis`` leaves a weight of ``ndim`` dims whole although a
+    rule names its dim ``dim``: ep splits only a stacked expert weight's
+    leading dim (the router's "expert" dim is its logits; module
+    docstring)."""
+    return axis == "ep" and (dim != 0 or ndim < 2)
 
 
-def _plan(model: nn.Module, mesh, rules: ShardingRules) -> list:
-    """``(module, name, parameter, {axis: (dim, size)})`` for every
-    parameter that some axis splits; refuses a dim that does not divide
-    by its axis, naming the parameter and its logical dim."""
-    plan = []
+def scale_spec(spec: tuple, scale_shape: tuple) -> tuple:
+    """The spec of an int8 ``QTensor``'s scale from its kernel's
+    ``spec``: the scale broadcasts over the quantization axis (size 1),
+    which stays whole whatever the kernel's spec says (the reference's
+    ``serving/sharded.py::_scale_spec``)."""
+    return tuple(None if scale_shape[i] == 1 else ax
+                 for i, ax in enumerate(spec))
+
+
+def named_weights(model: nn.Module):
+    """``(module, leaf, name, weight)`` for every parameter and every int8
+    ``QTensor`` (a matmul weight ``serving/quant.py`` swapped) of
+    ``model``; a ``QTensor`` is named as the parameter it replaced."""
     for mod_name, module in model.named_modules():
-        for p_name, p in module.named_parameters(recurse=False):
-            names = logical_axes(p)
-            if not names:
-                continue
-            cuts = {}
-            for axis, place in zip(MeshAxes, placements(rules.spec(names))):
-                size = mesh.shape[axis]
-                if (size == 1 or not place.is_shard()
-                        or _replicated_over(axis, p, place.dim)):
-                    continue
-                if axis not in _SHARDED_AXES:
-                    raise NotImplementedError(
-                        f"{axis}={size} shards parameters only in a later "
-                        "slice of the port")
-                if p.shape[place.dim] % size:
-                    full = f"{mod_name}.{p_name}".lstrip(".")
-                    raise ValueError(
-                        f"{full}: its {names[place.dim]!r} dim of "
-                        f"{p.shape[place.dim]} does not divide by "
-                        f"{axis}={size}")
-                cuts[axis] = (place.dim, size)
-            if cuts:
-                plan.append((module, p_name, p, cuts))
+        if isinstance(module, QTensor):
+            continue
+        for leaf, w in (*module.named_parameters(recurse=False),
+                        *((n, m) for n, m in module.named_children()
+                          if isinstance(m, QTensor))):
+            yield module, leaf, f"{mod_name}.{leaf}".lstrip("."), w
+
+
+def _cuts(full: str, axes: tuple, spec: tuple, shape: tuple, mesh,
+          int8: bool = False) -> dict:
+    """``{axis: (dim, size)}`` of the mesh axes that split a tensor of
+    ``shape`` under ``spec``; refuses a dim that does not divide by its
+    axis, naming weight ``full`` and its logical dim, and an ``int8``
+    weight split over another axis than tp."""
+    cuts = {}
+    for axis, place in zip(MeshAxes, placements(spec)):
+        size = mesh.shape[axis]
+        if (size == 1 or not place.is_shard()
+                or _replicated_over(axis, place.dim, len(shape))):
+            continue
+        if axis not in _SHARDED_AXES:
+            raise NotImplementedError(
+                f"{axis}={size} shards parameters only in a later "
+                "slice of the port")
+        if int8 and axis != "tp":
+            raise NotImplementedError(
+                f"{full}: an int8 weight is split over tp only, not "
+                f"{axis}={size}")
+        if shape[place.dim] % size:
+            raise ValueError(
+                f"{full}: its {axes[place.dim]!r} dim of "
+                f"{shape[place.dim]} does not divide by {axis}={size}")
+        cuts[axis] = (place.dim, size)
+    return cuts
+
+
+def _plan(model: nn.Module, mesh, rules: ShardingRules,
+          names=None) -> list:
+    """``(module, leaf, weight, cuts)`` for every weight (of ``names``, or
+    all) that some axis splits (``_cuts``); a ``QTensor``'s cuts are a
+    pair, its ``q``'s by the kernel's spec and its ``scale``'s by
+    ``scale_spec`` of it."""
+    plan = []
+    for module, leaf, full, w in named_weights(model):
+        axes = logical_axes(w)
+        if not axes or (names is not None and full not in names):
+            continue
+        spec = rules.spec(axes)
+        if isinstance(w, QTensor):
+            cuts = (_cuts(full, axes, spec, tuple(w.q.shape), mesh, True),
+                    _cuts(full, axes, scale_spec(spec, tuple(w.scale.shape)),
+                          tuple(w.scale.shape), mesh, True))
+            if cuts[0]:
+                plan.append((module, leaf, w, cuts))
+            continue
+        cuts = _cuts(full, axes, spec, tuple(w.shape), mesh)
+        if cuts:
+            plan.append((module, leaf, w, cuts))
     return plan
 
 
+def _block(t: torch.Tensor, cuts: dict, mesh) -> tuple[torch.Tensor, dict]:
+    """This rank's block of ``t`` (a copy) under ``cuts``, and the
+    ``Split`` of each axis."""
+    block, splits = t.detach(), {}
+    for axis, (d, size) in cuts.items():
+        n, index = t.shape[d] // size, mesh.coordinate(axis)
+        block = block.narrow(d, index * n, n)
+        splits[axis] = Split(axis, mesh.group(axis), d, size, index)
+    return block.clone(), splits
+
+
 def shard_model(model: nn.Module, mesh,
-                rules: ShardingRules = DEFAULT_RULES) -> nn.Module:
-    """Replace every parameter of ``model`` by this rank's block of it
-    under ``rules`` on ``mesh`` (in place; returns the model).  A dim that
-    does not divide by its axis is refused before anything is split,
-    naming the parameter and its logical dim: a Llama whose
-    ``num_kv_heads`` does not divide by tp among them."""
-    for module, p_name, p, cuts in _plan(model, mesh, rules):
-        block, splits = p.detach(), {}
-        for axis, (d, size) in cuts.items():
-            n, index = p.shape[d] // size, mesh.coordinate(axis)
-            block = block.narrow(d, index * n, n)
-            splits[axis] = Split(axis, mesh.group(axis), d, size, index)
-        new = nn.Parameter(block.clone(), requires_grad=p.requires_grad)
-        new.logical_axes = p.logical_axes
+                rules: ShardingRules = DEFAULT_RULES,
+                names=None) -> nn.Module:
+    """Replace every weight of ``model`` (of ``names``, or all) by this
+    rank's block of it under ``rules`` on ``mesh`` (in place; returns the
+    model).  A dim that does not divide by its axis is refused before
+    anything is split, naming the weight and its logical dim: a Llama
+    whose ``num_kv_heads`` does not divide by tp among them.  An int8
+    ``QTensor`` is split as its kernel: ``q`` by the kernel's spec,
+    ``scale`` by ``scale_spec`` of it, and the record (``q``'s) goes on
+    the ``QTensor``."""
+    for module, leaf, w, cuts in _plan(model, mesh, rules, names):
+        if isinstance(w, QTensor):
+            q, splits = _block(w.q, cuts[0], mesh)
+            w.q, w.scale = q, _block(w.scale, cuts[1], mesh)[0]
+            new = w
+        else:
+            block, splits = _block(w, cuts, mesh)
+            new = nn.Parameter(block, requires_grad=w.requires_grad)
+            new.logical_axes = w.logical_axes
+            module._parameters[leaf] = new
         new.fsdp_split = splits.get("fsdp")
         new.tp_split = splits.get("tp")
         new.ep_split = splits.get("ep")
-        module._parameters[p_name] = new
     return model
 
 

@@ -33,23 +33,10 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from kubeflow_tpu_torch.models.quant_tensor import QTensor
+
 QUANT_LEAF_NAMES = ("kernel", "w_in", "w_out")
 SKIP_PATH_PARTS = ("router",)
-
-
-class QTensor(nn.Module):
-    """int8 weights plus broadcastable float32 scales; ``dequantize``
-    gives the bf16 weight the reference's ``QTensor`` stands for."""
-
-    def __init__(self, q: torch.Tensor, scale: torch.Tensor):
-        super().__init__()
-        self.register_buffer("q", q)
-        self.register_buffer("scale", scale)
-
-    def dequantize(self) -> torch.Tensor:
-        """``q * bf16(scale)`` in bf16: one elementwise product, rounded as
-        the reference's ``q.astype(bf16) * scale.astype(bf16)``."""
-        return self.q * self.scale.to(torch.bfloat16)
 
 
 def _scale(amax: torch.Tensor) -> torch.Tensor:
@@ -108,19 +95,25 @@ def quantize_param(module: nn.Module, name: str,
                    min_size: int = 1 << 12) -> bool:
     """Swap parameter ``name`` for a ``QTensor`` made from ``full`` (its
     own values when None) if it is an eligible matmul weight; whether it
-    was swapped."""
+    was swapped.  The whole tensor is quantized: a split parameter is
+    refused, since a row-parallel kernel's tp split cuts the contraction
+    axis its scale is the max over (split the ``QTensor`` instead)."""
     prefix, _, leaf = name.rpartition(".")
     owner = module.get_submodule(prefix)
     p = owner._parameters.get(leaf)
     if p is None or not wants_quant(name, p, min_size):
         return False
+    if any(getattr(p, f"{a}_split", None) is not None
+           for a in ("fsdp", "tp", "ep")):
+        raise ValueError(f"{name} is split: quantize the whole tensor, "
+                         "then split the QTensor")
     full = p if full is None else full
     # DenseGeneral kernels contract on axis 0 (input features); the MoE
     # stacks [E, in, out] on the second-to-last axis
     axis = p.ndim - 2 if leaf in ("w_in", "w_out") else 0
     q, scale = quantize_array(full.to(p.device), axis)
     del owner._parameters[leaf]
-    setattr(owner, leaf, QTensor(q, scale))
+    setattr(owner, leaf, QTensor(q, scale, getattr(p, "logical_axes", None)))
     return True
 
 

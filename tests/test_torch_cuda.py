@@ -1064,3 +1064,31 @@ def test_ring_attention_kernels_match_the_plain_ring(cuda_device):
             assert max(got["rel"]) <= 2e-2, (rank, causal, got)
             blocks = 2 if causal == "False" else rank + 1
             assert got["launched"] == [blocks, blocks], (rank, causal, got)
+
+
+@pytest.mark.cuda
+def test_multihost_predictor_prefills_through_k1_once_per_layer(
+        cuda_device):
+    """A tp = 1 ``MultiHostPredictor`` on the card: every ``generate``
+    prefills its padded rows through K1 once per layer (decode takes the
+    plain masked route), and its tokens are those of the same weights on
+    the CPU (float32, head_dim 64)."""
+    from kubeflow_tpu_torch.serving.multihost import MultiHostPredictor
+
+    config = {"dtype": "float32", "use_flash": True, "hidden_size": 256,
+              "num_heads": 4, "num_kv_heads": 2}
+    prompts = [[1, 2, 3], [7, 8, 9, 10], [5], [11, 12]]
+    got, state = {}, None
+    for device in ("cpu", "cuda"):
+        mh = MultiHostPredictor("llama", size="tiny", max_seq=64,
+                                model_config=config, device=device,
+                                state=state)
+        state = {n: p.detach() for n, p in mh.module.named_parameters()}
+        before = tfa.flash_attention.launches
+        got[device] = mh.generate(prompts, max_new_tokens=8)
+        launched = tfa.flash_attention.launches - before
+        assert launched == (mh.cfg.num_layers if device == "cuda" else 0)
+        got[device + "_logits"] = mh.prefill_logits.float().cpu()
+    err = (got["cuda_logits"] - got["cpu_logits"]).abs().max()
+    assert err <= 1e-4 * got["cpu_logits"].abs().max()
+    assert got["cuda"] == got["cpu"]

@@ -66,6 +66,8 @@ def test_imports_load_no_jax_and_no_reference_package(which):
         "kubeflow_tpu_torch.serving.disagg",
         "kubeflow_tpu_torch.serving.kv_directory",
         "kubeflow_tpu_torch.serving.model_pool",
+        "kubeflow_tpu_torch.serving.sharded",
+        "kubeflow_tpu_torch.serving.multihost",
         "kubeflow_tpu_torch.qos",
         "kubeflow_tpu_torch.qos.wfq",
         "kubeflow_tpu_torch.qos.tenants",
@@ -74,6 +76,7 @@ def test_imports_load_no_jax_and_no_reference_package(which):
         "kubeflow_tpu_torch.trace.span",
         "kubeflow_tpu_torch.trace.tracer",
         "kubeflow_tpu_torch.models.moe",
+        "kubeflow_tpu_torch.models.quant_tensor",
         "kubeflow_tpu_torch.models.bert",
         "kubeflow_tpu_torch.parallel.train_step",
         "kubeflow_tpu_torch.parallel.distributed",
