@@ -312,30 +312,51 @@ any failure exits nonzero and prints no result:
    last step against one process's rows of the same experts
    (``MOE_EP_EXPERT_TOL`` on the norm of the difference).
 
-21. Multi-host serving: phase 2's Llama-2-7B (32 layers, bf16, seed 0),
+21. Multi-host serving: phase 2's Llama-2-7B (bf16, seed 0) at
+   ``MH_SHALLOW_LAYERS`` layers (phase 22 serves tp at full depth),
    ``max_seq`` 2048, through ``MultiHostPredictor`` as one process (this
    one), tp = 2 in the gang of 2 and dp = 2 x tp = 2 in the gang of 4
-   (phase 18's), and at ``MH_SHALLOW_LAYERS`` layers in bf16 and with
-   int8 weights, each as one process and at tp = 2 in the gang of 2.  4
+   (phase 18's), and with int8 weights as one process and at tp = 2.  4
    prompts of 17, 128, 300 and 500 tokens (one bucket of 512), ``MH_NEW``
    greedy tokens each, held by rank 0 and broadcast
    (``broadcast_prompts``).  Each layout's ranks return identical tokens;
    each prefills through K1 once per layer at its rank shape ([4, 512] at
    16 heads under tp = 2, [2, 512] under dp x tp); its first-token
-   logits, gathered over the vocabulary, are within 1e-1 of max |logit|
-   of one process's at 32 layers and within ``MH_SHALLOW_REL_TOL`` at
-   ``MH_SHALLOW_LAYERS`` (the int8 layout's every token one process's);
-   each row's first token is one process's wherever one process's top-2
-   margin exceeds twice the logit gap (printed, with each stream's
-   agreeing length).  One process also prefills once more in bf16 with
-   each row-parallel product cut as tp = 2 cuts it, two bf16 halves summed
-   in bf16 (``tp2_partial_sums``): every bf16 tp layout's logits must
-   equal that bitwise; each rank's memory
-   after loading is at most 0.55 of one process's weight bytes; the int8
-   ``q`` and ``scale`` blocks are bitwise the local blocks of one process's
-   whole-tensor quantization (SHA-256).  Per layout and rank: load and
-   prefill seconds, decode tokens/s, one decode step's all-reduce and
-   all-gather seconds, calls and bytes, peak memory.
+   logits, gathered over the vocabulary, are within
+   ``MH_SHALLOW_REL_TOL`` of max |logit| of one process's (the int8
+   layout's every token one process's); each row's first token is one
+   process's wherever one process's top-2 margin exceeds twice the logit
+   gap (printed, with each stream's agreeing length).  One process also
+   prefills once more in bf16 with each row-parallel product cut as tp =
+   2 cuts it, two bf16 halves summed in bf16 (``tp2_partial_sums``):
+   every bf16 tp layout's logits must equal that bitwise; each rank's
+   memory after loading is at most 0.55 of one process's weight bytes;
+   the int8 ``q`` and ``scale`` blocks are bitwise the local blocks of
+   one process's whole-tensor quantization (SHA-256).  Per layout and
+   rank: load and prefill seconds, decode tokens/s, one decode step's
+   all-reduce and all-gather seconds, calls and bytes, peak memory.
+
+22. The predictor's ``tp=`` and ``ep=``: (a) phase 2's Llama-2-7B (32
+   layers) behind ``GenerativePredictor(tp=2, max_seq=2048,
+   prefill_chunk=512, max_batch=4, prefix_cache_mb=2048)`` in the gang
+   of 2: rank 0 serves HTTP and leads the continuous batcher, the
+   follower replays its step records.  Phase 2's four prompts (greedy, 16
+   tokens each, admitted in one step), then the 700-token one again (a
+   prefix hit: K1 at causal offset ``sk - sq``).  The ranks' streams are
+   identical, the warm stream equals the cold one, the first-token
+   logits are within ``P22_REL_TOL`` of phase 2's one-process engine's
+   (first tokens margin-gated), K1 runs once per layer and chunk at 16
+   heads, the view and pool hold 16 KV heads, and a rank's weights are at
+   most 0.55 of one process's.  The same at ``MH_SHALLOW_LAYERS`` layers
+   is held bitwise (logits and every token) to one process whose every
+   product runs at a tp = 2 rank's shapes (``tp2_partial_sums(columns=
+   True)``).  (b) phase 9's MoE at 7B width and ``MH_SHALLOW_LAYERS``
+   layers, four prompts of ``P22_MOE_LENS`` tokens: ep = 2 in the gang of
+   2, held bitwise to one process; tp = 2 x ep = 2 in the gang of 4,
+   within ``P22_REL_TOL``.  Per layout and rank: load seconds, TTFT per
+   request, decode tokens/s, the step records' broadcasts and
+   milliseconds per step, one decode step's collectives, weight and KV
+   bytes.
 
 The line before the last is the ``kernels`` JSON object (``name<256>``:
 the D = 256 instantiations on phases 15 and 16); the last line is
@@ -805,7 +826,7 @@ def phase_kernels(fa) -> dict:
     cases = ([s[:8] for s in main_path_shapes() + prefix_path_shapes()
               + gemma_path_shapes()]
              + [TRAIN_SHAPE, GANG_SHAPE, LLAMA_SHAPE, GEMMA_SHAPE,
-                *MESH_SHAPES, *SP_SHAPES, *MH_SHAPES]
+                *MESH_SHAPES, *SP_SHAPES, *MH_SHAPES, *p22_all_shapes()]
              + SPEC_SHAPES
              + EXTRA_SHAPES + D256_SHAPES)
     for i, (name, b, sq, sk, h, hkv, d, causal) in enumerate(cases):
@@ -828,6 +849,7 @@ def phase_kernels(fa) -> dict:
             check(ok, f"flash_fwd disagrees at {name} {dtype}")
             if dtype == torch.bfloat16 and name.startswith(
                     ("7b_prefill", "7b_prefix", "7b_spec", "7b_multihost",
+                     "7b_predictor",
                      TRAIN_SHAPE[0],
                      GANG_SHAPE[0], LLAMA_SHAPE[0], "llama7b_mesh",
                      "llama7b_sp", "llama7b_pp")):
@@ -1073,9 +1095,11 @@ def phase_serving(fa, model_config: dict | None = None,
         chunks = len(prefill_shapes())
         before = pred.engine.stats()["timing"]
 
+        first: dict = {}
         fa.flash_attention.launches = 0          # the main path starts
         t0 = time.perf_counter()
-        results = concurrent_round(port, bodies)
+        with first_logits_by_length(first):
+            results = concurrent_round(port, bodies)
         wall = time.perf_counter() - t0
         launches = fa.flash_attention.launches   # the main path ended
         after = pred.engine.stats()["timing"]
@@ -1156,7 +1180,8 @@ def phase_serving(fa, model_config: dict | None = None,
                "ttft_mean_s": (after["ttft_sum"] - before["ttft_sum"])
                / max(n_ttft, 1),
                "decode_tok_per_s": dec_tok / dec_s if dec_s else 0.0,
-               "wall_s": wall, "streams": [r[1]["ids"][0] for r in results]}
+               "wall_s": wall, "streams": [r[1]["ids"][0] for r in results],
+               "first_logits": first}
         if extra is not None:
             out.update(extra(pred))
         return out
@@ -1178,6 +1203,26 @@ def first_token_logits(store: list):
     def capture(logits, reqs, gens):
         if logits.shape[0] == 1:
             store.append(logits[0].float().clone())
+        return original(logits, reqs, gens)
+
+    engine.sample_rows = capture
+    try:
+        yield
+    finally:
+        engine.sample_rows = original
+
+
+@contextlib.contextmanager
+def first_logits_by_length(store: dict):
+    """Record the float32 logits (on the host) each first token is sampled
+    from, by prompt length, into ``store``."""
+    from kubeflow_tpu_torch.serving import engine
+
+    original = engine.sample_rows
+
+    def capture(logits, reqs, gens):
+        if logits.shape[0] == 1:
+            store[len(reqs[0].ids)] = logits[0].float().cpu()
         return original(logits, reqs, gens)
 
     engine.sample_rows = capture
@@ -2587,20 +2632,19 @@ MOE_EP_EXPERT_TOL = GANG_TOL["loss"]
 
 # -- phase 21: multi-host serving --------------------------------------------
 
-# phase 2's Llama-2-7B (32 layers, bf16, random weights from seed 0),
-# max_seq MAX_SEQ, through MultiHostPredictor: one process (here), tp = 2 in
-# the gang of 2 and dp = 2 x tp = 2 in phase 18's gang of 4.  Traffic: 4
+# phase 2's Llama-2-7B (bf16, random weights from seed 0) at
+# MH_SHALLOW_LAYERS layers (phase 22 carries tp at full depth), max_seq
+# MAX_SEQ, through MultiHostPredictor: one process (here), tp = 2 in the
+# gang of 2 and dp = 2 x tp = 2 in phase 18's gang of 4.  Traffic: 4
 # prompts that pad to one bucket of MH_PAD positions, MH_NEW greedy tokens
 # each, held by rank 0 alone and broadcast (a chat service whose model is
-# sharded over cards).  (d): bf16 and int8 weights at tp = 2, at
-# MESH_LAYERS layers
+# sharded over cards).  (d): int8 weights at tp = 2
 MH_PROMPT_LENS, MH_NEW, MH_PAD = (17, 128, 300, 500), 16, 512
 MH_LAYOUTS = (("one process", 1, 1), ("tp=2", 1, 2), ("dp=2 x tp=2", 2, 2))
 MH_SHALLOW_LAYERS = MESH_LAYERS
-# (label, its one-process reference, int8 weights) of the layouts at
-# MH_SHALLOW_LAYERS: one process here, tp = 2 in the gang of 2
-MH_SHALLOW = (("2-layer tp=2", "2-layer one process", False),
-              ("int8 tp=2", "int8 one process", True))
+# (label, its one-process reference, int8 weights) of the further layouts:
+# one process here, tp = 2 in the gang of 2
+MH_SHALLOW = (("int8 tp=2", "int8 one process", True),)
 # each rank's memory after loading over one process's weight bytes: a tp=2
 # rank holds half of every matmul weight and of the embedding, the norms
 # whole (0.5000 of the bytes and a little)
@@ -2627,6 +2671,68 @@ def mh_shape(dp: int, tp: int) -> tuple:
 
 
 MH_SHAPES = [mh_shape(dp, tp) for _, dp, tp in MH_LAYOUTS]
+
+# -- phase 22: the predictor's tp= and ep= ------------------------------------
+
+# (a) phase 2's Llama-2-7B (32 layers, bf16, seed 0) behind
+# GenerativePredictor(tp=2) in the gang of 2: rank 0 serves HTTP, the
+# follower replays its step records.  Traffic: phase 2's four concurrent
+# prompts (PROMPT_LENS, greedy, NEW_TOKENS each), then the 700-token one
+# again (a prefix hit of all but its last token).  The same at
+# MH_SHALLOW_LAYERS layers, held bitwise to one process under
+# tp2_partial_sums.  (b) phase 9's MoE (MOE_EXPERTS GELU experts, top-2,
+# every second layer) at 7B width, cut to MH_SHALLOW_LAYERS layers: ep=2 in
+# the gang of 2, tp=2 x ep=2 in the gang of 4, four prompts of
+# P22_MOE_LENS tokens.  A chat service whose model is sharded over cards
+P22_CACHE_MB = PC_CACHE_MB          # 256 pages: the whole traffic fits
+P22_HEADS, P22_VOCAB = (32, 32, 128), 32000      # H, Hkv, D of the 7B
+P22_WARM = 2                                   # index of the re-sent prompt
+P22_MOE_LENS = (17, 128, 300, 500)
+P22_LAYOUTS = (  # label, tp, ep, layers, MoE, HTTP
+    ("tp=2", 2, 1, None, False, True),
+    ("2-layer tp=2", 2, 1, MH_SHALLOW_LAYERS, False, False),
+    ("MoE ep=2", 1, 2, MH_SHALLOW_LAYERS, True, False),
+    ("MoE tp=2 x ep=2", 2, 2, MH_SHALLOW_LAYERS, True, False))
+# the one-process references run here: phase 2's engine for tp=2 (its
+# first-token logits), and these at MH_SHALLOW_LAYERS layers
+P22_ONE = {"2-layer tp=2": "2-layer one process (tp2_partial_sums)",
+           "MoE ep=2": "MoE one process", "MoE tp=2 x ep=2": "MoE one process"}
+# first-token logits against one process's, relative to max |logit|:
+# tp=2 at 32 layers as phase 21's (MH_LOGITS_REL_TOL: the row-parallel
+# bf16 partial sums, amplified by 32 random-weight layers); tp=2 x ep=2 at
+# 2 layers as phase 21's shallow layouts (MH_SHALLOW_REL_TOL), the
+# experts' float32 partial sums adding ~1e-7 (a routing flip at the read
+# position would exceed it: ROADMAP queue C item 7)
+P22_REL_TOL = {"tp=2": MH_LOGITS_REL_TOL,
+               "MoE tp=2 x ep=2": MH_SHALLOW_REL_TOL}
+
+
+def p22_chunks(layout: str) -> list[tuple[int, int]]:
+    """(Sq, Sk) of every K1 call per layer of a phase 22 layout's traffic:
+    its prompts' chunks, and for the dense layouts the re-sent prompt's
+    one-token warm suffix."""
+    if layout.startswith("MoE"):
+        return [s for n in P22_MOE_LENS for s in chunk_shapes(n)]
+    n = PROMPT_LENS[P22_WARM]
+    return prefill_shapes() + chunk_shapes(n, n - 1)
+
+
+def p22_shapes(layout: str, tp: int) -> list[tuple]:
+    """A phase 22 layout's distinct K1 shapes at the rank's heads
+    (``path_shapes``)."""
+    slug = re.sub(r"\W+", "_", layout).strip("_").lower()
+    h, hkv, d = P22_HEADS
+    return path_shapes(p22_chunks(layout), f"predictor_{slug}",
+                       heads=(h // tp, hkv // tp, d))
+
+
+def p22_all_shapes() -> list[tuple]:
+    """Phase 22's distinct K1 shapes (phase 1 holds K1 at each)."""
+    seen: dict[tuple, tuple] = {}
+    for label, tp, *_ in P22_LAYOUTS:
+        for s in p22_shapes(label, tp):
+            seen.setdefault(s[1:8], s[:8])
+    return list(seen.values())
 
 GANG_WORKER = r"""
 import os, time
@@ -2911,6 +3017,13 @@ if "21" in spec:
     out["21"] = [job(lambda run=run: (0, smoke.multihost_run(fa, run, comm)))
                  for run in spec["21"]]
     times["21"] = time.time() - T0
+if "22" in spec:
+    # phase 22's predictor gangs: rank 0 leads each engine, the others
+    # follow its step records
+    import chip_smoke as smoke
+    out["22"] = [job(lambda run=run: (0, smoke.predictor_run(fa, run, comm)))
+                 for run in spec["22"]]
+    times["22"] = time.time() - T0
 print(json.dumps({
     "device": torch.cuda.current_device(), "backend": dist.get_backend(),
     "world": dist.get_world_size(), "times": times, **out}))
@@ -3595,35 +3708,73 @@ def tp_block_digests(module, tp: int) -> dict[str, list[list[str]]]:
 
 
 @contextlib.contextmanager
-def tp2_partial_sums(model):
+def tp2_partial_sums(model, columns: bool = False):
     """Every row-parallel product of a whole (one-process) bf16 ``model``
     computed as tp = 2 computes it: the two halves of the contraction each
     a bf16 product, summed in bf16 (gloo's sum of two bf16 tensors rounds
-    their float sum once), as long as the block lasts."""
+    their float sum once), as long as the block lasts.  With ``columns``
+    every product runs at a tp = 2 rank's shapes: each column-parallel
+    kernel (and the tied head's vocabulary) as two products of half the
+    columns, and every half's operands contiguous, as a rank holds them
+    (a GEMM's algorithm, and with it its rounding, may depend on N)."""
     from kubeflow_tpu_torch.models.layers import DenseGeneral, weight
+    from kubeflow_tpu_torch.ops.matmul import matmul_f32
     from kubeflow_tpu_torch.serving import sharded
 
     specs = sharded.param_specs(model)
-    patched = [m for name, m in model.named_modules()
-               if isinstance(m, DenseGeneral)
-               and specs.get(f"{name}.kernel", ())[:1] == ("tp",)]
+    split = {m: specs.get(f"{name}.kernel", ())
+             for name, m in model.named_modules()
+             if isinstance(m, DenseGeneral)}
+    patched = [m for m, spec in split.items() if spec[:1] == ("tp",)]
+    cols = ([m for m, spec in split.items() if "tp" in spec[1:]]
+            if columns else [])
 
     def halves(m):
         def forward(x):
             w = weight(m.kernel, m.dtype)
             w2, xs = w.reshape(w.shape[0], -1), x.to(m.dtype)
             k = w2.shape[0] // 2
-            y = xs[..., :k] @ w2[:k] + xs[..., k:] @ w2[k:]
+            if columns:
+                y = (xs[..., :k].contiguous() @ w2[:k]
+                     + xs[..., k:].contiguous() @ w2[k:])
+            else:
+                y = xs[..., :k] @ w2[:k] + xs[..., k:] @ w2[k:]
             return y.reshape(x.shape[:-1] + w.shape[1:])
         return forward
 
+    def column_halves(m):
+        def forward(x):
+            w = weight(m.kernel, m.dtype)
+            w2, xs = w.reshape(w.shape[0], -1), x.to(m.dtype)
+            n = w2.shape[1] // 2
+            y = torch.cat([xs @ w2[:, :n].contiguous(),
+                           xs @ w2[:, n:].contiguous()], dim=-1)
+            return y.reshape(x.shape[:-1] + w.shape[1:])
+        return forward
+
+    emb = model.tok_embeddings
+
+    def attend(x):
+        common = torch.promote_types(x.dtype, emb.dtype)
+        table = weight(emb.embedding, emb.dtype).to(common)
+        x2, v = x.to(common).reshape(-1, x.shape[-1]), table.shape[0] // 2
+        y = torch.cat([matmul_f32(x2, table[:v].T),
+                       matmul_f32(x2, table[v:].T)], dim=-1)
+        return y.reshape(*x.shape[:-1], -1)
+
     for m in patched:
         m.forward = halves(m)
+    for m in cols:
+        m.forward = column_halves(m)
+    if columns:
+        emb.attend = attend
     try:
         yield patched
     finally:
-        for m in patched:
+        for m in patched + cols:
             del m.forward
+        if columns:
+            del emb.attend
 
 
 def multihost_run(fa, run: dict, comm: dict | None = None) -> dict:
@@ -3719,7 +3870,8 @@ def mh_prepare(fa, home: Path) -> tuple[dict, list]:
                 "layers": layers, "prompts": prompts,
                 "out": str(home / f"mh_{slug}_rank{{rank}}.pt")}
 
-    runs = {label: run(label, dp, tp) for label, dp, tp in MH_LAYOUTS}
+    runs = {label: run(label, dp, tp, MH_SHALLOW_LAYERS)
+            for label, dp, tp in MH_LAYOUTS}
     for label, ref, int8 in MH_SHALLOW:
         runs[label] = run(label, 1, 2, MH_SHALLOW_LAYERS, int8)
         runs[ref] = run(ref, 1, 1, MH_SHALLOW_LAYERS, int8)
@@ -3894,12 +4046,424 @@ def mh_numbers(fa, mh: dict) -> list[dict]:
     return rows
 
 
-def phase_gangs(fa, wanted=(17, 18, 19, 20, 21)) -> dict:
-    """Phases 17-21 (``wanted`` of them): each one's one-process runs
+@contextlib.contextmanager
+def held_admission(engine):
+    """Hold ``engine``'s scheduling loop at the top of its next step until
+    the block ends, so that every request submitted inside it is admitted
+    in one step: a run's co-batching (and with it each decode GEMM's M)
+    does not depend on when the client threads got there.  A gang's
+    leader is woken first (its loop may sit in the idle wait)."""
+    entered, gate = threading.Event(), threading.Event()
+    step = engine._step
+
+    def held():
+        entered.set()
+        gate.wait()
+        engine._step = step
+        return step()
+
+    engine._step = held
+    if engine._gang:
+        with engine._work:
+            engine._work.notify_all()
+        check(entered.wait(60), "the leader's loop reached its next step")
+    try:
+        yield
+    finally:
+        gate.set()
+
+
+def predictor_run(fa, run: dict, comm: dict | None = None) -> dict:
+    """One run of phase 22 in this process (one process, or a rank of a
+    gang whose collectives ``comm`` records): ``GenerativePredictor`` of
+    ``run``'s layout, rank 0 driving the traffic (over HTTP when ``run``
+    says so) while the others ``follow``, with the kernels' counts set to
+    0 just before the traffic and read just after.  Each forward is
+    entered after a ``synchronize``.  With ``run["emulate"]`` (one
+    process) the traffic runs under ``tp2_partial_sums``.  Writes the
+    rank's first-token logits by prompt length to ``run["out"]``;
+    returns the streams (every request the rank's engine ran, in arrival
+    order), launches, K1 calls, TTFTs, decode rate, the step records'
+    broadcasts and one decode step's collectives, load time, memory and
+    the cache's heads."""
+    from kubeflow_tpu_torch.parallel import distributed as pd
+    from kubeflow_tpu_torch.serving import engine as eng
+    from kubeflow_tpu_torch.serving.httpserve import serve
+    from kubeflow_tpu_torch.serving.predictor import (GenerativePredictor,
+                                                      PredictorApp)
+    from kubeflow_tpu_torch.serving.quant import quantized_bytes
+
+    rank = pd.rank_of(pd.default_group())
+    free_memory()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    config = {} if run["layers"] is None else {"num_layers": run["layers"]}
+    if run["moe"]:
+        config["moe_experts"] = MOE_EXPERTS
+    t0 = time.perf_counter()
+    pred = GenerativePredictor(
+        "llama", size="7b", tp=run["tp"], ep=run["ep"], max_seq=MAX_SEQ,
+        prefill_chunk=PREFILL_CHUNK, max_batch=4, seed=0,
+        prefix_cache_mb=run["cache_mb"], model_config=config)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    loaded = torch.cuda.memory_allocated() - base
+    e = pred.engine
+    kv = [t for l in e.view for t in l.values()]
+    if e.pool.kv is not None:
+        kv += [t for l in e.pool.kv["layers"] for t in l.values()]
+    cache_bytes = sum(t.numel() * t.element_size() for t in kv)
+    seen, logits, stamps, calls = [], {}, [], []
+    enqueue, forward = e._enqueue_locked, pred.module.forward
+    sample = eng.sample_rows
+
+    def enqueued(req):
+        enqueue(req)
+        seen.append(req)
+
+    def sampled(x, reqs, gens):
+        if x.shape[0] == 1:   # a prefill's first token (a repeat's: not kept)
+            logits.setdefault(len(reqs[0].ids), x[0].float().cpu())
+        return sample(x, reqs, gens)
+
+    def entered(ids, *args, **kwargs):
+        torch.cuda.synchronize()
+        stamps.append((tuple(ids.shape), time.perf_counter(),
+                       json.loads(json.dumps(comm or {}))))
+        return forward(ids, *args, **kwargs)
+
+    e._enqueue_locked, eng.sample_rows = enqueued, sampled
+    pred.module.forward = entered
+    emulate = (tp2_partial_sums(pred.module, columns=True)
+               if run.get("emulate") else contextlib.nullcontext())
+    records0 = dict(e.record_tally)
+    with flash_route(recording_flash(fa, calls)), emulate:
+        set_counters(fa, dict.fromkeys(KERNEL_NAMES, 0))  # the path starts
+        t1 = time.perf_counter()
+        if rank == 0:
+            bodies = [{"ids": [p], "max_new_tokens": NEW_TOKENS}
+                      for p in run["prompts"]]
+            if run["http"]:
+                httpd, thread = serve(PredictorApp({"llama": pred}), 0)
+                port = httpd.server_port
+                results: list = []
+                with held_admission(e):
+                    client = threading.Thread(target=lambda: results.extend(
+                        concurrent_round(port, bodies)))
+                    client.start()
+                    while len(e._pending) + len(e.queue) < len(bodies):
+                        time.sleep(0.001)
+                client.join(timeout=600)
+                results.append(post(port, "/v1/models/llama:generate",
+                                    bodies[P22_WARM]))
+                httpd.shutdown()
+                httpd.server_close()
+                thread.join(timeout=10)
+                check(all(r[0] == 200 for r in results),
+                      [r[0] for r in results])
+            else:
+                with held_admission(e):
+                    reqs = [e.submit(p, NEW_TOKENS) for p in run["prompts"]]
+                for r in reqs:
+                    r.result(timeout=600)
+                if run["warm"]:
+                    e.submit(run["prompts"][P22_WARM],
+                             NEW_TOKENS).result(timeout=600)
+            stats = e.stats()
+            e.shutdown()
+        else:
+            pred.follow()
+            stats = e.stats()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        launches = counters(fa)                           # it ended
+    e._enqueue_locked, eng.sample_rows = enqueue, sample
+    pred.module.forward = forward
+    torch.save(logits, run["out"].format(rank=rank))
+    # one decode step's collectives: between the second and third forwards
+    # of 4 rows by one token (the first decode chunk)
+    steps = [(t, c) for shape, t, c in stamps if shape == (4, 1)]
+    step_comm = {}
+    if len(steps) >= 3:
+        (_, c1), (_, c2) = steps[1], steps[2]
+        step_comm = {kind: {k: v - c1.get(kind, {}).get(k, 0)
+                            for k, v in rec.items()}
+                     for kind, rec in c2.items()}
+    timing = stats["timing"]
+    records = {k: v - records0.get(k, 0) for k, v in e.record_tally.items()}
+    out = {"rank": rank, "launches": launches,
+           "calls": sorted(set(map(tuple, calls))), "n_calls": len(calls),
+           "streams": [[r._seq, r.ids + r.generated, r.outcome]
+                       for r in seen],
+           "ttft_s": {len(r.ids): r.first_token_at - r.submitted_at
+                      for r in seen if r.first_token_at is not None},
+           "decode_tok_s": (timing["decode_tokens"] / timing["decode_seconds"]
+                            if timing["decode_seconds"] else 0.0),
+           "records": records, "wall_s": t2 - t1, "load_s": load_s,
+           "loaded": loaded, "cache_bytes": cache_bytes,
+           "weight_bytes": quantized_bytes(pred.module),
+           "kv_heads": sorted({t.shape[2] for t in kv}),
+           "pool_rows": (None if e.pool.kv is None else
+                         e.pool.kv["layers"][0]["k"].shape[0]),
+           "kv_pool": stats["kv_pool"], "step_comm": step_comm,
+           "peak_gb": (torch.cuda.max_memory_allocated() - base) / 1e9}
+    del pred, e, kv
+    free_memory()
+    return out
+
+
+def whole_weight_bytes(config: dict) -> int:
+    """Bytes of one process's bf16 weights of the 7B Llama of
+    ``config`` (a storage-less build)."""
+    from kubeflow_tpu_torch.models import registry
+
+    model = registry.get("llama").make_model(size="7b", device="meta",
+                                             param_dtype="compute", **config)
+    return sum(p.numel() * p.element_size() for p in model.parameters())
+
+
+def p22_keyed(streams: list) -> dict:
+    """A run's streams by (prompt length, occurrence): the re-sent prompt
+    is ``(n, 1)``."""
+    out: dict = {}
+    for _, ids, outcome in streams:
+        n = len(ids) - NEW_TOKENS
+        key = (n, sum(1 for k in out if k[0] == n))
+        out[key] = (ids, outcome)
+    return out
+
+
+def p22_prepare(fa, home: Path, phase2: dict) -> tuple[dict, list]:
+    """Phase 22's runs: the one-process references here (the dense model
+    at MH_SHALLOW_LAYERS layers under ``tp2_partial_sums`` and the MoE
+    one), phase 2's first-token logits; the gang of 2's section (tp=2,
+    its 2-layer twin, MoE ep=2) and the gang of 4's (MoE tp=2 x ep=2)."""
+    rng = np.random.default_rng(22)
+    dense = [b["ids"][0] for b in serving_bodies(P22_VOCAB, 0)]
+    moe = [rng.integers(1, P22_VOCAB, n).tolist() for n in P22_MOE_LENS]
+
+    def run(label, tp, ep, layers, is_moe, http, **kw):
+        slug = re.sub(r"\W+", "_", label)
+        return {"label": label, "tp": tp, "ep": ep, "layers": layers,
+                "moe": is_moe, "http": http, "warm": not is_moe,
+                "cache_mb": 0 if is_moe else P22_CACHE_MB,
+                "prompts": moe if is_moe else dense,
+                "out": str(home / f"p22_{slug}_rank{{rank}}.pt"), **kw}
+
+    runs = {label: run(label, *rest) for label, *rest in P22_LAYOUTS}
+    one = {}
+    for label, is_moe, kw in (
+            ("2-layer one process (tp2_partial_sums)", False,
+             {"emulate": True}), ("2-layer one process", False, {}),
+            ("MoE one process", True, {})):
+        runs[label] = run(label, 1, 1, MH_SHALLOW_LAYERS, is_moe, False,
+                          **kw)
+        one[label] = predictor_run(fa, runs[label])
+        p22_log(label, [one[label]])
+        free_memory()
+    phase2_out = str(home / "p22_phase2.pt")
+    torch.save({n: t for n, t in phase2["first_logits"].items()}, phase2_out)
+    one["phase 2"] = {"out": phase2_out, "streams": phase2["streams"]}
+    return ({"runs": runs, "one": one,
+             "fours": [runs["MoE tp=2 x ep=2"]]},
+            [runs[label] for label in ("tp=2", "2-layer tp=2", "MoE ep=2")])
+
+
+def p22_log(label: str, ranks: list[dict]) -> None:
+    for r in ranks:
+        rec = r["records"]
+        per = (f"{rec['seconds'] / rec['records'] * 1e3:.3f} ms and "
+               f"{rec['calls'] / rec['records']:.2f} broadcasts per step "
+               f"over {rec['records']} steps" if rec.get("records")
+               else "none (one process)")
+        log(f"phase 22 {label} rank {r['rank']}: load {r['load_s']:.2f} s "
+            f"({r['loaded']} B allocated: weights {r['weight_bytes']} B, KV "
+            f"view and pool {r['cache_bytes']} B at {r['kv_heads']} KV "
+            f"heads); TTFT ms " + " ".join(
+                f"{n}:{t * 1e3:.1f}" for n, t in sorted(r["ttft_s"].items()))
+            + f"; decode {r['decode_tok_s']:.1f} tok/s; step records {per}; "
+            f"one decode step's collectives: "
+            f"{comm_line(r['step_comm']) if r['step_comm'] else 'none'}; "
+            f"K1 {r['launches']['flash_fwd']} launches at {len(r['calls'])} "
+            f"shapes; peak {r['peak_gb']:.2f} GB; wall {r['wall_s']:.2f} s")
+
+
+def p22_logits_gap(label: str, got: dict, want: dict, streams: dict,
+                   want_streams: dict, tol: float | None) -> float:
+    """First-token logits of a layout against its one-process reference
+    (by prompt length), relative to max |logit|: bitwise when ``tol`` is
+    None; each first token held where the reference's top-2 margin
+    exceeds twice the row's gap.  Returns the worst gap."""
+    worst = 0.0
+    for n, w in sorted(want.items()):
+        g = got[n]
+        gap = (g - w).abs().max().item()
+        rel = gap / w.abs().max().item()
+        worst = max(worst, rel)
+        top2 = w.topk(2).values
+        margin = (top2[0] - top2[1]).item()
+        held = margin > 2 * gap
+        key = (n, 0)
+        mine, ref = streams[key][0], want_streams.get(key, (None,))[0]
+        first = (mine[n], None if ref is None else ref[n])
+        log(f"  phase 22 {label} {n} tokens: first-token logits max |d| "
+            f"{gap:.4e} ({rel:.3e} of max |logit|), top-2 margin "
+            f"{margin:.4e}; first token {first[0]} against {first[1]} "
+            f"({'held' if held else 'not held: margin under 2 gaps'})")
+        if tol is None:
+            check(torch.equal(g, w), (label, n, "logits not bitwise"))
+        elif ref is not None:
+            check(not held or first[0] == first[1], (label, n, first))
+    return worst
+
+
+def p22_finish(prep: dict, twos: list[list], fours: list[list]) -> dict:
+    """Phase 22's checks: every rank's streams identical and complete, K1
+    once per layer and chunk at the rank's heads, the rank's weights and
+    KV heads, the first-token logits against one process's (tp=2:
+    phase 2's within P22_REL_TOL; the 2-layer twin bitwise under
+    ``tp2_partial_sums`` with every token; MoE ep=2 bitwise with every
+    token; MoE tp=2 x ep=2 within P22_REL_TOL), the warm stream against
+    its cold one."""
+    runs, one = prep["runs"], prep["one"]
+    jobs = {label: [r[i] for r in twos] for i, label in
+            enumerate(("tp=2", "2-layer tp=2", "MoE ep=2"))}
+    jobs["MoE tp=2 x ep=2"] = [r[0] for r in fours]
+    out = {}
+    for label, tp, ep, layers, is_moe, _ in P22_LAYOUTS:
+        for j in jobs[label]:
+            check(j["rc"] == 0, (label, j["rc"]))
+        ranks = [j["extra"] for j in jobs[label]]
+        run = runs[label]
+        p22_log(label, ranks)
+        lead = ranks[0]
+        check(all(r["streams"] == lead["streams"] for r in ranks),
+              f"phase 22 {label}: ranks' streams differ")
+        check(all(s[2] == "ok" for s in lead["streams"]),
+              (label, [s[2] for s in lead["streams"]]))
+        depth = layers or 32
+        chunks = p22_chunks(label)
+        h, hkv, d = P22_HEADS
+        want_calls = sorted({(1, sq, sk, h // tp, hkv // tp, d, True)
+                             for sq, sk in chunks})
+        config = {} if layers is None else {"num_layers": layers}
+        if is_moe:
+            config["moe_experts"] = MOE_EXPERTS
+        whole = whole_weight_bytes(config)
+        for r in ranks:
+            check(r["launches"] == {"flash_fwd": depth * len(chunks),
+                                    "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+                  and r["n_calls"] == depth * len(chunks)
+                  and [tuple(c) for c in r["calls"]] == want_calls,
+                  (label, r["rank"], r["launches"], r["calls"]))
+            check(r["kv_heads"] == [hkv // tp], (label, r["kv_heads"]))
+            share = r["weight_bytes"] / whole
+            rest = (r["loaded"] - r["cache_bytes"]) / whole
+            log(f"phase 22 {label} rank {r['rank']}: weights {share:.4f} of "
+                f"one process's {whole} B, memory after loading less the KV "
+                f"view and pool {rest:.4f}" + (f" (at most {MH_WEIGHT_SHARE})"
+                                               if tp > 1 else ""))
+            if tp > 1:
+                check(share <= MH_WEIGHT_SHARE and rest <= MH_WEIGHT_SHARE,
+                      (label, r["rank"], share, rest))
+        mine = p22_keyed(lead["streams"])
+        got = torch.load(run["out"].format(rank=0), weights_only=True)
+        for r in ranks[1:]:
+            other = torch.load(run["out"].format(rank=r["rank"]),
+                               weights_only=True)
+            check(all(torch.equal(other[n], got[n]) for n in got),
+                  (label, r["rank"], "first-token logits differ by rank"))
+        if label == "tp=2":
+            ref = one["phase 2"]
+            want = torch.load(ref["out"], weights_only=True)
+            want_streams = {(len(ids) - NEW_TOKENS, 0): (ids, "ok")
+                            for i, ids in enumerate(ref["streams"])
+                            if i != 3}          # phase 2's sampled request
+            tol = P22_REL_TOL[label]
+        else:
+            name = P22_ONE[label]
+            ref = one[name]
+            want = torch.load(runs[name]["out"].format(rank=0),
+                              weights_only=True)
+            want_streams = p22_keyed(ref["streams"])
+            tol = P22_REL_TOL.get(label)
+        if label == "2-layer tp=2":
+            # bitwise where every product ran at the rank's shapes; else
+            # (a GEMM whose algorithm changed with N at a chunk's M) the
+            # 2-layer tolerance and every first token margin-gated
+            exact = all(torch.equal(got[n], want[n]) for n in want)
+            plain = torch.load(runs["2-layer one process"]["out"].format(
+                rank=0), weights_only=True)
+            gap = max(((got[n] - w).abs().max() / w.abs().max()).item()
+                      for n, w in plain.items())
+            log(f"phase 22 {label}: first-token logits "
+                f"{'bitwise' if exact else 'NOT bitwise'} one process's "
+                f"with every product at a tp = 2 rank's shapes "
+                f"(tp2_partial_sums(columns=True)); {gap:.3e} of max "
+                f"|logit| from one process's plain products")
+            tol = None if exact else MH_SHALLOW_REL_TOL
+        worst = p22_logits_gap(label, got, want, mine, want_streams, tol)
+        same = sum(mine[k][0] == want_streams[k][0] for k in want_streams
+                   if k in mine)
+        log(f"phase 22 {label}: {len(ranks)} ranks' streams identical; "
+            f"first-token logits {'bitwise' if tol is None else 'within'} "
+            + ("" if tol is None else f"{worst:.3e} of max |logit| (tol "
+               f"{tol:g}) of ") + f"one process's; {same} of "
+            f"{len(want_streams)} streams equal one process's")
+        if tol is None:
+            check(same == len(want_streams) == len(mine),
+                  (label, "streams", same))
+        else:
+            check(math.isfinite(worst) and worst <= tol, (label, worst))
+        if run["warm"]:
+            n = PROMPT_LENS[P22_WARM]
+            cold, warm = mine[(n, 0)][0], mine[(n, 1)][0]
+            log(f"phase 22 {label}: the re-sent {n}-token prompt (a prefix "
+                f"hit) {'equals' if warm == cold else 'DIFFERS from'} its "
+                f"cold stream; kv_pool at the end {lead['kv_pool']}")
+            check(warm == cold, (label, "warm stream"))
+        out[label] = {"ranks": ranks, "launches": sum(
+            r["launches"]["flash_fwd"] for r in ranks),
+            "load_s": max(r["load_s"] for r in ranks),
+            "decode_tok_s": lead["decode_tok_s"],
+            "ttft_s": lead["ttft_s"], "records": lead["records"]}
+    return out
+
+
+def p22_numbers(fa, p22: dict) -> list[dict]:
+    """K1 rows of phase 22: each layout's distinct shapes with their
+    launches over its ranks, each shape timed once."""
+    timed: dict[tuple, tuple] = {}
+    rows = []
+    for label, tp, *_ in P22_LAYOUTS:
+        ranks = p22[label]["ranks"]
+        layers = p22[label]["launches"] // len(ranks) // len(
+            p22_chunks(label))
+        for name, *dims, per_layer in p22_shapes(label, tp):
+            key = tuple(dims)
+            if key not in timed:
+                timed[key] = k1_times(fa, *dims)
+            ms, plain_ms, library_ms = timed[key]
+            row = {"shape": name, "launches": per_layer * layers * len(ranks),
+                   "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                   **bound_fields("flash_fwd", key, torch.bfloat16)}
+            log(f"flash_fwd {name} bf16 (x{row['launches']} in phase 22 "
+                f"{label}, {len(ranks)} ranks): kernel {ms:.4f} ms, bound "
+                f"{row['bound_ms']:.4f} ms ({row['bound_by']}), plain "
+                f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms")
+            rows.append(row)
+    return rows
+
+
+def phase_gangs(fa, wanted=(17, 18, 19, 20, 21, 22),
+                phase2: dict | None = None) -> dict:
+    """Phases 17-22 (``wanted`` of them): each one's one-process runs
     here, then one gang of GANG_RANKS on this card for all their 2-rank
     layouts, then each phase's checks (phase 17's (c) in this process);
-    phase 18's and 21's 4-rank layouts run in one gang of 4, spawned
-    when the first of them is checked, and phase 18's restore follows."""
+    phase 18's, 21's and 22's 4-rank layouts run in one gang of 4,
+    spawned when the first of them is checked, and phase 18's restore
+    follows.  Phase 22 compares its tp=2 layout with ``phase2`` (phase
+    2's result: its streams and first-token logits)."""
     import shutil
     import tempfile
 
@@ -3907,7 +4471,8 @@ def phase_gangs(fa, wanted=(17, 18, 19, 20, 21)) -> dict:
     free_memory()
     home = Path(tempfile.mkdtemp(prefix=".kf_gangs_"))
     prepare = {17: gang_prepare, 18: mesh_prepare, 19: sp_prepare,
-               20: moe_ep_prepare, 21: mh_prepare}
+               20: moe_ep_prepare, 21: mh_prepare,
+               22: lambda fa, home: p22_prepare(fa, home, phase2)}
     preps, spec, out, four = {}, {}, {}, []
     try:
         for phase in wanted:
@@ -3924,13 +4489,15 @@ def phase_gangs(fa, wanted=(17, 18, 19, 20, 21)) -> dict:
                 for r, o in enumerate(ranks)))
 
         def fours(phase: str) -> list[list]:
-            # phase 18's fsdp=2 x tp=2 and phase 21's dp=2 x tp=2
+            # phase 18's fsdp=2 x tp=2, phase 21's dp=2 x tp=2 and phase
+            # 22's MoE tp=2 x ep=2
             if not four:
                 spec4 = {}
                 if 18 in wanted:
                     spec4["18"] = [preps[18]["configs"][MESH_LAYOUTS[-1][0]]]
-                if 21 in wanted:
-                    spec4["21"] = preps[21]["fours"]
+                for p4 in (21, 22):
+                    if p4 in wanted:
+                        spec4[str(p4)] = preps[p4]["fours"]
                 t2 = time.perf_counter()
                 four.extend(spawn_gang(spec4, 4))
                 log(f"phases {', '.join(spec4)}: gang of 4 "
@@ -3951,8 +4518,10 @@ def phase_gangs(fa, wanted=(17, 18, 19, 20, 21)) -> dict:
                 out[19] = sp_finish(preps[19], got)
             elif phase == 20:
                 out[20] = moe_ep_finish(preps[20], ranks)
-            else:
+            elif phase == 21:
                 out[21] = mh_finish(preps[21], got, fours("21"))
+            else:
+                out[22] = p22_finish(preps[22], got, fours("22"))
             log(f"phase {phase}: checks and what follows the gang of "
                 f"{GANG_RANKS} {time.perf_counter() - t1:.1f}s")
     finally:
@@ -4136,7 +4705,8 @@ def int8_kv_traffic(fa, pred) -> dict:
     try:
         with torch.no_grad(), first_token_logits(store):
             saved = counters(fa)
-            for prompt in chat_turns(cfg.vocab_size, 71):   # warm-up
+            # warm-up, one turn (its module loads and first-use costs)
+            for prompt in chat_turns(cfg.vocab_size, 71)[:1]:
                 serve_one(eng, prompt, store)
             set_counters(fa, saved)
             h0, m0 = PREFIX_HITS.get(), PREFIX_MISSES.get()
@@ -5097,16 +5667,19 @@ def kernel_times_only(fa) -> int:
 
 def some_phases(fa, which: str) -> int:
     """``--phases 9,12,13``: build and check the kernels (phase 1), then
-    the named phases (9 to 21); prints no result line."""
+    the named phases (9 to 22; 22 runs phase 2 first, its reference);
+    prints no result line."""
     wanted = {int(w) for w in which.split(",") if w}
-    if not wanted <= set(range(9, 22)):
-        print(f"chip_smoke: --phases takes 9 to 21, not {which}",
+    if not wanted <= set(range(9, 23)):
+        print(f"chip_smoke: --phases takes 9 to 22, not {which}",
               file=sys.stderr)
         return 2
     phase_kernels(fa)
-    gang_phases = tuple(p for p in (17, 18, 19, 20, 21) if p in wanted)
+    gang_phases = tuple(p for p in (17, 18, 19, 20, 21, 22) if p in wanted)
     if gang_phases:
-        gangs = phase_gangs(fa, gang_phases)
+        serving = phase_serving(fa) if 22 in wanted else None
+        free_memory()
+        gangs = phase_gangs(fa, gang_phases, serving)
         free_memory()
         log(card_line())
         if 17 in gangs:
@@ -5120,6 +5693,8 @@ def some_phases(fa, which: str) -> int:
             moe_ep_numbers(fa, gangs[20], mesh_rows)
         if 21 in gangs:
             mh_numbers(fa, gangs[21])
+        if 22 in gangs:
+            p22_numbers(fa, gangs[22])
     gemma = {}
     if 15 in wanted:
         gemma["serving"] = phase_gemma_serving(fa)
@@ -5216,9 +5791,9 @@ def main(argv: list[str]) -> int:
     free_memory()
     gemma_train = phase_gemma_training(fa)
     vision = phase_vision(fa)
-    gangs = phase_gangs(fa)
-    gang, mesh, sp, moe_ep, multihost = (gangs[p]
-                                         for p in (17, 18, 19, 20, 21))
+    gangs = phase_gangs(fa, phase2=serving)
+    gang, mesh, sp, moe_ep, multihost, p22 = (
+        gangs[p] for p in (17, 18, 19, 20, 21, 22))
     log(card_line())
     serving_rows = phase_numbers(fa, main_path_shapes(), num_layers=32)
     prefix_rows = phase_numbers(fa, prefix_path_shapes(), num_layers=32)
@@ -5234,6 +5809,7 @@ def main(argv: list[str]) -> int:
     sp_rows = sp_numbers(fa, sp)
     moe_ep_rows = moe_ep_numbers(fa, moe_ep, mesh_rows)
     mh_rows = mh_numbers(fa, multihost)
+    p22_rows = p22_numbers(fa, p22)
     causal_numbers(fa)
     log(f"phase 2: TTFT mean {serving['ttft_mean_s'] * 1e3:.1f} ms over the "
         f"4 concurrent requests; decode "
@@ -5331,6 +5907,11 @@ def main(argv: list[str]) -> int:
             f"{multihost[label]['prefill_s']:.3f} / "
             f"{multihost[label]['decode_tok_s']:.1f}"
             for label, *_ in MH_LAYOUTS)
+        + "; phase 22 (load s, decode tok/s, step records): " + ", ".join(
+            f"{label} {p22[label]['load_s']:.2f} / "
+            f"{p22[label]['decode_tok_s']:.1f} / "
+            f"{p22[label]['records'].get('records', 0)}"
+            for label, *_ in P22_LAYOUTS)
         + f"; total {time.perf_counter() - t_start:.1f}s")
     check(serving["launches"] == sum(r["launches"] for r in serving_rows),
           "serving launches")
@@ -5360,8 +5941,8 @@ def main(argv: list[str]) -> int:
                                moe_train_rows["flash_fwd"]]
                             + gang_rows["flash_fwd"]
                             + mesh_rows["flash_fwd"] + sp_rows["flash_fwd"]
-                            + moe_ep_rows["flash_fwd"] + mh_rows,
-                            errs["flash_fwd"])]
+                            + moe_ep_rows["flash_fwd"] + mh_rows
+                            + p22_rows, errs["flash_fwd"])]
     kernels += [kernel_entry(name, [bert_rows[name], llama_rows[name],
                                     moe_train_rows[name]] + gang_rows[name]
                              + mesh_rows[name] + sp_rows[name]

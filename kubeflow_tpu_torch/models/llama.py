@@ -334,11 +334,12 @@ def moe_layers(cfg: LlamaConfig) -> set[int]:
 
 
 def init_kv_pool(cfg: LlamaConfig, num_pages: int, page_size: int, *,
-                 device=None, quantized: bool = False):
-    """Per-layer paged KV pool: ``[num_pages, page_size, Hkv, D]`` k and v
-    tensors in the model dtype, addressed through page tables (page 0 is
-    the null page).  Callers attach ``pages``/``index`` per layer at
-    dispatch time, as ``init_cache`` callers attach ``index``.
+                 device=None, quantized: bool = False, tp: int = 1):
+    """Per-layer paged KV pool: ``[num_pages, page_size, Hkv / tp, D]`` k
+    and v tensors in the model dtype (with ``tp`` > 1, a tensor-parallel
+    rank's KV heads), addressed through page tables (page 0 is the null
+    page).  Callers attach ``pages``/``index`` per layer at dispatch time,
+    as ``init_cache`` callers attach ``index``.
 
     ``quantized``: the store of int8 pages (``serving/quant.py``), four
     tensors per layer under the reference's page-tree keys: ``k``/``v``
@@ -346,10 +347,14 @@ def init_kv_pool(cfg: LlamaConfig, num_pages: int, page_size: int, *,
     ``[num_pages, 1, Hkv, 1]``, one scale per (page, kv head).  Only the
     engine's commit and seed read it; the paged attention branch takes
     the model-dtype store."""
+    if cfg.num_kv_heads % tp:
+        raise ValueError(
+            f"num_kv_heads={cfg.num_kv_heads} not divisible by tp={tp}")
     device = resolve(device)
-    shape = (num_pages, page_size, cfg.num_kv_heads, cfg.head_dim)
+    heads = cfg.num_kv_heads // tp
+    shape = (num_pages, page_size, heads, cfg.head_dim)
     if quantized:
-        scale = (num_pages, 1, cfg.num_kv_heads, 1)
+        scale = (num_pages, 1, heads, 1)
         return {"layers": [
             {"k": torch.zeros(shape, dtype=torch.int8, device=device),
              "ks": torch.ones(scale, dtype=torch.float32, device=device),

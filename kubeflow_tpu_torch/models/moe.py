@@ -53,6 +53,23 @@ replicated over ep, an all-gather of the outputs is exact and needs no
 all-to-all; every gradient outside the expert weights is the same on
 every ep rank.
 
+**Dropless under ep and tp** (the serving predictor's layouts,
+``serving/sharded.py``'s rules: ``w_in``'s "mlp" dim column-parallel and
+``w_out``'s row-parallel over tp, the "expert" dim over ep).  Rank r
+runs its experts (``[r E/ep, (r + 1) E/ep)``, all E without ep) at its
+``f / tp`` columns on every token, keeps each token's gated output of a
+chosen expert it holds (zero for one it does not) and the ``[T, D]``
+float32 partials are summed in ONE all-reduce over the weights'
+``model_group``: the tp group, the ep group, or with both the joint tp x
+ep group (``parallel/mesh.py::JOINT_AXES``).  One collective per MoE
+layer per forward, over the smallest tensor (the gated ``[T, D]``, not
+``[E, T, D]``); the input passes ``copy_to_group`` over the same group.
+Under ep alone this is exact: each token has at most two non-zero terms
+across the ranks, adding zeros is exact and float32 addition commutes,
+so the sum is one process's ``g0 a + g1 b`` bitwise.  Under tp the
+contraction over f is split, so the sum rounds differently (about 1e-7
+relative).  The router stays whole on every rank.
+
 The router's kernel and bias are float32 in every build (the serving
 predictor holds everything else in the compute dtype): a rounded router
 would move routing decisions.  The float32 products run with PyTorch's
@@ -223,14 +240,14 @@ class MoEBlock(nn.Module):
             mean_probs = pd.sum_over_group(sums, group) / glob["tokens"]
             aux = (glob["first"].float() / glob["tokens"]
                    * mean_probs).sum() * e
+        ep = getattr(self.w_in, "ep_split", None)
         if dropless:
-            w_in, w_out = self._experts()
-            h = F.gelu(torch.matmul(xf[None], w_in), approximate="tanh")
-            out = torch.bmm(h, w_out)                          # [E, T, D]
-            rows = torch.arange(tokens, device=x.device)[:, None]
-            sel = out[experts, rows]                           # [T, 2, D]
-            y = (sel * gates[..., None]).sum(dim=1)
-            return y.reshape(b, s, d).to(x.dtype), aux
+            return self._dropless(xf, gates, experts, ep).reshape(
+                b, s, d).to(x.dtype), aux
+        if getattr(self.w_in, "tp_split", None) is not None:
+            raise NotImplementedError(
+                "capacity-mode MoE with its experts split over tp is not "
+                "ported yet (ROADMAP queue A item 6b)")
         if group is None:
             cap = capacity(self.config, tokens)
             slot, keep = capacity_slots(experts, e, cap)
@@ -246,7 +263,6 @@ class MoEBlock(nn.Module):
         fill = torch.full((e * cap + 1,), tokens, dtype=torch.long,
                           device=x.device)
         fill[slot] = order
-        ep = getattr(self.w_in, "ep_split", None)
         if ep is None:
             first, local = 0, e
         else:
@@ -267,3 +283,35 @@ class MoEBlock(nn.Module):
         weights = gates.t().reshape(-1, 1)                     # priority order
         y = (out[slot] * weights).reshape(2, tokens, d).sum(dim=0)
         return y.reshape(b, s, d).to(x.dtype), aux
+
+    def _dropless(self, xf: torch.Tensor, gates: torch.Tensor,
+                  experts: torch.Tensor, ep) -> torch.Tensor:
+        """Every (local) expert on every token ``xf [T, D]``, each token's
+        two chosen outputs weighted by ``gates [T, 2]``: ``[T, D]`` in
+        float32.  Split over ep and/or tp (module docstring), this rank's
+        gated partial is summed over ``model_group``."""
+        tokens = xf.shape[0]
+        group = getattr(self.w_in, "model_group", None)
+        if group is not None:
+            # every rank's experts read the same tokens: their input
+            # gradient contributions sum over the group
+            xf = pd.copy_to_group(xf, group)
+        w_in, w_out = self._experts()
+        h = F.gelu(torch.matmul(xf[None], w_in), approximate="tanh")
+        out = torch.bmm(h, w_out)                      # [E or E/ep, T, D]
+        rows = torch.arange(tokens, device=xf.device)[:, None]
+        if ep is None:
+            sel = out[experts, rows]                           # [T, 2, D]
+        else:
+            # the choices this rank's experts serve; zero elsewhere
+            local = out.shape[0]
+            idx = experts - ep.index * local
+            mine = (idx >= 0) & (idx < local)
+            sel = torch.where(mine[..., None],
+                              out[idx.clamp(0, local - 1), rows],
+                              out.new_zeros(()))
+        y = (sel * gates[..., None]).sum(dim=1)
+        if group is not None:
+            y = pd.reduce_from_group(y, group)
+        return y
+

@@ -33,8 +33,10 @@ MeshAxes = ("dp", "fsdp", "tp", "sp", "pp", "ep")
 DATA_AXES = ("dp", "fsdp")
 # the sets of axes a step sums over together, each with a group of its
 # own: the data axes, and under sequence parallelism the data axes and
-# sp (a replicated gradient) or dp and sp (an fsdp-split one)
-JOINT_AXES = (DATA_AXES, ("dp", "fsdp", "sp"), ("dp", "sp"))
+# sp (a replicated gradient) or dp and sp (an fsdp-split one); tp and ep
+# together hold the partial sums of a dropless MoE layer
+# (``models/moe.py``).  Each set in ``MeshAxes`` order
+JOINT_AXES = (DATA_AXES, ("dp", "fsdp", "sp"), ("dp", "sp"), ("tp", "ep"))
 
 
 @dataclasses.dataclass(frozen=True)

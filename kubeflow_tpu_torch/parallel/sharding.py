@@ -300,6 +300,10 @@ def shard_model(model: nn.Module, mesh,
         new.fsdp_split = splits.get("fsdp")
         new.tp_split = splits.get("tp")
         new.ep_split = splits.get("ep")
+        # the group over the model axes that split it: a dropless MoE
+        # layer sums its partial outputs over this one group
+        model_axes = [a for a in ("tp", "ep") if a in splits]
+        new.model_group = mesh.group(*model_axes) if model_axes else None
     return model
 
 

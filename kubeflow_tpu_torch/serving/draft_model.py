@@ -66,6 +66,12 @@ class DraftModel:
                  max_entries: int = 8, cost_per_token: float | None = None):
         self.model = truncate(model, num_layers)
         self.cfg = self.model.config
+        # under tp (the shared blocks split by ``serving/sharded.py``) the
+        # caches hold this rank's KV heads and the greedy picks read the
+        # logits over the whole vocabulary, as the target's do
+        split = model.tok_embeddings.vocab_split()
+        self.tp = 1 if split is None else split.size
+        self._whole_vocab = model.tok_embeddings.whole_vocab
         self.device = model.device
         self.seq_cap = int(model.config.max_seq_len)
         self.max_entries = max(1, int(max_entries))
@@ -86,7 +92,8 @@ class DraftModel:
                            dtype=torch.int64, device=self.device)
         out = self.model(ids, cache={"layers": [
             dict(l, index=start) for l in cache["layers"]]})
-        tok = int(out["logits"][0, true_len - 1 - start].argmax())
+        tok = int(self._whole_vocab(
+            out["logits"][0, true_len - 1 - start][None])[0].argmax())
         return {"layers": [dict(l, index=true_len)
                            for l in cache["layers"]]}, tok
 
@@ -99,7 +106,8 @@ class DraftModel:
         for i in range(n):
             out = self.model(cur, cache={"layers": [
                 dict(l, index=pos + i) for l in cache["layers"]]})
-            cur = out["logits"][:, -1].argmax(dim=-1, keepdim=True)
+            cur = self._whole_vocab(out["logits"][:, -1]).argmax(
+                dim=-1, keepdim=True)
             toks.append(cur)
         return torch.cat(toks).flatten().tolist()
 
@@ -141,7 +149,7 @@ class DraftModel:
         else:
             if key is None:
                 cache = init_cache(self.cfg, 1, self.seq_cap,
-                                   device=self.device)
+                                   device=self.device, tp=self.tp)
                 start = 0
             else:
                 cache, _ = self._ctx[key]

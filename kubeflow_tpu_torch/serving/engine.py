@@ -82,6 +82,20 @@ What it keeps:
   that dies with the engine; ``adopt`` takes one over.  An injected
   ``pool`` (and ``prefix_cache``) is shared with sibling engines, which
   issue their copies on the same CUDA stream (the thread default);
+- a serving gang (``mesh`` over tp and/or ep ranks, the predictor's
+  ``tp=``/``ep=``): every rank runs a batcher over its shard, the view,
+  scratch and page pool at its ``Hkv / tp`` heads (``sharded.CACHE_SPEC``;
+  the page count is the whole model's, as the reference's GSPMD pool
+  counts it).  Rank 0 alone takes requests; at the top of each step it
+  broadcasts a step record (``serving/lockstep.py``: the requests it
+  enqueued, its cancel and deadline verdicts, the stop flag, a digest of
+  its previous step's tokens) and every other rank replays it in
+  ``follow()``, so all of them admit, prefill, decode and sample alike
+  over logits gathered across the vocabulary.  Death is judged at step
+  boundaries only (no collective per prefill chunk); an idle leader
+  still sends a record every ``HEARTBEAT_S``; a follower whose tokens
+  differ raises, and a dead follower fails the leader's next collective
+  into the crash path;
 - cluster prefix reuse (``serving/kv_directory.py``): with a
   ``directory``, every cached prompt is advertised and every eviction
   withdrawn; with a ``fetch_fn`` too, a prompt whose longest advertised
@@ -93,6 +107,7 @@ What it keeps:
 
 from __future__ import annotations
 
+import math
 import threading
 import time
 from dataclasses import dataclass, field
@@ -101,9 +116,11 @@ import torch
 
 from kubeflow_tpu_torch import trace
 from kubeflow_tpu_torch.models.llama import init_kv_pool, kv_page_nbytes
+from kubeflow_tpu_torch.parallel import distributed as pd
 from kubeflow_tpu_torch.qos.accounting import get_accountant
 from kubeflow_tpu_torch.qos.tenants import ANONYMOUS, clamp_tenant
 from kubeflow_tpu_torch.qos.wfq import WeightedFairQueue, fair_quota
+from kubeflow_tpu_torch.serving import lockstep, sharded
 from kubeflow_tpu_torch.serving.page_pool import PagePool, pages_for
 from kubeflow_tpu_torch.serving.prefix_cache import PrefixCache
 from kubeflow_tpu_torch.serving.quant import (dequantize_kv,
@@ -197,6 +214,10 @@ SEED_BUCKETS = (1, 2, 4, 8, 16, 32, 64)
 # toward plain decode)
 SPEC_COST_BASE = 1.8
 SPEC_COST_SLOPE = 0.15
+
+# the longest an idle engine waits for work between scheduling steps; a
+# gang's leader sends a step record at least this often
+HEARTBEAT_S = 5.0
 
 
 class QueueFull(RuntimeError):
@@ -300,7 +321,7 @@ class ContinuousBatcher:
                  kv_quant: bool = False, directory=None,
                  engine_id: str | None = None, engine_addr: str = "",
                  fetch_fn=None, tenant_shares: dict | None = None,
-                 pressure_fn=None):
+                 pressure_fn=None, mesh=None):
         if role not in ("colocated", "prefill", "decode"):
             raise ValueError(f"unknown engine role {role!r}")
         if role == "prefill" and handoff_fn is None:
@@ -312,6 +333,18 @@ class ContinuousBatcher:
         self.model = model
         self.cfg = cfg
         self.device = model.device
+        # a tp / ep serving mesh over the gang: the view, scratch and pool
+        # hold this rank's KV heads, and with more than one rank the
+        # batchers run in lockstep, rank 0 leading (``_next_record``)
+        self.mesh = mesh
+        self.tp = 1 if mesh is None else mesh.shape["tp"]
+        self._gang = mesh is not None and mesh.size > 1
+        self.rank = pd.rank_of(pd.default_group()) if self._gang else 0
+        # logits over the whole vocabulary (a tp rank's head gives its
+        # slice): sampling and its generators read the same values on
+        # every rank
+        emb = getattr(model, "tok_embeddings", None)
+        self._whole_vocab = getattr(emb, "whole_vocab", lambda x: x)
         self.max_batch = max_batch
         self.max_seq = min(max_seq, cfg.max_seq_len)
         self.prefill_chunk = max(1, min(prefill_chunk, self.max_seq))
@@ -361,7 +394,8 @@ class ContinuousBatcher:
             # handoff's pages); otherwise nothing ever commits a page, and
             # the default engine's memory stays as it was
             kv = (init_kv_pool(cfg, kv_pages, self.page_size,
-                               device=self.device, quantized=self.kv_quant)
+                               device=self.device, quantized=self.kv_quant,
+                               tp=self.tp)
                   if cache_pages or role != "colocated" else None)
             pool = PagePool(kv_pages, self.page_size, self.page_nbytes,
                             host_pages=max(0, int(host_kv_pages)), kv=kv)
@@ -392,11 +426,22 @@ class ContinuousBatcher:
         self.pressure_fn = pressure_fn
         if self.directory is not None and self.prefix_cache is not None:
             self.prefix_cache.on_evict = self._withdraw_prefix
-        shape = (max_batch, self.max_seq, cfg.num_kv_heads, cfg.head_dim)
+        shape = sharded.cache_block(
+            (max_batch, self.max_seq, cfg.num_kv_heads, cfg.head_dim), mesh)
         dt = cfg.torch_dtype
         self.view = [{"k": torch.zeros(shape, dtype=dt, device=self.device),
                       "v": torch.zeros(shape, dtype=dt, device=self.device)}
                      for _ in range(cfg.num_layers)]
+        if mesh is not None:
+            # one rule places every serving cache: KV heads over tp
+            from kubeflow_tpu_torch.serving.multihost import constrain_cache
+
+            constrain_cache({"layers": self.view}, mesh, batch=max_batch,
+                            num_kv_heads=cfg.num_kv_heads)
+            if self.pool.kv is not None:
+                constrain_cache(self.pool.kv, mesh,
+                                batch=self.pool.kv["layers"][0]["k"].shape[0],
+                                num_kv_heads=cfg.num_kv_heads)
         self._scratch_kv = None   # batch-1 prefill scratch, made at first use
         self.slots: list[GenRequest | None] = [None] * max_batch
         self.queue: list[GenRequest] = []
@@ -423,6 +468,20 @@ class ContinuousBatcher:
         self._prefilling = 0
         self._handoffs = 0    # handoffs made (prefill role)
         self._resumed = 0     # handoffs seeded into a slot here
+        # lockstep: the leader's requests wait here for the next record;
+        # each step's (seq, token) emissions and their digest; the
+        # records' broadcasts (calls, seconds)
+        self._pending: list[GenRequest] = []
+        self._emitted: list[int] = []
+        self._digest = lockstep.digest([])
+        self.record_tally: dict = {}
+        self._crash: str | None = None
+        if self._gang and self.rank == 0:
+            # the leader's loop runs from the start: its records (one per
+            # wake when idle) are what the followers wait in
+            self._thread = threading.Thread(
+                target=self._loop, daemon=True, name="serving-batcher")
+            self._thread.start()
 
     # -- public ----------------------------------------------------------------
     def submit(self, ids: list[int], max_new_tokens: int = 32,
@@ -430,6 +489,10 @@ class ContinuousBatcher:
                seed: int | None = None, top_k: int = 0, top_p: float = 0.0,
                deadline_s: float | None = None, trace_ctx=None,
                tenant: str | None = None) -> GenRequest:
+        if self._gang and self.rank != 0:
+            raise RuntimeError(f"rank {self.rank} of a serving gang takes "
+                               "no requests: rank 0 leads, the others "
+                               "follow()")
         if len(ids) + max_new_tokens > self.max_seq:
             raise ValueError(
                 f"prompt+new ({len(ids) + max_new_tokens}) > max_seq "
@@ -465,6 +528,13 @@ class ContinuousBatcher:
             raise
         return req
 
+    def refuse_in_gang(self, what: str) -> None:
+        """Raise for ``what``, which a lockstep gang does not port yet."""
+        if self._gang:
+            raise NotImplementedError(
+                f"{what} under a tp / ep serving gang is not ported yet "
+                "(ROADMAP queue A item 7c)")
+
     def _start_trace(self, req: GenRequest, trace_ctx) -> None:
         tracer = trace.get_tracer()
         if trace_ctx is not None:
@@ -482,6 +552,8 @@ class ContinuousBatcher:
     def _enqueue(self, req: GenRequest, seed: int | None,
                  deadline_s: float | None) -> None:
         with self._work:
+            if self._crash is not None:
+                raise RuntimeError(f"serving engine crashed: {self._crash}")
             if self._closed:
                 raise RuntimeError("serving engine is shut down")
             if self._draining:
@@ -494,8 +566,9 @@ class ContinuousBatcher:
                 # stay open; one flow's quota is the whole queue
                 quota = fair_quota(self.max_queue, req.tenant,
                                    self.tenant_shares)
-                waiting = (len(self.queue) if not self.tenant_shares
-                           else sum(1 for r in self.queue
+                queued = self.queue + self._pending
+                waiting = (len(queued) if not self.tenant_shares
+                           else sum(1 for r in queued
                                     if r.tenant == req.tenant))
                 if waiting >= quota:
                     REQS_TOTAL.labels("shed").inc()
@@ -521,7 +594,12 @@ class ContinuousBatcher:
             req.seed = seed
             if deadline_s is not None:
                 req.deadline = req.submitted_at + deadline_s
-            self._enqueue_locked(req)
+            if self._gang:
+                # enqueued by the next record, on every rank alike
+                self._pending.append(req)
+                self._work.notify_all()
+            else:
+                self._enqueue_locked(req)
 
     def _enqueue_locked(self, req: GenRequest) -> None:
         """The one enqueue tail (lock held) of submit, handoff resume and
@@ -533,7 +611,8 @@ class ContinuousBatcher:
         req._vft = self._wfq.tag(req.tenant)
         self.queue.append(req)
         QUEUE_DEPTH.set(len(self.queue))
-        if self._thread is None or not self._thread.is_alive():
+        if not self._gang and (self._thread is None
+                               or not self._thread.is_alive()):
             self._stop = False
             self._thread = threading.Thread(
                 target=self._loop, daemon=True, name="serving-batcher")
@@ -550,6 +629,7 @@ class ContinuousBatcher:
         state's page references are released at the seed or at the
         request's death.  Draining rejects only NEW work (a cross-process
         resume); an in-process handoff continues an admitted request."""
+        self.refuse_in_gang("a disaggregated handoff")
         req = state.request
         preadmitted = req is not None
         if req is None:
@@ -583,6 +663,8 @@ class ContinuousBatcher:
         """Take over a live request from a dying sibling engine (the
         coordinator's decode failover) for a cold re-run; False when this
         engine cannot accept work."""
+        if self._gang:
+            return False
         with self._work:
             if self._closed or self._draining:
                 return False
@@ -621,7 +703,7 @@ class ContinuousBatcher:
             # but are load (its per-role signal)
             out = {"active": (sum(1 for s in self.slots if s is not None)
                               + self._prefilling),
-                   "queued": len(self.queue),
+                   "queued": len(self.queue) + len(self._pending),
                    "max_batch": self.max_batch,
                    "timing": dict(self._timing)}
             if self.role != "colocated":
@@ -693,7 +775,7 @@ class ContinuousBatcher:
         timeout)."""
         deadline = time.monotonic() + timeout
         with self._work:
-            while (self.queue or self._prefilling
+            while (self.queue or self._pending or self._prefilling
                    or any(s is not None for s in self.slots)):
                 remaining = deadline - time.monotonic()
                 if remaining <= 0:
@@ -703,7 +785,9 @@ class ContinuousBatcher:
 
     def shutdown(self) -> None:
         """Terminal: pending and in-flight requests fail; later submits
-        raise."""
+        raise.  In a gang the leader's next record carries the stop, and
+        each follower's ``follow`` returns on it (a follower's own
+        shutdown only closes it)."""
         with self._work:
             self._closed = True
             self._stop = True
@@ -718,6 +802,7 @@ class ContinuousBatcher:
         """Reopen a shut-down (or draining) engine; the batcher respawns
         on the next submit.  The pool and prefix cache survive, so the
         warm prefixes are advertised again."""
+        self.refuse_in_gang("restart after shutdown")
         with self._work:
             self._closed = False
             self._draining = False
@@ -734,6 +819,15 @@ class ContinuousBatcher:
 
     def _dead_outcome(self, req: GenRequest,
                       now: float | None = None) -> str | None:
+        if self._gang:
+            # a gang takes the leader's verdicts at step boundaries only
+            # (``_next_record``): a check between prefill chunks would be
+            # one rank's clock, and would cost a collective per chunk
+            return None
+        return self._verdict(req, now)
+
+    def _verdict(self, req: GenRequest,
+                 now: float | None = None) -> str | None:
         if self._stop:
             return "shutdown"
         if req._cancel_requested:
@@ -806,20 +900,44 @@ class ContinuousBatcher:
             with torch.no_grad():
                 while self._step():
                     pass
-        except Exception:
+        except Exception as e:
             self.log.error("batcher loop crashed", exc_info=True)
             with self._work:
-                dying = list(self.queue) + [s for s in self.slots if s]
+                dying = (list(self.queue) + self._pending
+                         + [s for s in self.slots if s])
                 self.queue.clear()
+                self._pending = []
                 self.slots = [None] * self.max_batch
                 self._thread = None
+                if self._gang:
+                    # a broken gang stays broken: later submits raise
+                    self._crash = f"{type(e).__name__}: {e}"
             self._die_with_engine(dying, "error", "serving engine crashed")
+
+    def follow(self) -> None:
+        """A follower's loop (a gang rank other than 0): receive each of
+        the leader's step records, replay it and run the same step, until
+        the record that stops the gang.  Raises when the gang breaks or
+        this rank's tokens differ from the leader's."""
+        if not self._gang or self.rank == 0:
+            raise RuntimeError("follow() is for the ranks of a serving "
+                               "gang other than rank 0")
+        with torch.no_grad():
+            while self._step():
+                pass
 
     def _step(self) -> bool:
         """One scheduling iteration; False when the engine stopped."""
+        if self._gang:
+            if not self._apply_record(self._next_record()):
+                return False
+            self._emitted = []
+            self._step_body()
+            self._digest = lockstep.digest(self._emitted)
+            return True
         with self._work:
             while not self._stop and not self.queue and not any(self.slots):
-                self._work.wait(timeout=5.0)
+                self._work.wait(timeout=HEARTBEAT_S)
             if self._stop:
                 dying = list(self.queue) + [s for s in self.slots if s]
                 self.queue.clear()
@@ -829,13 +947,106 @@ class ContinuousBatcher:
                                   "serving engine shut down")
             return False
         self._sweep_dead()
+        self._step_body()
+        return True
+
+    def _step_body(self) -> None:
+        """Admission, then one decode chunk or speculative round."""
         self._admit()
         with self._work:
             queue_empty = not self.queue
         if any(self.slots):
             if not (self.spec_max and self._spec_step()):
                 self._decode_chunk(queue_empty)
+
+    # -- lockstep (serving/lockstep.py) ----------------------------------------
+    def _next_record(self) -> lockstep.StepRecord:
+        """This step's record on every rank.  The leader waits for work
+        (at most ``HEARTBEAT_S``: an idle leader still sends a record per
+        wake, so no follower's broadcast reaches the group's timeout),
+        enqueues its pending requests, takes the verdicts of its clock and
+        cancel flags, and broadcasts; a follower receives, enqueues the
+        same requests in the same order and checks the leader's digest of
+        the previous step against its own."""
+        if self.rank != 0:
+            rec = lockstep.exchange(None, self.record_tally)
+            if rec.digest != self._digest:
+                raise RuntimeError(
+                    f"serving gang diverged: rank {self.rank}'s tokens of "
+                    "the last step differ from rank 0's (digest "
+                    f"{self._digest:#x} against {rec.digest:#x})")
+            with self._work:
+                for n in rec.new:
+                    req = GenRequest(
+                        list(n.ids), n.max_new_tokens, n.temperature,
+                        n.eos_id, seed=n.seed, top_k=n.top_k, top_p=n.top_p,
+                        tenant=n.tenant,
+                        # the leader's clock decides; this only marks it
+                        deadline=math.inf if n.has_deadline else None)
+                    if self.spec_max:
+                        req._spec = SpeculationState(self.spec_max)
+                    self._enqueue_locked(req)
+                    if req._seq != n.seq:
+                        raise RuntimeError(
+                            f"serving gang diverged: rank {self.rank} "
+                            f"enqueued #{req._seq} as the leader's "
+                            f"#{n.seq}")
+            return rec
+        with self._work:
+            if not (self._stop or self.queue or self._pending
+                    or any(self.slots)):
+                self._work.wait(timeout=HEARTBEAT_S)
+            rec = lockstep.StepRecord(stop=self._stop, digest=self._digest)
+            for req in self._pending:
+                self._enqueue_locked(req)
+                rec.new.append(lockstep.NewRequest(
+                    req._seq, req.ids, req.max_new_tokens, req.temperature,
+                    req.eos_id, req.seed, req.top_k, req.top_p,
+                    req.deadline is not None, req.tenant))
+            self._pending = []
+            if not rec.stop:
+                now = time.perf_counter()
+                for req in self.queue + [r for r in self.slots if r]:
+                    outcome = self._verdict(req, now)
+                    if outcome is not None:
+                        rec.dead.append((req._seq, outcome))
+        return lockstep.exchange(rec, self.record_tally)
+
+    def _apply_record(self, rec: lockstep.StepRecord) -> bool:
+        """The record's stop (every live request dies with the engine:
+        False) or its verdicts (each named request fails as the leader
+        found it)."""
+        with self._work:
+            if rec.stop:
+                dying = list(self.queue) + [s for s in self.slots if s]
+                self.queue.clear()
+                self.slots = [None] * self.max_batch
+            else:
+                verdicts = dict(rec.dead)
+                dying = [r for r in self.queue if r._seq in verdicts]
+                self.queue[:] = [r for r in self.queue
+                                 if r._seq not in verdicts]
+                QUEUE_DEPTH.set(len(self.queue))
+                for i, r in enumerate(self.slots):
+                    if r is not None and r._seq in verdicts:
+                        self.slots[i] = None
+                        dying.append(r)
+                ACTIVE_SLOTS.set(sum(1 for r in self.slots if r))
+        if rec.stop:
+            self._die_with_engine(dying, "shutdown",
+                                  "serving engine shut down")
+            return False
+        for r in dying:
+            outcome = verdicts[r._seq]
+            self._fail(r, outcome, self._DEAD_MSG[outcome])
         return True
+
+    def _emit(self, req: GenRequest, tok: int) -> None:
+        """Append a generated token (and, in a gang, note it for the
+        step's digest)."""
+        req.generated.append(tok)
+        if self._gang:
+            self._emitted += (req._seq, tok)
 
     def _admit(self) -> None:
         """WFQ admission (the smallest virtual finish tag, arrival order
@@ -889,7 +1100,7 @@ class ContinuousBatcher:
         ttft = req.first_token_at - req.submitted_at
         TTFT_HIST.observe(ttft)
         TENANT_TTFT.labels(req.tenant).observe(ttft)
-        req.generated.append(tok)
+        self._emit(req, tok)
         TOKENS_TOTAL.inc()
         with self._work:
             t = self._timing
@@ -1018,8 +1229,9 @@ class ContinuousBatcher:
 
     def _scratch(self) -> list[dict]:
         if self._scratch_kv is None:
-            shape = (1, self.max_seq, self.cfg.num_kv_heads,
-                     self.cfg.head_dim)
+            shape = sharded.cache_block((1, self.max_seq,
+                                         self.cfg.num_kv_heads,
+                                         self.cfg.head_dim), self.mesh)
             dt = self.cfg.torch_dtype
             self._scratch_kv = [
                 {"k": torch.zeros(shape, dtype=dt, device=self.device),
@@ -1156,7 +1368,7 @@ class ContinuousBatcher:
                 pos += take
                 if pos >= prompt_len:
                     break
-            logits = out["logits"][0, take - 1][None]
+            logits = self._whole_vocab(out["logits"][0, take - 1][None])
             tok = int(sample_rows(logits, [req], [req._gen])[0])
             fully_cached = node is not None and usable >= prompt_len - 1
             commit = want_pages or (self.prefix_cache is not None
@@ -1361,8 +1573,11 @@ class ContinuousBatcher:
                      for s in self.slots if s]
         # any slot that can free mid-chunk keeps chunks small while
         # someone waits (the sweep only runs between chunks)
+        # (a gang reads no cancel flag here: on the leader it may flip
+        # mid-step, and every rank must size the chunk alike)
         reclaim = any(s.eos_id is not None or s.deadline is not None
-                      or s._cancel_requested for s in self.slots if s)
+                      or (s._cancel_requested and not self._gang)
+                      for s in self.slots if s)
         if not queue_empty and reclaim:
             return DECODE_CHUNKS[0]
         # one slightly-too-long chunk beats two syncs: overshoot rows are
@@ -1399,7 +1614,8 @@ class ContinuousBatcher:
         for _ in range(chunk):
             cache = {"layers": [dict(l, index=index) for l in self.view]}
             out = self.model(tok[:, None], cache=cache)
-            tok = sample_rows(out["logits"][:, 0], reqs, gens)
+            tok = sample_rows(self._whole_vocab(out["logits"][:, 0]), reqs,
+                              gens)
             toks.append(tok)
             index = index + 1
         host = torch.stack(toks).tolist()        # [chunk, B]: the sync
@@ -1418,7 +1634,7 @@ class ContinuousBatcher:
             row_taken = 0
             for step in range(min(chunk, want)):
                 t = host[step][i]
-                req.generated.append(t)
+                self._emit(req, t)
                 row_taken += 1
                 if req.eos_id is not None and t == req.eos_id:
                     break
@@ -1512,7 +1728,7 @@ class ContinuousBatcher:
             want = req.max_new_tokens - len(req.generated)
             taken = 0
             for tok in col[:accepted + 1][:want]:
-                req.generated.append(tok)
+                self._emit(req, tok)
                 taken += 1
                 if req.eos_id is not None and tok == req.eos_id:
                     break
@@ -1561,7 +1777,8 @@ class ContinuousBatcher:
             dtype=torch.int64, device=self.device)
         ids = torch.tensor(toks, dtype=torch.int64, device=self.device)
         cache = {"layers": [dict(l, index=index) for l in self.view]}
-        logits = self.model(ids, cache=cache)["logits"]        # [B, s, V]
+        logits = self._whole_vocab(
+            self.model(ids, cache=cache)["logits"])             # [B, s, V]
         gens = [r._gen if r is not None else None for r in reqs]
         states: list[list] = [[] for _ in reqs]
         choices = []

@@ -1,0 +1,155 @@
+"""The step record that keeps a serving gang's continuous batchers in
+lockstep.
+
+A model sharded over tp and/or ep runs one ``ContinuousBatcher`` per rank
+over that rank's shard (``serving/engine.py``), and every forward issues
+collectives, so every rank must run the same steps: the same admissions,
+the same prefill chunks, the same decode chunk lengths.  Rank 0 (the
+leader) alone takes requests; at the top of every scheduling step it
+broadcasts a record of every input the step reads that is not a pure
+function of state the ranks already share:
+
+- the requests it enqueued since the last record, in order: their ids,
+  ``max_new_tokens``, sampling parameters, seed (the one ``_auto_seed``
+  assigned included), EOS, tenant and whether a deadline is set;
+- the requests it found cancelled or expired (the clock and the cancel
+  flags are the leader's alone), by arrival sequence, with the outcome;
+- the stop flag;
+- a digest of the tokens it emitted in the previous step, which each
+  follower compares with its own: a gang must never diverge silently.
+
+Everything else (WFQ tags, the prefix cache's matches, pins, evictions
+and spills, page ids, chunk lengths, the speculation arbiter, each
+request's sampling generator) follows from replaying the same events in
+the same order over the same logits.
+
+Encoding: one int64 buffer of ``RECORD_WORDS`` words per step, one
+broadcast; a step whose new prompts overflow it sends the whole record
+in a second broadcast of its exact length (the first's header carries
+it).  Words: ``[length, stop, digest, n_dead, n_new]``, then ``(seq,
+outcome)`` per dead request, then per new request ``[seq, n_ids,
+max_new_tokens, temperature bits, eos (-1: none), seed, top_k, top_p
+bits, has_deadline, n_tenant]``, the tenant's UTF-8 bytes one per word
+and the ids.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import hashlib
+import struct
+import time
+
+import torch
+
+from kubeflow_tpu_torch.parallel import distributed as pd
+
+# words of the one broadcast a step costs (32 KiB: a few thousand prompt
+# tokens fit before a step needs a second)
+RECORD_WORDS = 4096
+_HEADER = 5
+_PER_REQUEST = 10
+# a dead request's outcome on the wire
+OUTCOMES = ("cancelled", "deadline_exceeded")
+
+
+@dataclasses.dataclass
+class NewRequest:
+    """What a follower needs to enqueue the leader's request."""
+
+    seq: int
+    ids: list[int]
+    max_new_tokens: int
+    temperature: float
+    eos_id: int | None
+    seed: int
+    top_k: int
+    top_p: float
+    has_deadline: bool
+    tenant: str
+
+
+@dataclasses.dataclass
+class StepRecord:
+    stop: bool = False
+    digest: int = 0
+    dead: list[tuple[int, str]] = dataclasses.field(default_factory=list)
+    new: list[NewRequest] = dataclasses.field(default_factory=list)
+
+
+def _f2i(x: float) -> int:
+    return struct.unpack("<q", struct.pack("<d", float(x)))[0]
+
+
+def _i2f(n: int) -> float:
+    return struct.unpack("<d", struct.pack("<q", int(n)))[0]
+
+
+def encode(rec: StepRecord) -> list[int]:
+    words = [0, int(rec.stop), rec.digest, len(rec.dead), len(rec.new)]
+    for seq, outcome in rec.dead:
+        words += [seq, OUTCOMES.index(outcome)]
+    for r in rec.new:
+        tenant = list(r.tenant.encode())
+        words += [r.seq, len(r.ids), r.max_new_tokens, _f2i(r.temperature),
+                  -1 if r.eos_id is None else r.eos_id, r.seed, r.top_k,
+                  _f2i(r.top_p), int(r.has_deadline), len(tenant)]
+        words += tenant + list(r.ids)
+    words[0] = len(words)
+    return words
+
+
+def decode(words: list[int]) -> StepRecord:
+    n_dead, n_new = words[3], words[4]
+    rec = StepRecord(stop=bool(words[1]), digest=words[2])
+    at = _HEADER
+    for _ in range(n_dead):
+        rec.dead.append((words[at], OUTCOMES[words[at + 1]]))
+        at += 2
+    for _ in range(n_new):
+        (seq, n_ids, max_new, temp, eos, seed, top_k, top_p, deadline,
+         n_tenant) = words[at:at + _PER_REQUEST]
+        at += _PER_REQUEST
+        tenant = bytes(words[at:at + n_tenant]).decode()
+        at += n_tenant
+        ids = list(words[at:at + n_ids])
+        at += n_ids
+        rec.new.append(NewRequest(seq, ids, max_new, _i2f(temp),
+                                  None if eos < 0 else eos, seed, top_k,
+                                  _i2f(top_p), bool(deadline), tenant))
+    return rec
+
+
+def exchange(rec: StepRecord | None, tally: dict | None = None
+             ) -> StepRecord:
+    """The leader's ``rec`` on every rank of the gang (followers pass
+    None): one broadcast of ``RECORD_WORDS`` words, two when the record
+    is longer.  ``tally`` counts the broadcasts and their seconds."""
+    t0 = time.perf_counter()
+    buf = torch.zeros(RECORD_WORDS, dtype=torch.int64)
+    words = None
+    if rec is not None:
+        words = encode(rec)
+        head = words[:RECORD_WORDS]
+        buf[:len(head)] = torch.tensor(head, dtype=torch.int64)
+    got = pd.broadcast_one_to_all(buf).tolist()
+    calls = 1
+    if got[0] > RECORD_WORDS:
+        full = torch.zeros(got[0], dtype=torch.int64)
+        if words is not None:
+            full[:] = torch.tensor(words, dtype=torch.int64)
+        got = pd.broadcast_one_to_all(full).tolist()
+        calls = 2
+    if tally is not None:
+        tally["calls"] = tally.get("calls", 0) + calls
+        tally["records"] = tally.get("records", 0) + 1
+        tally["seconds"] = tally.get("seconds", 0.0) + (
+            time.perf_counter() - t0)
+    return rec if rec is not None else decode(got[:got[0]])
+
+
+def digest(emitted: list[int]) -> int:
+    """A 56-bit digest of a step's ``(seq, token)`` emissions."""
+    data = torch.tensor(emitted, dtype=torch.int64).numpy().tobytes()
+    return int.from_bytes(hashlib.blake2b(data, digest_size=7).digest(),
+                          "little")

@@ -10,11 +10,12 @@ Process model: every rank of the serving gang joins the same rendezvous
 a training gang would (``parallel/distributed.py::initialize_from_env``,
 the JAXJob controller's env), builds the same mesh, keeps its block of
 the same weights (one seed, or one host state dict) and runs the same
-decode in lockstep.  The engine's continuous batcher cannot drive that
-lockstep (its admissions happen on a background thread whose timing
-differs per rank), so this is the synchronous batch API: every rank
+decode in lockstep.  This is the synchronous batch API: every rank
 presents the same prompts to each ``generate`` call, which a rank-0 front
 door gets there with ``broadcast_prompts`` (one collective per batch).
+The continuous batcher's gang is ``GenerativePredictor(tp=, ep=)``: rank
+0's engine takes the requests and broadcasts a record per step that the
+others replay (``serving/lockstep.py``).
 
 A ``generate`` prefills each rank's ``[B / dp, pad_len]`` rows at scalar
 cache index 0: every row starts at position 0, so the reference's "key j
@@ -45,8 +46,9 @@ from kubeflow_tpu_torch.utils.logging import get_logger
 
 log = get_logger("serving.multihost")
 
-# decode-batch rows ride dp (one replica per host group); KV heads ride tp
-CACHE_SPEC = ("dp", None, "tp", None)
+# decode-batch rows ride dp (one replica per host group); KV heads ride tp,
+# as every serving cache's do (``sharded.CACHE_SPEC``)
+CACHE_SPEC = ("dp",) + sharded.CACHE_SPEC[1:]
 
 
 def _world() -> int:
@@ -101,15 +103,15 @@ def constrain_cache(cache: dict, mesh: Mesh, *, batch: int,
     over dp, KV heads over tp); raises ``ValueError`` naming the first
     leaf that is not.  Index tensors and scalars pass.  Returns the
     cache."""
-    whole = {"dp": batch, "tp": num_kv_heads}
-    want = {d: whole[axis] // mesh.shape[axis]
-            for d, axis in enumerate(CACHE_SPEC) if axis}
-    rows, heads = (want[CACHE_SPEC.index(a)] for a in ("dp", "tp"))
     for i, layer in enumerate(cache["layers"]):
         for key, x in layer.items():
             if getattr(x, "ndim", 0) != 4:
                 continue
-            if any(x.shape[d] != n for d, n in want.items()):
+            block = sharded.cache_block(
+                (batch, x.shape[1], num_kv_heads, x.shape[3]), mesh,
+                CACHE_SPEC)
+            rows, heads = block[0], block[2]
+            if (x.shape[0], x.shape[2]) != (rows, heads):
                 raise ValueError(
                     f"layers.{i}.{key} is {tuple(x.shape)}, not this "
                     f"rank's [{rows}, S, {heads}, D] block of rows over "
@@ -147,7 +149,9 @@ def broadcast_prompts(prompts: list[list[int]] | None,
 
 
 class MultiHostPredictor:
-    """Synchronous sharded text generation over a global dp x tp mesh.
+    """Synchronous sharded text generation over a global dp x tp (x ep)
+    mesh: a MoE model's experts split over ep, its dropless layers
+    summing their partial outputs over tp x ep (``models/moe.py``).
 
     In one process this is plain decode (the CI reference path); in a
     gang every rank constructs it with the same arguments and calls
@@ -172,10 +176,6 @@ class MultiHostPredictor:
                  device: str | torch.device | None = None):
         from kubeflow_tpu_torch.models import registry
 
-        if ep > 1:
-            raise NotImplementedError(
-                f"ep={ep}: MoE serving with its experts over ep is not "
-                "ported yet (ROADMAP queue A item 7b)")
         self.device = resolve(device)
         entry = registry.get(model_name)
         # the structure without storage; the loader fills it
@@ -184,10 +184,7 @@ class MultiHostPredictor:
                                        **(model_config or {}))
         self.module.eval()
         self.cfg = self.module.config
-        if self.cfg.moe_experts > 0 and tp > 1:
-            raise NotImplementedError(
-                "MoE layers under tp are not ported yet (ROADMAP queue A "
-                "item 7b)")
+        sharded.check_experts(self.cfg, ep)
         self.max_seq = min(max_seq, self.cfg.max_seq_len)
         self.mesh = global_serving_mesh(tp, dp=dp, ep=ep,
                                         device_type=self.device.type)

@@ -17,9 +17,16 @@ window); ``--weight-budget-mb`` puts every generative model under one
 weight-residency pool (idle models park, cold requests coalesce behind
 one load, an engine's page pressure evicts an idle sibling's weights
 into page slots), and ``parked=true`` starts a model parked.  Every
-other registry model serves ``:predict`` (``ClassifierPredictor``).  No
-expert or tensor parallelism (``tp``/``ep`` are refused).  Routes, as the
-reference serves them:
+other registry model serves ``:predict`` (``ClassifierPredictor``).  The
+model options ``tp=`` and ``ep=`` shard one model over a gang of
+``tp * ep`` ranks (the ``JAXJOB_*`` env's rendezvous, one rank per card):
+each rank keeps its block of every weight (heads, FFN columns and
+vocabulary over tp, a MoE model's experts over ep) and its KV heads, rank
+0 serves HTTP and leads the continuous batcher, and the others follow
+its step records (``serving/lockstep.py``).  Under a gang the
+disaggregated roles, the prefix directory and ``:pages``, park/warm,
+``--weight-budget-mb`` and more than one ``--model`` are refused by name
+(ROADMAP queue A item 7c).  Routes, as the reference serves them:
 
     GET  /healthz                          ready / draining
     GET  /metrics                          Prometheus text
@@ -66,6 +73,7 @@ from torch import nn
 from kubeflow_tpu_torch import trace
 from kubeflow_tpu_torch.device import resolve
 from kubeflow_tpu_torch.serving import model_pool as mp
+from kubeflow_tpu_torch.serving import sharded
 from kubeflow_tpu_torch.serving.engine import (ContinuousBatcher,
                                                DeadlineExceeded, Draining,
                                                QueueFull)
@@ -125,6 +133,7 @@ class GenerativePredictor:
                  handoff_post=None, directory=None,
                  engine_id: str | None = None, engine_addr: str = "",
                  tenant_shares: dict | None = None, staging_mb: float = 64.0,
+                 tp: int = 1, ep: int = 1,
                  device: str | torch.device | None = None):
         from kubeflow_tpu_torch.models import registry
 
@@ -147,6 +156,9 @@ class GenerativePredictor:
         self.max_seq = min(max_seq, self.cfg.max_seq_len)
         self._shapes = {n: (tuple(t.shape), t.dtype) for n, t in
                         self.module.named_parameters()}
+        self._axes = {n: getattr(t, "logical_axes", None) for n, t in
+                      self.module.named_parameters()}
+        self.mesh = self._serving_mesh(tp, ep, role, directory)
         self._seed = seed
         self._state = state
         self._quantize = quantize
@@ -183,6 +195,7 @@ class GenerativePredictor:
                              engine_addr=engine_addr,
                              fetch_fn=self._fetch_pages)
         self.engine = ContinuousBatcher(self.module, self.cfg,
+                                        mesh=self.mesh,
                                         max_batch=max_batch,
                                         max_seq=self.max_seq,
                                         prefill_chunk=prefill_chunk,
@@ -198,12 +211,52 @@ class GenerativePredictor:
         self.log.info("predictor ready", device=str(self.device),
                       params=sum(p.numel() for p in self.module.parameters()))
 
+    def _serving_mesh(self, tp: int, ep: int, role: str, directory):
+        """The tp x ep mesh over the gang (None for one card), after the
+        reference's checks in its order: ep on a dense model or an expert
+        count ep does not divide, then KV heads tp does not divide (before
+        the gang's size).  Every rank of the gang constructs the predictor
+        with the same arguments; rank 0 leads the engine, the others
+        ``follow``."""
+        if tp < 1 or ep < 1:
+            raise ValueError(f"tp={tp} and ep={ep} must be >= 1")
+        sharded.check_experts(self.cfg, ep)
+        if self.cfg.num_kv_heads % tp != 0:
+            raise ValueError(f"num_kv_heads={self.cfg.num_kv_heads} not "
+                             f"divisible by tp={tp}")
+        if tp * ep == 1:
+            return None
+        for what, used in (("a disaggregated role", role != "colocated"),
+                           ("the cluster prefix directory",
+                            directory is not None)):
+            if used:
+                raise NotImplementedError(
+                    f"{what} under tp={tp} x ep={ep} is not ported yet "
+                    "(ROADMAP queue A item 7c)")
+        from kubeflow_tpu_torch.parallel import distributed as pd
+        from kubeflow_tpu_torch.serving.multihost import global_serving_mesh
+
+        mesh = global_serving_mesh(tp, ep=ep, device_type=self.device.type)
+        world = pd.world_size(pd.default_group())
+        if mesh.size != world:
+            raise ValueError(
+                f"tp={tp} x ep={ep} is {mesh.size} ranks and the gang has "
+                f"{world}: every rank serves one position of the mesh")
+        return mesh
+
+    def follow(self) -> None:
+        """A gang rank other than 0: run the engine's steps as rank 0's
+        records say, until rank 0 shuts it down (``engine.follow``)."""
+        self.engine.follow()
+
     # -- the one weight loader -------------------------------------------------
     @torch.no_grad()
     def _load_params(self) -> None:
         """Fill the storage-less module: a streamed restore when a
         checkpoint is set, else ``state``'s values, else the seeded init,
-        each weight int8-quantized as it lands when ``quantize`` asks.
+        each weight int8-quantized as it lands when ``quantize`` asks (the
+        whole tensor) and, on a tp / ep mesh, cut to this rank's block
+        before the next one lands, so no rank holds the whole model.
         Cold construction and every re-warm land here, so a re-warmed
         model is the same model."""
         if self._checkpoint_dir:
@@ -226,10 +279,16 @@ class GenerativePredictor:
                 if m is self.module or not hasattr(m, "init_weights"):
                     continue
                 m.to_empty(device=self.device, recurse=False)
+                leaves = list(m._parameters)
+                for leaf in leaves:   # to_empty makes new parameters
+                    m._parameters[leaf].logical_axes = self._axes[
+                        f"{prefix}.{leaf}"]
                 m.init_weights(gen)
                 if self._quantize:
-                    for leaf in list(m._parameters):
+                    for leaf in leaves:
                         quantize_param(self.module, f"{prefix}.{leaf}")
+                if self.mesh is not None:
+                    sharded.place_params(m, self.mesh, names=set(leaves))
         left = [n for n, t in (*self.module.named_parameters(),
                                *self.module.named_buffers())
                 if t.is_meta]
@@ -243,8 +302,11 @@ class GenerativePredictor:
         prefix, _, leaf = name.rpartition(".")
         owner = self.module.get_submodule(prefix)
         owner._parameters[leaf] = nn.Parameter(tensor, requires_grad=False)
+        owner._parameters[leaf].logical_axes = self._axes[name]
         if self._quantize:
             quantize_param(self.module, name, full)
+        if self.mesh is not None:
+            sharded.place_params(owner, self.mesh, names={leaf})
 
     def _restore(self) -> None:
         """Stream ``checkpoint_dir`` in by key through the staging window
@@ -290,6 +352,7 @@ class GenerativePredictor:
         full-precision shape, so no reference to a weight survives; a
         parked predictor serves nothing until :meth:`warm`.  Returns the
         bytes freed."""
+        self.engine.refuse_in_gang("park / warm")
         if self._parked:
             return 0
         freed = self.weight_bytes
@@ -352,6 +415,7 @@ class GenerativePredictor:
     def export_pages(self, ids: list[int]) -> dict:
         """``:pages``: the full prefix pages this engine caches for
         ``ids``, in the handoff wire format."""
+        self.engine.refuse_in_gang("the :pages prefix fetch")
         return self.engine.export_prefix([int(t) for t in ids])
 
     def resume(self, body: dict, trace_ctx=None) -> dict:
@@ -763,9 +827,6 @@ def wire_model_pool(predictors: dict[str, Any],
     return pool
 
 
-# per-model options (``--model name:k=v``) this port does not serve (the
-# multi-device slice), with the value that means "off"
-_UNSUPPORTED_OPTS = {"tp": "1", "ep": "1"}
 # per-model options that configure the model itself (the MoE variant)
 _MODEL_CONFIG_OPTS = ("moe_experts", "moe_every")
 
@@ -784,15 +845,11 @@ def _checkpoint(directory: str | None, what: str) -> str | None:
 def _parse_model_spec(spec: str, args) -> tuple[str, dict]:
     name, _, rest = spec.partition(":")
     opts = dict(kv.split("=", 1) for kv in rest.split(",") if "=" in kv)
-    for key, off in _UNSUPPORTED_OPTS.items():
-        if key in opts and opts[key].lower() not in (off, "false", "0.0"):
-            raise SystemExit(f"--model option {key}={opts[key]} is not yet "
-                             "supported by the PyTorch predictor")
     known = {"size", "max_batch", "max_seq", "prefill_chunk", "max_queue",
              "prefix_cache_mb", "kv_page_size", "host_kv_pages",
              "speculative_tokens", "draft_layers", "quantize", "kv_quant",
-             "role", "checkpoint_dir", "staging_mb", "parked",
-             *_MODEL_CONFIG_OPTS, *_UNSUPPORTED_OPTS}
+             "role", "checkpoint_dir", "staging_mb", "parked", "tp", "ep",
+             *_MODEL_CONFIG_OPTS}
     unknown = sorted(set(opts) - known)
     if unknown:
         raise SystemExit(f"unknown --model options {unknown}")
@@ -824,6 +881,7 @@ def _parse_model_spec(spec: str, args) -> tuple[str, dict]:
               else "--checkpoint-dir"),
           "staging_mb": staging_mb,
           "parked": opts.get("parked", "").lower() in ("1", "true"),
+          "tp": int(opts.get("tp", 1)), "ep": int(opts.get("ep", 1)),
           "model_config": {k: int(opts[k]) for k in _MODEL_CONFIG_OPTS
                            if k in opts} or None}
     if kw["role"] not in ("colocated", "prefill", "decode"):
@@ -898,9 +956,27 @@ def main(argv=None) -> int:
     except SystemExit as e:
         parser.error(str(e))
 
+    specs = [_parse_model_spec(spec, args)
+             for spec in [m for m in (args.models or []) if m] or ["llama"]]
+    gang = [kw for _, kw in specs if kw["tp"] * kw["ep"] > 1]
+    rank = 0
+    if gang:
+        # a tp / ep model serves from a gang (the env's rendezvous): rank 0
+        # answers HTTP and leads the engine, the others follow its steps
+        layout = f"tp={gang[0]['tp']} x ep={gang[0]['ep']}"
+        for what, used in (
+                ("more than one --model", len(specs) > 1),
+                ("--weight-budget-mb", args.weight_budget_mb > 0),
+                ("parked=true", any(kw["parked"] for _, kw in specs))):
+            if used:
+                raise SystemExit(f"{what} under {layout} is not ported yet "
+                                 "(ROADMAP queue A item 7c)")
+        from kubeflow_tpu_torch.parallel import distributed as pd
+
+        pd.initialize_from_env(device=args.device)
+        rank = pd.rank_of(pd.default_group())
     predictors = {}
-    for spec in [m for m in (args.models or []) if m] or ["llama"]:
-        name, kw = _parse_model_spec(spec, args)
+    for name, kw in specs:
         if not registry.get(name).generative:
             predictors[name] = ClassifierPredictor(
                 name, checkpoint_dir=kw["checkpoint_dir"],
@@ -913,6 +989,11 @@ def main(argv=None) -> int:
             # start parked: the engine is built, the weights wait for the
             # first request
             predictors[name].park()
+    if rank != 0:
+        (pred,) = predictors.values()
+        print(f"predictor rank {rank} following rank 0", flush=True)
+        pred.follow()
+        return 0
     model_pool = None
     if args.weight_budget_mb > 0:
         model_pool = wire_model_pool(predictors,
@@ -932,6 +1013,9 @@ def main(argv=None) -> int:
     signal.signal(signal.SIGTERM, _on_sigterm)
     print(f"predictor serving {sorted(predictors)} on :{port}", flush=True)
     thread.join()
+    if gang:
+        for pred in predictors.values():
+            pred.engine.shutdown()      # the followers' stop record
     return 0
 
 

@@ -32,7 +32,6 @@ copies under it, without waiting for them.
 from __future__ import annotations
 
 import threading
-import time
 
 from kubeflow_tpu_torch.serving.page_pool import PagePool, pages_for
 from kubeflow_tpu_torch.utils.logging import get_logger
@@ -88,6 +87,10 @@ class PrefixCache:
         self._page_holders: dict[int, int] = {}  # page id -> #nodes holding
         self._spilled: set[int] = set()     # cached pages in the host tier
         self._pins = 0                      # outstanding match(pin=True) holds
+        # LRU recency: a counter, so the order is the order of the uses
+        # (a clock could tie, and a tie breaks by set order, which differs
+        # between processes whose caches must evict alike: a serving gang)
+        self._clock = 0
         self._lock = threading.Lock()
         # eviction hook (engine -> cluster prefix directory withdrawal):
         # called with the dropped node's full token prefix AFTER its pages
@@ -118,11 +121,15 @@ class PrefixCache:
                 usable = min(matched, holder.length)
             if usable <= 0:
                 return None, 0
-            holder.last_used = time.monotonic()
+            holder.last_used = self._touch()
             if pin:
                 holder.refs += 1
                 self._pins += 1
             return holder, usable
+
+    def _touch(self) -> int:
+        self._clock += 1
+        return self._clock
 
     def _walk(self, tokens: tuple):
         """Descend as far as tokens agree; returns (stop_node, matched)."""
@@ -185,11 +192,11 @@ class PrefixCache:
                 node.children[tokens[matched]] = leaf
                 node = leaf
             if node.pages is not None:      # already cached: refresh LRU
-                node.last_used = time.monotonic()
+                node.last_used = self._touch()
                 return True
             self.pool.incref(pages)
             node.pages = pages
-            node.last_used = time.monotonic()
+            node.last_used = self._touch()
             self._noded.add(node)
             for p in pages:
                 self._page_holders[p] = self._page_holders.get(p, 0) + 1

@@ -41,6 +41,34 @@ SERVING_RULES = DEFAULT_RULES.replace(batch=None, seq=None, embed=None)
 CACHE_SPEC = (None, None, "tp", None)
 
 
+def check_experts(cfg, ep: int) -> None:
+    """The reference's refusal of an ep that does not split the model's
+    experts: a dense model (ep would only replicate it) or an expert
+    count ep does not divide."""
+    experts = getattr(cfg, "moe_experts", 0)
+    if ep > 1 and (not experts or experts % ep):
+        raise ValueError(f"ep={ep} needs a MoE model whose moe_experts "
+                         f"divides by it (got moe_experts={experts})")
+
+
+def cache_block(shape: tuple, mesh: Mesh | None,
+                spec: tuple = CACHE_SPEC) -> tuple:
+    """The shape of this rank's block of a whole cache leaf of ``shape``
+    under ``spec`` (default ``CACHE_SPEC``: KV heads over tp): each dim
+    divided by the size of the mesh axis ``spec`` names there; a dim that
+    does not divide is refused.  ``mesh`` None: ``shape``."""
+    if mesh is None:
+        return tuple(shape)
+    out = []
+    for n, axis in zip(shape, spec):
+        size = mesh.shape[axis] if axis else 1
+        if n % size:
+            raise ValueError(f"a cache dim of {n} not divisible by "
+                             f"{axis}={size}")
+        out.append(n // size)
+    return tuple(out)
+
+
 def serving_mesh(tp: int, ep: int = 1, *, device_type: str = "cuda") -> Mesh:
     """A tp (x ep) mesh with dp = fsdp = sp = 1 over the gang's first
     ``tp * ep`` ranks (one rank per card); a gang with fewer ranks is

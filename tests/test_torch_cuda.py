@@ -7,6 +7,8 @@ machine that has only the port's dependencies:
     python -m pytest tests/test_torch_cuda.py -q
 """
 
+import json
+
 import pytest
 import torch
 
@@ -1092,3 +1094,68 @@ def test_multihost_predictor_prefills_through_k1_once_per_layer(
     err = (got["cuda_logits"] - got["cpu_logits"]).abs().max()
     assert err <= 1e-4 * got["cpu_logits"].abs().max()
     assert got["cuda"] == got["cpu"]
+
+
+TP_PREDICTOR = r"""
+import json, os, torch
+from kubeflow_tpu_torch.ops import attention
+from kubeflow_tpu_torch.ops import flash_attention as fa
+from kubeflow_tpu_torch.parallel import distributed as pd
+from kubeflow_tpu_torch.serving.predictor import GenerativePredictor
+
+pd.initialize_from_env()                             # the card, not the CPU
+spec = json.loads(os.environ["GANG_SPEC"])
+rank = pd.rank_of(pd.default_group())
+calls = []
+_flash = attention.flash_attention
+
+
+def recorded(q, k, v, *args, **kwargs):
+    calls.append([list(q.shape), list(k.shape)])
+    return _flash(q, k, v, *args, **kwargs)
+
+
+attention.flash_attention = recorded
+pred = GenerativePredictor("llama", size="tiny", max_batch=2, max_seq=64,
+                           model_config=spec["config"], tp=spec["tp"])
+before = fa.flash_attention.launches
+out = {"rank": rank}
+if rank == 0:
+    out["ids"] = pred.generate(spec["prompts"], max_new_tokens=8)["ids"]
+    pred.engine.shutdown()
+else:
+    pred.follow()
+out["launches"] = fa.flash_attention.launches - before
+out["calls"] = calls
+print(json.dumps(out))
+"""
+
+
+@pytest.mark.cuda
+def test_tp2_predictor_gang_on_one_card_serves_what_one_process_serves(
+        cuda_device):
+    """``GenerativePredictor(tp=2)`` as a 2-rank gloo gang on cuda:0 (a
+    tiny Llama at hidden 256: 4 query heads over 2 KV heads of 64,
+    float32, seeded): rank 0's streams equal one process's, and every
+    rank prefilled each prompt through K1 once per layer at its 2 query
+    heads over 1 KV head (the follower replays rank 0's steps)."""
+    from kubeflow_tpu_torch.ops import _build
+    from kubeflow_tpu_torch.parallel import distributed as pd
+
+    _build.build_all()         # once, before the ranks load it
+    spec = {"config": {"dtype": "float32", "use_flash": True,
+                       "hidden_size": 256, "num_heads": 4,
+                       "num_kv_heads": 2},
+            "prompts": [[5, 8, 13, 21], [2, 7]]}
+    runs = {tp: pd.spawn_local_gang(
+        TP_PREDICTOR, tp, timeout=300.0,
+        extra_env={"GANG_SPEC": json.dumps({**spec, "tp": tp})})
+        for tp in (1, 2)}
+    one, gang = runs[1][0], runs[2]
+    assert gang[0]["ids"] == one["ids"]
+    layers = 2
+    for o in gang:
+        # two prompts, one chunk each, every layer: at the rank's heads
+        assert o["launches"] == 2 * layers, o
+        assert all(q[2] == 2 and k[2] == 1 for q, k in o["calls"]), o
+    assert one["launches"] == 2 * layers

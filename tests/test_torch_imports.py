@@ -68,6 +68,7 @@ def test_imports_load_no_jax_and_no_reference_package(which):
         "kubeflow_tpu_torch.serving.model_pool",
         "kubeflow_tpu_torch.serving.sharded",
         "kubeflow_tpu_torch.serving.multihost",
+        "kubeflow_tpu_torch.serving.lockstep",
         "kubeflow_tpu_torch.qos",
         "kubeflow_tpu_torch.qos.wfq",
         "kubeflow_tpu_torch.qos.tenants",

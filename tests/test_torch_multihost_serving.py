@@ -178,7 +178,7 @@ def refusal(case, state):
         "prompt_too_long": lambda: tmh.broadcast_prompts(
             [[1], [1] * 17], max_len=16),
         "gang_too_small": lambda: port(state, tp=2),
-        "ep": lambda: port(state, ep=2),
+        "ep": lambda: port(state, ep=2),           # a dense model
         "moe_tp": lambda: tmh.MultiHostPredictor(
             "llama", size="tiny", tp=2, device="cpu",
             model_config={**CFG, "moe_experts": 2}),
@@ -198,8 +198,17 @@ def refusal(case, state):
     ("prompt_too_long", ValueError, "prompt 1 longer than 16"),
     ("gang_too_small", ValueError,
      "dp=1 x tp=2 x ep=1 needs 2 devices, have 1 globally"),
-    ("ep", NotImplementedError, "queue A item 7b"),
-    ("moe_tp", NotImplementedError, "MoE layers under tp"),
+    # MoE under ep and tp is served now: ep on a dense model is the
+    # reference's ValueError, and a MoE tp=2 predictor in one process is
+    # refused only for the gang's size (the ids are the cases' names from
+    # when the port refused both by name)
+    pytest.param("ep", ValueError,
+                 "ep=2 needs a MoE model whose moe_experts divides by it "
+                 "(got moe_experts=0)",
+                 id="ep-NotImplementedError-queue A item 7b"),
+    pytest.param("moe_tp", ValueError,
+                 "dp=1 x tp=2 x ep=1 needs 2 devices, have 1 globally",
+                 id="moe_tp-NotImplementedError-MoE layers under tp"),
 ])
 def test_error_contracts(weights, case, kind, message):
     err = refusal(case, weights[2])

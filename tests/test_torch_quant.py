@@ -534,12 +534,16 @@ def test_predictor_cli_accepts_quantize_and_kv_quant():
     assert name == "llama" and kw["quantize"] and kw["kv_quant"]
     _, kw = tpred._parse_model_spec("llama:quantize=true,role=decode", args)
     assert kw["quantize"] and kw["role"] == "decode" and not kw["kv_quant"]
-    # tensor and expert parallelism wait for the multi-device slice; the
-    # staging window and checkpoint options are served, and refused only
-    # at values that cannot work
-    for bad, why in (("llama:tp=2", "not yet supported"),
-                     ("llama:ep=2", "not yet supported"),
-                     ("llama:staging_mb=0", "must be > 0"),
+    # tensor and expert parallelism parse into the predictor's tp / ep
+    # (served from a gang: test_torch_predictor_tp.py); the staging window
+    # and checkpoint options are served, and refused only at values that
+    # cannot work
+    _, kw = tpred._parse_model_spec("llama:moe_experts=2,tp=2,ep=2", args)
+    assert (kw["tp"], kw["ep"]) == (2, 2)
+    assert kw["model_config"] == {"moe_experts": 2}
+    _, kw = tpred._parse_model_spec("llama", args)
+    assert (kw["tp"], kw["ep"]) == (1, 1)
+    for bad, why in (("llama:staging_mb=0", "must be > 0"),
                      ("llama:checkpoint_dir=/x", "streamable")):
         with pytest.raises(SystemExit, match=why):
             tpred._parse_model_spec(bad, args)
