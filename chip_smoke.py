@@ -47,7 +47,8 @@ any failure exits nonzero and prints no result:
 4. Training main path at full width: ``python -m
    kubeflow_tpu_torch.training``'s ``main`` in-process trains BERT-large
    (24 layers, hidden 1024, 16 heads of 64, sequence 512, bf16, random
-   weights from a seed) for 10 adamw steps at global batch 24.  Every step
+   weights from a seed) for ``TRAIN_STEPS`` adamw steps at global batch
+   24.  Every step
    must launch K1 48 times (24 layers, each recomputed by remat) and K2
    and K3 24 times each, and every loss must be finite.  Then, off the
    counted run: one train step through the kernels against the same step
@@ -57,10 +58,11 @@ any failure exits nonzero and prints no result:
 5. The same for Llama at Llama-2-7B's width (hidden 4096, 32 heads of 128,
    FFN 11008, vocab 32000, float32 masters, bf16 compute, remat, causal
    attention), ``LLAMA_LAYERS`` of its 32 layers, global batch 16 x 512:
-   10 adamw steps, each launching K1 2L times and K2 and K3 L times; the
+   ``TRAIN_STEPS`` adamw steps, each launching K1 2L times and K2 and K3
+   L times; the
    in-step check; the step by operator; the peak memory of the phase.
 6. The vision models through the same worker: ``mnist_mlp`` and
-   ``cifar_convnet`` for 3 steps, ResNet-50 (224 x 224, batch 128) for 10
+   ``cifar_convnet`` for 3 steps, ResNet-50 (224 x 224, batch 128) for 5
    (finite losses, no flash launch), and a ResNet-50 step by operator.
 7. Prefix-cached serving at phase 2's 7B width and settings, through a
    ``GenerativePredictor`` with ``prefix_cache_mb`` 2048 (256 pages of 16
@@ -120,7 +122,8 @@ any failure exits nonzero and prints no result:
    step.
 10. MoE training: Llama-2-7B's width with ``moe_experts`` 8,
    ``MOE_LAYERS`` of its 32 layers (half of them MoE), float32 masters,
-   bf16 compute, remat, batch 16 x 512, adamw at lr 1e-4, 5 steps through
+   bf16 compute, remat, batch 16 x 512, adamw at lr 1e-4,
+   ``MOE_TRAIN_STEPS`` steps through
    the worker entrypoint:
    finite losses, every step's ``moe_aux`` above 0, K1 2L, K2 and K3 L
    launches per step; the in-step check; the step by operator; peak memory
@@ -188,7 +191,7 @@ any failure exits nonzero and prints no result:
    here, ``max_staged_bytes`` within the window; the same checkpoint
    restored with ``quantize``, parked and warmed again, with the peak
    device memory of that restore within one layer's bf16 weights of the
-   int8 weights.  (c) On one engine (``max_batch`` 4): 16 "storm"
+   int8 weights.  (c) On one engine (``max_batch`` 4): ``TENANT_STORM`` "storm"
    requests of 300 tokens then one "victim", all queued before admission
    starts, under WFQ shares 1:1 (the victim admitted within the
    reference's starvation bound) and FIFO (admitted last); its TTFT and
@@ -229,14 +232,16 @@ any failure exits nonzero and prints no result:
    kernel and plain routes agree within 1e-1 of max |logit|.
 16. Training at head_dim 256: the same widths at full depth through the
    worker entrypoint, float32 masters, bf16 compute, remat, causal, global
-   batch 8 x 512, 10 adamw steps, each launching K1 36 times and K2 and K3
+   batch 8 x 512, ``TRAIN_STEPS`` adamw steps, each launching K1 36 times
+   and K2 and K3
    18 times; the in-step check (loss and grad_norm against the plain
    route, every K2 and K3 call against its plain version); the step by
    operator; the phase's peak memory under 90% of the card.
 17. Data-parallel training as a gang of processes on this card (NCCL
    refuses two ranks on one device, so the ranks meet over gloo, which
    moves every gradient through host memory).  (a) Phase 4's BERT-large
-   and adamw at global batch 24 x 512 for 5 steps, from an .npz made from
+   and adamw at global batch 24 x 512 for ``GANG_BERT["steps"]`` steps,
+   from an .npz made from
    seed 0, through the worker entrypoint as one process (this one) and in
    the gang of 2 from ``spawn_local_gang`` (both ranks on cuda:0) that
    also runs phases 18-20's 2-rank layouts: every rank launches
@@ -244,13 +249,15 @@ any failure exits nonzero and prints no result:
    are bitwise equal, and each step's loss and grad_norm is held to the
    one process's within ``GANG_TOL``; per rank the launches, peak memory,
    samples/s and the all-reduce seconds, calls and bytes of a step.  (b)
-   ResNet-50 at 224 x 224, global batch 128, 3 steps of momentum sgd, the
+   ResNet-50 at 224 x 224, global batch 128, ``GANG_RESNET["steps"]``
+   steps of momentum sgd, the
    same way (its BatchNorms take the gang's global statistics; no flash
    launch).  (c) The Trainer on BERT-large under the reference test's
-   membership schedule (world 2 -> 1 at step 6 of 12), index 0 and then
-   index 1 in this process: the ``ResizeCheckpoint`` record (step 6,
-   epoch 1, members [0]), steps 1-12 logged in order and one resize for
-   index 0, index 1 resigning at step 6; K1-K3 launch 48/24/24 a step on
+   membership schedule cut to ``RESIZE_STEPS`` steps (world 2 -> 1 at
+   step ``RESIZE_AT``; the reference test's is step 6 of 12), index 0 and
+   then index 1 in this process: the ``ResizeCheckpoint`` record (step
+   ``RESIZE_AT``, epoch 1, members [0]), every step logged in order and
+   one resize for index 0, index 1 resigning at ``RESIZE_AT``; K1-K3 launch 48/24/24 a step on
    both sides of the barrier.
 18. Sharded training as gangs of processes on this card (gloo, as in 17).
    Llama at Llama-2-7B's width (phase 5's model, float32 masters, bf16
@@ -292,25 +299,35 @@ any failure exits nonzero and prints no result:
    backward against the 4 blocks in sequence on each rank: output within
    1e-1 of max |out|, stage gradients within 2e-2 of max |ref|, K1, K2 and
    K3 8 times per rank.
-20. MoE training under a data group and under expert parallelism in the
-   gang of 2 (gloo, as in 17).  Phase 10's MoE Llama at Llama-2-7B's width
-   (8 GELU experts, top-2, Mixtral's routing) cut to ``MOE_EP_LAYERS``
-   layers (layer 0 MoE, layer 1 dense), float32 masters, bf16 compute,
-   remat, global batch 8 x 512, ``MOE_EP_STEPS`` adamw steps from an .npz
-   made from seed 0: one process (this one, through the worker
-   entrypoint), dp = 2 (the worker entrypoint: each rank 4 rows; the MoE
-   block gathers the ranks' expert counts, so capacity, positions and aux
-   are the global batch's) and ep = 2 (``build_train_step`` on
-   ``make_mesh(dp=1, ep=2)``: each rank all 8 rows and 4 of the 8
-   experts, their outputs all-gathered).  Per layout and rank: K1 2L and
-   K2, K3 L launches a step, every MoE layer's dropped (token, choice)
-   count equal to one process's at step 1 (the same weights; later steps'
-   are printed beside one process's), the ranks' losses and
-   grad_norms bitwise equal and held to one process's within
-   ``GANG_TOL``, samples/s of step 2, step 2's all-reduce and all-gather
-   seconds, calls and bytes, peak memory; ep's expert blocks after the
-   last step against one process's rows of the same experts
-   (``MOE_EP_EXPERT_TOL`` on the norm of the difference).
+20. MoE training under a data group, expert, tensor and sequence
+   parallelism in the gang of 2 (gloo, as in 17).  Phase 10's MoE Llama
+   at Llama-2-7B's width (8 GELU experts, top-2, Mixtral's routing) cut
+   to ``MOE_EP_LAYERS`` layers (layer 0 MoE, layer 1 dense), float32
+   masters, bf16 compute, remat, global batch 8 x 512, ``MOE_EP_STEPS``
+   steps from an .npz made from seed 0: one process (this one, through
+   ``build_train_step``) with adamw and with lamb (``MOE_LAMB``), dp = 2
+   (the worker entrypoint: each rank 4 rows; the MoE block gathers the
+   ranks' expert counts, so capacity, positions and aux are the global
+   batch's), and through ``build_train_step`` on ``make_mesh(dp=1, ...)``
+   (each rank all 8 rows): ep = 2 (4 of the 8 experts a rank), tp = 2
+   (16 heads and half of every expert's columns a rank; the chosen
+   outputs summed over tp), sp = 2 (256 tokens of every row a rank, the
+   ring through K1-K3 per K/V block, the routing ordered by (row, chunk))
+   with adamw, and tp = 2 with lamb (the trust ratios of the whole
+   tensors).  Per layout and rank: K1 2L and K2, K3 L launches a step
+   (at sp = 2 once per visible ring block: rank r r + 1 of them), every
+   MoE layer's dropped (token, choice) count equal to one process's at
+   step 1 (the same weights; later steps' are printed beside one
+   process's), the ranks' losses and grad_norms bitwise equal and held to
+   one process's (with the same optimizer) within ``GANG_TOL``, samples/s
+   of step 2, step 2's all-reduce and all-gather seconds, calls and
+   bytes, peak memory; ep's and tp's expert blocks after the last step
+   against one process's rows or columns of the same experts (ep:
+   ``MOE_EP_EXPERT_TOL`` on the norm of the difference over the weights';
+   tp: ``MOE_TP_EXPERT_TOL`` over one process's update's, since tp's
+   rounding routes near-ties otherwise).  Under tp and sp, step 1's
+   dropped counts are held within the (token, choice) assignments routed
+   otherwise than one process routed them (counted).
 
 21. Multi-host serving: phase 2's Llama-2-7B (bf16, seed 0) at
    ``MH_SHALLOW_LAYERS`` layers (phase 22 serves tp at full depth),
@@ -422,8 +439,10 @@ PC_TIER_CACHE_MB, PC_TIER_HOST_PAGES, PC_TIER_PROMPT = 256, 64, 384
 # against 512-token chunks), and 32 random-weight bf16 layers amplify the
 # rounding (LOGITS_REL_TOL's reasoning)
 WARM_LOGITS_REL_TOL = 1e-1
-# phase 4: BERT-large pretraining through the port's worker entrypoint
-TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 10, 24, 512
+# phase 4: BERT-large pretraining through the port's worker entrypoint.
+# Phases 4, 5 and 16 cut from 10 steps to 3 to keep the whole run under
+# half its limit when phase 20 grew (their samples/s over steps 2-3)
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 3, 24, 512
 TRAIN_CONFIG = {"model": "bert", "model_config": {"size": "large"},
                 "global_batch": TRAIN_BATCH, "steps": TRAIN_STEPS,
                 "log_every": 1, "seed": 0,
@@ -454,8 +473,9 @@ LLAMA_SHAPE = ("llama7b_train", LLAMA_BATCH, LLAMA_SEQ, LLAMA_SEQ, 32, 32,
 LLAMA_LAUNCHES = {"flash_fwd": 2 * LLAMA_LAYERS,
                   "flash_bwd_dq": LLAMA_LAYERS, "flash_bwd_dkv": LLAMA_LAYERS}
 # phase 6: the vision models through the same Trainer (no flash kernel):
-# (model, steps), global batch 128; ResNet-50 at 224 x 224
-VISION_RUNS = (("mnist_mlp", 3), ("cifar_convnet", 3), ("resnet50", 10))
+# (model, steps), global batch 128; ResNet-50 at 224 x 224 (cut from 10
+# steps to 5 with phase 4)
+VISION_RUNS = (("mnist_mlp", 3), ("cifar_convnet", 3), ("resnet50", 5))
 VISION_BATCH = 128
 # phase 9: MoE serving at phase 2's settings; the MoE block check's size
 MOE_EXPERTS = 8
@@ -464,8 +484,8 @@ MOE_BLOCK = {"hidden_size": 512, "ffn_size": 1376, "tokens": (2, 256)}
 # layers (4 MoE): 4.09 B parameters, 65.5 GB of masters, gradients and
 # adamw moments, and the experts' float32 copies and [E, C, f] buffers
 # under remat on top (6 layers peaked at 55.57 GB, 65.4% of the card, on
-# an H100 80GB HBM3)
-MOE_LAYERS, MOE_TRAIN_STEPS = 8, 5
+# an H100 80GB HBM3); steps cut from 5 to 3 (~1.67 s each) with phase 4's
+MOE_LAYERS, MOE_TRAIN_STEPS = 8, 3
 MOE_TRAIN_CONFIG = {"model": "llama",
                     "model_config": {"size": "7b", "num_layers": MOE_LAYERS,
                                      "moe_experts": MOE_EXPERTS},
@@ -503,8 +523,10 @@ DONATED_PAGES = CKPT_BYTES // (8 << 20)       # 1575
 # phase 14(c)'s requests, each TENANT_NEW tokens long: cut from 16 to 8 to
 # keep the whole run under half its limit (its two host-bound rounds took
 # 18.4 s of a 757.6 s run on an H100 80GB HBM3 call); admission order,
-# the point of the cell, does not depend on it
-TENANT_STORM, TENANT_PROMPT, TENANT_NEW = 16, 300, 8
+# the point of the cell, does not depend on it.  The storm cut from 16
+# requests to 8 when phase 20 grew: the victim still queues behind twice
+# the engine's 4 slots (its FIFO position 8, its WFQ bound 2)
+TENANT_STORM, TENANT_PROMPT, TENANT_NEW = 8, 300, 8
 BERT_ROW = 128
 # phase 11: speculation at phase 2's settings.  Depth cut from 64 new
 # tokens per request to 32 when phase 14 joined: its 8 host-bound runs of
@@ -826,7 +848,8 @@ def phase_kernels(fa) -> dict:
     cases = ([s[:8] for s in main_path_shapes() + prefix_path_shapes()
               + gemma_path_shapes()]
              + [TRAIN_SHAPE, GANG_SHAPE, LLAMA_SHAPE, GEMMA_SHAPE,
-                *MESH_SHAPES, *SP_SHAPES, *MH_SHAPES, *p22_all_shapes()]
+                *MESH_SHAPES, *SP_SHAPES, *MOE_SP_SHAPES, *MH_SHAPES,
+                *p22_all_shapes()]
              + SPEC_SHAPES
              + EXTRA_SHAPES + D256_SHAPES)
     for i, (name, b, sq, sk, h, hkv, d, causal) in enumerate(cases):
@@ -860,13 +883,14 @@ def phase_kernels(fa) -> dict:
     errs = {"flash_fwd": main_err, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0,
             "flash_fwd<256>": main_err_256, "flash_bwd_dq<256>": 0.0,
             "flash_bwd_dkv<256>": 0.0}
-    for i, (name, *shape) in enumerate(BWD_SHAPES):
+    for i, (name, *shape) in enumerate(BWD_SHAPES + MOE_SP_SHAPES):
         for dtype in (torch.bfloat16, torch.float32):
             e_dq, e_dkv = check_backward(fa, name, *shape, dtype, seed=50 + i)
             if dtype != torch.bfloat16:
                 continue
             if name in (TRAIN_SHAPE[0], GANG_SHAPE[0], LLAMA_SHAPE[0],
-                        *(shape[0] for shape in MESH_SHAPES + SP_SHAPES)):
+                        *(shape[0] for shape in MESH_SHAPES + SP_SHAPES
+                          + MOE_SP_SHAPES)):
                 errs["flash_bwd_dq"] = max(errs["flash_bwd_dq"], e_dq)
                 errs["flash_bwd_dkv"] = max(errs["flash_bwd_dkv"], e_dkv)
             elif name == GEMMA_SHAPE[0]:
@@ -1783,7 +1807,6 @@ def check_training_step(fa, config: dict, launches: dict,
         _, metrics = step(state, batch)
         return {k: v.item() for k, v in metrics.items()}
 
-    run()                                   # warm
     worst: dict = {}
     before = counters(fa)
     with backward_checked(fa, worst):
@@ -2436,9 +2459,22 @@ def recording_flash(fa, shapes: list):
     return recorded
 
 
+# k1_times by shape: phases 2, 7, 11 and 14 share most of their prefill
+# shapes, each timed once (the whole run's numbers took ~38 s)
+K1_TIMES: dict[tuple, tuple[float, float, float]] = {}
+
+
 def k1_times(fa, b, sq, sk, h, hkv, d, causal) -> tuple[float, float, float]:
-    """(kernel, plain version, SDPA) ms of K1 at one bf16 shape; the
-    launches made here are not counted."""
+    """(kernel, plain version, SDPA) ms of K1 at one bf16 shape, measured
+    once per shape in a run (``K1_TIMES``); the launches made here are not
+    counted."""
+    key = (b, sq, sk, h, hkv, d, causal)
+    if key not in K1_TIMES:
+        K1_TIMES[key] = _k1_times(fa, *key)
+    return K1_TIMES[key]
+
+
+def _k1_times(fa, b, sq, sk, h, hkv, d, causal) -> tuple[float, float, float]:
     from torch.nn.attention.bias import causal_lower_right
     from torch.nn.functional import scaled_dot_product_attention as sdpa
 
@@ -2538,19 +2574,27 @@ GANG_TOL = STEP_TOL
 
 # -- phase 17: data-parallel training ---------------------------------------
 
-# (a) phase 4's BERT-large and optimizer at global batch 24 x 512 for 5
-# steps, from an .npz made from the seed; (b) ResNet-50 at 224 x 224,
-# global batch 128, 3 steps of the ImageNet recipe's momentum sgd (lr 0.1
-# x 128 / 256), its BatchNorms on the gang's global statistics.  Each runs
+# (a) phase 4's BERT-large and optimizer at global batch 24 x 512 for
+# GANG_BERT's steps, from an .npz made from the seed; (b) ResNet-50 at
+# 224 x 224, global batch 128, GANG_RESNET's steps of the ImageNet
+# recipe's momentum sgd (lr 0.1 x 128 / 256), its BatchNorms on the
+# gang's global statistics.  Each runs
 # through the worker entrypoint as one process (this one) and in the gang
-# of 2.  (c) The Trainer on BERT-large under the reference test's
-# membership schedule, world 2 -> 1 at step 6 of 12.
-GANG_BERT = {**TRAIN_CONFIG, "steps": 5}
+# of 2.  (c) The Trainer on BERT-large under RESIZE_SCHEDULE.
+# BERT-large's steps cut from 5 to 2 (~1.75 s each in the gang, 86%
+# all-reduce) and ResNet-50's from 3 to 2 when phase 20 grew; samples/s of
+# step 2, as phases 18-20 take it
+GANG_BERT = {**TRAIN_CONFIG, "steps": 2}
 GANG_RESNET = {"model": "resnet50", "model_config": {},
-               "global_batch": VISION_BATCH, "steps": 3, "log_every": 1,
+               "global_batch": VISION_BATCH, "steps": 2, "log_every": 1,
                "seed": 0, "optimizer": {"name": "sgd", "learning_rate": 0.05,
                                         "momentum": 0.9}}
-RESIZE_SCHEDULE = {0: (0, (0, 1)), 6: (1, (0,))}   # step: (epoch, members)
+# (c)'s membership schedule, the reference test's (world 2 -> 1 at step 6
+# of 12) cut to a third of its steps when phase 20 grew: one resize all
+# the same
+RESIZE_STEPS, RESIZE_AT = 4, 2
+RESIZE_SCHEDULE = {0: (0, (0, 1)),                 # step: (epoch, members)
+                   RESIZE_AT: (1, (0,))}
 
 # -- phase 18: fsdp and tp training -----------------------------------------
 
@@ -2620,15 +2664,44 @@ MOE_EP_CONFIG = {"model": "llama",
 MOE_EP_LAUNCHES = {"flash_fwd": 2 * MOE_EP_LAYERS,
                    "flash_bwd_dq": MOE_EP_LAYERS,
                    "flash_bwd_dkv": MOE_EP_LAYERS}
-# (label, data ranks) and each layout's rank shape (phase 18's)
-MOE_EP_LAYOUTS = (("one process", 1), ("dp=2", 2), ("ep=2", 1))
-MOE_EP_SHAPES = {label: mesh_shape(dp, 1) for label, dp in MOE_EP_LAYOUTS}
+# lamb's run: at lr 5e-3 two steps move each tensor by ~1e-2 of its norm,
+# as two adamw steps at 1e-4 move these weights (MOE_EP_EXPERT_TOL's teeth)
+MOE_LAMB = {"name": "lamb", "learning_rate": 5e-3, "weight_decay": 0.01}
+# (label, data ranks) and each layout's rank shape (phase 18's); the
+# layouts past dp = 2 run build_train_step on make_mesh(dp=1, **axes)
+# with their optimizer, against the one-process run with it
+MOE_EP_LAYOUTS = (("one process", 1), ("dp=2", 2), ("ep=2", 1),
+                  ("tp=2", 1), ("sp=2", 1), ("tp=2 lamb", 1))
+MOE_EP_MESHES = {"ep=2": ({"ep": 2}, "adamw"), "tp=2": ({"tp": 2}, "adamw"),
+                 "sp=2": ({"sp": 2}, "adamw"),
+                 "tp=2 lamb": ({"tp": 2}, "lamb")}
+MOE_EP_SHAPES = {label: mesh_shape(dp, 2 if label.startswith("tp") else 1)
+                 for label, dp in MOE_EP_LAYOUTS}
+MOE_EP_SHAPES["one process lamb"] = MOE_EP_SHAPES["one process"]
+# sp = 2: each rank's ring blocks of 8 rows x 256 tokens, the diagonal one
+# (causal) and on rank 1 the earlier one (fully visible)
+MOE_SP_SHAPES = [
+    ("llama7b_sp_moe_block_diagonal", MESH_BATCH, LLAMA_SEQ // 2,
+     LLAMA_SEQ // 2, 32, 32, 128, True),
+    ("llama7b_sp_moe_block_earlier", MESH_BATCH, LLAMA_SEQ // 2,
+     LLAMA_SEQ // 2, 32, 32, 128, False)]
 # ep's expert blocks after the last step against one process's rows of the
 # same experts: ||w_ep - w_one|| / ||w_one|| within the loss's GANG_TOL (two
 # adamw steps move the weights by ~1e-2 of their norm, so a wrong block or
 # a missing update is that far off, while adam's lr-sized steps on gradient
 # elements that round to the other sign stay far below it)
 MOE_EP_EXPERT_TOL = GANG_TOL["loss"]
+# tp's expert columns after the last step against one process's, by the
+# norm of one process's update of them (||w_tp - w_one|| / ||w_one -
+# w_0||): tp's bf16 partial sums route some near-tie (token, choice)
+# assignments to another expert at step 1 (29 of 8192 on an H100 80GB
+# HBM3, counted by the phase), which moves those experts' gradients, and
+# adam's sign-like first steps turn the elements whose sign flipped into
+# lr-sized differences (4.6e-03 of ||w|| there, with 2.8 M elements of
+# w_in apart by more than lr/2: 0.164 of the update's norm with adamw,
+# 0.131 with lamb).  A missing update is 1, a wrong block ~40 (the blocks
+# differ by ~sqrt(2) ||w||)
+MOE_TP_EXPERT_TOL = 0.3
 
 # -- phase 21: multi-host serving --------------------------------------------
 
@@ -2742,6 +2815,7 @@ import torch
 import torch.distributed as dist
 from torch.func import functional_call
 from kubeflow_tpu_torch.models import llama, registry
+from kubeflow_tpu_torch.models import moe as tmoe
 from kubeflow_tpu_torch.ops import flash_attention as fa
 from kubeflow_tpu_torch.ops import ring_attention as ring
 from kubeflow_tpu_torch.parallel import distributed as pd
@@ -2945,25 +3019,36 @@ def pipeline_check(sp):
                                for k, a in zip(mine, grads))}
 
 
-def expert_parallel(moe):
-    # ep = 2 through build_train_step; then this rank's experts against
-    # one process's rows of them
+def moe_layout(moe, layout):
+    # one layout of phase 20 through build_train_step on the global batch
+    # one process sees; then this rank's expert blocks (split over ep or
+    # tp) against one process's rows or columns of them
     config = moe["config"]
-    mesh = make_mesh(dp=1, ep=moe["ep"])
+    axes, optimizer = layout["axes"], layout["optimizer"]
+    mesh = make_mesh(dp=1, **axes)
     entry = registry.get(config["model"])
     model = entry.make_model(**config["model_config"],
                              device=torch.device("cuda"))
     model.init_weights(config["seed"])
     sh.shard_model(model, mesh)
-    state = ts.init_train_state(model, make_optimizer(config["optimizer"]))
-    step = ts.build_train_step(entry.forward_loss, state.tx, mesh,
-                               loss_weight=entry.loss_weight)
+    state = ts.init_train_state(model, make_optimizer(optimizer))
+    step = ts.build_train_step(
+        entry.forward_loss, state.tx, mesh, loss_weight=entry.loss_weight,
+        sequence_keys=entry.sequence_keys if axes.get("sp", 1) > 1 else ())
     # the global batch a data-parallel gang of moe["ranks"] assembles: its
     # ranks' rows, rank-major (each rank's NpzDataset shard)
     shards = [NpzDataset(config["data_path"], config["global_batch"],
                          seed=config["seed"], process_index=r,
                          process_count=moe["ranks"]).iter_from(0)
               for r in range(moe["ranks"])]
+    # the expert blocks as initialised, for the size of each update
+    start = {name: p.detach().clone() for name, p in model.named_parameters()
+             if name.endswith(("moe.w_in", "moe.w_out"))}
+    # step 1's routing: each MoE layer's router logits of its forward
+    routed = []
+    hooks = [blk.moe.router.register_forward_hook(
+        lambda mod, args, logits: routed.append(logits.detach()))
+        for blk in model.layers if blk.use_moe]
     for i in range(config["steps"]):
         rows = [next(shard) for shard in shards]
         batch = {k: torch.cat([torch.as_tensor(r[k]) for r in rows])
@@ -2971,23 +3056,35 @@ def expert_parallel(moe):
         state, m = step(state, to_device(batch, torch.device("cuda")))
         float(m["loss"])
         logged(i + 1)
-    one = torch.load(moe["experts"], mmap=True, weights_only=True)
+        for hook in hooks if i == 0 else ():
+            hook.remove()
+    # (token, choice) assignments of this rank's tokens routed to another
+    # expert than one process routed them at step 1, per MoE layer
+    n = routed[0].shape[1]
+    cols = slice(mesh.coordinate("sp") * n, (mesh.coordinate("sp") + 1) * n)
+    flips = [int((tmoe.route(torch.softmax(logits.float(), -1))[1].cpu()
+                  != want[:, cols]).sum())
+             for logits, want in zip(routed, torch.load(
+                 layout["routing"], weights_only=True))]
+    one = torch.load(layout["experts"], mmap=True, weights_only=True)
     out = {}
     for name, p in model.named_parameters():
-        split = getattr(p, "ep_split", None)
-        if split is None:
+        splits = [s for s in (getattr(p, "ep_split", None),
+                              getattr(p, "tp_split", None)) if s is not None]
+        if name not in one or not splits:
             continue
-        n = p.shape[0]
-        want = one[name][split.index * n:(split.index + 1) * n].to(p.device)
+        want = sh.local_block(one[name], p).to(p.device)
         diff = (p.detach() - want).float()
-        out[name] = {"experts": [split.index * n, (split.index + 1) * n],
+        out[name] = {"experts": [f"{s.axis} {s.index} of {s.size} on dim "
+                                 f"{s.dim}" for s in splits],
                      "norm_rel": (diff.norm() / want.norm()).item(),
+                     "update_rel": (diff.norm()
+                                    / (want - start[name]).norm()).item(),
                      "max_rel": (diff.abs().max()
                                  / want.abs().max()).item(),
                      "lr_steps": int((diff.abs()
-                                      > config["optimizer"]["learning_rate"]
-                                      / 2).sum())}
-    return 0, out
+                                      > optimizer["learning_rate"] / 2).sum())}
+    return 0, {"blocks": out, "flips": flips}
 
 
 pd.initialize_from_env()
@@ -3008,8 +3105,9 @@ if "19" in spec:
     times["19"] = time.time() - T0
 if "20" in spec:
     moe = spec["20"]
-    out["20"] = {"dp=2": job(trainer({**moe["config"], "dp": 2})),
-                 "ep=2": job(lambda: expert_parallel(moe))}
+    out["20"] = {"dp=2": job(trainer({**moe["config"], "dp": 2}))}
+    for label, layout in moe["layouts"].items():
+        out["20"][label] = job(lambda layout=layout: moe_layout(moe, layout))
     times["20"] = time.time() - T0
 if "21" in spec:
     # phase 21's runs, shared with the one-process runs of chip_smoke.py
@@ -3067,9 +3165,9 @@ def comm_line(comm: dict) -> str:
 
 
 def gang_data(home: Path) -> tuple[str, str]:
-    """The .npz files of phase 17 from seed 0: 5 global batches of 24 BERT
-    rows (15% of positions weighted) and 3 of 128 ResNet images (float16:
-    the model rounds them to bf16)."""
+    """The .npz files of phase 17 from seed 0: GANG_BERT's global batches
+    of 24 BERT rows (15% of positions weighted) and GANG_RESNET's of 128
+    ResNet images (float16: the model rounds them to bf16)."""
     rng = np.random.default_rng(0)
     n, vocab = TRAIN_BATCH * GANG_BERT["steps"], 30522
     bert = home / "bert.npz"
@@ -3112,11 +3210,11 @@ def gang_compare(label: str, one: dict, ranks: list[dict],
 
 
 def gang_resize(fa, data: str, home: Path) -> dict:
-    """(c) The Trainer on BERT-large under ``RESIZE_SCHEDULE`` (the
-    reference test's: world 2 -> 1 at step 6 of 12), index 0 and then
+    """(c) The Trainer on BERT-large under ``RESIZE_SCHEDULE`` (world 2
+    -> 1 at step ``RESIZE_AT`` of ``RESIZE_STEPS``), index 0 and then
     index 1, in this process: the resize record, monotone steps, index 1
-    resigning at step 6.  Launches by shape: rows per worker change at
-    the barrier."""
+    resigning at ``RESIZE_AT``.  Launches by shape: rows per worker
+    change at the barrier."""
     from kubeflow_tpu_torch.elastic import Membership, ResizeCheckpoint
     from kubeflow_tpu_torch.elastic.runtime import ScriptedMembership
     from kubeflow_tpu_torch.training.trainer import Trainer, TrainerConfig
@@ -3129,14 +3227,14 @@ def gang_resize(fa, data: str, home: Path) -> dict:
     for index in (0, 1):
         ck = home / f"resize-{index}"
         cfg = TrainerConfig.from_dict({
-            **TRAIN_CONFIG, "steps": 12, "data_path": data,
+            **TRAIN_CONFIG, "steps": RESIZE_STEPS, "data_path": data,
             "checkpoint_dir": str(ck), "checkpoint_every": 100,
             "optimizer": {"name": "sgd", "learning_rate": 1e-2}})
         seen = dict.fromkeys(KERNEL_NAMES, 0)
 
         def hook(step, rec, seen=seen):
             now = counters(fa)
-            shape = GANG_SHAPE[0] if step <= 6 else TRAIN_SHAPE[0]
+            shape = GANG_SHAPE[0] if step <= RESIZE_AT else TRAIN_SHAPE[0]
             for n in KERNEL_NAMES:
                 launches[shape][n] += now[n] - seen[n]
             seen.update(now)
@@ -3154,24 +3252,26 @@ def gang_resize(fa, data: str, home: Path) -> dict:
             f"{trainer.resizes}, steps {steps}, record {record}, losses "
             f"{' '.join(f'{x:.4f}' for x in losses)}; {wall:.1f}s")
         check(all(math.isfinite(x) for x in losses), (index, losses))
-        check(record == {"step": 6, "epoch": 1, "members": [0]},
+        check(record == {"step": RESIZE_AT, "epoch": 1, "members": [0]},
               f"resize record {record}")
         if index == 0:
             check(summary["resizes"] == 1 and trainer.resizes == [
-                {"step": 6, "epoch": 1, "world": 1, "rank": 0}],
+                {"step": RESIZE_AT, "epoch": 1, "world": 1, "rank": 0}],
                 (summary, trainer.resizes))
-            check(steps == list(range(1, 13)), f"steps {steps}")
+            check(steps == list(range(1, RESIZE_STEPS + 1)), f"steps {steps}")
         else:
             check(summary.get("resigned") is True
-                  and summary["start_step"] == 6, summary)
-            check(steps == list(range(1, 7)), f"steps {steps}")
+                  and summary["start_step"] == RESIZE_AT, summary)
+            check(steps == list(range(1, RESIZE_AT + 1)), f"steps {steps}")
         out[index] = {"summary": summary, "wall_s": wall}
         del trainer
         free_memory()
-    per_step = {n: launches[GANG_SHAPE[0]][n] / 12 for n in KERNEL_NAMES}
+    per_step = {n: launches[GANG_SHAPE[0]][n] / (2 * RESIZE_AT)
+                for n in KERNEL_NAMES}
     check(per_step == {n: float(v) for n, v in TRAIN_LAUNCHES.items()}
           and launches[TRAIN_SHAPE[0]] == {
-              n: 6 * v for n, v in TRAIN_LAUNCHES.items()},
+              n: (RESIZE_STEPS - RESIZE_AT) * v
+              for n, v in TRAIN_LAUNCHES.items()},
           f"phase 17(c) launches {launches}")
     return {"workers": out, "launches": launches}
 
@@ -3533,39 +3633,49 @@ def moe_ep_data(home: Path) -> str:
     return str(path)
 
 
-def moe_ep_prepare(fa, home: Path) -> tuple[dict, dict]:
-    """Phase 20's one process here, on the global batches a data-parallel
-    gang of 2 assembles (its ranks' strided ``NpzDataset`` shards,
-    rank-major: capacity positions follow the rows' order, so this is the
-    batch the gang's layouts see): every step's loss, grad_norm,
-    launches and MoE layers' dropped counts, and its expert weights after
-    the last step written to ``home`` for the ep ranks' check; its
-    section of the gang."""
+def moe_one_process(fa, config: dict, optimizer: dict, experts: Path,
+                    routing: Path) -> dict:
+    """Phase 20's model as one process here through ``build_train_step``
+    with ``optimizer``, on the global batches a data-parallel gang of 2
+    assembles (its ranks' strided ``NpzDataset`` shards, rank-major:
+    capacity positions follow the rows' order, so this is the batch the
+    gang's layouts see): every step's loss, grad_norm, launches and MoE
+    layers' dropped counts; its expert weights after the last step are
+    written to ``experts`` and step 1's routing to ``routing`` for the
+    ranks' checks."""
     from kubeflow_tpu_torch.models import registry
+    from kubeflow_tpu_torch.models.moe import route
     from kubeflow_tpu_torch.parallel import train_step as ts
     from kubeflow_tpu_torch.training.data import NpzDataset, to_device
     from kubeflow_tpu_torch.training.optim import make_optimizer
 
-    config = {**MOE_EP_CONFIG, "data_path": moe_ep_data(home)}
     free_memory()
     torch.cuda.reset_peak_memory_stats()
     entry = registry.get(config["model"])
     model = entry.make_model(**config["model_config"], device="cuda")
     model.init_weights(config["seed"])
-    state = ts.init_train_state(model, make_optimizer(config["optimizer"]))
+    state = ts.init_train_state(model, make_optimizer(optimizer))
     step = ts.build_train_step(entry.forward_loss, state.tx)
     shards = [NpzDataset(config["data_path"], config["global_batch"],
                          seed=config["seed"], process_index=r,
                          process_count=GANG_RANKS).iter_from(0)
               for r in range(GANG_RANKS)]
-    trail, dropped, stamps, launches = [], [], [], []
+    trail, dropped, stamps, launches, routed = [], [], [], [], []
+    # step 1's routing: each MoE layer's top-2 experts [B, S, 2] of its
+    # forward (the gang's layouts count their assignments routed otherwise)
+    hooks = [blk.moe.router.register_forward_hook(
+        lambda mod, args, logits: routed.append(
+            route(torch.softmax(logits.float(), -1))[1].cpu()))
+        for blk in model.layers if blk.use_moe]
     set_counters(fa, dict.fromkeys(KERNEL_NAMES, 0))     # the path starts
-    for _ in range(config["steps"]):
+    for i in range(config["steps"]):
         rows = [next(shard) for shard in shards]
         batch = to_device({k: torch.cat([torch.as_tensor(r[k]) for r in rows])
                            for k in rows[0]}, torch.device("cuda"))
         seen = counters(fa)
         state, m = step(state, batch)
+        for hook in hooks if i == 0 else ():
+            hook.remove()
         trail.append([m["loss"].item(), m["grad_norm"].item()])
         stamps.append(time.perf_counter())
         now = counters(fa)
@@ -3574,35 +3684,75 @@ def moe_ep_prepare(fa, home: Path) -> tuple[dict, dict]:
                         if b.use_moe])
     total = counters(fa)                                 # the path ended
     for i, got in enumerate(launches):
-        check(got == MOE_EP_LAUNCHES, f"phase 20 one process step {i + 1} "
-              f"launches {got}, expected {MOE_EP_LAUNCHES}")
+        check(got == MOE_EP_LAUNCHES, f"phase 20 one process "
+              f"{optimizer['name']} step {i + 1} launches {got}, expected "
+              f"{MOE_EP_LAUNCHES}")
     check(all(math.isfinite(x) for t in trail for x in t), trail)
     torch.save({k: p.detach().cpu() for k, p in model.named_parameters()
-                if k.endswith(("moe.w_in", "moe.w_out"))},
-               home / "experts.pt")
-    one = {"rc": 0, "launches": total, "trail": trail, "dropped": dropped,
-           "samples_per_s": config["global_batch"] / (stamps[1]
-                                                      - stamps[0]),
-           "steps_peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+                if k.endswith(("moe.w_in", "moe.w_out"))}, experts)
+    torch.save(routed[:len(hooks)], routing)
     del model, state, step
-    return {"one": one}, {"config": config, "ep": GANG_RANKS,
-                          "ranks": GANG_RANKS,
-                          "experts": str(home / "experts.pt")}
+    return {"rc": 0, "launches": total, "trail": trail, "dropped": dropped,
+            "samples_per_s": config["global_batch"] / (stamps[1]
+                                                       - stamps[0]),
+            "steps_peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def moe_ep_prepare(fa, home: Path) -> tuple[dict, dict]:
+    """Phase 20's one-process runs here (adamw, and lamb for tp=2 lamb);
+    its section of the gang: dp = 2 through the worker entrypoint, each
+    of ``MOE_EP_MESHES`` through ``build_train_step``."""
+    config = {**MOE_EP_CONFIG, "data_path": moe_ep_data(home)}
+    optimizers = {"adamw": config["optimizer"], "lamb": MOE_LAMB}
+    one = {name: moe_one_process(fa, config, opt, home / f"experts-{name}.pt",
+                                 home / f"routing-{name}.pt")
+           for name, opt in optimizers.items()}
+    layouts = {label: {"axes": axes, "optimizer": optimizers[opt],
+                       "experts": str(home / f"experts-{opt}.pt"),
+                       "routing": str(home / f"routing-{opt}.pt"),
+                       "one": opt}
+               for label, (axes, opt) in MOE_EP_MESHES.items()}
+    return ({"one": one["adamw"], "one lamb": one["lamb"],
+             "layouts": layouts},
+            {"config": config, "ranks": GANG_RANKS, "layouts": layouts})
+
+
+def moe_ep_expected(label: str, rank: int) -> dict:
+    """Rank ``rank``'s launches in a phase 20 layout: ``MOE_EP_LAUNCHES``
+    a step, at sp = 2 once per visible ring block (``sp_expected``)."""
+    blocks = rank + 1 if label.startswith("sp") else 1
+    return {n: MOE_EP_STEPS * v * blocks for n, v in MOE_EP_LAUNCHES.items()}
 
 
 def moe_ep_finish(prep: dict, outs: list[dict]) -> dict:
     """Phase 20's checks: every layout's launches, dropped counts and
-    trail against one process, ep's expert blocks against its rows."""
-    one = prep["one"]
-    want = {n: MOE_EP_STEPS * v for n, v in MOE_EP_LAUNCHES.items()}
-    log(f"phase 20 one process: launches {one['launches']} (expected "
-        f"{want}), samples/s {one['samples_per_s']:.3f}, peak memory "
-        f"{one['steps_peak_gb']:.2f} GB, dropped (token, choice) per MoE "
-        f"layer and step {one['dropped']}")
-    results = {"one process": one}
+    trail against one process with its optimizer, ep's and tp's expert
+    blocks against its rows or columns."""
+    results = {"one process": prep["one"],
+               "one process lamb": prep["one lamb"]}
+    flipped: dict[str, list[int]] = {}
+    for label in ("one process", "one process lamb"):
+        one = results[label]
+        log(f"phase 20 {label}: launches {one['launches']} (expected "
+            f"{moe_ep_expected(label, 0)}), samples/s "
+            f"{one['samples_per_s']:.3f}, peak memory "
+            f"{one['steps_peak_gb']:.2f} GB, dropped (token, choice) per MoE "
+            f"layer and step {one['dropped']}")
     for label, _ in MOE_EP_LAYOUTS[1:]:
+        layout = prep["layouts"].get(label, {})
+        one = results["one process lamb" if layout.get("one") == "lamb"
+                      else "one process"]
         jobs = [out["20"][label] for out in outs]
+        if jobs[0]["extra"]:
+            # the ranks' tokens: every sp rank its chunk, else all of them
+            ranks = jobs if label.startswith("sp") else jobs[:1]
+            flipped[label] = [sum(f) for f in zip(
+                *(job["extra"]["flips"] for job in ranks))]
+            log(f"phase 20 {label}: (token, choice) assignments of step 1 "
+                f"routed to another expert than one process's, per MoE "
+                f"layer: {flipped[label]}")
         for r, job in enumerate(jobs):
+            want = moe_ep_expected(label, r)
             job["samples_per_s"] = MESH_BATCH / (job["stamps"][1]
                                                  - job["stamps"][0])
             log(f"phase 20 {label} rank {r}: seconds after the spawn start "
@@ -3617,33 +3767,57 @@ def moe_ep_finish(prep: dict, outs: list[dict]) -> dict:
                   (label, r, job["launches"]))
             # step 1 routes the same rows with the same weights, so every
             # MoE layer's dropped count is one process's unless capacity or
-            # positions differ; later steps route with weights that adam's
-            # lr-sized steps on rounding-level gradient elements moved
-            # apart, so near-ties may flip (printed, not held)
-            check(job["dropped"][0] == one["dropped"][0],
+            # positions differ, or (tp, sp) bf16 rounding at the rank's
+            # shapes flipped a near-tie of the router (ROADMAP queue C item
+            # 7): each (token, choice) routed otherwise moves the count by
+            # at most one, so it is held to one process's within the
+            # layouts' counted flips (zero for dp, and where none flipped);
+            # later steps route with weights that adam's lr-sized steps on
+            # rounding-level gradient elements moved apart (printed, not
+            # held)
+            flips = flipped.get(label, [0] * len(one["dropped"][0]))
+            check(all(abs(g - w) <= f for g, w, f in zip(
+                job["dropped"][0], one["dropped"][0], flips)),
                   f"phase 20 {label} rank {r}: step 1 dropped "
                   f"{job['dropped'][0]} against one process's "
-                  f"{one['dropped'][0]}")
-            experts = job["extra"] or {}
+                  f"{one['dropped'][0]}, {flips} assignments routed "
+                  "otherwise")
+            experts = (job["extra"] or {}).get("blocks", {})
             for name, e in experts.items():
-                log(f"phase 20 {label} rank {r}: {name} experts "
-                    f"{e['experts']} after step {MOE_EP_STEPS} against one "
-                    f"process's: ||d||/||w|| {e['norm_rel']:.3e} (tol "
-                    f"{MOE_EP_EXPERT_TOL:g}), max|d|/max|w| "
-                    f"{e['max_rel']:.3e}, {e['lr_steps']} elements apart by "
-                    f"more than lr/2")
-                check(e["norm_rel"] <= MOE_EP_EXPERT_TOL, (label, r, name, e))
-            if label == "ep=2":
+                # ep's blocks by the norm of the weights, tp's by the norm
+                # of one process's update (MOE_TP_EXPERT_TOL)
+                key, tol = (("update_rel", MOE_TP_EXPERT_TOL)
+                            if label.startswith("tp")
+                            else ("norm_rel", MOE_EP_EXPERT_TOL))
+                log(f"phase 20 {label} rank {r}: {name} block "
+                    f"{', '.join(e['experts'])} after step {MOE_EP_STEPS} "
+                    f"against one process's: ||d||/||w|| "
+                    f"{e['norm_rel']:.3e}, ||d||/||update|| "
+                    f"{e['update_rel']:.3e} ({key} tol {tol:g}), "
+                    f"max|d|/max|w| {e['max_rel']:.3e}, {e['lr_steps']} "
+                    f"elements apart by more than lr/2")
+                check(e[key] <= tol, (label, r, name, e))
+            if label.startswith(("ep", "tp")):
                 check(sorted(experts) == [f"layers.0.moe.{w}"
                                           for w in ("w_in", "w_out")],
                       (label, r, sorted(experts)))
         gang_compare(label, one, jobs, phase=20)
+        launched = {n: sum(job["launches"][n] for job in jobs)
+                    for n in KERNEL_NAMES}
         results[label] = {
             "samples_per_s": min(job["samples_per_s"] for job in jobs),
             "peak_gb": max(job["peak_gb"] for job in jobs),
-            "comm": step2(jobs[0]),
-            "launches": {n: sum(job["launches"][n] for job in jobs)
-                         for n in KERNEL_NAMES}}
+            "comm": step2(jobs[0]), "launches": launched}
+        if label.startswith("sp"):
+            # by block: every rank one diagonal block per layer and pass,
+            # the rest earlier ones
+            diagonal = {n: sum(job["launches"][n] // (r + 1)
+                               for r, job in enumerate(jobs))
+                        for n in KERNEL_NAMES}
+            results[label]["by_shape"] = {
+                MOE_SP_SHAPES[0][0]: diagonal,
+                MOE_SP_SHAPES[1][0]: {n: launched[n] - diagonal[n]
+                                      for n in KERNEL_NAMES}}
     log(f"phase 20: samples/s of step 2: " + ", ".join(
         f"{label} {r['samples_per_s']:.3f}" for label, r in results.items()))
     return results
@@ -3653,7 +3827,7 @@ def moe_ep_numbers(fa, moe_ep: dict,
                    mesh_rows: dict | None = None) -> dict[str, list[dict]]:
     """K1-K3 rows of phase 20: each layout's launches at its rank shape,
     whose times phase 18's rows hold (``mesh_rows``; timed here without
-    them)."""
+    them), and sp's at its ring blocks, timed here."""
     if mesh_rows is None:
         mesh_rows = {n: [] for n in KERNEL_NAMES}
         for shape in {v[0]: v for v in MOE_EP_SHAPES.values()}.values():
@@ -3662,11 +3836,19 @@ def moe_ep_numbers(fa, moe_ep: dict,
             for n in KERNEL_NAMES:
                 mesh_rows[n].append(got[n])
     rows = {n: [] for n in KERNEL_NAMES}
-    for label, _ in MOE_EP_LAYOUTS:
+    for label, rec in moe_ep.items():
+        if "by_shape" in rec:
+            for shape in MOE_SP_SHAPES:
+                got = training_numbers(fa, shape, rec["by_shape"][shape[0]],
+                                       None, plain_reps=2)
+                for n in KERNEL_NAMES:
+                    rows[n].append(with_launches(got[n], got[n]["launches"],
+                                                 f"phase 20 {label}"))
+            continue
         shape = MOE_EP_SHAPES[label][0]
         for n in KERNEL_NAMES:
             row = next(r for r in mesh_rows[n] if r["shape"] == shape)
-            rows[n].append(with_launches(row, moe_ep[label]["launches"][n],
+            rows[n].append(with_launches(row, rec["launches"][n],
                                          f"phase 20 {label}"))
     return rows
 
@@ -4432,8 +4614,7 @@ def p22_finish(prep: dict, twos: list[list], fours: list[list]) -> dict:
 
 def p22_numbers(fa, p22: dict) -> list[dict]:
     """K1 rows of phase 22: each layout's distinct shapes with their
-    launches over its ranks, each shape timed once."""
-    timed: dict[tuple, tuple] = {}
+    launches over its ranks, each shape timed once (``k1_times``)."""
     rows = []
     for label, tp, *_ in P22_LAYOUTS:
         ranks = p22[label]["ranks"]
@@ -4441,9 +4622,7 @@ def p22_numbers(fa, p22: dict) -> list[dict]:
             p22_chunks(label))
         for name, *dims, per_layer in p22_shapes(label, tp):
             key = tuple(dims)
-            if key not in timed:
-                timed[key] = k1_times(fa, *dims)
-            ms, plain_ms, library_ms = timed[key]
+            ms, plain_ms, library_ms = k1_times(fa, *key)
             row = {"shape": name, "launches": per_layer * layers * len(ranks),
                    "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
                    **bound_fields("flash_fwd", key, torch.bfloat16)}

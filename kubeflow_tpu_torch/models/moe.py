@@ -29,46 +29,62 @@ token's row, so it does not depend on the order of the additions.
 the ranks over dp x fsdp, each holding a contiguous rank-major block of
 the global batch's rows) capacity, positions and aux are the global
 batch's, as the reference's pjit computes them on the assembled array.
-One ``all_gather`` of each rank's ``[2, E]`` first- and second-choice
-counts gives ``T`` (the global token count, so ``C`` is the global
-capacity), each first choice's position (its local exclusive cumsum plus
-the lower ranks' first choices of its expert) and each second choice's
-(its local cumsum plus every rank's first choices of its expert plus the
-lower ranks' second choices), and the dropped count of the whole batch.
-The aux loss's two means are global: the first-choice fractions from the
+Under sp the step also binds its ``SequenceSplit``: each rank holds
+chunk i of every one of its rows, so its tokens are not one contiguous
+block of the priority order (the reference's order runs over the
+assembled ``[B, S]`` array, b-major: a rank's chunk of row b sits between
+the other sp ranks' chunks of that row).  The order of (token, choice)
+assignments is therefore (data rank, row, chunk), first choices before
+second ones.  Each rank counts its chunk's choices per row and expert,
+``[rows, 2, E]``; an ``all_gather`` over the sp group gives its data
+rank's rows' counts chunk by chunk, and (with a data group) one of the
+data rank's ``[2, E]`` totals over the data group gives the lower data
+ranks' and the global ones.  Exclusive prefix sums in that order give
+each row's offsets ``[rows, 2, E]`` (a second choice also follows every
+first choice of its expert), ``T`` is the global token count (so ``C``
+is the global capacity) and the dropped count is the whole batch's.  The
+aux loss's two means are global: the first-choice fractions from the
 gathered counts, the probability sums through a differentiable
-all-reduce, both over ``T``.  A stand-in's rows (``rows_counted()``
-False: a rank with no rows of a micro-batch runs one so that it issues
-the group's collectives) count as no tokens.
+all-reduce over the data group (over data x sp under sp), both over
+``T``.  A stand-in's rows (``rows_counted()`` False: a rank with no rows
+of a micro-batch runs one so that it issues the group's collectives)
+count as no tokens.
 
-**Under ep** (``parallel/sharding.shard_model`` split ``w_in``/``w_out``
-over the ep group; ``param.ep_split``) the rows are the same on every ep
-rank, as the reference lays them (``batch`` over dp x fsdp, replicated
-over ep).  Rank r runs experts ``[r E/ep, (r + 1) E/ep)`` on their rows
-of the ``[E, C, D]`` buffer and the ranks' outputs are all-gathered
-(backward: each rank keeps its slice of the replicated cotangent); the
-experts' input passes ``copy_to_group``, whose backward sums the
-input-gradient contributions of every rank's experts.  With rows
-replicated over ep, an all-gather of the outputs is exact and needs no
-all-to-all; every gradient outside the expert weights is the same on
-every ep rank.
+**Split over ep and tp** (``parallel/sharding.shard_model``: the
+"expert" dim of ``w_in``/``w_out`` over ep, ``param.ep_split``; their
+"mlp" dim over tp, ``w_in`` column- and ``w_out`` row-parallel,
+``param.tp_split``).  The rows are the same on every rank of the
+weights' ``model_group`` (the tp group, the ep group, or with both the
+joint tp x ep group: ``parallel/mesh.py::JOINT_AXES``), as the reference
+lays them (``batch`` over dp x fsdp, replicated over tp and ep), and so
+are the router, the routing and the capacity buffer.  Each rank runs its
+experts (``[r E/ep, (r + 1) E/ep)``, all E without ep) at its ``f / tp``
+columns on their rows of the ``[E, C, D]`` buffer, which gives partial
+expert outputs.  Each (token, choice) gathers its **ungated** output
+from them, ``[2T, D]`` in priority order, zero where this rank holds no
+part of its expert, and ONE ``reduce_from_group`` over ``model_group``
+sums them; the gates weight the whole sums.  So the gates' gradient,
+and through it the router's and the input's, is whole on every rank
+(summing gated partials would leave each tp rank a partial share of
+it).  Only the experts' input passes ``copy_to_group`` (its gradient is
+a partial sum per rank); the router branch's is whole already.  Under ep
+alone the sum is exact: each slot has one non-zero term across the
+ranks, so it equals one process's gather bitwise.  Under tp the
+contraction over f is split, so the sum rounds differently (about 1e-7
+relative).
 
 **Dropless under ep and tp** (the serving predictor's layouts,
-``serving/sharded.py``'s rules: ``w_in``'s "mlp" dim column-parallel and
-``w_out``'s row-parallel over tp, the "expert" dim over ep).  Rank r
-runs its experts (``[r E/ep, (r + 1) E/ep)``, all E without ep) at its
-``f / tp`` columns on every token, keeps each token's gated output of a
-chosen expert it holds (zero for one it does not) and the ``[T, D]``
-float32 partials are summed in ONE all-reduce over the weights'
-``model_group``: the tp group, the ep group, or with both the joint tp x
-ep group (``parallel/mesh.py::JOINT_AXES``).  One collective per MoE
-layer per forward, over the smallest tensor (the gated ``[T, D]``, not
-``[E, T, D]``); the input passes ``copy_to_group`` over the same group.
-Under ep alone this is exact: each token has at most two non-zero terms
-across the ranks, adding zeros is exact and float32 addition commutes,
-so the sum is one process's ``g0 a + g1 b`` bitwise.  Under tp the
-contraction over f is split, so the sum rounds differently (about 1e-7
-relative).  The router stays whole on every rank.
+``serving/sharded.py``'s rules, the same splits).  Rank r runs its
+experts at its ``f / tp`` columns on every token, keeps each token's
+gated output of a chosen expert it holds (zero for one it does not) and
+the ``[T, D]`` float32 partials are summed in ONE all-reduce over
+``model_group``: one collective per MoE layer per forward, over the
+smallest tensor (the gated ``[T, D]``, not ``[E, T, D]``); the input
+passes ``copy_to_group`` over the same group.  Under ep alone this is
+exact (each token has at most two non-zero terms across the ranks), so
+the sum is one process's ``g0 a + g1 b`` bitwise.  Serving never
+differentiates, so the gated partials' partial gate gradient does not
+arise there.  The router stays whole on every rank.
 
 The router's kernel and bias are float32 in every build (the serving
 predictor holds everything else in the compute dtype): a rounded router
@@ -133,41 +149,60 @@ def capacity_slots(experts: torch.Tensor, num_experts: int, cap: int,
     (every first choice, then every second choice, tokens in order):
     ``slot = expert * cap + position`` for a kept assignment and
     ``num_experts * cap`` (one past the buffer) for a dropped one.
-    ``offsets [2, E]`` (under a data group) is added to the position of a
-    choice-c assignment to expert e: where the global priority order puts
-    these tokens' choices among the other ranks'."""
+    ``offsets [rows, 2, E]`` (under a data group or a sequence split; the
+    T tokens are ``rows`` rows of equal length) is added to the position
+    of a choice-c assignment to expert e of a token of row b: where the
+    global priority order puts that row's choices among the other
+    ranks'."""
     pri = experts.t().reshape(-1)                       # [2T]
     onehot = F.one_hot(pri, num_experts)                # [2T, E]
     pos = ((torch.cumsum(onehot, dim=0) - onehot) * onehot).sum(dim=-1)
     if offsets is not None:
-        choice = torch.arange(2, device=pri.device).repeat_interleave(
-            experts.shape[0])
-        pos = pos + offsets[choice, pri]
+        tokens = experts.shape[0]
+        choice = torch.arange(2, device=pri.device).repeat_interleave(tokens)
+        row = (torch.arange(tokens, device=pri.device).repeat(2)
+               // (tokens // offsets.shape[0]))
+        pos = pos + offsets[row, choice, pri]
     keep = pos < cap
     slot = torch.where(keep, pri * cap + pos,
                        torch.full_like(pos, num_experts * cap))
     return slot, keep
 
 
-def global_routing(experts: torch.Tensor, num_experts: int, group,
+def global_routing(experts: torch.Tensor, rows: int, num_experts: int,
+                   group, sequence: pd.SequenceSplit | None = None,
                    counted: bool = True) -> dict:
-    """This data rank's place in the global batch's routing (module
-    docstring): ``tokens`` (global T), ``first`` (the global first-choice
-    count per expert, ``[E]``), ``offsets [2, E]`` for
+    """This rank's place in the global batch's routing (module docstring)
+    for ``experts [T, 2]`` of its ``rows`` rows (under ``sequence``, its
+    chunks of them): ``tokens`` (global T), ``first`` (the global
+    first-choice count per expert, ``[E]``), ``offsets [rows, 2, E]`` for
     ``capacity_slots``, and ``assigned`` (every (token, choice)
-    assignment per expert, ``[E]``).  One ``all_gather`` of ``[2, E]``
-    counts over ``group`` (a collective: every rank calls it, a stand-in
-    with ``counted`` False giving zeros)."""
-    counts = F.one_hot(experts.reshape(-1, 2).t(), num_experts).sum(dim=1)
+    assignment per expert, ``[E]``).  Under ``sequence`` one
+    ``all_gather`` of ``[rows, 2, E]`` counts over its sp group, and with
+    a data ``group`` one of ``[2, E]`` over that group (collectives: every
+    rank calls them, a stand-in with ``counted`` False giving zeros)."""
+    counts = F.one_hot(experts.reshape(rows, -1, 2), num_experts).sum(dim=1)
     if not counted:
-        counts = torch.zeros_like(counts)               # [2, E]
-    table = pd.all_gather_cat(counts, 0, group).reshape(
-        -1, 2, num_experts)                             # [ranks, 2, E]
-    total = table.sum(dim=0)
-    below = table[:pd.rank_of(group)].sum(dim=0)
-    # a local cumsum places second choices after this rank's first ones;
-    # globally they follow every rank's
-    offsets = torch.stack([below[0], total[0] - counts[0] + below[1]])
+        counts = torch.zeros_like(counts)               # [rows, 2, E]
+    chunks = (counts[None] if sequence is None else
+              pd.all_gather_cat(counts[None], 0, sequence.group))
+    per_row = chunks.sum(dim=0)                         # every chunk of a row
+    mine = per_row.sum(dim=0)                           # this data rank's
+    if group is None:
+        total, below = mine, torch.zeros_like(mine)
+    else:
+        table = pd.all_gather_cat(mine[None], 0, group)  # [data ranks, 2, E]
+        total = table.sum(dim=0)
+        below = table[:pd.rank_of(group)].sum(dim=0)
+    # in (data rank, row, chunk) order, what precedes each of this rank's
+    # row chunks, less what capacity_slots' local cumsum counts already:
+    # this chunk's earlier rows, and for a second choice every local first
+    # choice (globally it follows every first choice)
+    index = 0 if sequence is None else sequence.index
+    before = (below + torch.cumsum(per_row, dim=0) - per_row
+              + chunks[:index].sum(dim=0))
+    offsets = before - (torch.cumsum(counts, dim=0) - counts)
+    offsets[:, 1] += total[0] - counts[:, 0].sum(dim=0)
     return {"tokens": int(total[0].sum()), "first": total[0],
             "offsets": offsets, "assigned": total.sum(dim=0)}
 
@@ -223,32 +258,32 @@ class MoEBlock(nn.Module):
         tokens = b * s
         probs = torch.softmax(self.router(x.float()), dim=-1)   # [B, S, E]
         gates, experts = route(probs)                            # [B, S, 2]
-        group = None if dropless else pd.data_parallel_group()
+        group = sequence = None
+        if not dropless:
+            group, sequence = pd.data_parallel_group(), pd.sequence_split()
         xf = x.float().reshape(tokens, d)
         gates = gates.reshape(tokens, 2)
         experts = experts.reshape(tokens, 2)
         # load-balance aux (Switch eq. 4): fraction of first choices per
         # expert times its mean router probability; only the second
         # factor carries a gradient
-        if group is None:
+        glob = None
+        if group is None and sequence is None:
             frac = F.one_hot(experts[:, 0], e).float().mean(dim=0)
             aux = (frac * probs.mean(dim=(0, 1))).sum() * e
         else:
             counted = pd.rows_counted()
-            glob = global_routing(experts, e, group, counted)
+            glob = global_routing(experts, b, e, group, sequence, counted)
             sums = probs.sum(dim=(0, 1)) * (1.0 if counted else 0.0)
-            mean_probs = pd.sum_over_group(sums, group) / glob["tokens"]
+            over = group if sequence is None else sequence.joint
+            mean_probs = pd.sum_over_group(sums, over) / glob["tokens"]
             aux = (glob["first"].float() / glob["tokens"]
                    * mean_probs).sum() * e
         ep = getattr(self.w_in, "ep_split", None)
         if dropless:
             return self._dropless(xf, gates, experts, ep).reshape(
                 b, s, d).to(x.dtype), aux
-        if getattr(self.w_in, "tp_split", None) is not None:
-            raise NotImplementedError(
-                "capacity-mode MoE with its experts split over tp is not "
-                "ported yet (ROADMAP queue A item 6b)")
-        if group is None:
+        if glob is None:
             cap = capacity(self.config, tokens)
             slot, keep = capacity_slots(experts, e, cap)
             self.dropped = (~keep).sum()
@@ -263,26 +298,41 @@ class MoEBlock(nn.Module):
         fill = torch.full((e * cap + 1,), tokens, dtype=torch.long,
                           device=x.device)
         fill[slot] = order
-        if ep is None:
-            first, local = 0, e
-        else:
-            # this rank's experts; their input gradient summed over ep
+        model = getattr(self.w_in, "model_group", None)
+        first, local = 0, e
+        if ep is not None:                              # this rank's experts
             local = e // ep.size
             first = ep.index * local
-            xf = pd.copy_to_group(xf, ep.group)
+        if model is not None:
+            # every rank's experts read the same tokens: their input
+            # gradient contributions sum over the group
+            xf = pd.copy_to_group(xf, model)
         x_pad = torch.cat([xf, xf.new_zeros(1, d)])
         expert_in = x_pad[fill[first * cap:(first + local) * cap]].reshape(
             local, cap, d)
         w_in, w_out = self._experts()
         h = F.gelu(torch.bmm(expert_in, w_in), approximate="tanh")
-        out = torch.bmm(h, w_out)                        # [local, C, D]
-        if ep is not None:
-            out = pd.gather_from_group(out, ep.group, dim=0)   # [E, C, D]
-        out = out.reshape(e * cap, d)
+        out = torch.bmm(h, w_out).reshape(local * cap, d)  # partial over tp
         out = torch.cat([out, out.new_zeros(1, d)])            # + spare slot
-        weights = gates.t().reshape(-1, 1)                     # priority order
-        y = (out[slot] * weights).reshape(2, tokens, d).sum(dim=0)
+        # each (token, choice)'s slot in this rank's buffer; the spare for
+        # a dropped one and for another rank's expert
+        mine = slot - first * cap
+        mine = torch.where((mine >= 0) & (mine < local * cap), mine,
+                           torch.full_like(mine, local * cap))
+        y = self._combine(out[mine], gates, model)
         return y.reshape(b, s, d).to(x.dtype), aux
+
+    @staticmethod
+    def _combine(chosen: torch.Tensor, gates: torch.Tensor,
+                 group) -> torch.Tensor:
+        """Each token's two chosen outputs weighted by its gates ``[T,
+        2]``: ``[T, D]``.  ``chosen [2T, D]`` (priority order) is this
+        rank's ungated share, summed over ``group`` first, so that every
+        rank weights whole outputs (module docstring)."""
+        if group is not None:
+            chosen = pd.reduce_from_group(chosen, group)
+        weights = gates.t().reshape(-1, 1)                     # priority order
+        return (chosen * weights).reshape(2, -1, chosen.shape[1]).sum(dim=0)
 
     def _dropless(self, xf: torch.Tensor, gates: torch.Tensor,
                   experts: torch.Tensor, ep) -> torch.Tensor:

@@ -23,15 +23,15 @@ Where the reference leaves gradient and statistics reduction to pjit,
 the port issues it here: ``all_reduce_sum`` (gradients, flattened into a
 few buckets), ``sum_over_group`` (differentiable, for BatchNorm's
 global-batch statistics), ``data_parallel`` (binds the group that
-``models/layers.py::BatchNorm`` reduces over while a train step runs),
+``models/layers.py::BatchNorm`` reduces over while a train step runs,
+and under sp the ``SequenceSplit`` the MoE block routes by),
 and the sharded layers' differentiable collectives
 (``parallel/sharding.py``): ``gather_cast`` (an fsdp block gathered
 whole, its gradient reduce-scattered), ``copy_to_group`` and
-``reduce_from_group`` (tensor parallelism's f and g; ``copy_to_group``
-also sums the MoE experts' input gradient over ep) and
-``gather_from_group`` (a tp-split activation, and the ep ranks' expert
-outputs); and the neighbour exchange of ring attention
-and the pipeline, ``ppermute`` (``jax.lax.ppermute`` with a cyclic
+``reduce_from_group`` (tensor parallelism's f and g, and the MoE
+experts' input gradient and chosen outputs over tp and ep) and
+``gather_from_group`` (a tp-split activation); and the neighbour
+exchange of ring attention and the pipeline, ``ppermute`` (``jax.lax.ppermute`` with a cyclic
 shift) and its differentiable form ``permute`` (``_Ppermute``); and
 ``broadcast_one_to_all`` (rank 0's fixed-shape buffer on every rank: the
 multi-host serving front door's prompts).
@@ -45,8 +45,10 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
+import dataclasses
 import datetime
 import os
+from typing import Any
 
 import torch
 
@@ -428,18 +430,33 @@ def permute(x: torch.Tensor, group, shift: int = 1) -> torch.Tensor:
     return _Ppermute.apply(x, group, shift)
 
 
+@dataclasses.dataclass(frozen=True)
+class SequenceSplit:
+    """How a train step cut each row's sequence over sp (bound beside the
+    data group): this rank holds chunk ``index`` (its sp coordinate) of
+    every one of its rows, ``group`` is its sp group and ``joint`` the
+    group over the data axes and sp (``parallel/mesh.JOINT_AXES``)."""
+
+    group: Any
+    index: int
+    joint: Any
+
+
 _DATA_PARALLEL = contextvars.ContextVar("kf_data_parallel_group",
-                                        default=(None, True))
+                                        default=(None, True, None))
 
 
 @contextlib.contextmanager
-def data_parallel(group, counted: bool = True):
+def data_parallel(group, counted: bool = True,
+                  sequence: SequenceSplit | None = None):
     """Bind ``group`` as the data-parallel group for the enclosed forward
     and backward (what a train step does under a gang).  ``counted``
     False: the rows are a stand-in that a rank runs only to issue the
     group's collectives (a micro-batch with no rows here), which a model
-    must count as no rows (the MoE block's expert counts)."""
-    token = _DATA_PARALLEL.set((group, counted))
+    must count as no rows (the MoE block's expert counts).  ``sequence``:
+    the rows are this rank's chunks of a sequence split over sp (the MoE
+    block orders its tokens' routing by it)."""
+    token = _DATA_PARALLEL.set((group, counted, sequence))
     try:
         yield
     finally:
@@ -456,9 +473,14 @@ def rows_counted() -> bool:
     return _DATA_PARALLEL.get()[1]
 
 
+def sequence_split() -> SequenceSplit | None:
+    """The ``SequenceSplit`` bound by ``data_parallel``, or None."""
+    return _DATA_PARALLEL.get()[2]
+
+
 def data_parallel_state() -> tuple:
-    """``(group, counted)`` as bound now, for re-entering the binding on
-    another thread (``ops/attention.recompute_context``)."""
+    """``(group, counted, sequence)`` as bound now, for re-entering the
+    binding on another thread (``ops/attention.recompute_context``)."""
     return _DATA_PARALLEL.get()
 
 

@@ -33,9 +33,9 @@ MeshAxes = ("dp", "fsdp", "tp", "sp", "pp", "ep")
 DATA_AXES = ("dp", "fsdp")
 # the sets of axes a step sums over together, each with a group of its
 # own: the data axes, and under sequence parallelism the data axes and
-# sp (a replicated gradient) or dp and sp (an fsdp-split one); tp and ep
-# together hold the partial sums of a dropless MoE layer
-# (``models/moe.py``).  Each set in ``MeshAxes`` order
+# sp (a replicated gradient, and a MoE layer's aux probabilities) or dp
+# and sp (an fsdp-split one); tp and ep together hold the partial sums
+# of a MoE layer (``models/moe.py``).  Each set in ``MeshAxes`` order
 JOINT_AXES = (DATA_AXES, ("dp", "fsdp", "sp"), ("dp", "sp"), ("tp", "ep"))
 
 

@@ -47,8 +47,9 @@ records:
   contraction axis whole).
 - **ep** (the stacked expert weights' leading "expert" dim): each ep
   rank holds ``E / ep`` experts of ``w_in``/``w_out`` and runs only
-  those on the rows it shares with its ep group (``models/moe.py``);
-  with fsdp the "embed" dim is split too and gathered on read.  The
+  those on the rows it shares with its ep group (``models/moe.py``;
+  under tp at its ``f / tp`` columns of them, the "mlp" dim); with fsdp
+  the "embed" dim is split too and gathered on read.  The
   router's "expert" dim is its output (the logits every rank routes
   its tokens by), so the router stays whole on every ep rank.
 
@@ -372,14 +373,24 @@ def grad_groups(params: list[torch.Tensor], mesh, *,
     after the backward: the data axes it is not fsdp-split over (the
     gather's reduce-scatter summed the fsdp axis), and sp when
     ``seq_split`` (each sp rank's gradient is its sequence chunk's
-    share), or None.  Never ep: the ep ranks hold the same rows, so an
-    expert block's gradient is whole on the rank that holds it and every
-    other gradient is the same on every ep rank."""
+    share; a MoE block's too, since it routes by the sequence split), or
+    None.  Never tp or ep: their ranks hold the same rows, so a tp- or
+    ep-split block's gradient is whole on the rank that holds it (a MoE
+    block's experts included: ``models/moe.py`` sums their ungated
+    outputs) and every other gradient is the same on every rank of the
+    group."""
     sp = ("sp",) if seq_split else ()
     over_dp = mesh.group("dp", *sp)
     over_data = mesh.group(*DATA_AXES, *sp)
     return [over_dp if getattr(p, "fsdp_split", None) is not None
             else over_data for p in params]
+
+
+def _counted(p: torch.Tensor, coords: dict) -> bool:
+    """Whether this rank counts its block of ``p``: it is the one replica
+    whose coordinate is 0 on every mesh axis ``p`` is not split over."""
+    split = {s.axis for s in _splits(p)}
+    return all(coords[a] == 0 for a in MeshAxes if a not in split)
 
 
 def global_norm(grads: list[torch.Tensor], params: list[torch.Tensor],
@@ -390,10 +401,23 @@ def global_norm(grads: list[torch.Tensor], params: list[torch.Tensor],
     over the mesh.  On the CPU the sums are float64, as
     ``training/optim.py::global_norm`` keeps them."""
     coords = {a: mesh.coordinate(a) for a in MeshAxes}
-    mine = [g for g, p in zip(grads, params)
-            if all(coords[a] == 0 for a in MeshAxes
-                   if a not in {s.axis for s in _splits(p)})]
+    mine = [g for g, p in zip(grads, params) if _counted(p, coords)]
     total = [sum_of_squares(mine, grads[0].device)]
     if mesh.size > 1:
         pd.all_reduce_sum(total, pd.default_group())
     return total[0].sqrt().float()
+
+
+def whole_squares(squares: torch.Tensor, params: list[torch.Tensor],
+                  mesh) -> torch.Tensor:
+    """Per parameter of ``params``, sums of squares ``[n, k]`` taken over
+    this rank's block of it (lamb's ``|p|^2`` and ``|u|^2``) made the
+    whole tensor's: each block counted on the rank ``global_norm``
+    counts it on, summed over the mesh in one all-reduce."""
+    coords = {a: mesh.coordinate(a) for a in MeshAxes}
+    counted = torch.tensor([_counted(p, coords) for p in params],
+                           dtype=squares.dtype, device=squares.device)
+    out = squares * counted[:, None]
+    if mesh.size > 1:
+        pd.all_reduce_sum([out], pd.default_group())
+    return out

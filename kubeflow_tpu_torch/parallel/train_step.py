@@ -76,22 +76,30 @@ nothing is summed over sp.
 **Expert parallelism** (ep above 1) takes the mesh path too.  The rows
 are split over the data axes only, so the ranks of one ep group hold the
 same rows; a MoE model split by ``shard_model`` holds ``E / ep`` experts
-a rank (``models/moe.py`` gathers their outputs over ep).  An expert
-block's gradient is summed over the data axes only, never over ep, and
-every other gradient, identical on the ep ranks, likewise;
-``grad_norm`` counts each expert block once.
+a rank, at ``f / tp`` columns under tp (``models/moe.py`` sums their
+chosen outputs over the weights' tp / ep group).  An expert block's
+gradient is summed over the data axes only (and sp), never over ep or
+tp, and every other gradient, identical on the ep ranks, likewise;
+``grad_norm`` counts each expert block once.  A MoE model trains on any
+mesh without pp: its block routes by the data group and, where the
+sequence is split, by the ``distributed.SequenceSplit`` the step binds
+beside it (the global batch's capacity, positions and aux).
+
+**lamb on a mesh**: its trust ratio ``|p| / |u|`` takes the norms of the
+whole tensors.  Each rank's squares of its blocks (counted by the one
+replica that ``sharding.global_norm`` counts) are summed over the gang
+in one all-reduce of ``[n_params, 2]`` a step
+(``sharding.whole_squares``), which the optimizer's update is handed.
 
 pp above 1 is refused by name: the reference's step has no path for it
-(``parallel/pipeline.py`` runs pp on its own).  A MoE model trains on
-dp, fsdp and ep; under tp or sp above 1 it is refused by name (the
-global positions over a sequence split need per-(row, chunk) counts,
-and the router and experts have no tp layout yet).
+(``parallel/pipeline.py`` runs pp on its own).
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 from typing import Any, Callable
 
 import torch
@@ -115,12 +123,6 @@ class TrainState:
 _REFUSED = {"pp": "pipeline parallelism has no train-step path in the "
                   "reference either; parallel/pipeline.pipeline_forward "
                   "runs it"}
-# axes a MoE model is refused on above 1, and why
-_MOE_REFUSED = {
-    "tp": "the router and the experts have no tensor-parallel layout in "
-          "the port yet (ROADMAP queue A item 6b)",
-    "sp": "the global capacity positions over a sequence split need "
-          "per-(row, chunk) expert counts (ROADMAP queue A item 6b)"}
 
 
 def check_mesh(mesh: Mesh | None = None, *, world: int = 1,
@@ -206,14 +208,15 @@ def _pieces(n_local: int, rank: int, world: int, grad_accum: int):
 
 def _gang_steps(forward, loss_weight, model, params, batch, grad_accum,
                 group, rank: int, world: int, run_all: bool = False,
-                weight_group=None):
+                weight_group=None, sequence=None):
     """This rank's share of the global-batch loss and of its gradients,
     as rank ``rank`` of the ``world`` data ranks of ``group`` (not yet
     summed over them).  ``run_all`` (or a model whose forward gathers
     over the group): every piece runs, an empty one as an uncounted
     one-row stand-in with a zero cotangent (module docstring).  The loss
     weights are summed over ``weight_group`` (default ``group``; under
-    sequence parallelism the data axes and sp)."""
+    sequence parallelism the data axes and sp), and ``sequence`` (a
+    ``distributed.SequenceSplit``) is bound beside ``group``."""
     pieces = _pieces(_rows(batch), rank, world, grad_accum)
     micro = [{k: v[lo:hi] for k, v in batch.items()} for lo, hi in pieces]
     local_w = torch.stack([torch.as_tensor(loss_weight(b)).float()
@@ -236,7 +239,7 @@ def _gang_steps(forward, loss_weight, model, params, batch, grad_accum,
             if not run_all:
                 continue
             piece, counted = {k: v[:1] for k, v in batch.items()}, False
-        with pd.data_parallel(group, counted):
+        with pd.data_parallel(group, counted, sequence):
             m_loss = forward(model, piece)
             if hi > lo:
                 m_loss = m_loss * scale[i]
@@ -278,16 +281,19 @@ def _mesh_steps(forward, loss_weight, model, params, batch, grad_accum,
     data = mesh.group(*DATA_AXES)
     index, count = mesh.data_index()
     seq_split = mesh.shape["sp"] > 1 and bool(sequence_keys)
-    over = data
+    over, sequence = data, None
     ring = contextlib.nullcontext()
     if seq_split:
         batch = _sequence_chunk(batch, sequence_keys, mesh)
         over = mesh.group(*DATA_AXES, "sp")
+        sequence = pd.SequenceSplit(mesh.group("sp"), mesh.coordinate("sp"),
+                                    over)
         ring = ring_context(mesh)
     with ring:
         loss, grads = _gang_steps(forward, loss_weight, model, params, batch,
                                   grad_accum, data, index, count,
-                                  run_all=True, weight_group=over)
+                                  run_all=True, weight_group=over,
+                                  sequence=sequence)
     due: dict[int, tuple] = {}
     for g, group in zip(grads, sh.grad_groups(params, mesh,
                                               seq_split=seq_split)):
@@ -328,10 +334,6 @@ def build_train_step(
         check_mesh(mesh, world=pd.world_size(pd.default_group()))
         if mesh.axis_size("fsdp", "tp", "sp", "ep") > 1:
             sharded = mesh
-            if tx.name == "lamb" and mesh.axis_size("fsdp", "tp") > 1:
-                raise NotImplementedError(
-                    "lamb under fsdp or tp: its per-tensor trust ratio "
-                    "needs every block's norm")
         else:
             group = mesh.group("dp")
     if (sharded is not None or group is not None) and loss_weight is None:
@@ -341,18 +343,14 @@ def build_train_step(
     def step(state: TrainState, batch: dict) -> tuple[TrainState, dict]:
         model = state.model
         params = list(model.parameters())
-        if (getattr(getattr(model, "config", None), "moe_experts", 0)
-                and sharded is not None):
-            for axis, why in _MOE_REFUSED.items():
-                if sharded.shape[axis] > 1:
-                    raise NotImplementedError(
-                        f"moe_experts under {axis}={sharded.shape[axis]}: "
-                        f"{why}")
+        whole = None
         if sharded is not None:
             loss, grads = _mesh_steps(forward, loss_weight, model, params,
                                       batch, grad_accum, sharded,
                                       sequence_keys)
             grad_norm = sh.global_norm(grads, params, sharded)
+            whole = functools.partial(sh.whole_squares, params=params,
+                                      mesh=sharded)
         else:
             if group is None:
                 loss, grads = _local_steps(forward, model, params, batch,
@@ -363,7 +361,7 @@ def build_train_step(
                     group, pd.rank_of(group), pd.world_size(group))
                 pd.all_reduce_sum(grads + [loss], group)
             grad_norm = global_norm(grads)
-        tx.update(params, grads, grad_norm)
+        tx.update(params, grads, grad_norm, whole_squares=whole)
         return (TrainState(step=state.step + 1, model=model, tx=state.tx),
                 {"loss": loss.float(), "grad_norm": grad_norm})
 

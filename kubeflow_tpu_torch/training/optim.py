@@ -11,7 +11,11 @@ their gradients, as ``optax.apply_updates(params, tx.update(...))`` would:
   before the learning rate, whatever its gradient (``add_decayed_weights``);
 - ``sgd``: optax's ``trace`` momentum (``t = g + momentum * t``);
 - ``lamb``: adam moments (``eps`` 1e-6), decayed weights, then each
-  tensor's update scaled by ``|p| / |u|`` (1 where either norm is 0);
+  tensor's update scaled by ``|p| / |u|`` (1 where either norm is 0).
+  On a mesh, where a parameter is this rank's block, the norms are the
+  whole tensor's: the train step hands ``update`` a ``whole_squares``
+  that sums each block's squares over the gang, and the update is then
+  computed twice (once for its norms, once to apply it);
 - ``grad_clip_norm``: ``clip_by_global_norm`` before the optimizer (the
   gradients are scaled by ``max_norm / |g|`` where ``|g| >= max_norm``).
 
@@ -98,6 +102,15 @@ def sum_of_squares(tensors: list[torch.Tensor],
     return torch.stack(norms).square().sum()
 
 
+def _tensor_squares(tensors: list[torch.Tensor]) -> torch.Tensor:
+    """``|t|^2`` of each tensor, ``[n]`` (float64 on the CPU, as
+    ``sum_of_squares`` keeps its sums)."""
+    if tensors[0].device.type == "cpu":
+        return torch.stack([torch.linalg.vector_norm(t, dtype=torch.float64)
+                            for t in tensors]).square()
+    return torch.stack(torch._foreach_norm(tensors)).square()
+
+
 def _chunks(n_elements: list[int]) -> list[range]:
     """Consecutive index ranges of the parameter list, each holding at most
     ``max(n_elements)`` elements (a tensor larger than that bound is a
@@ -148,9 +161,15 @@ class Optimizer:
 
     @torch.no_grad()
     def update(self, params: list[torch.Tensor], grads: list[torch.Tensor],
-               grad_norm: torch.Tensor | None = None) -> None:
+               grad_norm: torch.Tensor | None = None,
+               whole_squares: Callable[[torch.Tensor], torch.Tensor]
+               | None = None) -> None:
         """Apply one update in place.  ``grads`` are not modified;
-        ``grad_norm`` (their global norm) is computed when not given."""
+        ``grad_norm`` (their global norm) is computed when not given.
+        ``whole_squares`` (lamb on a mesh, where ``params`` are this rank's
+        blocks; ``parallel/sharding.whole_squares``) maps each tensor's
+        ``[|p|^2, |u|^2]`` over its block, ``[n, 2]``, to the whole
+        tensor's; other optimizers ignore it."""
         scale = None
         if self.clip_norm:
             g_norm = global_norm(grads) if grad_norm is None else grad_norm
@@ -161,7 +180,12 @@ class Optimizer:
         self.count += 1
         bc1 = _bias_correction(self.b1, self.count)
         bc2 = _bias_correction(self.b2, self.count)
-        for idx in _chunks([p.numel() for p in params]):
+        chunks = _chunks([p.numel() for p in params])
+        if self.name == "lamb" and whole_squares is not None:
+            self._whole_lamb(params, grads, scale, chunks, lr, bc1, bc2,
+                             whole_squares)
+            return
+        for idx in chunks:
             p = [params[i] for i in idx]
             g = [grads[i] for i in idx]
             if scale is not None:
@@ -177,13 +201,15 @@ class Optimizer:
         torch._foreach_add_(trace, grads)
         torch._foreach_add_(params, trace, alpha=-lr)
 
-    def _adam(self, params, grads, mu, nu, lr: float, bc1: float,
-              bc2: float) -> None:
-        """adam / adamw / lamb over one chunk (bias corrections given)."""
+    def _moments(self, grads, mu, nu) -> None:
         torch._foreach_mul_(mu, self.b1)
         torch._foreach_add_(mu, grads, alpha=1 - self.b1)
         torch._foreach_mul_(nu, self.b2)
         torch._foreach_addcmul_(nu, grads, grads, value=1 - self.b2)
+
+    def _direction(self, params, mu, nu, bc1: float, bc2: float) -> list:
+        """adam's bias-corrected update from the moments, plus the decayed
+        weights for adamw and lamb."""
         denom = torch._foreach_div(nu, bc2)
         torch._foreach_sqrt_(denom)
         torch._foreach_add_(denom, self.eps)
@@ -192,6 +218,13 @@ class Optimizer:
         del denom
         if self.weight_decay and self.name in ("adamw", "lamb"):
             torch._foreach_add_(upd, params, alpha=self.weight_decay)
+        return upd
+
+    def _adam(self, params, grads, mu, nu, lr: float, bc1: float,
+              bc2: float) -> None:
+        """adam / adamw / lamb over one chunk (bias corrections given)."""
+        self._moments(grads, mu, nu)
+        upd = self._direction(params, mu, nu, bc1, bc2)
         if self.name == "lamb":
             p_norm = torch._foreach_norm(params)
             u_norm = torch._foreach_norm(upd)
@@ -199,6 +232,39 @@ class Optimizer:
                 u.mul_(torch.where((pn == 0) | (un == 0),
                                    torch.ones_like(pn), pn / un))
         torch._foreach_add_(params, upd, alpha=-lr)
+
+    def _whole_lamb(self, params, grads, scale, chunks, lr: float,
+                    bc1: float, bc2: float, whole_squares) -> None:
+        """lamb over blocks with the whole tensors' trust ratios: a first
+        pass updates the moments and takes each chunk's ``|p|^2`` and
+        ``|u|^2`` (its update dropped), ``whole_squares`` sums them over
+        the blocks, a second pass computes the updates again from the
+        moments (the same operations: the same bits) and applies them
+        scaled."""
+        mu, nu = self.moments["mu"], self.moments["nu"]
+        squares = []
+        for idx in chunks:
+            p = [params[i] for i in idx]
+            g = [grads[i] for i in idx]
+            if scale is not None:
+                g = torch._foreach_mul(g, scale)
+            self._moments(g, [mu[i] for i in idx], [nu[i] for i in idx])
+            upd = self._direction(p, [mu[i] for i in idx],
+                                  [nu[i] for i in idx], bc1, bc2)
+            squares.append(torch.stack([_tensor_squares(p),
+                                        _tensor_squares(upd)], dim=1))
+            del upd
+        norms = whole_squares(torch.cat(squares)).sqrt()
+        ratios = torch.where((norms[:, 0] == 0) | (norms[:, 1] == 0),
+                             torch.ones_like(norms[:, 0]),
+                             norms[:, 0] / norms[:, 1]).to(params[0].dtype)
+        for idx in chunks:
+            p = [params[i] for i in idx]
+            upd = self._direction(p, [mu[i] for i in idx],
+                                  [nu[i] for i in idx], bc1, bc2)
+            for u, i in zip(upd, idx):
+                u.mul_(ratios[i])
+            torch._foreach_add_(p, upd, alpha=-lr)
 
     def state_dict(self) -> dict:
         return {"name": self.name, "count": self.count,

@@ -31,12 +31,13 @@ whole tensors, whatever the layout.  With sp above 1 the step cuts each
 row's sequence into the sp ranks' chunks and runs forward and backward
 under ``ring_context`` (ring attention over the sp group: what the
 reference's Trainer turns on for sp > 1), since only the step knows
-where it cut.  A MoE registry model trains under dp and fsdp (the step
-routes with the global batch's capacity, positions and aux; the
-reference's Trainer has no ep axis, and neither has this one).  Refused
-by name: MoE models under tp or sp above 1 (the step's refusal), and an
-elastic membership under fsdp, tp or sp above 1 (a resize would re-shard
-the weights or the sequence; the reference defines none).
+where it cut.  A MoE registry model trains under every one of these
+axes (the step routes with the global batch's capacity, positions and
+aux, its experts' columns split over tp; the reference's Trainer has no
+ep axis, and neither has this one), with every optimizer, lamb
+included.  Refused by name: an elastic membership under fsdp, tp or sp
+above 1 (a resize would re-shard the weights or the sequence; the
+reference defines none).
 """
 
 from __future__ import annotations

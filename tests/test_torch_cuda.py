@@ -1015,6 +1015,82 @@ def test_fsdp_and_tp_gang_on_one_card_trains_what_one_process_trains(
         assert o["launches"] == [3 * 4, 3 * 2, 3 * 2], o
 
 
+MOE_GANG = r"""
+import json, os, torch
+from kubeflow_tpu_torch.models import registry
+from kubeflow_tpu_torch.ops import flash_attention as fa
+from kubeflow_tpu_torch.parallel import distributed as pd
+from kubeflow_tpu_torch.parallel import sharding as sh
+from kubeflow_tpu_torch.parallel import train_step as ts
+from kubeflow_tpu_torch.parallel.mesh import make_mesh
+from kubeflow_tpu_torch.training.optim import make_optimizer
+
+rdv = pd.initialize_from_env()                      # the card, not the CPU
+axes = json.loads(os.environ["LAYOUT"])
+mesh = make_mesh(dp=1, **axes)
+index, count = mesh.data_index()
+entry = registry.get("llama")
+model = entry.make_model(size="7b", vocab_size=1024, hidden_size=512,
+                         num_layers=2, num_heads=8, num_kv_heads=4,
+                         intermediate_size=1024, dtype="float32",
+                         moe_experts=4).init_weights(0)
+sh.shard_model(model, mesh)
+state = ts.init_train_state(model, make_optimizer(
+    {"name": "sgd", "learning_rate": 1e-2, "momentum": 0.9}))
+step = ts.build_train_step(
+    entry.forward_loss, state.tx, mesh, loss_weight=entry.loss_weight,
+    sequence_keys=entry.sequence_keys if axes.get("sp", 1) > 1 else ())
+trail, dropped = [], []
+for i in range(2):
+    batch = entry.make_batch(8, torch.Generator().manual_seed(i), model,
+                             seq_len=128)
+    n = 8 // count
+    batch = {k: v[index * n:(index + 1) * n].cuda() for k, v in batch.items()}
+    state, m = step(state, batch)
+    trail.append([m["loss"].item(), m["grad_norm"].item()])
+    dropped.append([int(b.moe.dropped) for b in model.layers if b.use_moe])
+print(json.dumps({"rdv": rdv, "trail": trail, "dropped": dropped,
+                  "device": str(next(model.parameters()).device),
+                  "launches": [fa.flash_attention.launches,
+                               fa.flash_bwd_dq.launches,
+                               fa.flash_bwd_dkv.launches]}))
+"""
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("axis", ["ep", "tp", "sp"])
+def test_moe_gang_on_one_card_trains_what_one_process_trains(cuda_device,
+                                                             axis):
+    # a 2-layer MoE Llama at hidden 512 (8 query heads over 4 KV heads of
+    # 64, 4 GELU experts on layer 0, float32), 2 momentum-sgd steps of 8
+    # rows of 128 tokens: a 2-rank gloo gang on cuda:0 at ep=2, tp=2 or
+    # sp=2 against one process; ranks bitwise equal, step 1's dropped
+    # counts one process's; loss within 1e-3 and grad_norm within 5e-3
+    # (STEP_TOL of chip_smoke.py: other rows, heads and sums round
+    # otherwise).  Per step and layer K1 twice (remat), K2 and K3 once; at
+    # sp=2 rank r once per visible ring block (r + 1 of them)
+    from kubeflow_tpu_torch.ops import _build
+    from kubeflow_tpu_torch.parallel import distributed as pd
+
+    _build.build_all()         # once, before the ranks load it
+    one = pd.spawn_local_gang(MOE_GANG, 1, timeout=300.0,
+                              extra_env={"LAYOUT": "{}"})[0]
+    outs = pd.spawn_local_gang(MOE_GANG, 2, timeout=300.0,
+                               extra_env={"LAYOUT": json.dumps({axis: 2})})
+    assert all(o["rdv"]["backend"] == "gloo" for o in outs)
+    assert all(o["device"] == "cuda:0" for o in outs)
+    assert outs[1]["trail"] == outs[0]["trail"]               # bitwise
+    for (gl, gn), (wl, wn) in zip(outs[0]["trail"], one["trail"],
+                                  strict=True):
+        assert abs(gl - wl) <= 1e-3 * abs(wl), (outs, one)
+        assert abs(gn - wn) <= 5e-3 * abs(wn), (outs, one)
+    assert one["launches"] == [8, 4, 4], one
+    for r, o in enumerate(outs):
+        assert o["dropped"][0] == one["dropped"][0], (r, o, one)
+        blocks = r + 1 if axis == "sp" else 1
+        assert o["launches"] == [8 * blocks, 4 * blocks, 4 * blocks], o
+
+
 RING_GANG = r"""
 import json, torch
 from kubeflow_tpu_torch.ops import flash_attention as fa

@@ -200,9 +200,11 @@ def dp_mesh(world: int):
 
 
 def test_moe_under_dp_is_refused_by_name(monkeypatch):
-    """MoE trains under dp now, with the global batch's routing
-    (``test_torch_moe_ep.py``); what stays refused by name on a
-    data-parallel mesh is MoE under tp."""
+    """MoE trains under dp, with the global batch's routing
+    (``test_torch_moe_ep.py``), and under tp (``test_torch_moe_tp_sp.py``):
+    nothing is refused by name any more.  One process stands in for rank
+    0 of a layout-only dp=2 x tp=2 mesh (the gang-wide sums return their
+    input, the data group is a stand-in): the step runs to its end."""
     from kubeflow_tpu_torch.parallel import mesh as tmesh
 
     model = treg.get("llama").make_model(size="tiny", moe_experts=2,
@@ -211,13 +213,19 @@ def test_moe_under_dp_is_refused_by_name(monkeypatch):
     monkeypatch.setattr(pd, "world_size", lambda group: 4)
     tts.build_train_step(treg.get("llama").forward_loss, state.tx,
                          dp_mesh(4), loss_weight=lambda b: 1)
-    layout = tmesh.Mesh(tmesh.make_mesh(4, dp=2, tp=2).ranks)
+    monkeypatch.setattr(pd, "all_reduce_sum", lambda tensors, group: None)
+    monkeypatch.setattr(pd, "all_gather_cat", lambda x, dim, group: x)
+    monkeypatch.setattr(pd, "sum_over_group", lambda x, group: x)
+    monkeypatch.setattr(pd, "rank_of", lambda group: 0)
+    layout = tmesh.Mesh(tmesh.make_mesh(4, dp=2, tp=2).ranks,
+                        device_mesh=object(), _groups={("dp",): "dp"})
     step = tts.build_train_step(treg.get("llama").forward_loss, state.tx,
                                 layout, loss_weight=lambda b: 1)
     batch = treg.get("llama").make_batch(2, torch.Generator().manual_seed(0),
                                          model, seq_len=8)
-    with pytest.raises(NotImplementedError, match="moe_experts under tp=2"):
-        step(state, batch)
+    state, metrics = step(state, batch)
+    assert state.step == 1
+    assert all(torch.isfinite(v) for v in metrics.values())
 
 
 def test_a_data_parallel_step_needs_a_loss_weight(monkeypatch):
@@ -243,9 +251,10 @@ def test_dp_must_be_the_gang_size():
 
 @pytest.mark.parametrize("axis", ["pp", "ep"])
 def test_pipeline_and_expert_axes_are_refused_by_name(axis, monkeypatch):
-    """pp is refused by name.  ep is admitted now (MoE expert
-    parallelism, ``test_torch_moe_ep.py``); on it a MoE model under tp is
-    what is refused by name."""
+    """pp is refused by name.  ep is admitted (MoE expert parallelism,
+    ``test_torch_moe_ep.py``), with tp too (``test_torch_moe_tp_sp.py``):
+    one process standing in for rank 0 of a layout-only tp=2 x ep=2 mesh
+    (the gang-wide sums return their input) runs the step to its end."""
     if axis == "pp":
         with pytest.raises(NotImplementedError, match="pp=2"):
             tts.check_mesh(world=2, pp=2)
@@ -254,11 +263,15 @@ def test_pipeline_and_expert_axes_are_refused_by_name(axis, monkeypatch):
     from kubeflow_tpu_torch.parallel import mesh as tmesh
 
     model = treg.get("llama").make_model(size="tiny", moe_experts=2,
-                                         device="cpu")
+                                         device="cpu").init_weights(0)
     state = tts.init_train_state(model, toptim.make_optimizer(OPT))
     monkeypatch.setattr(pd, "world_size", lambda group: 4)
+    monkeypatch.setattr(pd, "all_reduce_sum", lambda tensors, group: None)
     layout = tmesh.Mesh(tmesh.make_mesh(4, dp=1, tp=2, ep=2).ranks)
     step = tts.build_train_step(treg.get("llama").forward_loss, state.tx,
                                 layout, loss_weight=lambda b: 1)
-    with pytest.raises(NotImplementedError, match="moe_experts under tp=2"):
-        step(state, {})
+    batch = treg.get("llama").make_batch(2, torch.Generator().manual_seed(0),
+                                         model, seq_len=8)
+    state, metrics = step(state, batch)
+    assert state.step == 1
+    assert all(torch.isfinite(v) for v in metrics.values())

@@ -28,8 +28,9 @@ experts and gathers their outputs (``models/moe.py``).  One gang of 2
   loss within 1e-5 of one process's on the global batches the gang
   assembles (rank-major).
 
-``check_mesh`` admits ep, and MoE under tp or sp is refused by name.
-The 4-process gang is ``test_torch_moe_ep_four.py``.
+``check_mesh`` admits ep, and ``check_mesh`` and the step admit MoE
+under tp and sp too (``test_torch_moe_tp_sp.py`` trains it there).  The
+4-process gang is ``test_torch_moe_ep_four.py``.
 """
 
 import pytest
@@ -146,13 +147,28 @@ def test_check_mesh_admits_ep():
 
 
 @pytest.mark.parametrize("axis", ["tp", "sp"])
-def test_moe_under_tp_or_sp_is_refused_by_name(axis, monkeypatch):
+def test_check_mesh_and_step_admit_moe_under_tp_and_sp(axis, monkeypatch):
+    """No refusal is left on the way.  One process stands in for rank 0 of
+    a layout-only mesh (no process groups; the gang-wide sums return
+    their input): at tp=2 the whole model's step runs to its end (tp's
+    own collectives come with ``shard_model``), at sp=2 it gets as far as
+    the sp groups it binds."""
+    assert tts.check_mesh(world=4, dp=1, ep=2, **{axis: 2}) == (
+        (1, 1, 2, 1, 1, 2) if axis == "tp" else (1, 1, 1, 2, 1, 2))
     monkeypatch.setattr(pd, "world_size", lambda group: 4)
-    model = treg.get("llama").make_model(device="cpu", **MOE)
+    monkeypatch.setattr(pd, "all_reduce_sum", lambda tensors, group: None)
+    model = treg.get("llama").make_model(device="cpu", **MOE).init_weights(0)
     state = tts.init_train_state(model, toptim.make_optimizer(OPT))
     layout = tmesh.Mesh(tmesh.make_mesh(4, dp=1, ep=2, **{axis: 2}).ranks)
     step = tts.build_train_step(treg.get("llama").forward_loss, state.tx,
-                                layout, loss_weight=lambda b: 1)
-    with pytest.raises(NotImplementedError,
-                       match=f"moe_experts under {axis}=2: .*queue A item 6b"):
-        step(state, {})
+                                layout, loss_weight=lambda b: 1,
+                                sequence_keys=("input_ids", "labels"))
+    batch = treg.get("llama").make_batch(2, torch.Generator().manual_seed(0),
+                                         model, seq_len=8)
+    if axis == "sp":
+        with pytest.raises(RuntimeError, match="spans no process group"):
+            step(state, batch)
+        return
+    state, metrics = step(state, batch)
+    assert state.step == 1
+    assert all(torch.isfinite(v) for v in metrics.values())

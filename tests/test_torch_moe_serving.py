@@ -8,8 +8,8 @@ to the reference's dropless block on the same batch within 1e-5 of max
 |y|, and to the same block in one process: bitwise at ep=2 (each token's
 two gated terms sum over the ranks with zeros elsewhere) and within 1e-5
 under tp (the FFN contraction is split).  Every layout issues one
-all-reduce per forward, over the weights' ``model_group``.  Item 6b's
-refusal of capacity-mode MoE under tp is ``test_torch_moe_ep.py``'s.
+all-reduce per forward, over the weights' ``model_group``.  Capacity
+mode under tp and ep (training) is ``test_torch_moe_tp_sp.py``'s.
 """
 
 import json
@@ -111,11 +111,20 @@ def test_dropless_block_matches_the_reference(setup, ranks, tp, ep):
 
 
 def test_capacity_mode_under_tp_is_refused_by_the_block():
-    """A block whose experts are split over tp refuses the capacity
-    formulation by name (the train step refuses it first: item 6b)."""
+    """The block no longer refuses the capacity formulation with its
+    experts' tp record: it runs, and without a group over which anything
+    is split (``model_group`` None) its answer is the unsplit block's,
+    bitwise.  Under real tp splits it is held to the reference by
+    ``test_torch_moe_tp_sp.py``."""
     from kubeflow_tpu_torch.parallel.sharding import Split
 
     block = tmoe.MoEBlock(tmoe.MoEConfig(**block_config()), device="cpu")
-    block.w_in.tp_split = Split("tp", None, 2, 2, 0)
-    with pytest.raises(NotImplementedError, match="queue A item 6b"):
-        block(torch.zeros(1, 4, block_config()["hidden_size"]))
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn(1, 4, block_config()["hidden_size"], generator=gen)
+    with torch.no_grad():
+        for p in block.parameters():
+            p.copy_(torch.randn(p.shape, generator=gen) * 0.1)
+        want = block(x)
+        block.w_in.tp_split = Split("tp", None, 2, 2, 0)
+        got = block(x)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))

@@ -270,17 +270,38 @@ def test_a_sequence_that_does_not_divide_by_sp_is_refused(monkeypatch):
 
 
 def test_moe_under_sp_is_refused_by_name(monkeypatch):
+    """No longer refused (``test_torch_moe_tp_sp.py`` trains it): the step
+    binds its sequence split beside the data group, and the MoE block
+    gathers its per-row expert counts over the sp group by it.  One
+    process stands in for rank 0 (the ring's exchange returns its own
+    chunk; the gather stops the step)."""
+
+    class Gathered(Exception):
+        pass
+
+    seen = []
+
+    def gather(x, dim, group):
+        seen.append((group, pd.sequence_split(), tuple(x.shape)))
+        raise Gathered
+
     fake_world(monkeypatch, 2)
+    monkeypatch.setattr(pd, "all_reduce_sum", lambda tensors, group: None)
+    monkeypatch.setattr(pd, "ppermute", lambda tensors, group, shift=1: [
+        t.clone() for t in tensors])
+    monkeypatch.setattr(pd, "all_gather_cat", gather)
     entry = treg.get("llama")
     model = entry.make_model(device="cpu", moe_experts=2, **LLAMA)
     state = tts.init_train_state(model, toptim.make_optimizer(OPT))
     step = tts.build_train_step(entry.forward_loss, state.tx, sp_layout(2),
                                 loss_weight=entry.loss_weight,
                                 sequence_keys=entry.sequence_keys)
-    with pytest.raises(NotImplementedError,
-                       match="moe_experts under sp=2: the global capacity "
-                       "positions over a sequence split"):
-        step(state, {})
+    batch = entry.make_batch(2, torch.Generator().manual_seed(0), model,
+                             seq_len=8)
+    with pytest.raises(Gathered):
+        step(state, batch)
+    # [1, rows, 2, E]: this chunk's counts per row, over the sp group
+    assert seen == [("sp", pd.SequenceSplit("sp", 0, "sp"), (1, 2, 2, 2))]
 
 
 def test_an_elastic_membership_under_sp_is_refused_by_name(monkeypatch):

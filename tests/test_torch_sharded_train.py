@@ -85,14 +85,21 @@ def test_an_elastic_membership_under_fsdp_or_tp_is_refused_by_name(
 
 
 def test_moe_under_tensor_parallelism_is_refused_by_name(monkeypatch):
+    """No longer refused (``test_torch_moe_tp_sp.py`` trains it): one
+    process standing in for rank 0 of a layout-only tp=2 mesh (the
+    gang-wide sums return their input) runs the step to its end."""
     from kubeflow_tpu_torch.parallel import mesh as tmesh
 
     fake_world(monkeypatch, 2)
+    monkeypatch.setattr(pd, "all_reduce_sum", lambda tensors, group: None)
     layout = tmesh.Mesh(tmesh.make_mesh(2, dp=1, tp=2).ranks)
     model = treg.get("llama").make_model(device="cpu", size="tiny",
-                                         moe_experts=2)
+                                         moe_experts=2).init_weights(0)
     state = tts.init_train_state(model, toptim.make_optimizer(OPT))
     step = tts.build_train_step(treg.get("llama").forward_loss, state.tx,
                                 layout, loss_weight=lambda b: 1)
-    with pytest.raises(NotImplementedError, match="moe_experts"):
-        step(state, {})
+    batch = treg.get("llama").make_batch(2, torch.Generator().manual_seed(0),
+                                         model, seq_len=8)
+    state, metrics = step(state, batch)
+    assert state.step == 1
+    assert all(torch.isfinite(v) for v in metrics.values())

@@ -7,8 +7,10 @@ at ep=2, the tiny MoE Llama's checkpoint at ep=2, the Trainer at dp=2),
 ``test_torch_moe_ep_four.py`` the 4-process one (the block at dp=2 x
 ep=2, three steps at dp=2 x ep=2 and fsdp=2 x ep=2 against the
 reference's sharded step, a one-process checkpoint restored as fsdp x ep
-blocks).  Two files, so that a run that hands each worker whole files
-runs them side by side.
+blocks).  ``test_torch_moe_tp_sp.py`` and ``_four.py`` run MoE under tp
+and sp and lamb on a mesh with the same worker (each file's docstring
+says what).  Separate files, so that a run that hands each worker whole
+files runs them side by side.
 """
 
 import json
@@ -46,15 +48,22 @@ BLOCK_ROWS, BLOCK_SEQ = 4, 8
 # the tiny MoE Llama: llama_tiny's widths (4 query heads over 2 KV heads
 # of 16, 2 layers), 4 experts on every second layer (layer 0 MoE)
 MOE = {"size": "tiny", "dtype": "float32", "moe_experts": 4, "moe_every": 2}
+# the tiny dense Llama (lamb on fsdp and tp)
+DENSE = {"size": "tiny", "dtype": "float32"}
+# one lamb step compared update for update: lamb moves each tensor by lr
+# times its own norm, so at lr 10 float32's rounding of w + update stays
+# near 1e-7 of the update (at lr 1 up to 7.4e-7, at lr 1e-3 ~1e-4)
+LAMB_ONE = {"name": "lamb", "learning_rate": 10.0, "weight_decay": 0.01}
 STEPS, GB, SEQ = 3, 8, 16
 # momentum sgd: linear in the gradients (``test_torch_dp.py`` says why
 # not adam)
 OPT = {"name": "sgd", "learning_rate": 1e-2, "momentum": 0.9}
+LAMB = {"name": "lamb", "learning_rate": 1e-3, "weight_decay": 0.01}
 TRAINER = {"model": "llama", "model_config": MOE, "optimizer": OPT,
            "global_batch": GB, "steps": STEPS, "log_every": 1}
 
 WORKER = r"""
-import contextlib, io, json, os, torch
+import contextlib, functools, io, json, os, torch
 from kubeflow_tpu_torch.models import moe as tmoe
 from kubeflow_tpu_torch.models import registry
 from kubeflow_tpu_torch.parallel import distributed as pd
@@ -74,61 +83,145 @@ out = {"rdv": rdv, "blocks": {}, "trails": {}, "dropped": {}}
 
 
 def layout(case):
-    return make_mesh(dp=case["dp"], fsdp=case.get("fsdp", 1),
-                     ep=case["ep"], device_type="cpu")
+    return make_mesh(dp=case.get("dp", 1), fsdp=case.get("fsdp", 1),
+                     tp=case.get("tp", 1), sp=case.get("sp", 1),
+                     ep=case.get("ep", 1), device_type="cpu")
+
+
+class GatedPartials(tmoe.MoEBlock):
+    # the tp teeth: the gated [T, D] partials summed over the weights'
+    # group, as the dropless forward sums them
+    @staticmethod
+    def _combine(chosen, gates, group):
+        y = (chosen * gates.t().reshape(-1, 1)).reshape(
+            2, -1, chosen.shape[1]).sum(dim=0)
+        return y if group is None else pd.reduce_from_group(y, group)
+
+
+def whole(t, p):
+    # a block of parameter p (or its gradient) gathered whole
+    for axis in ("fsdp", "tp", "ep"):
+        split = getattr(p, f"{axis}_split", None)
+        if split is not None:
+            t = pd.all_gather_cat(t, split.dim, split.group)
+    return t
+
+
+def chunks_whole(t, joint, count, sp):
+    # every rank's [n, s, ...] chunk of the global batch, assembled
+    if joint is None:
+        return t
+    n, s = t.shape[:2]
+    got = pd.all_gather_cat(t[None], 0, joint)
+    return got.reshape(count, sp, n, s, *t.shape[2:]).transpose(1, 2).reshape(
+        count * n, sp * s, *t.shape[2:])
 
 
 for tag, case in spec["blocks"].items():
-    # one MoE block on this rank's rows of the global batch; the loss is
-    # sum(y * r) + aux over the global batch, its aux term shared out
-    # over the data ranks
+    # one MoE block on this rank's rows (and sequence chunk) of the global
+    # batch; the loss is sum(y * r) + aux over the global batch, its aux
+    # term shared out over the data and sp ranks
     mesh = layout(case)
     data = mesh.group("dp", "fsdp")
     index, count = mesh.data_index()
+    sp, chunk = mesh.shape["sp"], mesh.coordinate("sp")
+    joint = mesh.group("dp", "fsdp", "sp")
+    sequence = None
+    if case.get("rank_major"):
+        # the sp teeth: each rank's chunks taken as one contiguous block of
+        # the priority order, rank-major
+        data = joint
+    elif sp > 1:
+        sequence = pd.SequenceSplit(mesh.group("sp"), chunk, joint)
     blob = torch.load(spec["block"], weights_only=True)
-    block = tmoe.MoEBlock(tmoe.MoEConfig(**spec["block_config"]),
-                          device="cpu")
+    kind = GatedPartials if case.get("gated_partials") else tmoe.MoEBlock
+    block = kind(tmoe.MoEConfig(**spec["block_config"]), device="cpu")
     block.load_state_dict(blob["weights"])
     sh.shard_model(block, mesh)
     block.requires_grad_(True)
-    n = blob["x"].shape[0] // count
-    rows = slice(index * n, (index + 1) * n)
+    n, s = blob["x"].shape[0] // count, blob["x"].shape[1] // sp
+    rows = (slice(index * n, (index + 1) * n), slice(chunk * s, (chunk + 1) * s))
     x = blob["x"][rows].clone().requires_grad_(True)
     params = list(block.parameters())
-    with pd.data_parallel(data):
+    with pd.data_parallel(data, True, sequence):
         y, aux = block(x)
-        loss = (y * blob["r"][rows]).sum() + aux / count
+        loss = (y * blob["r"][rows]).sum() + aux / (count * sp)
         grads = list(torch.autograd.grad(loss, [x] + params))
-    if data is not None:
-        pd.all_reduce_sum(grads[1:], data)
-        y, dx = (pd.all_gather_cat(t, 0, data) for t in (y.detach(), grads[0]))
-    else:
-        y, dx = y.detach(), grads[0]
+    if joint is not None:
+        pd.all_reduce_sum(grads[1:], joint)
+    y, dx = (chunks_whole(t, joint, count, sp) for t in (y.detach(), grads[0]))
     full = {}
     for (name, p), g in zip(block.named_parameters(), grads[1:]):
-        split = getattr(p, "ep_split", None)
-        full[name] = (g if split is None
-                      else pd.all_gather_cat(g, 0, split.group))
-        out.setdefault("split", {})[name] = split is not None
+        full[name] = whole(g, p)
+        out.setdefault("split", {})[name] = getattr(p, "ep_split",
+                                                    None) is not None
     torch.save({"y": y, "aux": aux.detach(), "dx": dx, "grads": full,
                 "dropped": block.dropped},
                os.path.join(spec["out"], f"block-{tag}-{rank}.pt"))
 
+for tag, case in spec.get("lamb_blocks", {}).items():
+    # two lamb updates with fixed gradients: each rank's blocks against its
+    # blocks of the whole tensors' updates, with the whole tensors' trust
+    # ratios and (the teeth) with its blocks' own.  In float64, so that
+    # the rounding of w + update does not hide a difference in the update
+    mesh = layout(case)
+    entry = registry.get("llama")
+
+    def fresh():
+        m = entry.make_model(device="cpu", **spec["model_config"])
+        m.load_state_dict(torch.load(spec["weights"], weights_only=True))
+        return m.double()
+
+    ref = list(fresh().parameters())
+    gen = torch.Generator().manual_seed(7)
+    fixed = [[torch.randn(p.shape, generator=gen, dtype=torch.float64) * 1e-2
+              for p in ref] for _ in range(2)]
+    before = [p.detach().clone() for p in ref]
+    tx = make_optimizer(spec["lamb"])
+    tx.init(ref)
+    for g in fixed:
+        tx.update(ref, g)
+    want = [p.detach() - b for p, b in zip(ref, before)]
+    errs = {}
+    for mode in ("whole", "blocks"):
+        model = sh.shard_model(fresh(), mesh)
+        params = list(model.parameters())
+        start = [p.detach().clone() for p in params]
+        tx = make_optimizer(spec["lamb"])
+        tx.init(params)
+        squares = None
+        if mode == "whole":
+            squares = functools.partial(sh.whole_squares, params=params,
+                                        mesh=mesh)
+        for g in fixed:
+            tx.update(params, [sh.local_block(t, p) for t, p in zip(g, params)],
+                      whole_squares=squares)
+        errs[mode] = max(
+            ((p.detach() - b - sh.local_block(w, p)).abs().max()
+             / w.abs().max()).item()
+            for p, b, w in zip(params, start, want))
+    out.setdefault("lamb_blocks", {})[tag] = errs
+
 for tag, case in spec["llama"].items():
     mesh = layout(case)
     index, count = mesh.data_index()
+    dense = case.get("dense", False)
+    config = spec["dense_config" if dense else "model_config"]
     entry = registry.get("llama")
-    model = entry.make_model(device="cpu", **spec["model_config"])
-    model.load_state_dict(torch.load(spec["weights"], weights_only=True))
+    model = entry.make_model(device="cpu", **config)
+    model.load_state_dict(torch.load(spec["dense_weights" if dense
+                                         else "weights"], weights_only=True))
     sh.shard_model(model, mesh)
-    state = ts.init_train_state(model, make_optimizer(spec["opt"]))
-    step = ts.build_train_step(entry.forward_loss, state.tx, mesh,
-                               grad_accum=case["accum"],
-                               loss_weight=entry.loss_weight)
+    state = ts.init_train_state(model, make_optimizer(case.get("opt",
+                                                               spec["opt"])))
+    step = ts.build_train_step(
+        entry.forward_loss, state.tx, mesh, grad_accum=case["accum"],
+        loss_weight=entry.loss_weight,
+        sequence_keys=entry.sequence_keys if case.get("sp", 1) > 1 else ())
     it = NpzDataset(spec["data"], spec["global_batch"], seed=0,
                     process_index=index, process_count=count).iter_from(0)
     trail, dropped = [], []
-    for _ in range(spec["steps"]):
+    for _ in range(case.get("steps", spec["steps"])):
         state, m = step(state, to_device(next(it), torch.device("cpu")))
         trail.append([m["loss"].item(), m["grad_norm"].item()])
         dropped.append([int(blk.moe.dropped) for blk in model.layers
@@ -139,7 +232,7 @@ for tag, case in spec["llama"].items():
         torch.save(full, os.path.join(spec["out"], f"llama-{tag}.pt"))
     if case.get("save"):
         CheckpointManager(os.path.join(spec["out"], f"ckpt-{tag}"),
-                          group=world).save(spec["steps"], state)
+                          group=world).save(state.step, state)
     if case.get("restore"):
         # a one-process checkpoint restored as this layout's blocks
         back = ts.init_train_state(
@@ -261,20 +354,44 @@ def setup(tmp_path_factory):
 
 
 def gang(setup, ranks: int, blocks: dict, llama: dict,
-         trainer: dict | None = None) -> list[dict]:
+         trainer: dict | None = None, lamb_blocks: dict | None = None
+         ) -> list[dict]:
+    """The gang of ``ranks`` (spawned once per module): the block at each
+    layout of ``blocks``, the Llama cases of ``llama`` (a case with
+    ``dense`` runs the tiny dense Llama, whose weights ``dense_llama``
+    wrote), the Trainer, the lamb updates of ``lamb_blocks``."""
     if ranks not in setup["gangs"]:
         root = setup["root"]
         spec = {"blocks": blocks, "llama": llama, "trainer": trainer,
+                "lamb_blocks": lamb_blocks or {},
                 "block": str(root / "block.pt"),
                 "block_config": block_config(),
                 "weights": str(root / "llama.pt"),
+                "dense_weights": str(root / "dense.pt"),
                 "data": str(root / "llama.npz"), "model_config": MOE,
-                "opt": OPT, "global_batch": GB, "steps": STEPS,
-                "out": str(root)}
+                "dense_config": DENSE, "opt": OPT, "lamb": LAMB,
+                "global_batch": GB, "steps": STEPS, "out": str(root)}
         setup["gangs"][ranks] = pd.spawn_local_gang(
             WORKER, ranks, timeout=240.0,
             extra_env={"GANG_SPEC": json.dumps(spec)})
     return setup["gangs"][ranks]
+
+
+def block_errors(setup, tag: str, ranks: int) -> list[dict]:
+    """Per rank, the gathered y, input gradient and every parameter
+    gradient of layout ``tag`` against the reference's on the global
+    batch (relative to max |ref|), aux's relative error, and its dropped
+    count and outputs."""
+    module, params, x, r = setup["block"]
+    want = reference_block_answer(module, params, x, r)
+    root = setup["root"]
+    got = [torch.load(root / f"block-{tag}-{k}.pt", weights_only=True)
+           for k in range(ranks)]
+    return [{"y": rel(g["y"], want["y"]), "dx": rel(g["dx"], want["dx"]),
+             "aux": abs(g["aux"].item() - want["aux"]) / abs(want["aux"]),
+             **{name: rel(g["grads"][name], w)
+                for name, w in want["grads"].items()},
+             "got": g} for g in got]
 
 
 def check_block(setup, tag: str, ranks: int) -> None:
@@ -282,20 +399,14 @@ def check_block(setup, tag: str, ranks: int) -> None:
     and dropped count of layout ``tag`` against the reference's on the
     global batch (within TOL of max |ref|), the replicated ones bitwise
     equal across ranks."""
-    module, params, x, r = setup["block"]
-    want = reference_block_answer(module, params, x, r)
-    root = setup["root"]
-    got = [torch.load(root / f"block-{tag}-{k}.pt", weights_only=True)
-           for k in range(ranks)]
-    for k, g in enumerate(got):
-        assert rel(g["y"], want["y"]) <= TOL, k
-        assert abs(g["aux"].item() - want["aux"]) <= TOL * abs(want["aux"])
-        assert rel(g["dx"], want["dx"]) <= TOL, k
-        for name, w in want["grads"].items():
-            assert rel(g["grads"][name], w) <= TOL, (k, name)
-        assert int(g["dropped"]) == int(got[0]["dropped"]) > 0
+    errs = block_errors(setup, tag, ranks)
+    first = errs[0]["got"]
+    for k, e in enumerate(errs):
+        g = e.pop("got")
+        assert max(e.values()) <= TOL, (k, e)
+        assert int(g["dropped"]) == int(first["dropped"]) > 0
         for key in ("y", "aux", "dx"):
-            assert torch.equal(g[key], got[0][key]), (k, key)
+            assert torch.equal(g[key], first[key]), (k, key)
 
 
 def rank_major_batches(root, data_ranks: int) -> list[dict]:
@@ -312,16 +423,17 @@ def rank_major_batches(root, data_ranks: int) -> list[dict]:
     return out
 
 
-def one_process(setup, data_ranks: int, accum: int = 1):
+def one_process(setup, data_ranks: int, accum: int = 1, opt=OPT,
+                steps: int = STEPS):
     """The port in one process at the same global batches: its trail,
     the MoE layers' dropped counts per step, and its final state."""
     model = port_llama(torch.load(setup["root"] / "llama.pt",
                                   weights_only=True))
-    state = tts.init_train_state(model, toptim.make_optimizer(OPT))
+    state = tts.init_train_state(model, toptim.make_optimizer(opt))
     step = tts.build_train_step(treg.get("llama").forward_loss, state.tx,
                                 grad_accum=accum)
     trail, dropped = [], []
-    for nb in rank_major_batches(setup["root"], data_ranks):
+    for nb in rank_major_batches(setup["root"], data_ranks)[:steps]:
         state, m = step(state, nb)
         trail.append((m["loss"].item(), m["grad_norm"].item()))
         dropped.append([int(b.moe.dropped) for b in model.layers
@@ -354,6 +466,21 @@ def reference_trail(setup, accum: int) -> list[tuple[float, float]]:
                 {k: jnp.asarray(v.numpy()) for k, v in nb.items()}, bs))
             trail.append((float(m["loss"]), float(m["grad_norm"])))
     return trail
+
+
+def dense_llama(setup):
+    """The tiny dense Llama's reference init as the port's state dict (a
+    file the gang reads), once per module; the flax module and params."""
+    if "dense" not in setup:
+        module = jreg.get("llama").make_model(**DENSE)
+        variables = jax.jit(module.init)(jax.random.PRNGKey(1),
+                                         jnp.zeros((1, SEQ), jnp.int32))
+        params = jax.tree.map(np.asarray, unbox_params(variables["params"]))
+        config = treg.get("llama").make_model(device="cpu", **DENSE).config
+        torch.save(convert.from_jax_params(params, config),
+                   setup["root"] / "dense.pt")
+        setup["dense"] = (module, params)
+    return setup["dense"]
 
 
 def assert_trails_close(got, want, tol=TOL):
