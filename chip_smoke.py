@@ -2778,6 +2778,17 @@ P22_ONE = {"2-layer tp=2": "2-layer one process (tp2_partial_sums)",
 # position would exceed it: ROADMAP queue C item 7)
 P22_REL_TOL = {"tp=2": MH_LOGITS_REL_TOL,
                "MoE tp=2 x ep=2": MH_SHALLOW_REL_TOL}
+# (c) residency in the gang of 2: a (the dense Llama at tp=2) and b (the
+# MoE at ep=2), both at MH_SHALLOW_LAYERS layers, under one weight budget
+# between the larger model's whole bytes and their sum, served over HTTP
+# from rank 0's ModelPool.  An operator packing several sharded models
+# onto one slice, and scale-from-zero warm starts.  a's prefix cache:
+# P22_RES_CACHE_MB (128 pages of 0.5 MiB); its prompts are phase 2's
+# P22_RES_A (cold), b's the MoE layouts' first
+P22_RES_CACHE_MB = 64
+P22_RES_A = (0, 2)                  # indices into PROMPT_LENS: 17, 700
+# each rank's memory falls at a park by at least this share of its blocks
+P22_RES_PARK_SHARE = 0.9
 
 
 def p22_chunks(layout: str) -> list[tuple[int, int]]:
@@ -3119,8 +3130,9 @@ if "22" in spec:
     # phase 22's predictor gangs: rank 0 leads each engine, the others
     # follow its step records
     import chip_smoke as smoke
-    out["22"] = [job(lambda run=run: (0, smoke.predictor_run(fa, run, comm)))
-                 for run in spec["22"]]
+    out["22"] = [job(lambda run=run: (0, (
+        smoke.residency_run if run.get("residency")
+        else smoke.predictor_run)(fa, run, comm))) for run in spec["22"]]
     times["22"] = time.time() - T0
 print(json.dumps({
     "device": torch.cuda.current_device(), "backend": dist.get_backend(),
@@ -4394,6 +4406,192 @@ def predictor_run(fa, run: dict, comm: dict | None = None) -> dict:
     return out
 
 
+def residency_run(fa, run: dict, comm: dict | None = None) -> dict:
+    """Phase 22(c) on one rank of the gang of 2: a (dense, tp=2, a small
+    prefix cache) and b (MoE, ep=2) under ``run["budget"]``; rank 0 wires
+    the ``ModelPool``, serves both over HTTP and sends a, then b (the
+    budget parks a), then with b pinned a's load, then a's long prompt
+    with every free page of a's pool held on every rank (page pressure:
+    b, idle, parks and its bytes become a's page slots), then b again
+    (the budget parks a, b's load reclaims a's free donated slots).  b's
+    never-parked stream is taken first, on b directly.  The followers
+    follow a and b in a thread each, and hold and free the same pages
+    between the same barriers.  Every rank logs its parks (bytes freed,
+    its blocks' bytes, the fall of ``memory_allocated``), warms
+    (seconds, whether weights loaded), donations, reclaims and finished
+    requests with their page pool's statistics, and K1's calls."""
+    import torch.distributed as dist
+
+    from kubeflow_tpu_torch.parallel import distributed as pd
+    from kubeflow_tpu_torch.serving import model_pool as mp
+    from kubeflow_tpu_torch.serving.httpserve import serve
+    from kubeflow_tpu_torch.serving.predictor import (GenerativePredictor,
+                                                      PredictorApp,
+                                                      wire_model_pool)
+
+    rank = pd.rank_of(pd.default_group())
+    free_memory()
+    events: list = []
+    lock = threading.Lock()
+
+    def note(*rec):
+        with lock:
+            events.append(list(rec))
+
+    def pool_stats(e):
+        stats = e.pool.stats()
+        stats.pop("fault_wait_seconds")
+        return stats
+
+    def build(name, tp, ep, config, cache_mb):
+        t0 = time.perf_counter()
+        pred = GenerativePredictor(
+            "llama", size="7b", tp=tp, ep=ep, max_seq=MAX_SEQ,
+            prefill_chunk=PREFILL_CHUNK, max_batch=4, seed=0,
+            prefix_cache_mb=cache_mb, model_config=config)
+        torch.cuda.synchronize()
+        note(name, "built", time.perf_counter() - t0, pred.weight_bytes,
+             pred.rank_weight_bytes)
+        pred.name = name
+        e = pred.engine
+        park, warm = pred._park_here, pred._warm_here
+
+        def parked():
+            torch.cuda.synchronize()
+            block = pred.rank_weight_bytes
+            before = torch.cuda.memory_allocated()
+            freed = park()
+            torch.cuda.synchronize()
+            note(name, "park", freed, block,
+                 before - torch.cuda.memory_allocated())
+            return freed
+
+        def warmed():
+            torch.cuda.synchronize()
+            t, loads = time.perf_counter(), pred.parked
+            out = warm()
+            torch.cuda.synchronize()
+            note(name, "warm", out, loads, time.perf_counter() - t,
+                 pred.rank_weight_bytes)
+            return out
+
+        pred._park_here, pred._warm_here = parked, warmed
+        for what in ("donate", "reclaim"):
+            def counted(n, fn=getattr(e.pool, what), what=what):
+                out = fn(n)
+                note(name, what, n, out, pool_stats(e))
+                return out
+            setattr(e.pool, what, counted)
+        finish = e._finish_if_done
+
+        def finished(slot):
+            req = e.slots[slot]
+            finish(slot)
+            if req is not None and e.slots[slot] is None:
+                note(name, "done", req.ids + req.generated, pool_stats(e))
+
+        e._finish_if_done = finished
+        return pred
+
+    a = build("a", 2, 1, {"num_layers": run["layers"]}, P22_RES_CACHE_MB)
+    b = build("b", 1, 2, {"num_layers": run["layers"],
+                          "moe_experts": MOE_EXPERTS}, 0)
+    preds = {"a": a, "b": b}
+    held: list = []
+
+    def hold(pages: bool) -> None:
+        # every rank holds (then frees) the same pages of a's pool: the
+        # pools are in lockstep, and a's engine is idle between the
+        # barriers once it has finished a's first request here too
+        while sum(e[:2] == ["a", "done"] for e in events) < 1:
+            time.sleep(0.001)
+        dist.barrier()
+        if pages:
+            held.extend(a.engine.pool.alloc(a.engine.pool.free_count))
+        else:
+            a.engine.pool.decref(held)
+        dist.barrier()
+
+    calls: list = []
+    out: dict = {"rank": rank}
+    with flash_route(recording_flash(fa, calls)):
+        set_counters(fa, dict.fromkeys(KERNEL_NAMES, 0))  # the path starts
+        t1 = time.perf_counter()
+        if rank == 0:
+            k0 = counters(fa)["flash_fwd"]
+            out["b_never_parked"] = b.generate(
+                [run["prompt_b"]], max_new_tokens=NEW_TOKENS)["ids"][0]
+            out["b_never_parked_k1"] = counters(fa)["flash_fwd"] - k0
+            pool = wire_model_pool(preds, run["budget"])
+            httpd, thread = serve(PredictorApp(preds, model_pool=pool), 0)
+            port = httpd.server_port
+            results = out["requests"] = []
+
+            def request(label, name, prompt):
+                k0, t = counters(fa)["flash_fwd"], time.perf_counter()
+                status, body = post(port, f"/v1/models/{name}:generate",
+                                    {"ids": [prompt],
+                                     "max_new_tokens": NEW_TOKENS})
+                results.append({
+                    "label": label, "model": name, "status": status,
+                    "ids": body.get("ids", [None])[0],
+                    "error": body.get("error"),
+                    "s": time.perf_counter() - t,
+                    "k1": counters(fa)["flash_fwd"] - k0,
+                    "pool": pool.stats(),
+                    "residency": {n: pool.state_of(n) for n in preds}})
+
+            try:
+                request("a", "a", run["prompts_a"][0])
+                request("b (parks a)", "b", run["prompt_b"])
+                pool.acquire("b")          # b pinned while a loads
+                pool.acquire("a")
+                pool.release("b")
+                hold(True)
+                request("a under page pressure (parks b, donates)", "a",
+                        run["prompts_a"][1])
+                pool.release("a")
+                request("b again (parks a, reclaims, warms)", "b",
+                        run["prompt_b"])
+                hold(False)
+                out["pool"] = pool.stats()
+            finally:
+                httpd.shutdown()
+                httpd.server_close()
+                thread.join(timeout=10)
+                for p in preds.values():
+                    p.engine.shutdown()
+                mp.set_model_pool(None)
+        else:
+            errors: list = []
+
+            def follow(p):
+                try:
+                    p.follow()
+                except Exception as err:  # noqa: BLE001 - reported
+                    errors.append(f"{p.name}: {type(err).__name__}: {err}")
+
+            threads = [threading.Thread(target=follow, args=(p,))
+                       for p in preds.values()]
+            for t in threads:
+                t.start()
+            hold(True)
+            hold(False)
+            for t in threads:
+                t.join()
+            out["errors"] = errors
+        torch.cuda.synchronize()
+        out["wall_s"] = time.perf_counter() - t1
+        out["launches"] = counters(fa)                    # it ended
+    out.update(events=events, calls=[list(c) for c in calls],
+               tally={n: dict(p.engine.record_tally)
+                      for n, p in preds.items()},
+               bytes={n: p.weight_bytes for n, p in preds.items()})
+    del a, b, preds
+    free_memory()
+    return out
+
+
 def whole_weight_bytes(config: dict) -> int:
     """Bytes of one process's bf16 weights of the 7B Llama of
     ``config`` (a storage-less build)."""
@@ -4446,9 +4644,20 @@ def p22_prepare(fa, home: Path, phase2: dict) -> tuple[dict, list]:
     phase2_out = str(home / "p22_phase2.pt")
     torch.save({n: t for n, t in phase2["first_logits"].items()}, phase2_out)
     one["phase 2"] = {"out": phase2_out, "streams": phase2["streams"]}
-    return ({"runs": runs, "one": one,
+    sizes = [whole_weight_bytes(config) for config in (
+        {"num_layers": MH_SHALLOW_LAYERS},
+        {"num_layers": MH_SHALLOW_LAYERS, "moe_experts": MOE_EXPERTS})]
+    residency = {"residency": True, "layers": MH_SHALLOW_LAYERS,
+                 "prompts_a": [dense[i] for i in P22_RES_A],
+                 "prompt_b": moe[0], "sizes": sizes,
+                 "budget": (max(sizes) + sum(sizes)) // 2}
+    log(f"phase 22(c): a {sizes[0]} B, b {sizes[1]} B of weights (whole "
+        f"models), weight budget {residency['budget']} B "
+        f"({residency['budget'] / (1 << 20):.1f} MB)")
+    return ({"runs": runs, "one": one, "residency": residency,
              "fours": [runs["MoE tp=2 x ep=2"]]},
-            [runs[label] for label in ("tp=2", "2-layer tp=2", "MoE ep=2")])
+            [runs[label] for label in ("tp=2", "2-layer tp=2", "MoE ep=2")]
+            + [residency])
 
 
 def p22_log(label: str, ranks: list[dict]) -> None:
@@ -4609,7 +4818,134 @@ def p22_finish(prep: dict, twos: list[list], fours: list[list]) -> dict:
             "load_s": max(r["load_s"] for r in ranks),
             "decode_tok_s": lead["decode_tok_s"],
             "ttft_s": lead["ttft_s"], "records": lead["records"]}
+    out["residency"] = p22_residency_finish(
+        prep["residency"], [r[3] for r in twos], out)
     return out
+
+
+def p22_residency_finish(run: dict, jobs: list[dict], p22: dict) -> dict:
+    """Phase 22(c)'s checks: every request served; a's streams bitwise
+    the 2-layer tp=2 layout's never-parked ones (which are one process's
+    under ``tp2_partial_sums``) and b's its own never-parked one; the
+    budget parks a at b's request and at b's last one, the page pressure
+    parks b and donates b's whole bytes over the page bytes, b's load
+    reclaims the free donated slots, on both ranks alike (the same events
+    and page pool statistics after every request, donation and reclaim);
+    each park frees at least ``P22_RES_PARK_SHARE`` of the rank's blocks;
+    K1 runs in every request's prefill, at the gang's rank shapes."""
+    for j in jobs:
+        check(j["rc"] == 0, ("residency", j["rc"]))
+    ranks = [j["extra"] for j in jobs]
+    lead = ranks[0]
+    for r in ranks[1:]:
+        check(r["errors"] == [], ("residency follower", r["errors"]))
+    reqs = lead["requests"]
+    for q in reqs:
+        log(f"phase 22(c) {q['label']}: status {q['status']}, "
+            f"{q['s'] * 1e3:.1f} ms, K1 launches {q['k1']}, residency "
+            f"{q['residency']}, pool loads {q['pool']['loads_total']} "
+            f"evictions {q['pool']['evictions_total']} donated pages "
+            f"{q['pool']['donated_pages']}")
+        check(q["status"] == 200, (q["label"], q["status"], q["error"]))
+    # the streams: a's against the 2-layer tp=2 layout's cold ones
+    dense = p22_keyed(p22["2-layer tp=2"]["ranks"][0]["streams"])
+    a_want = [dense[(PROMPT_LENS[i], 0)][0] for i in P22_RES_A]
+    got = {q["label"]: q["ids"] for q in reqs}
+    a_same = [reqs[0]["ids"], reqs[2]["ids"]] == a_want
+    b_never = lead["b_never_parked"]
+    b_same = reqs[1]["ids"] == reqs[3]["ids"] == b_never
+    moe = p22_keyed(p22["MoE ep=2"]["ranks"][0]["streams"])
+    b_layout = moe[(len(run["prompt_b"]), 0)][0]
+    log(f"phase 22(c): a's streams {'equal' if a_same else 'DIFFER FROM'} "
+        f"the 2-layer tp=2 layout's; b's {'equal' if b_same else 'DIFFER'} "
+        f"{'' if b_same else 'FROM '}its never-parked stream (which "
+        f"{'equals' if b_never == b_layout else 'differs from'} the MoE "
+        "ep=2 layout's, where 4 prompts shared the steps)")
+    check(a_same, ("residency a streams", got))
+    check(b_same, ("residency b streams", got, b_never))
+    want_res = [{"a": "resident", "b": "parked"},
+                {"a": "parked", "b": "resident"},
+                {"a": "resident", "b": "parked"},
+                {"a": "parked", "b": "resident"}]
+    check([q["residency"] for q in reqs] == want_res,
+          [q["residency"] for q in reqs])
+    def shared(r, name):
+        # what every rank logs alike of one model, in its engine's order:
+        # parks and warms (not their memory and seconds), donations,
+        # reclaims and finished requests with the page pool's statistics
+        return [e[:3] if e[1] == "park" else e[:4] if e[1] == "warm" else e
+                for e in r["events"] if e[0] == name
+                and e[1] in ("park", "warm", "donate", "reclaim", "done")]
+    for r in ranks[1:]:
+        for name in ("a", "b"):
+            check(shared(r, name) == shared(lead, name),
+                  ("residency events differ by rank", name,
+                   shared(r, name), shared(lead, name)))
+    sizes = run["sizes"]
+    page_nbytes = next(e[3] for e in lead["events"]
+                       if e[:2] == ["a", "done"])["page_nbytes"]
+    for r in ranks:
+        evs = r["events"]
+        parks = [e for e in evs if e[1] == "park"]
+        check([e[0] for e in parks] == ["a", "b", "a"],
+              ("parks", r["rank"], parks))
+        for name, _, freed, block, fell in parks:
+            share = fell / block
+            log(f"phase 22(c) rank {r['rank']}: park of {name} freed "
+                f"{fell} B of memory_allocated, {share:.4f} of its "
+                f"{block} B of blocks (whole model {freed} B)")
+            check(share >= P22_RES_PARK_SHARE and freed == sizes[
+                "ab".index(name)], (r["rank"], name, fell, block, freed))
+        warms = [e for e in evs if e[1] == "warm" and e[3]]
+        check([e[0] for e in warms] == ["a", "b"], ("warms", warms))
+        donated = [e for e in evs if e[1] == "donate"]
+        check(len(donated) == 1 and donated[0][2] == sizes[1] // page_nbytes,
+              ("donation", r["rank"], donated, sizes[1] // page_nbytes))
+        reclaims = [e for e in evs if e[1] == "reclaim"]
+        took = sum(e[3] for e in reclaims)
+        a_done = [e for e in evs if e[:2] == ["a", "done"]]
+        live = a_done[-1][3]["in_use"]
+        held = donated[0][4]["in_use"]
+        log(f"phase 22(c) rank {r['rank']}: " + "; ".join(
+            f"{e[0]} warm {e[4]:.3f} s ({e[5]} B of blocks)" for e in warms)
+            + f"; donated {donated[0][2]} pages, reclaimed {took} "
+            f"({len(reclaims)} reclaims: {[e[3] for e in reclaims]}); a's "
+            f"pool at the end {reclaims[-1][4] if reclaims else None}; "
+            f"step records " + ", ".join(
+                f"{n} {t.get('records', 0)} ({t.get('calls', 0)} "
+                f"broadcasts, {t.get('seconds', 0.0):.3f} s; pressure "
+                f"verdicts {t.get('pressure_calls', 0)}, "
+                f"{t.get('pressure_seconds', 0.0) * 1e3:.2f} ms)"
+                for n, t in r["tally"].items())
+            + f"; K1 {r['launches']['flash_fwd']} launches; wall "
+            f"{r['wall_s']:.2f} s")
+        # b's load took back the free donated slots, never live KV
+        check(reclaims and took == donated[0][2] - (live - held),
+              ("reclaim", r["rank"], took, donated[0][2], live, held))
+    # K1 in every request's prefill (and b's never-parked one), at the
+    # rank shapes of the 2-layer tp=2 and MoE ep=2 layouts
+    layers = run["layers"]
+    want_k1 = [layers * len(chunk_shapes(len(p))) for p in (
+        run["prompts_a"][0], run["prompt_b"], run["prompts_a"][1],
+        run["prompt_b"])]
+    check([q["k1"] for q in reqs] == want_k1,
+          ("residency K1 launches", [q["k1"] for q in reqs], want_k1))
+    h, hkv, d = P22_HEADS
+    allowed = {(1, sq, sk, h // tp, hkv // tp, d, True)
+               for label, tp in (("2-layer tp=2", 2), ("MoE ep=2", 1))
+               for sq, sk in p22_chunks(label)}
+    for r in ranks:
+        check(r["launches"]["flash_fwd"] == sum(want_k1) + lead[
+            "b_never_parked_k1"], ("residency K1 total", r["launches"]))
+        check({tuple(c) for c in r["calls"]} <= allowed,
+              ("residency K1 shapes", r["calls"]))
+    pool = lead["pool"]
+    log(f"phase 22(c): pool loads {pool['loads_total']}, evictions "
+        f"{pool['evictions_total']}, donated pages at the end "
+        f"{pool['donated_pages']}; {card_line()}")
+    return {"ranks": ranks, "requests": reqs, "pool": pool,
+            "launches": sum(r["launches"]["flash_fwd"] for r in ranks),
+            "wall_s": max(r["wall_s"] for r in ranks)}
 
 
 def p22_numbers(fa, p22: dict) -> list[dict]:
@@ -4631,6 +4967,23 @@ def p22_numbers(fa, p22: dict) -> list[dict]:
                 f"{row['bound_ms']:.4f} ms ({row['bound_by']}), plain "
                 f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms")
             rows.append(row)
+    # (c): every rank's K1 calls, by shape
+    counts: dict[tuple, int] = {}
+    for r in p22["residency"]["ranks"]:
+        for call in r["calls"]:
+            counts[tuple(call)] = counts.get(tuple(call), 0) + 1
+    for key, n in sorted(counts.items()):
+        _, sq, sk, h, *_ = key
+        name = f"7b_predictor_residency_{sq}x{sk}_h{h}"
+        ms, plain_ms, library_ms = k1_times(fa, *key)
+        row = {"shape": name, "launches": n, "ms": ms, "plain_ms": plain_ms,
+               "library_ms": library_ms,
+               **bound_fields("flash_fwd", key, torch.bfloat16)}
+        log(f"flash_fwd {name} bf16 (x{n} in phase 22(c), 2 ranks): kernel "
+            f"{ms:.4f} ms, bound {row['bound_ms']:.4f} ms "
+            f"({row['bound_by']}), plain {plain_ms:.4f} ms, sdpa "
+            f"{library_ms:.4f} ms")
+        rows.append(row)
     return rows
 
 
@@ -6091,6 +6444,7 @@ def main(argv: list[str]) -> int:
             f"{p22[label]['decode_tok_s']:.1f} / "
             f"{p22[label]['records'].get('records', 0)}"
             for label, *_ in P22_LAYOUTS)
+        + f", residency (c) {p22['residency']['wall_s']:.2f} s"
         + f"; total {time.perf_counter() - t_start:.1f}s")
     check(serving["launches"] == sum(r["launches"] for r in serving_rows),
           "serving launches")

@@ -33,8 +33,9 @@ experts' input gradient and chosen outputs over tp and ep) and
 ``gather_from_group`` (a tp-split activation); and the neighbour
 exchange of ring attention and the pipeline, ``ppermute`` (``jax.lax.ppermute`` with a cyclic
 shift) and its differentiable form ``permute`` (``_Ppermute``); and
-``broadcast_one_to_all`` (rank 0's fixed-shape buffer on every rank: the
-multi-host serving front door's prompts).
+``broadcast_one_to_all`` (rank 0's fixed-shape buffer on every rank of a
+group: the multi-host serving front door's prompts, and each serving
+gang model's step records on a group of its own).
 Gloo's point-to-point refuses a CUDA tensor (its TCP transport writes
 from the device pointer: "writev ... Bad address", torch 2.11 on an
 H100), so under gloo a CUDA exchange goes through pinned host buffers,
@@ -233,15 +234,16 @@ def all_reduce_max(t: torch.Tensor, group) -> None:
     dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
 
 
-def broadcast_one_to_all(t: torch.Tensor) -> torch.Tensor:
-    """``t`` as rank 0 of the gang holds it, on every rank: one
-    ``broadcast`` of a buffer of the same shape and dtype on each (the
-    reference's ``multihost_utils.broadcast_one_to_all``); ``t`` itself
-    without a gang.  Under NCCL a CPU buffer travels through the rank's
-    card and comes back to the host."""
+def broadcast_one_to_all(t: torch.Tensor, group=None) -> torch.Tensor:
+    """``t`` as rank 0 of ``group`` (default: the gang) holds it, on every
+    rank of it: one ``broadcast`` of a buffer of the same shape and dtype
+    on each (the reference's ``multihost_utils.broadcast_one_to_all``);
+    ``t`` itself without a gang.  Under NCCL a CPU buffer travels through
+    the rank's card and comes back to the host."""
     import torch.distributed as dist
 
-    group = default_group()
+    if group is None:
+        group = default_group()
     if group is None:
         return t
     buf = t
@@ -493,6 +495,12 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
+# a coordinator port that ``free_port`` handed out can be taken by another
+# process before rank 0 listens on it: the gang is spawned again on another
+# port, at most this many times in all
+_SPAWN_ATTEMPTS = 3
+
+
 def spawn_local_gang(script: str, num_processes: int, *,
                      port: int | None = None, timeout: float = 180.0,
                      extra_env: dict[str, str] | None = None) -> list[dict]:
@@ -503,15 +511,28 @@ def spawn_local_gang(script: str, num_processes: int, *,
 
     The first worker to exit nonzero, or the timeout, ends the gang: the
     survivors are killed before this raises (a half-dead gang would wait
-    in its next collective)."""
+    in its next collective).  Without a given ``port``, a gang whose
+    coordinator could not listen on the port it was handed
+    (``EADDRINUSE``) runs again on another one."""
+    attempts = 1 if port is not None else _SPAWN_ATTEMPTS
+    for attempt in range(attempts):
+        try:
+            return _spawn(script, num_processes,
+                          free_port() if port is None else port, timeout,
+                          extra_env)
+        except RuntimeError as e:
+            if "EADDRINUSE" not in str(e) or attempt == attempts - 1:
+                raise
+
+
+def _spawn(script: str, num_processes: int, port: int, timeout: float,
+           extra_env: dict[str, str] | None) -> list[dict]:
     import json
     import subprocess
     import sys
     import tempfile
     import time
 
-    if port is None:
-        port = free_port()
     procs: list[subprocess.Popen] = []
     files = []
     try:

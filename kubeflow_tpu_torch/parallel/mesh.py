@@ -166,11 +166,19 @@ def _axis_groups(device_mesh, ranks: np.ndarray, rank: int) -> dict:
     """This rank's group for every axis (the DeviceMesh's) and for each
     set of ``JOINT_AXES`` that spans more than one of them (a subgroup per
     coordinate of the other axes: every rank creates every subgroup, as
-    ``new_group`` requires)."""
+    ``new_group`` requires).  An axis over the whole gang gets a group of
+    its own where the DeviceMesh hands it the default group (a host
+    without CUDA): two meshes' collectives, such as two served models'
+    on their own threads, never share a group."""
     import torch.distributed as dist
 
-    groups = {(a,): device_mesh.get_group(a) for a in MeshAxes
-              if ranks.shape[MeshAxes.index(a)] > 1}
+    groups = {}
+    for a in MeshAxes:
+        if ranks.shape[MeshAxes.index(a)] > 1:
+            group = device_mesh.get_group(a)
+            if group is dist.group.WORLD:
+                group = dist.new_group(ranks=list(range(ranks.size)))
+            groups[(a,)] = group
     for axes in JOINT_AXES:
         key = tuple(a for a in axes if ranks.shape[MeshAxes.index(a)] > 1)
         if len(key) < 2 or key in groups:

@@ -95,7 +95,16 @@ What it keeps:
   boundaries only (no collective per prefill chunk); an idle leader
   still sends a record every ``HEARTBEAT_S``; a follower whose tokens
   differ raises, and a dead follower fails the leader's next collective
-  into the crash path;
+  into the crash path.  Each gang model's records go on its own group
+  (its mesh's tp x ep group), so several gang models' engines run side
+  by side.  Weight residency rides the records: ``command`` queues a
+  ``park``, ``warm`` or ``reclaim n`` that every rank applies at the
+  next step boundary (the predictor's park and warm, the page pool's
+  reclaim), and an alloc that meets page pressure takes the leader's
+  verdict (``pressure_fn``, a ``ModelPool.relieve`` over
+  ``pressure_pages``) in one small broadcast at that point of the step:
+  the sibling park it waited for and the pages it donated, which every
+  follower donates too once its own sibling has parked;
 - cluster prefix reuse (``serving/kv_directory.py``): with a
   ``directory``, every cached prompt is advertised and every eviction
   withdrawn; with a ``fetch_fn`` too, a prompt whose longest advertised
@@ -107,6 +116,7 @@ What it keeps:
 
 from __future__ import annotations
 
+import itertools
 import math
 import threading
 import time
@@ -218,6 +228,62 @@ SPEC_COST_SLOPE = 0.15
 # the longest an idle engine waits for work between scheduling steps; a
 # gang's leader sends a step record at least this often
 HEARTBEAT_S = 5.0
+
+
+# gang parks are numbered by the leader (their tickets ride the records);
+# every rank notes the tickets it has applied, so that a follower's
+# pressured engine can wait for its sibling's park before it donates the
+# bytes that park freed.  ``_last_park.ticket`` is the last gang park the
+# current thread asked for (-1: none), read by a leader's page-pressure
+# verdict, whose evictor runs on its own thread
+_TICKETS = itertools.count()
+_PARKS = threading.Condition()
+_PARKED_TICKETS: set[int] = set()
+_last_park = threading.local()
+
+
+class _Command:
+    """A residency command the leader queued for the next step record,
+    and its outcome once every rank has applied it."""
+
+    def __init__(self, kind: str, arg: int):
+        self.kind, self.arg = kind, arg
+        self.done = threading.Event()
+        self.result: int | None = None
+        self.error: str | None = None
+
+    def finish(self, result: int | None = None,
+               error: str | None = None) -> None:
+        self.result, self.error = result, error
+        self.done.set()
+
+
+class GangPages:
+    """The page pool a ``ModelPool`` sees for a gang engine
+    (``engine.pressure_pages``): ``donate`` grows the leader's pool inside
+    its page-pressure verdict, which carries the count to every follower
+    at the same point of the step; ``reclaim`` is a ``reclaim n`` command
+    that every rank applies at the next step boundary, and returns the
+    slots every rank took (the pools are in lockstep, so the free-slots
+    rule picks the same count on each)."""
+
+    def __init__(self, engine: "ContinuousBatcher"):
+        self._engine = engine
+        self.donated = 0          # pages donated through this view
+
+    @property
+    def page_nbytes(self) -> int:
+        return self._engine.pool.page_nbytes
+
+    def donate(self, n: int) -> None:
+        if not self._engine._relieving:
+            raise RuntimeError("a gang engine's page budget grows only "
+                               "inside its page-pressure verdict")
+        self._engine.pool.donate(n)
+        self.donated += int(n)
+
+    def reclaim(self, n: int) -> int:
+        return self._engine.command("reclaim", int(n))
 
 
 class QueueFull(RuntimeError):
@@ -340,6 +406,9 @@ class ContinuousBatcher:
         self.tp = 1 if mesh is None else mesh.shape["tp"]
         self._gang = mesh is not None and mesh.size > 1
         self.rank = pd.rank_of(pd.default_group()) if self._gang else 0
+        # this model's records and pressure verdicts: its own group, so
+        # that two gang models' engines never share one
+        self._group = mesh.group("tp", "ep") if self._gang else None
         # logits over the whole vocabulary (a tp rank's head gives its
         # slice): sampling and its generators read the same values on
         # every rank
@@ -424,6 +493,10 @@ class ContinuousBatcher:
         # alloc, BEFORE any prefix-cache eviction; True means a cold
         # model's weights became page slots and the alloc retries
         self.pressure_fn = pressure_fn
+        # what pressure_fn's relieve donates to: the pool itself, or in a
+        # gang the view whose donations every rank mirrors
+        self.pressure_pages = GangPages(self) if self._gang else self.pool
+        self._relieving = False
         if self.directory is not None and self.prefix_cache is not None:
             self.prefix_cache.on_evict = self._withdraw_prefix
         shape = sharded.cache_block(
@@ -476,6 +549,12 @@ class ContinuousBatcher:
         self._digest = lockstep.digest([])
         self.record_tally: dict = {}
         self._crash: str | None = None
+        # residency: ``residency_fn(kind)`` is the predictor's park or warm
+        # of this rank's weights; the leader's queued commands wait here
+        # for the next record, then in ``_in_flight`` until applied
+        self.residency_fn = None
+        self._commands: list[_Command] = []
+        self._in_flight: list[_Command] = []
         if self._gang and self.rank == 0:
             # the leader's loop runs from the start: its records (one per
             # wake when idle) are what the followers wait in
@@ -528,12 +607,65 @@ class ContinuousBatcher:
             raise
         return req
 
+    def command(self, kind: str, arg: int = 0) -> int:
+        """Run a residency command (``lockstep.COMMANDS``) on every rank of
+        this gang at the next step boundary and return the leader's
+        result: a park or warm's bytes, a reclaim's slots.  Rank 0 only;
+        the caller waits (the engine is woken at once).  A park of an
+        engine with live requests raises, and so does a command that
+        failed on the leader or outlived the engine."""
+        if not self._gang or self.rank != 0:
+            raise RuntimeError("residency commands are queued by rank 0 of "
+                               "a serving gang")
+        if threading.current_thread() is self._thread:
+            raise RuntimeError("the engine's own thread cannot wait for "
+                               "its next step boundary")
+        if kind == "park":
+            arg = next(_TICKETS)
+        cmd = _Command(kind, int(arg))
+        with self._work:
+            if self._crash is not None:
+                raise RuntimeError(f"serving engine crashed: {self._crash}")
+            if self._closed:
+                raise RuntimeError("serving engine is shut down")
+            self._commands.append(cmd)
+            self._work.notify_all()
+        cmd.done.wait()
+        if cmd.error is not None:
+            raise RuntimeError(cmd.error)
+        if kind == "park":
+            _last_park.ticket = arg
+        return cmd.result
+
+    def _fail_commands(self, msg: str) -> None:
+        """Every queued and in-flight command fails with ``msg`` (the
+        engine stopped or crashed)."""
+        with self._work:
+            failed = self._commands + self._in_flight
+            self._commands, self._in_flight = [], []
+        for cmd in failed:
+            cmd.finish(error=msg)
+
+    def _apply_command(self, kind: str, arg: int) -> int:
+        """One residency command on this rank."""
+        if kind == "reclaim":
+            return self.pool.reclaim(arg)
+        if self.residency_fn is None:
+            raise RuntimeError(f"{kind}: no weights are bound to this "
+                               "engine (residency_fn)")
+        out = int(self.residency_fn(kind))
+        if kind == "park":
+            with _PARKS:
+                _PARKED_TICKETS.add(arg)
+                _PARKS.notify_all()
+        return out
+
     def refuse_in_gang(self, what: str) -> None:
         """Raise for ``what``, which a lockstep gang does not port yet."""
         if self._gang:
             raise NotImplementedError(
                 f"{what} under a tp / ep serving gang is not ported yet "
-                "(ROADMAP queue A item 7c)")
+                "(ROADMAP queue A item 7c-ii)")
 
     def _start_trace(self, req: GenRequest, trace_ctx) -> None:
         tracer = trace.get_tracer()
@@ -912,6 +1044,7 @@ class ContinuousBatcher:
                 if self._gang:
                     # a broken gang stays broken: later submits raise
                     self._crash = f"{type(e).__name__}: {e}"
+            self._fail_commands(f"serving engine crashed: {e}")
             self._die_with_engine(dying, "error", "serving engine crashed")
 
     def follow(self) -> None:
@@ -969,7 +1102,7 @@ class ContinuousBatcher:
         same requests in the same order and checks the leader's digest of
         the previous step against its own."""
         if self.rank != 0:
-            rec = lockstep.exchange(None, self.record_tally)
+            rec = lockstep.exchange(None, self.record_tally, self._group)
             if rec.digest != self._digest:
                 raise RuntimeError(
                     f"serving gang diverged: rank {self.rank}'s tokens of "
@@ -994,9 +1127,20 @@ class ContinuousBatcher:
             return rec
         with self._work:
             if not (self._stop or self.queue or self._pending
-                    or any(self.slots)):
+                    or self._commands or any(self.slots)):
                 self._work.wait(timeout=HEARTBEAT_S)
             rec = lockstep.StepRecord(stop=self._stop, digest=self._digest)
+            if not rec.stop:
+                busy = bool(self.queue or self._pending or any(self.slots))
+                for cmd in self._commands:
+                    if cmd.kind == "park" and busy:
+                        # the weights of a live request stay
+                        cmd.finish(error="cannot park a serving engine "
+                                   "with live requests")
+                        continue
+                    rec.commands.append((cmd.kind, cmd.arg))
+                    self._in_flight.append(cmd)
+                self._commands = []
             for req in self._pending:
                 self._enqueue_locked(req)
                 rec.new.append(lockstep.NewRequest(
@@ -1010,12 +1154,14 @@ class ContinuousBatcher:
                     outcome = self._verdict(req, now)
                     if outcome is not None:
                         rec.dead.append((req._seq, outcome))
-        return lockstep.exchange(rec, self.record_tally)
+        return lockstep.exchange(rec, self.record_tally, self._group)
 
     def _apply_record(self, rec: lockstep.StepRecord) -> bool:
         """The record's stop (every live request dies with the engine:
-        False) or its verdicts (each named request fails as the leader
-        found it)."""
+        False), or its verdicts (each named request fails as the leader
+        found it) and then its residency commands, in order: the step
+        boundary, before admission.  A command that raises breaks the
+        gang (the leader's crash path, a follower's ``follow``)."""
         with self._work:
             if rec.stop:
                 dying = list(self.queue) + [s for s in self.slots if s]
@@ -1033,13 +1179,66 @@ class ContinuousBatcher:
                         dying.append(r)
                 ACTIVE_SLOTS.set(sum(1 for r in self.slots if r))
         if rec.stop:
+            self._fail_commands("serving engine shut down")
             self._die_with_engine(dying, "shutdown",
                                   "serving engine shut down")
             return False
         for r in dying:
             outcome = verdicts[r._seq]
             self._fail(r, outcome, self._DEAD_MSG[outcome])
+        for kind, arg in rec.commands:
+            result = self._apply_command(kind, arg)
+            if self.rank == 0:
+                with self._work:
+                    cmd = self._in_flight.pop(0)
+                cmd.finish(result)
         return True
+
+    def _relieve(self) -> bool:
+        """Page pressure: whether ``pressure_fn`` (the residency pool's
+        relieve) made room, so the alloc retries.  In a gang every rank
+        meets the pressure at the same point of the same step (the pools
+        are in lockstep): the leader runs ``pressure_fn``, whose evictor
+        is a sibling's gang-wide park, and broadcasts its verdict (made
+        room, the sibling park's ticket or -1, the pages donated) on
+        this model's group; a follower waits until its own sibling has
+        applied that park, then donates the same pages.  The wait cannot
+        cycle: only the sibling's engine thread applies its park, and the
+        sibling is idle (the pool evicts unpinned models only, and the
+        model meeting pressure is pinned by its request's lease), so that
+        thread waits on nothing but its own group's records; the pool runs
+        the evictor outside its lock.  There is no broadcast in a step
+        that meets no pressure."""
+        if not self._gang:
+            return self.pressure_fn is not None and bool(self.pressure_fn())
+        verdict = [0, -1, 0]
+        if self.rank == 0 and self.pressure_fn is not None:
+            pages = self.pressure_pages
+            _last_park.ticket, before = -1, pages.donated
+            self._relieving = True
+            try:
+                ok = bool(self.pressure_fn())
+            finally:
+                self._relieving = False
+            verdict = [int(ok), _last_park.ticket, pages.donated - before]
+        t0 = time.perf_counter()
+        ok, ticket, donated = pd.broadcast_one_to_all(
+            torch.tensor(verdict, dtype=torch.int64), self._group).tolist()
+        tally = self.record_tally
+        tally["pressure_calls"] = tally.get("pressure_calls", 0) + 1
+        tally["pressure_seconds"] = tally.get("pressure_seconds", 0.0) + (
+            time.perf_counter() - t0)
+        if self.rank != 0:
+            if ticket >= 0:
+                with _PARKS:
+                    if not _PARKS.wait_for(lambda: ticket in _PARKED_TICKETS,
+                                           timeout=pd.GROUP_TIMEOUT_S):
+                        raise RuntimeError(
+                            f"serving gang: the sibling park #{ticket} the "
+                            "leader's page pressure waited for never came")
+            if donated > 0:
+                self.pool.donate(donated)
+        return bool(ok)
 
     def _emit(self, req: GenRequest, tok: int) -> None:
         """Append a generated token (and, in a gang, note it for the
@@ -1419,7 +1618,7 @@ class ContinuousBatcher:
         while fresh is None:
             # residency arbitration first: an idle model's weights are
             # colder than anything in the prefix cache
-            if self.pressure_fn is not None and self.pressure_fn():
+            if self._relieve():
                 fresh = self.pool.alloc(n_new)
                 continue
             if self.prefix_cache is None or not self.prefix_cache.evict_lru():
@@ -1511,7 +1710,7 @@ class ContinuousBatcher:
         trees = trees[:n]
         pids = self.pool.alloc(n)
         while pids is None:
-            if self.pressure_fn is not None and self.pressure_fn():
+            if self._relieve():
                 pids = self.pool.alloc(n)
                 continue
             if not self.prefix_cache.evict_lru():

@@ -16,7 +16,12 @@ function of state the ranks already share:
   flags are the leader's alone), by arrival sequence, with the outcome;
 - the stop flag;
 - a digest of the tokens it emitted in the previous step, which each
-  follower compares with its own: a gang must never diverge silently.
+  follower compares with its own: a gang must never diverge silently;
+- the residency commands queued since the last record (``COMMANDS``):
+  ``park`` (with the leader's ticket for it), ``warm`` and ``reclaim n``
+  (page slots a warming sibling takes back).  Every rank applies them
+  at the step boundary, before admission, so the weights and the page
+  pool's budget change at the same point of every rank's schedule.
 
 Everything else (WFQ tags, the prefix cache's matches, pins, evictions
 and spills, page ids, chunk lengths, the speculation arbiter, each
@@ -24,10 +29,13 @@ request's sampling generator) follows from replaying the same events in
 the same order over the same logits.
 
 Encoding: one int64 buffer of ``RECORD_WORDS`` words per step, one
-broadcast; a step whose new prompts overflow it sends the whole record
-in a second broadcast of its exact length (the first's header carries
-it).  Words: ``[length, stop, digest, n_dead, n_new]``, then ``(seq,
-outcome)`` per dead request, then per new request ``[seq, n_ids,
+broadcast on the model's record group (``exchange``'s ``group``: one per
+gang model, so that two models' engines never interleave their records);
+a step whose new prompts overflow it sends the whole record in a second
+broadcast of its exact length (the first's header carries it).  Words:
+``[length, stop, digest, n_dead, n_new, n_commands]``, then ``(seq,
+outcome)`` per dead request, then ``(command, argument)`` per residency
+command, then per new request ``[seq, n_ids,
 max_new_tokens, temperature bits, eos (-1: none), seed, top_k, top_p
 bits, has_deadline, n_tenant]``, the tenant's UTF-8 bytes one per word
 and the ids.
@@ -47,10 +55,12 @@ from kubeflow_tpu_torch.parallel import distributed as pd
 # words of the one broadcast a step costs (32 KiB: a few thousand prompt
 # tokens fit before a step needs a second)
 RECORD_WORDS = 4096
-_HEADER = 5
+_HEADER = 6
 _PER_REQUEST = 10
 # a dead request's outcome on the wire
 OUTCOMES = ("cancelled", "deadline_exceeded")
+# a residency command on the wire
+COMMANDS = ("park", "warm", "reclaim")
 
 
 @dataclasses.dataclass
@@ -75,6 +85,9 @@ class StepRecord:
     digest: int = 0
     dead: list[tuple[int, str]] = dataclasses.field(default_factory=list)
     new: list[NewRequest] = dataclasses.field(default_factory=list)
+    # (command, argument) in the order the leader queued them
+    commands: list[tuple[str, int]] = dataclasses.field(
+        default_factory=list)
 
 
 def _f2i(x: float) -> int:
@@ -86,9 +99,12 @@ def _i2f(n: int) -> float:
 
 
 def encode(rec: StepRecord) -> list[int]:
-    words = [0, int(rec.stop), rec.digest, len(rec.dead), len(rec.new)]
+    words = [0, int(rec.stop), rec.digest, len(rec.dead), len(rec.new),
+             len(rec.commands)]
     for seq, outcome in rec.dead:
         words += [seq, OUTCOMES.index(outcome)]
+    for kind, arg in rec.commands:
+        words += [COMMANDS.index(kind), arg]
     for r in rec.new:
         tenant = list(r.tenant.encode())
         words += [r.seq, len(r.ids), r.max_new_tokens, _f2i(r.temperature),
@@ -100,11 +116,14 @@ def encode(rec: StepRecord) -> list[int]:
 
 
 def decode(words: list[int]) -> StepRecord:
-    n_dead, n_new = words[3], words[4]
+    n_dead, n_new, n_commands = words[3:_HEADER]
     rec = StepRecord(stop=bool(words[1]), digest=words[2])
     at = _HEADER
     for _ in range(n_dead):
         rec.dead.append((words[at], OUTCOMES[words[at + 1]]))
+        at += 2
+    for _ in range(n_commands):
+        rec.commands.append((COMMANDS[words[at]], words[at + 1]))
         at += 2
     for _ in range(n_new):
         (seq, n_ids, max_new, temp, eos, seed, top_k, top_p, deadline,
@@ -120,11 +139,12 @@ def decode(words: list[int]) -> StepRecord:
     return rec
 
 
-def exchange(rec: StepRecord | None, tally: dict | None = None
-             ) -> StepRecord:
-    """The leader's ``rec`` on every rank of the gang (followers pass
-    None): one broadcast of ``RECORD_WORDS`` words, two when the record
-    is longer.  ``tally`` counts the broadcasts and their seconds."""
+def exchange(rec: StepRecord | None, tally: dict | None = None,
+             group=None) -> StepRecord:
+    """The leader's ``rec`` on every rank of ``group`` (the gang's default
+    group when None; followers pass ``rec`` None): one broadcast of
+    ``RECORD_WORDS`` words, two when the record is longer.  ``tally``
+    counts the broadcasts and their seconds."""
     t0 = time.perf_counter()
     buf = torch.zeros(RECORD_WORDS, dtype=torch.int64)
     words = None
@@ -132,13 +152,13 @@ def exchange(rec: StepRecord | None, tally: dict | None = None
         words = encode(rec)
         head = words[:RECORD_WORDS]
         buf[:len(head)] = torch.tensor(head, dtype=torch.int64)
-    got = pd.broadcast_one_to_all(buf).tolist()
+    got = pd.broadcast_one_to_all(buf, group).tolist()
     calls = 1
     if got[0] > RECORD_WORDS:
         full = torch.zeros(got[0], dtype=torch.int64)
         if words is not None:
             full[:] = torch.tensor(words, dtype=torch.int64)
-        got = pd.broadcast_one_to_all(full).tolist()
+        got = pd.broadcast_one_to_all(full, group).tolist()
         calls = 2
     if tally is not None:
         tally["calls"] = tally.get("calls", 0) + calls

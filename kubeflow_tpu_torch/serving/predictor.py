@@ -23,10 +23,18 @@ model options ``tp=`` and ``ep=`` shard one model over a gang of
 each rank keeps its block of every weight (heads, FFN columns and
 vocabulary over tp, a MoE model's experts over ep) and its KV heads, rank
 0 serves HTTP and leads the continuous batcher, and the others follow
-its step records (``serving/lockstep.py``).  Under a gang the
-disaggregated roles, the prefix directory and ``:pages``, park/warm,
-``--weight-budget-mb`` and more than one ``--model`` are refused by name
-(ROADMAP queue A item 7c).  Routes, as the reference serves them:
+its step records (``serving/lockstep.py``), each gang model on a group of
+its own.  Weight residency spans the gang: rank 0's ``park``/``warm``
+ride the records to every rank, ``parked=true`` parks every rank at
+start, and under ``--weight-budget-mb`` rank 0 alone runs the
+``ModelPool`` over every model (a gang model's page pressure and reclaim
+reach every rank's page pool alike); several ``--model``s share one gang
+(the option ``name=`` serves two models of one registry entry), each gang
+model followed in a thread of its own, while a one-card model or a
+classifier is served by rank 0 alone.  Under a gang the disaggregated
+roles, the prefix directory and ``:pages``, the handoff resume, adoption
+and restart are refused by name (ROADMAP queue A item 7c-ii).  Routes,
+as the reference serves them:
 
     GET  /healthz                          ready / draining
     GET  /metrics                          Prometheus text
@@ -56,7 +64,11 @@ kubeflow_tpu_torch.serving.predictor --model llama:size=7b`` (add
 --port 8603`` and ``--role prefill``, with clients sending
 ``X-KF-Decode-Peer: 127.0.0.1:8603`` to the prefill one; a checkpoint
 with ``--checkpoint-dir /ckpt/llama``, and several models under one
-weight budget with ``--weight-budget-mb``).
+weight budget with ``--weight-budget-mb``; under the ``JAXJOB_*`` env of a
+gang of 2, ``--model 'llama:size=7b,name=a,tp=2' --model
+'llama:size=7b,name=b,moe_experts=8,ep=2' --weight-budget-mb 40000``
+packs a dense and a MoE Llama onto the gang's cards, one resident at a
+time).
 """
 
 from __future__ import annotations
@@ -95,7 +107,11 @@ class GenerativePredictor:
     restored or copied, and int8-quantized when ``quantize`` asks, before
     the next one lands, so an int8 model never holds its full-precision
     copy.  ``park`` drops the weights and keeps the engine, its page pool,
-    prefix cache and drafter; ``warm`` reloads them (idempotent).
+    prefix cache and drafter; ``warm`` reloads them (idempotent).  On rank
+    0 of a gang both are step-record commands that every rank applies at
+    the same step boundary; ``weight_bytes`` is the whole model's bytes
+    on every layout (the residency pool's unit, as the reference counts
+    its global arrays), ``rank_weight_bytes`` this rank's blocks.
     ``prefix_cache_mb`` > 0 opts into radix-tree KV prefix reuse over
     shared refcounted pages of ``kv_page_size`` positions (a budget in MB
     of device memory); ``host_kv_pages`` > 0 opens a host-RAM arena of
@@ -165,7 +181,7 @@ class GenerativePredictor:
         self._checkpoint_dir = checkpoint_dir
         self._staging_bytes = int(max(1.0, staging_mb) * (1 << 20))
         self._staging = None    # the pinned window, made at first restore
-        self._parked_bytes = 0
+        self._whole_bytes = self._model_bytes()
         self.last_restore: dict | None = None
         self._load_params()
         self._parked = False
@@ -208,6 +224,7 @@ class GenerativePredictor:
                                         draft_fn=draft_fn, kv_quant=kv_quant,
                                         tenant_shares=tenant_shares,
                                         **engine_kw)
+        self.engine.residency_fn = self._residency
         self.log.info("predictor ready", device=str(self.device),
                       params=sum(p.numel() for p in self.module.parameters()))
 
@@ -232,7 +249,7 @@ class GenerativePredictor:
             if used:
                 raise NotImplementedError(
                     f"{what} under tp={tp} x ep={ep} is not ported yet "
-                    "(ROADMAP queue A item 7c)")
+                    "(ROADMAP queue A item 7c-ii)")
         from kubeflow_tpu_torch.parallel import distributed as pd
         from kubeflow_tpu_torch.serving.multihost import global_serving_mesh
 
@@ -330,32 +347,82 @@ class GenerativePredictor:
                       seconds=round(report["seconds"], 3))
 
     # -- weight residency (serving/model_pool.py) ------------------------------
+    def _model_bytes(self) -> int:
+        """The whole model's device bytes by ``quantized_bytes``'
+        arithmetic, from the parameters' shapes: an int8 weight's ``q`` at
+        one byte per value and its float32 ``scale`` at four per output
+        channel, every other weight at its dtype's size."""
+        total = 0
+        for name, (shape, dt) in self._shapes.items():
+            like = torch.empty(shape, dtype=dt, device="meta")
+            n = like.numel()
+            if self._quantize and wants_quant(name, like, 1 << 12):
+                axis = (like.ndim - 2 if name.endswith(("w_in", "w_out"))
+                        else 0)
+                total += n + n // shape[axis] * 4
+            else:
+                total += n * like.element_size()
+        return total
+
     @property
     def weight_bytes(self) -> int:
-        """Device bytes of the weights (int8 ones at one byte, their
-        scales at four): the reference's ``quantized_bytes``, and the
-        residency pool's unit; the last resident size while parked."""
-        if self._parked:
-            return self._parked_bytes
-        return quantized_bytes(self.module)
+        """Device bytes of the whole model's weights (int8 ones at one
+        byte, their scales at four), resident or parked, on one card or
+        over a gang: the reference's ``quantized_bytes`` of its global
+        arrays, and the residency pool's unit."""
+        return self._whole_bytes
+
+    @property
+    def rank_weight_bytes(self) -> int:
+        """Device bytes of this rank's blocks of the weights (0 while
+        parked); ``weight_bytes`` on one card."""
+        return 0 if self._parked else quantized_bytes(self.module)
 
     @property
     def parked(self) -> bool:
         return self._parked
 
-    @torch.no_grad()
+    def _gang_leader(self) -> bool:
+        return self.engine._gang and self.engine.rank == 0
+
     def park(self) -> int:
         """Drop the weights and keep everything else: the engine, its page
         pool and prefix cache, the drafter (whose blocks are this module's
         own, so they park with it).  Every parameter, an int8 weight's
         ``QTensor`` included, becomes a storage-less placeholder of its
         full-precision shape, so no reference to a weight survives; a
-        parked predictor serves nothing until :meth:`warm`.  Returns the
-        bytes freed."""
-        self.engine.refuse_in_gang("park / warm")
+        parked predictor serves nothing until :meth:`warm`.  On rank 0 of
+        a gang every rank parks at the next step boundary (the engine
+        must be idle).  Returns the bytes freed (the whole model's)."""
+        if self._gang_leader():
+            return self.engine.command("park")
+        return self._park_here()
+
+    def warm(self) -> int:
+        """Reload a parked predictor through the loader cold construction
+        used; idempotent (a resident one returns its bytes).  Nothing is
+        rebuilt but the weights: the kernels stay built and loaded.  On
+        rank 0 of a gang every rank reloads its blocks at the next step
+        boundary.  Returns resident bytes (the whole model's)."""
+        if self._gang_leader():
+            return self.engine.command("warm")
+        return self._warm_here()
+
+    def start_parked(self) -> int:
+        """Park this rank's weights before the first request reaches the
+        engine (``parked=true``): every rank of a gang runs it from the
+        same ``main``, so no record carries it."""
+        return self._park_here()
+
+    def _residency(self, kind: str) -> int:
+        """The engine's ``residency_fn``: a park or warm of this rank's
+        weights, at a step boundary of the gang."""
+        return self._park_here() if kind == "park" else self._warm_here()
+
+    @torch.no_grad()
+    def _park_here(self) -> int:
         if self._parked:
             return 0
-        freed = self.weight_bytes
         for name, (shape, dt) in self._shapes.items():
             prefix, _, leaf = name.rpartition(".")
             owner = self.module.get_submodule(prefix)
@@ -363,23 +430,16 @@ class GenerativePredictor:
             owner._parameters[leaf] = nn.Parameter(
                 torch.empty(shape, dtype=dt, device="meta"),
                 requires_grad=False)
-        self._parked_bytes = freed
         self._parked = True
-        self.log.info("parked: weights evicted", bytes_freed=freed)
-        return freed
+        self.log.info("parked: weights evicted", bytes_freed=self.weight_bytes)
+        return self.weight_bytes
 
-    def warm(self) -> int:
-        """Reload a parked predictor through the loader cold construction
-        used; idempotent (a resident one returns its bytes).  Nothing is
-        rebuilt but the weights: the kernels stay built and loaded.
-        Returns resident bytes."""
-        if not self._parked:
-            return self.weight_bytes
-        self._load_params()
-        self._parked = False
-        nbytes = self.weight_bytes
-        self.log.info("warmed: weights resident", bytes=nbytes)
-        return nbytes
+    def _warm_here(self) -> int:
+        if self._parked:
+            self._load_params()
+            self._parked = False
+            self.log.info("warmed: weights resident", bytes=self.weight_bytes)
+        return self.weight_bytes
 
     # -- disaggregation handoff plumbing ---------------------------------------
     def _capture_handoff(self, req, state) -> None:
@@ -813,8 +873,10 @@ def wire_model_pool(predictors: dict[str, Any],
     the reference's CLI wires it: the loader is ``warm()`` (idempotent, so
     a resident predictor's first acquire only accounts its bytes), the
     evictor ``park()``, and each engine's page pressure may evict an
-    idle sibling's weights into its page pool.  Classifiers stay outside
-    the budget.  The pool becomes the process's (``get_model_pool``)."""
+    idle sibling's weights into its page pool (``pressure_pages``: on a
+    gang, the view whose donations and reclaims every rank mirrors).
+    Classifiers stay outside the budget.  The pool becomes the process's
+    (``get_model_pool``); on a gang, rank 0's alone."""
     pool = mp.set_model_pool(mp.ModelPool(int(budget_bytes)))
     for name, pred in predictors.items():
         engine = getattr(pred, "engine", None)
@@ -822,7 +884,7 @@ def wire_model_pool(predictors: dict[str, Any],
             continue
         pool.register(name, (lambda p=pred: (p, p.warm())),
                       evictor=pred.park, nbytes_hint=pred.weight_bytes)
-        engine.pressure_fn = (lambda pages=engine.pool, mpool=pool:
+        engine.pressure_fn = (lambda pages=engine.pressure_pages, mpool=pool:
                               mpool.relieve(pages))
     return pool
 
@@ -849,7 +911,7 @@ def _parse_model_spec(spec: str, args) -> tuple[str, dict]:
              "prefix_cache_mb", "kv_page_size", "host_kv_pages",
              "speculative_tokens", "draft_layers", "quantize", "kv_quant",
              "role", "checkpoint_dir", "staging_mb", "parked", "tp", "ep",
-             *_MODEL_CONFIG_OPTS}
+             "name", *_MODEL_CONFIG_OPTS}
     unknown = sorted(set(opts) - known)
     if unknown:
         raise SystemExit(f"unknown --model options {unknown}")
@@ -857,7 +919,8 @@ def _parse_model_spec(spec: str, args) -> tuple[str, dict]:
     if staging_mb <= 0:
         raise SystemExit(f"--model option staging_mb={staging_mb:g} must be "
                          "> 0")
-    kw = {"size": opts.get("size", args.size),
+    kw = {"name": opts.get("name", name),
+          "size": opts.get("size", args.size),
           "max_batch": int(opts.get("max_batch", args.max_batch)),
           "max_seq": int(opts.get("max_seq", args.max_seq)),
           "prefill_chunk": int(opts.get("prefill_chunk", args.prefill_chunk)),
@@ -938,7 +1001,10 @@ def main(argv=None) -> int:
     parser.add_argument("--weight-budget-mb", type=float, default=0.0,
                         help="device budget (MB) shared by every generative "
                              "model's weights: idle models park, cold "
-                             "requests coalesce behind one load; 0 = off")
+                             "requests coalesce behind one load; 0 = off.  "
+                             "A tp / ep model counts its whole weights; on "
+                             "a gang, rank 0's pool parks and warms every "
+                             "rank")
     parser.add_argument("--staging-mb", type=float, default=64.0,
                         help="host staging window (MB) of a streamed "
                              "checkpoint restore")
@@ -958,42 +1024,47 @@ def main(argv=None) -> int:
 
     specs = [_parse_model_spec(spec, args)
              for spec in [m for m in (args.models or []) if m] or ["llama"]]
+    served = [kw.pop("name") for _, kw in specs]
+    if len(set(served)) < len(served):
+        parser.error(f"two --model specs serve one name: {served} (set "
+                     "the model option name=)")
     gang = [kw for _, kw in specs if kw["tp"] * kw["ep"] > 1]
     rank = 0
     if gang:
-        # a tp / ep model serves from a gang (the env's rendezvous): rank 0
-        # answers HTTP and leads the engine, the others follow its steps
-        layout = f"tp={gang[0]['tp']} x ep={gang[0]['ep']}"
-        for what, used in (
-                ("more than one --model", len(specs) > 1),
-                ("--weight-budget-mb", args.weight_budget_mb > 0),
-                ("parked=true", any(kw["parked"] for _, kw in specs))):
-            if used:
-                raise SystemExit(f"{what} under {layout} is not ported yet "
-                                 "(ROADMAP queue A item 7c)")
+        # tp / ep models serve from a gang (the env's rendezvous): rank 0
+        # answers HTTP and leads every gang model's engine, the others
+        # follow their step records
+        for _, kw in specs:
+            if kw["tp"] * kw["ep"] > 1 and kw["role"] != "colocated":
+                raise SystemExit(
+                    f"role={kw['role']} under tp={kw['tp']} x ep={kw['ep']} "
+                    "is not ported yet (ROADMAP queue A item 7c-ii)")
         from kubeflow_tpu_torch.parallel import distributed as pd
 
         pd.initialize_from_env(device=args.device)
         rank = pd.rank_of(pd.default_group())
     predictors = {}
-    for name, kw in specs:
+    # built in --model order on every rank: each gang model's mesh makes
+    # its groups, which every rank must create in one order
+    for serve_as, (name, kw) in zip(served, specs):
         if not registry.get(name).generative:
-            predictors[name] = ClassifierPredictor(
-                name, checkpoint_dir=kw["checkpoint_dir"],
-                staging_mb=kw["staging_mb"], device=args.device)
+            if rank == 0:       # served by rank 0 alone
+                predictors[serve_as] = ClassifierPredictor(
+                    name, checkpoint_dir=kw["checkpoint_dir"],
+                    staging_mb=kw["staging_mb"], device=args.device)
             continue
+        if rank != 0 and kw["tp"] * kw["ep"] == 1:
+            continue            # a one-card model sits on rank 0's card
         parked = kw.pop("parked")
-        predictors[name] = GenerativePredictor(name, device=args.device,
-                                               **kw)
+        pred = GenerativePredictor(name, device=args.device, **kw)
+        pred.name = serve_as
         if parked:
-            # start parked: the engine is built, the weights wait for the
-            # first request
-            predictors[name].park()
+            # every rank parks before the first request: the engine is
+            # built, the weights wait for the first acquire's warm
+            pred.start_parked()
+        predictors[serve_as] = pred
     if rank != 0:
-        (pred,) = predictors.values()
-        print(f"predictor rank {rank} following rank 0", flush=True)
-        pred.follow()
-        return 0
+        return _follow_all(rank, predictors)
     model_pool = None
     if args.weight_budget_mb > 0:
         model_pool = wire_model_pool(predictors,
@@ -1015,7 +1086,37 @@ def main(argv=None) -> int:
     thread.join()
     if gang:
         for pred in predictors.values():
-            pred.engine.shutdown()      # the followers' stop record
+            engine = getattr(pred, "engine", None)
+            if engine is not None:
+                engine.shutdown()       # a gang model's followers' stop
+    return 0
+
+
+def _follow_all(rank: int, predictors: dict) -> int:
+    """A follower rank's serving: every gang model followed in a thread
+    of its own until rank 0's stop record; the first follow that raises
+    (a divergence, a failed command, a broken gang) ends this process,
+    which breaks the gang for rank 0."""
+    import queue
+
+    print(f"predictor rank {rank} following rank 0: {sorted(predictors)}",
+          flush=True)
+    ended: queue.Queue = queue.Queue()
+
+    def follow(pred) -> None:
+        try:
+            pred.follow()
+            ended.put(None)
+        except BaseException as e:  # noqa: BLE001 - handed to the main thread
+            ended.put(e)
+
+    for name, pred in predictors.items():
+        threading.Thread(target=follow, args=(pred,), daemon=True,
+                         name=f"follow-{name}").start()
+    for _ in predictors:
+        err = ended.get()
+        if err is not None:
+            raise err
     return 0
 
 

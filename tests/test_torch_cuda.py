@@ -1192,7 +1192,8 @@ def recorded(q, k, v, *args, **kwargs):
 
 
 attention.flash_attention = recorded
-pred = GenerativePredictor("llama", size="tiny", max_batch=2, max_seq=64,
+# the widths are all in the config ("tiny" fixes its own)
+pred = GenerativePredictor("llama", size="7b", max_batch=2, max_seq=64,
                            model_config=spec["config"], tp=spec["tp"])
 before = fa.flash_attention.launches
 out = {"rank": rank}
@@ -1220,8 +1221,9 @@ def test_tp2_predictor_gang_on_one_card_serves_what_one_process_serves(
 
     _build.build_all()         # once, before the ranks load it
     spec = {"config": {"dtype": "float32", "use_flash": True,
-                       "hidden_size": 256, "num_heads": 4,
-                       "num_kv_heads": 2},
+                       "vocab_size": 512, "hidden_size": 256,
+                       "num_layers": 2, "num_heads": 4, "num_kv_heads": 2,
+                       "intermediate_size": 512, "max_seq_len": 128},
             "prompts": [[5, 8, 13, 21], [2, 7]]}
     runs = {tp: pd.spawn_local_gang(
         TP_PREDICTOR, tp, timeout=300.0,
@@ -1235,3 +1237,90 @@ def test_tp2_predictor_gang_on_one_card_serves_what_one_process_serves(
         assert o["launches"] == 2 * layers, o
         assert all(q[2] == 2 and k[2] == 1 for q, k in o["calls"]), o
     assert one["launches"] == 2 * layers
+
+
+TP_PARK_WARM = r"""
+import hashlib, json, os, torch
+from kubeflow_tpu_torch.ops import flash_attention as fa
+from kubeflow_tpu_torch.parallel import distributed as pd
+from kubeflow_tpu_torch.serving.predictor import GenerativePredictor
+
+pd.initialize_from_env()                             # the card, not the CPU
+spec = json.loads(os.environ["GANG_SPEC"])
+rank = pd.rank_of(pd.default_group())
+# the widths are all in the config ("tiny" fixes its own)
+pred = GenerativePredictor("llama", size="7b", max_batch=2, max_seq=64,
+                           model_config=spec["config"], tp=2,
+                           quantize=spec["quantize"])
+
+
+def blocks():
+    # this rank's blocks, int8 q and scale included, and device memory
+    torch.cuda.synchronize()
+    return [torch.cuda.memory_allocated(), {
+        n: hashlib.sha256(t.contiguous().view(torch.uint8).cpu().numpy()
+                          .tobytes()).hexdigest()
+        for n, t in (*pred.module.named_parameters(),
+                     *pred.module.named_buffers()) if not t.is_meta}]
+
+
+states = [[None, *blocks()]]
+residency = pred.engine.residency_fn
+
+
+def applied(kind):
+    # the memory just before the command, beside what follows it
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    out = residency(kind)
+    states.append([before, *blocks()])
+    return out
+
+
+pred.engine.residency_fn = applied
+before = fa.flash_attention.launches
+out = {"rank": rank, "block_bytes": pred.rank_weight_bytes}
+if rank == 0:
+    out["before"] = pred.generate(spec["prompts"], max_new_tokens=8)["ids"]
+    out["park"] = pred.park()
+    out["warm"] = pred.warm()
+    out["after"] = pred.generate(spec["prompts"], max_new_tokens=8)["ids"]
+    pred.engine.shutdown()
+else:
+    pred.follow()
+out["launches"] = fa.flash_attention.launches - before
+out["states"] = states
+print(json.dumps(out))
+"""
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quantize", [False, True], ids=["f32", "int8"])
+def test_tp2_gang_park_and_warm_on_one_card(cuda_device, quantize):
+    """``park`` and ``warm`` on rank 0 of a 2-rank gloo gang on cuda:0 (a
+    tiny Llama at hidden 256, float32, seeded, and its int8 weights): both
+    ranks drop their blocks at the park (the device memory falls by at
+    least 90% of them) and load them back bitwise at the warm, the
+    streams before the park and after the warm are equal, and every
+    prefill ran K1."""
+    from kubeflow_tpu_torch.ops import _build
+    from kubeflow_tpu_torch.parallel import distributed as pd
+
+    _build.build_all()         # once, before the ranks load it
+    spec = {"config": {"dtype": "float32", "use_flash": True,
+                       "vocab_size": 512, "hidden_size": 256,
+                       "num_layers": 2, "num_heads": 4, "num_kv_heads": 2,
+                       "intermediate_size": 512, "max_seq_len": 128},
+            "prompts": [[5, 8, 13, 21], [2, 7]], "quantize": quantize}
+    gang = pd.spawn_local_gang(TP_PARK_WARM, 2, timeout=300.0,
+                               extra_env={"GANG_SPEC": json.dumps(spec)})
+    lead = gang[0]
+    assert lead["before"] == lead["after"]
+    assert lead["park"] == lead["warm"] > 0
+    for o in gang:
+        (_, _, built), (mem0, mem1, parked), (_, _, warmed) = o["states"]
+        assert parked == {} and warmed == built and len(built) > 0
+        assert mem0 - mem1 >= 0.9 * o["block_bytes"], (o["rank"], mem0,
+                                                       mem1)
+        # two requests of two prompts each, one chunk, every layer
+        assert o["launches"] == 2 * 2 * 2, o

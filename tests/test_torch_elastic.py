@@ -368,3 +368,33 @@ def test_a_rank_killed_mid_run_makes_the_survivor_raise(tmp_path):
     assert procs[1].returncode == 17                 # the injected kill
     assert procs[0].returncode not in (0, None), errs[0][-2000:]
     assert time.monotonic() - t0 < 60.0              # raised, not waited
+
+
+# a worker that fails as a rendezvous whose coordinator port was taken,
+# on its gang's first spawn only (the count is a file per rank)
+TAKEN_PORT = r"""
+import json, os, sys
+mark = os.path.join(os.environ["SPAWN_DIR"],
+                    "rank" + os.environ["JAXJOB_PROCESS_ID"])
+first = not os.path.exists(mark)
+open(mark, "a").write(os.environ["JAXJOB_COORDINATOR"] + "\n")
+if first and os.environ["JAXJOB_PROCESS_ID"] == "0":
+    sys.exit("DistNetworkError: The server socket has failed to listen on "
+             "any local network address. code: -98, name: EADDRINUSE")
+print(json.dumps({"rank": int(os.environ["JAXJOB_PROCESS_ID"])}))
+"""
+
+
+def test_a_gang_whose_coordinator_port_was_taken_is_spawned_again(
+        tmp_path):
+    outs = pd.spawn_local_gang(TAKEN_PORT, 2, timeout=60.0,
+                               extra_env={"SPAWN_DIR": str(tmp_path)})
+    assert outs == [{"rank": 0}, {"rank": 1}]
+    # rank 0 ran twice, on two coordinators; a given port is not retried
+    tried = (tmp_path / "rank0").read_text().split()
+    assert len(tried) == 2 and tried[0] != tried[1]
+    (tmp_path / "rank0").unlink()
+    with pytest.raises(RuntimeError, match="EADDRINUSE"):
+        pd.spawn_local_gang(TAKEN_PORT, 2, port=pd.free_port(),
+                            timeout=60.0,
+                            extra_env={"SPAWN_DIR": str(tmp_path)})

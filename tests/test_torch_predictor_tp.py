@@ -197,6 +197,11 @@ def test_gang_only_refusals(setup, what):
         assert "rank 1 of a serving gang takes no requests" in \
             follow["refused"]["submit"]
         return
+    if what == "park":
+        # park is served on a gang now (test_torch_predictor_residency.py);
+        # the handoff resume is still refused
+        assert lead["refused"]["park"] is None
+        what = "handoff"
     kind, message = lead["refused"][what]
     assert kind == "NotImplementedError" and "item 7c" in message
 
@@ -235,9 +240,9 @@ def test_cli_serves_generate_from_rank_zero_of_a_gang():
 
 @pytest.mark.parametrize("n_ids", [3, 5000])
 def test_step_record_round_trip_and_overflow(monkeypatch, n_ids):
-    """A step record crosses to a follower whole: one broadcast of
-    ``RECORD_WORDS`` words, and a second of the exact length when new
-    prompts overflow it (a 5000-token prompt)."""
+    """A step record crosses to a follower whole, its residency commands
+    included: one broadcast of ``RECORD_WORDS`` words, and a second of the
+    exact length when new prompts overflow it (a 5000-token prompt)."""
     from kubeflow_tpu_torch.serving import lockstep
 
     rec = lockstep.StepRecord(
@@ -246,10 +251,11 @@ def test_step_record_round_trip_and_overflow(monkeypatch, n_ids):
         new=[lockstep.NewRequest(10, list(range(1, n_ids + 1)), 7, 0.8,
                                  None, 1234, 5, 0.9, True, "team-ä"),
              lockstep.NewRequest(11, [2, 3], 1, 0.0, 2, 0, 0, 0.0, False,
-                                 "anonymous")])
+                                 "anonymous")],
+        commands=[("park", 7), ("warm", 0), ("reclaim", 1575)])
     sent = []
 
-    def leader_broadcast(buf):
+    def leader_broadcast(buf, group=None):
         sent.append(buf.clone())
         return buf
 
@@ -261,5 +267,5 @@ def test_step_record_round_trip_and_overflow(monkeypatch, n_ids):
     assert [t.shape[0] for t in sent][0] == lockstep.RECORD_WORDS
     received = iter(sent)
     monkeypatch.setattr(lockstep.pd, "broadcast_one_to_all",
-                        lambda buf: next(received))
+                        lambda buf, group=None: next(received))
     assert lockstep.exchange(None) == rec

@@ -344,11 +344,18 @@ def test_main_refuses_unported_model_options():
     with pytest.raises(SystemExit, match="checkpoint_dir"):
         tpred.main(["--model", "llama:checkpoint_dir=/ckpt", "--device",
                     "cpu"])
-    # tp / ep serve from a gang (test_torch_predictor_tp.py); what a gang
-    # does not port yet is refused by name before anything is built
-    with pytest.raises(SystemExit, match="tp=2 x ep=1 .*item 7c"):
-        tpred.main(["--model", "llama:tp=2", "--weight-budget-mb", "64",
-                    "--device", "cpu"])
-    with pytest.raises(SystemExit, match="parked=true under tp=1 x ep=2"):
+    # tp / ep serve from a gang (test_torch_predictor_tp.py), under a
+    # weight budget and parked=true too (test_torch_predictor_pool_gang.py);
+    # what a gang does not port yet is refused by name before anything is
+    # built: the disaggregated roles
+    with pytest.raises(SystemExit, match="role=prefill under tp=2 x ep=1 "
+                                         ".*item 7c"):
+        tpred.main(["--model", "llama:tp=2,role=prefill",
+                    "--weight-budget-mb", "64", "--device", "cpu"])
+    with pytest.raises(SystemExit, match="role=decode under tp=1 x ep=2"):
         tpred.main(["--model", "llama:moe_experts=8,ep=2,parked=true",
+                    "--role", "decode", "--device", "cpu"])
+    # two specs that would serve under one name
+    with pytest.raises(SystemExit):
+        tpred.main(["--model", "llama:tp=2", "--model", "llama:ep=2",
                     "--device", "cpu"])

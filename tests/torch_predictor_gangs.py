@@ -126,6 +126,7 @@ def serve(label, traffic=None, state="dense", **kw):
         rec["stats"] = e.stats()
         rec["refused"] = {
             "park": refused(pred.park),
+            "handoff": refused(lambda: e.submit_handoff(None)),
             "pages": refused(lambda: pred.export_pages([1, 2])),
             "restart": refused(e.restart)}
         e.shutdown()
