@@ -212,7 +212,9 @@ any failure exits nonzero and prints no result:
    limit); with b
    resident and idle and most of a's pages held, a request to a relieves
    b, whose bytes become ``DONATED_PAGES`` page slots, with no prefix
-   eviction; b's next load reclaims only free donated slots.  The
+   eviction; b's next load (``ModelPool.acquire``: a, idle, parks)
+   reclaims only free donated slots (the one-token request it served
+   was cut).  The
    one-token full prefix hit to a holds every K1 call against the
    plain version and its token against phase 2's stream.  (e)
    ``:predict`` for ``mnist_mlp`` over HTTP (logits within 1e-4 of the
@@ -373,7 +375,22 @@ any failure exits nonzero and prints no result:
    within ``P22_REL_TOL``.  Per layout and rank: load seconds, TTFT per
    request, decode tokens/s, the step records' broadcasts and
    milliseconds per step, one decode step's collectives, weight and KV
-   bytes.
+   bytes.  (c) Residency: a dense tp = 2 and a MoE ep = 2 model under one
+   weight budget (park, warm, page pressure, reclaim on both ranks).  (d)
+   Disaggregation in the gang of 2: the 2-layer model as a prefill-role
+   and a decode-role tp = 2 predictor; phase 2's four prompts prefilled
+   (K1 at 16 heads) and handed across (the prefill gang gathers each
+   handoff's heads to rank 0 inside the step, the body crosses as JSON to
+   the decode gang's ``:resume``, whose rank 0 broadcasts the pages in
+   its next step record), then one prompt with no decode peer, resumed on
+   the prefill gang: every stream equals the 2-layer tp = 2 layout's, each
+   body's pages are bitwise one process's under ``tp2_partial_sums``,
+   both ranks' pools equal and empty at the end; per request the gather's
+   ms and bytes, ``serialize_handoff`` ms and the body's bytes, the
+   POST's wall ms, the decode leader's deserialize ms and page broadcast
+   ms and bytes, the step records.  And the MoE in int8 at ep = 2 through
+   one request: its stream and first-token logits bitwise one process's
+   int8 MoE, each rank's int8 expert blocks bitwise its slice.
 
 The line before the last is the ``kernels`` JSON object (``name<256>``:
 the D = 256 instantiations on phases 15 and 16); the last line is
@@ -2789,6 +2806,18 @@ P22_RES_CACHE_MB = 64
 P22_RES_A = (0, 2)                  # indices into PROMPT_LENS: 17, 700
 # each rank's memory falls at a park by at least this share of its blocks
 P22_RES_PARK_SHARE = 0.9
+# (d) disaggregated prefill and decode in the gang of 2: the 2-layer dense
+# model as a prefill-role and a decode-role tp=2 predictor (a group each);
+# phase 2's four prompts prefilled on the prefill gang and handed to the
+# decode gang through the prefill's handoff_post seam (rank 0 to rank 0,
+# the body's JSON round trip standing for the POST), then one prompt with
+# no decode peer (it resumes on the prefill gang).  A service that puts a
+# sharded model's prefill and decode on cards of their own.  And the MoE
+# in int8 at ep=2 through one colocated request of P22_MOE_LENS[0]
+# tokens, against one process's int8 MoE (its expert blocks cut in
+# P22_INT8_EP)
+P22_NO_PEER = 0                                # index into PROMPT_LENS
+P22_INT8_EP = 2
 
 
 def p22_chunks(layout: str) -> list[tuple[int, int]]:
@@ -3132,6 +3161,7 @@ if "22" in spec:
     import chip_smoke as smoke
     out["22"] = [job(lambda run=run: (0, (
         smoke.residency_run if run.get("residency")
+        else smoke.disagg_run if run.get("disagg")
         else smoke.predictor_run)(fa, run, comm))) for run in spec["22"]]
     times["22"] = time.time() - T0
 print(json.dumps({
@@ -4279,7 +4309,10 @@ def predictor_run(fa, run: dict, comm: dict | None = None) -> dict:
     returns the streams (every request the rank's engine ran, in arrival
     order), launches, K1 calls, TTFTs, decode rate, the step records'
     broadcasts and one decode step's collectives, load time, memory and
-    the cache's heads."""
+    the cache's heads.  ``run["quantize"]`` serves int8 weights, and
+    ``run["digests"]`` returns their expert blocks' digests
+    (``int8_expert_digests``); ``run["pages_out"]`` saves each cold
+    prompt's committed pages (every KV head, by prompt length) there."""
     from kubeflow_tpu_torch.parallel import distributed as pd
     from kubeflow_tpu_torch.serving import engine as eng
     from kubeflow_tpu_torch.serving.httpserve import serve
@@ -4298,7 +4331,8 @@ def predictor_run(fa, run: dict, comm: dict | None = None) -> dict:
     pred = GenerativePredictor(
         "llama", size="7b", tp=run["tp"], ep=run["ep"], max_seq=MAX_SEQ,
         prefill_chunk=PREFILL_CHUNK, max_batch=4, seed=0,
-        prefix_cache_mb=run["cache_mb"], model_config=config)
+        prefix_cache_mb=run["cache_mb"], model_config=config,
+        quantize=run.get("quantize", False))
     torch.cuda.synchronize()
     load_s = time.perf_counter() - t0
     loaded = torch.cuda.memory_allocated() - base
@@ -4328,6 +4362,20 @@ def predictor_run(fa, run: dict, comm: dict | None = None) -> dict:
 
     e._enqueue_locked, eng.sample_rows = enqueued, sampled
     pred.module.forward = entered
+    pages, commit = {}, e._commit_and_insert
+
+    def committed(ids, usable, node, scratch, for_handoff=False):
+        got = commit(ids, usable, node, scratch, for_handoff)
+        if node is None and len(ids) not in pages:
+            # a cold prompt's pages: the scratch rows they were cut from
+            end = -(-len(ids) // e.page_size) * e.page_size
+            pages[len(ids)] = [{n: l[n][0, :end].reshape(
+                (-1, e.page_size) + tuple(l[n].shape[2:])).to(
+                    "cpu", copy=True) for n in ("k", "v")} for l in scratch]
+        return got
+
+    if run.get("pages_out"):
+        e._commit_and_insert = committed
     emulate = (tp2_partial_sums(pred.module, columns=True)
                if run.get("emulate") else contextlib.nullcontext())
     records0 = dict(e.record_tally)
@@ -4373,7 +4421,10 @@ def predictor_run(fa, run: dict, comm: dict | None = None) -> dict:
         launches = counters(fa)                           # it ended
     e._enqueue_locked, eng.sample_rows = enqueue, sample
     pred.module.forward = forward
+    e._commit_and_insert = commit
     torch.save(logits, run["out"].format(rank=rank))
+    if run.get("pages_out"):
+        torch.save(pages, run["pages_out"])
     # one decode step's collectives: between the second and third forwards
     # of 4 rows by one token (the first decode chunk)
     steps = [(t, c) for shape, t, c in stamps if shape == (4, 1)]
@@ -4401,6 +4452,8 @@ def predictor_run(fa, run: dict, comm: dict | None = None) -> dict:
                          e.pool.kv["layers"][0]["k"].shape[0]),
            "kv_pool": stats["kv_pool"], "step_comm": step_comm,
            "peak_gb": (torch.cuda.max_memory_allocated() - base) / 1e9}
+    if run.get("digests"):
+        out["int8_digests"] = int8_expert_digests(pred.module)
     del pred, e, kv
     free_memory()
     return out
@@ -4592,6 +4645,150 @@ def residency_run(fa, run: dict, comm: dict | None = None) -> dict:
     return out
 
 
+def int8_expert_digests(module) -> dict[str, list[str]]:
+    """SHA-256 of every int8 expert weight's ``q`` and ``scale`` by ep
+    block (``"<name> ep <i>"``): a whole (one-process) model's
+    ``P22_INT8_EP`` slices along the experts dim, a gang rank's own
+    block.  The blocks hash in threads (the copy to the host and
+    ``hashlib`` release the GIL)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from kubeflow_tpu_torch.serving.quant import QTensor
+
+    blocks = {}
+    for name, qt in module.named_modules():
+        if not (isinstance(qt, QTensor)
+                and name.endswith(("moe.w_in", "moe.w_out"))):
+            continue
+        split = qt.ep_split
+        if split is not None:
+            blocks[f"{name} ep {split.index}"] = [qt.q, qt.scale]
+            continue
+        n = qt.q.shape[0] // P22_INT8_EP
+        for i in range(P22_INT8_EP):
+            blocks[f"{name} ep {i}"] = [qt.q[i * n:(i + 1) * n],
+                                        qt.scale[i * n:(i + 1) * n]]
+    with ThreadPoolExecutor(4) as pool:
+        hashed = {k: [pool.submit(sha256_of, t) for t in ts]
+                  for k, ts in blocks.items()}
+    return {k: [f.result() for f in fs] for k, fs in hashed.items()}
+
+
+def disagg_run(fa, run: dict, comm: dict | None = None) -> dict:
+    """Phase 22(d) on one rank of the gang of 2: the 2-layer dense model
+    as a decode-role and a prefill-role tp=2 predictor, built in that
+    order on every rank.  Rank 0 sends ``run["prompts"]`` to the prefill
+    gang with a decode peer: each handoff's body crosses the prefill's
+    ``handoff_post`` seam (a JSON round trip, then the decode predictor's
+    ``:resume``); then ``run["no_peer"]`` without one.  The follower
+    follows both models, a thread each.  Returns each handoff's hops on
+    rank 0 (the gather's seconds and bytes, ``serialize_handoff``'s
+    seconds, the body's JSON bytes, the POST's wall seconds, the decode
+    leader's deserialize seconds and its page broadcast's seconds and
+    bytes), the streams, K1's launches and calls, both engines' step
+    records and page pools at the end; rank 0 saves every body's pages
+    (decoded, every KV head, by prompt length) to ``run["pages_out"]``."""
+    from kubeflow_tpu_torch.parallel import distributed as pd
+    from kubeflow_tpu_torch.serving import disagg
+    from kubeflow_tpu_torch.serving.page_pool import NULL_PAGE
+    from kubeflow_tpu_torch.serving.predictor import GenerativePredictor
+
+    rank = pd.rank_of(pd.default_group())
+    free_memory()
+    bodies, hops, states = {}, {}, []
+
+    def build(role, **kw):
+        return GenerativePredictor(
+            "llama", size="7b", tp=2, max_seq=MAX_SEQ,
+            prefill_chunk=PREFILL_CHUNK, max_batch=4, seed=0, role=role,
+            model_config={"num_layers": run["layers"]}, **kw)
+
+    def post(addr, path, payload, timeout=300.0):
+        # the POST: the body through JSON, to the decode gang's :resume
+        t0 = time.perf_counter()
+        raw = json.dumps(payload)
+        body = json.loads(raw)
+        got = dec.resume(body)
+        n = len(body["ids"])
+        bodies[n] = body["pages"]
+        hops[n] = {"body_bytes": len(raw),
+                   "resume_s": time.perf_counter() - t0,
+                   **{k: got[k] for k in ("deserialize_s", "broadcast_s",
+                                          "broadcast_bytes")}}
+        return got
+
+    t0 = time.perf_counter()
+    dec = build("decode")
+    pre = build("prefill", handoff_post=post)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    capture = pre.engine.handoff_fn
+
+    def captured(req, state):
+        states.append(state)
+        capture(req, state)
+
+    pre.engine.handoff_fn = captured
+    calls: list = []
+    out: dict = {"rank": rank, "load_s": load_s}
+    with flash_route(recording_flash(fa, calls)):
+        set_counters(fa, dict.fromkeys(KERNEL_NAMES, 0))  # the path starts
+        t1 = time.perf_counter()
+        if rank == 0:
+            try:
+                out["streams"] = pre.generate(
+                    run["prompts"], max_new_tokens=NEW_TOKENS,
+                    decode_peer="decode:0")["ids"]
+                out["no_peer"] = pre.generate(
+                    [run["no_peer"]], max_new_tokens=NEW_TOKENS)["ids"][0]
+                out["stats"] = {"prefill": pre.engine.stats(),
+                                "decode": dec.engine.stats()}
+            finally:
+                for p in (pre, dec):
+                    p.engine.shutdown()
+        else:
+            errors: list = []
+
+            def follow(p):
+                try:
+                    p.follow()
+                except Exception as err:  # noqa: BLE001 - reported
+                    errors.append(f"{p.role}: {type(err).__name__}: {err}")
+
+            threads = [threading.Thread(target=follow, args=(p,))
+                       for p in (pre, dec)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            out["errors"] = errors
+        torch.cuda.synchronize()
+        out["wall_s"] = time.perf_counter() - t1
+        out["launches"] = counters(fa)                    # it ended
+    out["calls"] = [list(c) for c in calls]
+    # the forwarded handoffs, in prompt order, then the one resumed here
+    out["hops"] = [{"prompt": len(st.ids), **st.timing,
+                    **(hops.get(len(st.ids), {}) if i < len(run["prompts"])
+                       else {})} for i, st in enumerate(states)]
+    pools = {}
+    for label, p in (("prefill", pre), ("decode", dec)):
+        stats = p.engine.pool.stats()
+        stats.pop("fault_wait_seconds")
+        pools[label] = {"stats": stats, "held": len(p.engine._held),
+                        "used": [i for i, r in enumerate(p.engine.pool._refs)
+                                 if r > 0 and i != NULL_PAGE]}
+    out.update(pools=pools, tally={"prefill": dict(pre.engine.record_tally),
+                                   "decode": dict(dec.engine.record_tally)})
+    if rank == 0:
+        torch.save({n: [{name: torch.stack([disagg._decode_array(
+            page[li][name]) for page in pages]) for name in pages[0][li]}
+            for li in range(len(pages[0]))] for n, pages in bodies.items()},
+            run["pages_out"])
+    del pre, dec, states, bodies
+    free_memory()
+    return out
+
+
 def whole_weight_bytes(config: dict) -> int:
     """Bytes of one process's bf16 weights of the 7B Llama of
     ``config`` (a storage-less build)."""
@@ -4631,11 +4828,18 @@ def p22_prepare(fa, home: Path, phase2: dict) -> tuple[dict, list]:
                 "out": str(home / f"p22_{slug}_rank{{rank}}.pt"), **kw}
 
     runs = {label: run(label, *rest) for label, *rest in P22_LAYOUTS}
+    # (d)'s int8 MoE: one request, at ep=2 in the gang and here
+    int8 = dict(quantize=True, digests=True, prompts=moe[:1], warm=False)
+    runs["MoE int8 ep=2"] = run("MoE int8 ep=2", 1, 2, MH_SHALLOW_LAYERS,
+                                True, False, **int8)
     one = {}
     for label, is_moe, kw in (
             ("2-layer one process (tp2_partial_sums)", False,
-             {"emulate": True}), ("2-layer one process", False, {}),
-            ("MoE one process", True, {})):
+             {"emulate": True,
+              "pages_out": str(home / "p22_one_pages.pt")}),
+            ("2-layer one process", False, {}),
+            ("MoE one process", True, {}),
+            ("MoE int8 one process", True, int8)):
         runs[label] = run(label, 1, 1, MH_SHALLOW_LAYERS, is_moe, False,
                           **kw)
         one[label] = predictor_run(fa, runs[label])
@@ -4654,10 +4858,13 @@ def p22_prepare(fa, home: Path, phase2: dict) -> tuple[dict, list]:
     log(f"phase 22(c): a {sizes[0]} B, b {sizes[1]} B of weights (whole "
         f"models), weight budget {residency['budget']} B "
         f"({residency['budget'] / (1 << 20):.1f} MB)")
+    disagg = {"disagg": True, "layers": MH_SHALLOW_LAYERS, "prompts": dense,
+              "no_peer": dense[P22_NO_PEER],
+              "pages_out": str(home / "p22_disagg_pages.pt")}
     return ({"runs": runs, "one": one, "residency": residency,
-             "fours": [runs["MoE tp=2 x ep=2"]]},
+             "disagg": disagg, "fours": [runs["MoE tp=2 x ep=2"]]},
             [runs[label] for label in ("tp=2", "2-layer tp=2", "MoE ep=2")]
-            + [residency])
+            + [residency, runs["MoE int8 ep=2"], disagg])
 
 
 def p22_log(label: str, ranks: list[dict]) -> None:
@@ -4820,6 +5027,8 @@ def p22_finish(prep: dict, twos: list[list], fours: list[list]) -> dict:
             "ttft_s": lead["ttft_s"], "records": lead["records"]}
     out["residency"] = p22_residency_finish(
         prep["residency"], [r[3] for r in twos], out)
+    out["int8"] = p22_int8_finish(prep, [r[4] for r in twos])
+    out["disagg"] = p22_disagg_finish(prep, [r[5] for r in twos], out)
     return out
 
 
@@ -4948,6 +5157,153 @@ def p22_residency_finish(run: dict, jobs: list[dict], p22: dict) -> dict:
             "wall_s": max(r["wall_s"] for r in ranks)}
 
 
+def p22_int8_finish(prep: dict, jobs: list[dict]) -> dict:
+    """Phase 22(d)'s int8 MoE at ep=2: every rank's stream identical and
+    bitwise one process's int8 MoE stream (tokens and first-token
+    logits), each rank's int8 ``q`` and ``scale`` expert blocks bitwise
+    its slice of one process's (SHA-256), K1 once per layer and chunk."""
+    label = "MoE int8 ep=2"
+    for j in jobs:
+        check(j["rc"] == 0, (label, j["rc"]))
+    ranks = [j["extra"] for j in jobs]
+    p22_log(label, ranks)
+    runs, one = prep["runs"], prep["one"]["MoE int8 one process"]
+    lead = ranks[0]
+    check(all(r["streams"] == lead["streams"] for r in ranks),
+          f"phase 22 {label}: ranks' streams differ")
+    same = ([s[1:] for s in lead["streams"]]
+            == [s[1:] for s in one["streams"]])
+    got = torch.load(runs[label]["out"].format(rank=0), weights_only=True)
+    want = torch.load(runs["MoE int8 one process"]["out"].format(rank=0),
+                      weights_only=True)
+    exact = got.keys() == want.keys() and all(
+        torch.equal(got[n], want[n]) for n in want)
+    blocks = {}
+    for r in ranks:
+        for name, digests in r["int8_digests"].items():
+            blocks[name] = blocks.get(name, 0) + (
+                one["int8_digests"].get(name) == digests)
+    n_blocks = len(one["int8_digests"])
+    layers, n = MH_SHALLOW_LAYERS, len(runs[label]["prompts"][0])
+    log(f"phase 22(d) {label}: stream {'equals' if same else 'DIFFERS FROM'}"
+        f" one process's int8 MoE stream; first-token logits "
+        f"{'bitwise' if exact else 'NOT bitwise'}; {sum(blocks.values())} "
+        f"of {n_blocks} int8 expert blocks (q and scale) bitwise one "
+        f"process's slice, held by {len(ranks)} ranks")
+    check(same and exact, (label, same, exact))
+    check(len(blocks) == n_blocks and all(v == 1 for v in blocks.values()),
+          (label, "int8 blocks", blocks))
+    h, hkv, d = P22_HEADS
+    want = [[1, sq, sk, h, hkv, d, True] for sq, sk in chunk_shapes(n)]
+    for r in ranks:
+        check(r["launches"]["flash_fwd"] == layers * len(chunk_shapes(n))
+              and [list(c) for c in r["calls"]] == want,
+              (label, r["rank"], r["launches"], r["calls"], want))
+    return {"ranks": ranks, "launches": sum(
+        r["launches"]["flash_fwd"] for r in ranks)}
+
+
+def p22_disagg_finish(prep: dict, jobs: list[dict], p22: dict) -> dict:
+    """Phase 22(d)'s checks: every handed-off stream, and the one resumed
+    on the prefill gang, equal the 2-layer tp=2 layout's colocated
+    stream of the same prompt; each body's pages are bitwise the pages
+    one process under ``tp2_partial_sums(columns=True)`` committed for
+    the prompt; K1 once per layer and prefill chunk at the rank's heads;
+    both ranks' page pools equal and empty at the end, no handoff held;
+    every rank gathered each handoff and took each page broadcast."""
+    run = prep["disagg"]
+    for j in jobs:
+        check(j["rc"] == 0, ("disagg", j["rc"]))
+    ranks = [j["extra"] for j in jobs]
+    lead = ranks[0]
+    for r in ranks[1:]:
+        check(r["errors"] == [], ("disagg follower", r["errors"]))
+    dense = p22_keyed(p22["2-layer tp=2"]["ranks"][0]["streams"])
+    want = [dense[(len(p), 0)][0] for p in run["prompts"]]
+    same = sum(g == w for g, w in zip(lead["streams"], want))
+    no_peer = lead["no_peer"] == dense[(len(run["no_peer"]), 0)][0]
+    mine = torch.load(run["pages_out"], weights_only=True)
+    ref = torch.load(prep["runs"]["2-layer one process (tp2_partial_sums)"][
+        "pages_out"], weights_only=True)
+    exact, worst = 0, 0.0
+    for n, layers in ref.items():
+        got = mine.get(n)
+        ok = got is not None and all(
+            torch.equal(g[name], w[name]) for g, w in zip(got, layers)
+            for name in w)
+        exact += ok
+        if got is not None and not ok:
+            worst = max(worst, max((g[name].float() - w[name].float()).abs()
+                                   .max().item() for g, w in zip(got, layers)
+                                   for name in w))
+    for h in lead["hops"]:
+        fwd = "post_s" in h
+        log(f"phase 22(d) {h['prompt']} tokens: gather "
+            f"{h['gather_s'] * 1e3:.2f} ms of {h['gather_bytes']} B into the "
+            f"prefill leader's host memory" + (
+                f"; serialize_handoff {h['serialize_s'] * 1e3:.1f} ms, body "
+                f"{h['body_bytes']} B of JSON; POST wall "
+                f"{h['post_s'] * 1e3:.1f} ms (the decode leader's deserialize "
+                f"{h['deserialize_s'] * 1e3:.1f} ms, page broadcast "
+                f"{h['broadcast_s'] * 1e3:.2f} ms of {h['broadcast_bytes']} B, "
+                f"its :resume {h['resume_s'] * 1e3:.1f} ms)" if fwd
+                else "; no decode peer: resumed on the prefill gang"))
+    for r in ranks:
+        log(f"phase 22(d) rank {r['rank']}: step records " + ", ".join(
+            f"{k} {t.get('records', 0)} ({t.get('calls', 0)} broadcasts, "
+            f"{t.get('seconds', 0.0) * 1e3:.1f} ms; gathers "
+            f"{t.get('gather_calls', 0)}, {t.get('gather_seconds', 0.0) * 1e3:.1f}"
+            f" ms; page broadcasts {t.get('page_calls', 0)}, "
+            f"{t.get('page_seconds', 0.0) * 1e3:.1f} ms, "
+            f"{t.get('page_bytes', 0)} B)" for k, t in r["tally"].items())
+            + f"; K1 {r['launches']['flash_fwd']} launches; pools at the end "
+            + ", ".join(f"{k} in use {p['stats']['in_use']} of "
+                        f"{p['stats']['pages']}, held {p['held']}"
+                        for k, p in r["pools"].items())
+            + f"; wall {r['wall_s']:.2f} s")
+    log(f"phase 22(d): {same} of {len(want)} handed-off streams and the "
+        f"no-peer one ({no_peer}) equal the 2-layer tp=2 layout's; {exact} "
+        f"of {len(ref)} bodies' pages bitwise one process's under "
+        f"tp2_partial_sums" + (f" (max |d| {worst:.4e})" if worst else "")
+        + f"; {card_line()}")
+    check(same == len(want) and no_peer, ("disagg streams", same, no_peer))
+    check(exact == len(ref) == len(run["prompts"]), ("disagg pages", exact))
+    layers = run["layers"]
+    want_k1 = layers * (len(prefill_shapes())
+                        + len(chunk_shapes(len(run["no_peer"]))))
+    h, hkv, d = P22_HEADS
+    allowed = {(1, sq, sk, h // 2, hkv // 2, d, True)
+               for sq, sk in p22_chunks("2-layer tp=2")}
+    n_hops = len(run["prompts"]) + 1
+    for r in ranks:
+        check(r["launches"] == {"flash_fwd": want_k1, "flash_bwd_dq": 0,
+                                "flash_bwd_dkv": 0}
+              and {tuple(c) for c in r["calls"]} <= allowed,
+              ("disagg K1", r["rank"], r["launches"], want_k1))
+        check(r["tally"]["prefill"].get("gather_calls") == n_hops
+              and r["tally"]["decode"].get("page_calls")
+              == len(run["prompts"]), ("disagg hops", r["tally"]))
+        for k, p in r["pools"].items():
+            check(p["used"] == [] and p["held"] == 0
+                  and p["stats"] == lead["pools"][k]["stats"],
+                  ("disagg pool", r["rank"], k, p))
+        for k in ("prefill", "decode"):
+            check(r["tally"][k]["records"] == lead["tally"][k]["records"],
+                  ("disagg records", k))
+    return {"ranks": ranks, "hops": lead["hops"],
+            "launches": sum(r["launches"]["flash_fwd"] for r in ranks),
+            "wall_s": max(r["wall_s"] for r in ranks)}
+
+
+def p22_call_counts(part: dict) -> dict[tuple, int]:
+    """Every rank's recorded K1 calls of a phase 22 part, by shape."""
+    counts: dict[tuple, int] = {}
+    for r in part["ranks"]:
+        for call in r["calls"]:
+            counts[tuple(call)] = counts.get(tuple(call), 0) + 1
+    return counts
+
+
 def p22_numbers(fa, p22: dict) -> list[dict]:
     """K1 rows of phase 22: each layout's distinct shapes with their
     launches over its ranks, each shape timed once (``k1_times``)."""
@@ -4967,23 +5323,26 @@ def p22_numbers(fa, p22: dict) -> list[dict]:
                 f"{row['bound_ms']:.4f} ms ({row['bound_by']}), plain "
                 f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms")
             rows.append(row)
-    # (c): every rank's K1 calls, by shape
-    counts: dict[tuple, int] = {}
-    for r in p22["residency"]["ranks"]:
-        for call in r["calls"]:
-            counts[tuple(call)] = counts.get(tuple(call), 0) + 1
-    for key, n in sorted(counts.items()):
-        _, sq, sk, h, *_ = key
-        name = f"7b_predictor_residency_{sq}x{sk}_h{h}"
-        ms, plain_ms, library_ms = k1_times(fa, *key)
-        row = {"shape": name, "launches": n, "ms": ms, "plain_ms": plain_ms,
-               "library_ms": library_ms,
-               **bound_fields("flash_fwd", key, torch.bfloat16)}
-        log(f"flash_fwd {name} bf16 (x{n} in phase 22(c), 2 ranks): kernel "
-            f"{ms:.4f} ms, bound {row['bound_ms']:.4f} ms "
-            f"({row['bound_by']}), plain {plain_ms:.4f} ms, sdpa "
-            f"{library_ms:.4f} ms")
-        rows.append(row)
+    # (c) and (d): every rank's K1 calls, by shape; (d)'s int8 request
+    # has one shape (p22_int8_finish)
+    int8 = p22["int8"]["ranks"]
+    for part, slug, counts in (
+            ("22(c)", "residency", p22_call_counts(p22["residency"])),
+            ("22(d)", "disagg", p22_call_counts(p22["disagg"])),
+            ("22(d) int8", "int8", {tuple(int8[0]["calls"][0]): sum(
+                r["launches"]["flash_fwd"] for r in int8)})):
+        for key, n in sorted(counts.items()):
+            _, sq, sk, h, *_ = key
+            name = f"7b_predictor_{slug}_{sq}x{sk}_h{h}"
+            ms, plain_ms, library_ms = k1_times(fa, *key)
+            row = {"shape": name, "launches": n, "ms": ms,
+                   "plain_ms": plain_ms, "library_ms": library_ms,
+                   **bound_fields("flash_fwd", key, torch.bfloat16)}
+            log(f"flash_fwd {name} bf16 (x{n} in phase {part}, 2 ranks): "
+                f"kernel {ms:.4f} ms, bound {row['bound_ms']:.4f} ms "
+                f"({row['bound_by']}), plain {plain_ms:.4f} ms, sdpa "
+                f"{library_ms:.4f} ms")
+            rows.append(row)
     return rows
 
 
@@ -6015,12 +6374,14 @@ def fleet_residency(fa, ckpt: Path, bodies: list[dict], streams: list,
         check(b.parked and donated == CKPT_BYTES // pages.page_nbytes
               == DONATED_PAGES, (donated, b.parked))
         check(st["pages"] == cap0 + DONATED_PAGES and evicted == [], st)
-        # b comes back: a (idle) parks, then the free donated slots return
-        # and no live page moves
+        # b comes back through the pool's entry point (no request to it:
+        # its one-token prefill was cut): a (idle) parks, then the free
+        # donated slots return and no live page moves
         in_use = pages.stats()["in_use"]
         headroom = pages.free_count
-        status, _ = post(port, "/v1/models/b:generate", one)
-        check(status == 200, status)
+        pool.acquire("b")
+        pool.release("b")
+        check(a.parked and not b.parked, "a parks to make room for b")
         st = pages.stats()
         reclaimed = DONATED_PAGES - pool.stats()["donated_pages"]
         log(f"phase 14(b): b warmed again; reclaimed {reclaimed} donated "
@@ -6445,6 +6806,7 @@ def main(argv: list[str]) -> int:
             f"{p22[label]['records'].get('records', 0)}"
             for label, *_ in P22_LAYOUTS)
         + f", residency (c) {p22['residency']['wall_s']:.2f} s"
+        + f", disaggregated (d) {p22['disagg']['wall_s']:.2f} s"
         + f"; total {time.perf_counter() - t_start:.1f}s")
     check(serving["launches"] == sum(r["launches"] for r in serving_rows),
           "serving launches")

@@ -2,7 +2,7 @@
 
 ``serving/quant.py`` makes a :class:`QTensor` (``quantize_params``);
 the layers read one through ``models/layers.py::weight`` and
-``parallel/sharding.py::shard_model`` splits one over tp.  It lives
+``parallel/sharding.py::shard_model`` splits one over tp and ep.  It lives
 here, beside the layers, so that neither the layers nor the sharding
 rules depend on the serving package.
 """
@@ -18,7 +18,9 @@ class QTensor(nn.Module):
     gives the bf16 weight the reference's ``QTensor`` stands for.
 
     It carries its kernel's ``logical_axes``, and once
-    ``parallel/sharding.py`` splits it over tp, ``tp_split``: ``q`` is the
+    ``parallel/sharding.py`` splits it over tp or ep, ``tp_split`` or
+    ``ep_split`` (a MoE expert weight's scale keeps its experts dim, which
+    ep splits as ``q``'s): ``q`` is the
     kernel's block and ``scale`` the block of its broadcast shape (the
     size-1 contraction axis whole), so the layers act on a split
     ``QTensor`` as on a split parameter."""

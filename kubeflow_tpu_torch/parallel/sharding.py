@@ -218,7 +218,8 @@ def _cuts(full: str, axes: tuple, spec: tuple, shape: tuple, mesh,
     """``{axis: (dim, size)}`` of the mesh axes that split a tensor of
     ``shape`` under ``spec``; refuses a dim that does not divide by its
     axis, naming weight ``full`` and its logical dim, and an ``int8``
-    weight split over another axis than tp."""
+    weight split over fsdp (a serving weight splits over tp and ep
+    only)."""
     cuts = {}
     for axis, place in zip(MeshAxes, placements(spec)):
         size = mesh.shape[axis]
@@ -229,10 +230,10 @@ def _cuts(full: str, axes: tuple, spec: tuple, shape: tuple, mesh,
             raise NotImplementedError(
                 f"{axis}={size} shards parameters only in a later "
                 "slice of the port")
-        if int8 and axis != "tp":
+        if int8 and axis not in ("tp", "ep"):
             raise NotImplementedError(
-                f"{full}: an int8 weight is split over tp only, not "
-                f"{axis}={size}")
+                f"{full}: an int8 weight is split over tp and ep only, "
+                f"not {axis}={size}")
         if shape[place.dim] % size:
             raise ValueError(
                 f"{full}: its {axes[place.dim]!r} dim of "

@@ -25,6 +25,19 @@ Deployment shapes, as in the reference:
   the ``--role decode`` peer named by ``X-KF-Decode-Peer`` and relays the
   stream; with no reachable peer it resumes the handoff on its own engine
   (the colocated fallback).
+- SERVING GANGS: either role runs on a tp / ep gang, each rank's pages
+  holding its ``Hkv / tp`` heads.  A prefill gang commits the same page
+  ids on every rank, and inside the same step its tp group gathers the
+  pages' heads into the leader's host memory (``HandoffState.whole``,
+  dropped once serialized), so the body on the wire is the one a
+  one-process prefill sends; every rank holds its
+  state until the leader's ``release`` (forwarded) or ``resume`` (no
+  peer, or a failed one) step-record command.  A decode gang's leader
+  checks a ``:resume`` body against the whole model's heads on its HTTP
+  thread and passes its pages on in the next step record
+  (``serving/lockstep.py``), where every rank allocates the same page
+  ids and keeps its own heads.  The reference runs both roles as one
+  process over its mesh.
 
 What differs from the reference, and why:
 
@@ -54,15 +67,19 @@ What differs from the reference, and why:
   rewritten by the next prefill commit before the seed's gather ran.
   Overlapping prefill and decode on separate streams needs an event in
   the ``HandoffState`` (ROADMAP).
-- No tracing spans (the reference's ``engine.prefill_handoff`` span waits
-  for the tracing slice).
+- Tracing: the engine opens the reference's ``engine.prefill_handoff``
+  span at the commit (``serving/engine.py``, on every rank of a gang);
+  a resumed request's spans parent to the ``:resume`` caller's context.
+- The ``DisaggCoordinator`` (one shared pool, in process) takes no
+  sharded model: its decode failover (``adopt``) and ``restart`` wait
+  for ROADMAP queue A item 7c-ii-c.
 """
 
 from __future__ import annotations
 
 import base64
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -98,6 +115,15 @@ class HandoffState:
     request: object = None          # in process: the live GenRequest
     released: bool = False          # page references dropped
     gen_state: torch.Tensor | None = None   # across processes
+    # every KV head of the pages in host memory, per layer ``{name:
+    # [n_pages, page, Hkv, ...]}``: a prefill gang's leader gathers them
+    # inside the step (each rank's pool holds its heads alone) and drops
+    # them once serialized, a decode gang's leader parses them from the
+    # body; None in one process, where the pool holds them
+    whole: list | None = None
+    # host seconds and bytes of the hops (gather, serialize, post, a
+    # decode gang's page broadcast)
+    timing: dict = field(default_factory=dict)
 
 
 def seed_words(seed: int) -> list[int]:
@@ -136,10 +162,17 @@ def encode_page(tree: dict) -> list[dict]:
 
 
 def serialize_handoff(state: HandoffState, pool: PagePool) -> dict:
-    """JSON-safe handoff: the sampling state and the page payloads.  The
-    absolute deadline becomes REMAINING seconds; the generator's state
-    comes from the live request when there is one."""
-    pages = [encode_page(pool.get(pid)) for pid in state.pages]
+    """JSON-safe handoff: the sampling state and the page payloads (from
+    the host copy in ``state.whole`` when a gang's leader gathered them,
+    else from ``pool``).  The absolute deadline becomes REMAINING
+    seconds; the generator's state comes from the live request when
+    there is one."""
+    if state.whole is not None:
+        pages = [encode_page({"layers": [
+            {name: t[i] for name, t in layer.items()}
+            for layer in state.whole]}) for i in range(len(state.pages))]
+    else:
+        pages = [encode_page(pool.get(pid)) for pid in state.pages]
     remaining = None
     if state.deadline is not None:
         remaining = max(0.1, state.deadline - time.perf_counter())
@@ -280,9 +313,13 @@ def put_trees(pool: PagePool, pids: list[int], trees: list) -> None:
 def deserialize_handoff(body: dict, engine) -> HandoffState:
     """Materialize a serialized handoff into ``engine``'s page pool; the
     returned state has ``request=None`` (the decode engine mints one).
-    The body is parsed and checked before pages are allocated (a
-    malformed one is a ValueError, 422, with nothing leaked); a pool that
-    cannot host the pages raises the engine's ``QueueFull`` (429)."""
+    The body is parsed and checked, against the whole model's KV heads,
+    before pages are allocated (a malformed one is a ValueError, 422,
+    with nothing leaked); a pool that cannot host the pages raises the
+    engine's ``QueueFull`` (429).  A gang engine's pool is left alone:
+    the state carries the pages in ``whole`` (per layer and tensor), and
+    every rank allocates and fills its heads at the step boundary that
+    takes the handoff (``ContinuousBatcher.submit_handoff``)."""
     from kubeflow_tpu_torch.serving.engine import QueueFull
 
     trees, fields = _validate_resume(body, engine)
@@ -293,6 +330,12 @@ def deserialize_handoff(body: dict, engine) -> HandoffState:
                         + float(body["deadline_remaining_s"]))
         except (TypeError, ValueError):
             raise ValueError("deadline_remaining_s must be a number")
+    if getattr(engine, "_gang", False):
+        whole = [{name: torch.stack([t["layers"][li][name] for t in trees])
+                  for name in trees[0]["layers"][li]}
+                 for li in range(len(trees[0]["layers"]))]
+        return HandoffState(pages=[], deadline=deadline, whole=whole,
+                            committed_at=time.perf_counter(), **fields)
     n = len(trees)
     pids = engine.pool.alloc(n)
     while pids is None:
@@ -311,8 +354,11 @@ def resume_serialized(engine, body: dict, timing: dict | None = None,
     """The decode-role predictor's ``:resume``: load the pages into the
     pool, seed a slot, decode to completion; the full token stream.
     ``timing`` receives ``deserialize_s``, the host time from the parsed
-    body to the pages' copies issued; ``trace_ctx`` parents the resumed
-    request's spans."""
+    body to the pages' copies issued (on a gang: to the body checked), and
+    a gang's page broadcast; ``trace_ctx`` parents the resumed request's
+    spans."""
+    from kubeflow_tpu_torch.serving.engine import QueueFull
+
     t0 = time.perf_counter()
     state = deserialize_handoff(body, engine)
     if timing is not None:
@@ -322,7 +368,18 @@ def resume_serialized(engine, body: dict, timing: dict | None = None,
     except BaseException:
         release_handoff(engine.pool, state)
         raise
-    return req.result(timeout=600)
+    try:
+        return req.result(timeout=600)
+    except ValueError:
+        if getattr(engine, "_gang", False) and req.outcome == "shed":
+            # a gang's pool met the pages at the step boundary: 429, as
+            # one process answers from ``deserialize_handoff``
+            raise QueueFull(req.error, retry_after=1.0) from None
+        raise
+    finally:
+        if timing is not None:
+            # a gang's page broadcast (``broadcast_s``, ``broadcast_bytes``)
+            timing.update(state.timing)
 
 
 def http_post_json(addr: str, path: str, payload: dict,
@@ -350,16 +407,28 @@ def http_post_json(addr: str, path: str, payload: dict,
 
 
 def forward_handoff(state: HandoffState, pool: PagePool, peer: str,
-                    model: str, post_fn=None) -> list[int]:
+                    model: str, post_fn=None, release=None) -> list[int]:
     """Prefill side: serialize, POST to the decode peer's ``:resume``,
     return the completed stream.  The local page references are released
-    only after a parsed success, so a failed POST leaves the state
-    resumable on the caller's own engine."""
+    (``release(state)``, by default straight into ``pool``; a gang's
+    engine releases them on every rank at a step boundary) only after a
+    parsed success, so a failed POST leaves the state resumable on the
+    caller's own engine.  A gang leader's gathered pages (``whole``) go
+    once the body holds them.  ``state.timing`` receives ``serialize_s``
+    and ``post_s``."""
+    t0 = time.perf_counter()
     payload = serialize_handoff(state, pool)
+    state.whole = None
+    t1 = time.perf_counter()
+    state.timing["serialize_s"] = t1 - t0
     out = (post_fn or http_post_json)(peer, f"/v1/models/{model}:resume",
                                       payload)
+    state.timing["post_s"] = time.perf_counter() - t1
     full = list(out["ids"])
-    release_handoff(pool, state)
+    if release is None:
+        release_handoff(pool, state)
+    else:
+        release(state)
     return full
 
 
@@ -402,9 +471,16 @@ class DisaggCoordinator:
                  draft_fn=None):
         from kubeflow_tpu_torch.models.llama import (init_kv_pool,
                                                      kv_page_nbytes)
+        from kubeflow_tpu_torch.parallel.sharding import is_sharded
         from kubeflow_tpu_torch.serving.engine import ContinuousBatcher
         from kubeflow_tpu_torch.serving.prefix_cache import PrefixCache
         from kubeflow_tpu_torch.serving.quant import kv_page_nbytes_int8
+
+        if is_sharded(model):
+            raise NotImplementedError(
+                "a DisaggCoordinator over a tp / ep serving gang is not "
+                "ported yet (ROADMAP queue A item 7c-ii-c: its failover "
+                "adopt and restart)")
 
         max_seq = min(max_seq, cfg.max_seq_len)
         if max_seq % page_size:

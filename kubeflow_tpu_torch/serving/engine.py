@@ -38,7 +38,8 @@ What it keeps:
   and two histograms by tenant time the admission wait and TTFT;
 - tracing (``trace/``): the spans ride on the request
   (``engine.request``, ``engine.admission_wait``, one ``engine.prefill``
-  per chunk, ``engine.prefill_handoff`` on the prefill role,
+  per chunk, ``engine.prefill_handoff`` on the prefill role (on a
+  gang, on every rank, from the commit to the seed or the release),
   ``engine.decode`` from seating), under the caller's ``trace_ctx`` or a
   head-sampled root; every failing exit closes them.  Spans time the
   host: a chunk's span closes once its kernels are issued, so it
@@ -81,7 +82,13 @@ What it keeps:
   stream is the colocated one.  ``failover_fn`` is offered every request
   that dies with the engine; ``adopt`` takes one over.  An injected
   ``pool`` (and ``prefix_cache``) is shared with sibling engines, which
-  issue their copies on the same CUDA stream (the thread default);
+  issue their copies on the same CUDA stream (the thread default).  On a
+  gang, a prefill engine's tp group gathers the handoff pages' heads to
+  the leader inside the step, every rank holds its state, and the leader
+  releases or resumes it on every rank with a step-record command
+  (``release_held``, ``resume_held``); a decode engine takes a
+  ``:resume`` handoff through the next step record, whose page broadcast
+  every rank places in the same page ids at its own heads;
 - a serving gang (``mesh`` over tp and/or ep ranks, the predictor's
   ``tp=``/``ep=``): every rank runs a batcher over its shard, the view,
   scratch and page pool at its ``Hkv / tp`` heads (``sharded.CACHE_SPEC``;
@@ -97,10 +104,12 @@ What it keeps:
   differ raises, and a dead follower fails the leader's next collective
   into the crash path.  Each gang model's records go on its own group
   (its mesh's tp x ep group), so several gang models' engines run side
-  by side.  Weight residency rides the records: ``command`` queues a
-  ``park``, ``warm`` or ``reclaim n`` that every rank applies at the
-  next step boundary (the predictor's park and warm, the page pool's
-  reclaim), and an alloc that meets page pressure takes the leader's
+  by side.  Weight residency and handoffs ride the records: ``command``
+  queues a ``park``, ``warm``, ``reclaim n``, ``release #seq`` or
+  ``resume #seq`` that every rank applies at the next step boundary (the
+  predictor's park and warm, the page pool's reclaim, a held handoff's
+  pages dropped or seeded into a slot), and an alloc that meets page
+  pressure takes the leader's
   verdict (``pressure_fn``, a ``ModelPool.relieve`` over
   ``pressure_pages``) in one small broadcast at that point of the step:
   the sibling park it waited for and the pages it donated, which every
@@ -545,6 +554,10 @@ class ContinuousBatcher:
         # each step's (seq, token) emissions and their digest; the
         # records' broadcasts (calls, seconds)
         self._pending: list[GenRequest] = []
+        # the leader's ``:resume`` requests between leaving ``_pending``
+        # and their enqueue or shed in ``_take_handoffs``: a crash there
+        # fails them with the rest
+        self._resuming: list[GenRequest] = []
         self._emitted: list[int] = []
         self._digest = lockstep.digest([])
         self.record_tally: dict = {}
@@ -555,6 +568,10 @@ class ContinuousBatcher:
         self.residency_fn = None
         self._commands: list[_Command] = []
         self._in_flight: list[_Command] = []
+        # a prefill gang's handoffs that every rank holds (its pages, its
+        # request) until the leader's ``release`` or ``resume`` command,
+        # by the request's arrival number
+        self._held: dict[int, object] = {}
         if self._gang and self.rank == 0:
             # the leader's loop runs from the start: its records (one per
             # wake when idle) are what the followers wait in
@@ -608,9 +625,10 @@ class ContinuousBatcher:
         return req
 
     def command(self, kind: str, arg: int = 0) -> int:
-        """Run a residency command (``lockstep.COMMANDS``) on every rank of
-        this gang at the next step boundary and return the leader's
-        result: a park or warm's bytes, a reclaim's slots.  Rank 0 only;
+        """Run a command (``lockstep.COMMANDS``) on every rank of this gang
+        at the next step boundary and return the leader's result: a park
+        or warm's bytes, a reclaim's slots, a resumed handoff's new
+        arrival number.  Rank 0 only;
         the caller waits (the engine is woken at once).  A park of an
         engine with live requests raises, and so does a command that
         failed on the leader or outlived the engine."""
@@ -647,9 +665,27 @@ class ContinuousBatcher:
             cmd.finish(error=msg)
 
     def _apply_command(self, kind: str, arg: int) -> int:
-        """One residency command on this rank."""
+        """One command on this rank."""
         if kind == "reclaim":
             return self.pool.reclaim(arg)
+        if kind in ("release", "resume"):
+            with self._work:
+                state = self._held.pop(arg, None)
+            if state is None:
+                raise RuntimeError(f"{kind}: this rank holds no handoff "
+                                   f"#{arg}")
+            req = state.request
+            if kind == "release":
+                from kubeflow_tpu_torch.serving.disagg import release_handoff
+
+                release_handoff(self.pool, state)
+                req._handoff = None
+                req.handoff_span.end()
+                return 0
+            req._handoff = state
+            with self._work:
+                self._enqueue_locked(req)
+            return req._seq
         if self.residency_fn is None:
             raise RuntimeError(f"{kind}: no weights are bound to this "
                                "engine (residency_fn)")
@@ -660,12 +696,43 @@ class ContinuousBatcher:
                 _PARKS.notify_all()
         return out
 
-    def refuse_in_gang(self, what: str) -> None:
-        """Raise for ``what``, which a lockstep gang does not port yet."""
+    def refuse_in_gang(self, what: str, item: str) -> None:
+        """Raise for ``what``, which a lockstep gang does not port yet
+        (ROADMAP queue A ``item``)."""
         if self._gang:
             raise NotImplementedError(
                 f"{what} under a tp / ep serving gang is not ported yet "
-                "(ROADMAP queue A item 7c-ii)")
+                f"(ROADMAP queue A item {item})")
+
+    def release_held(self, state) -> None:
+        """Drop a captured handoff's page references: on a gang, on every
+        rank at the next step boundary (rank 0's ``release`` command; a
+        state already resumed or released is left alone); in one process,
+        here."""
+        if not self._gang:
+            from kubeflow_tpu_torch.serving.disagg import release_handoff
+
+            release_handoff(self.pool, state)
+            return
+        key = state.request._seq
+        with self._work:
+            held = key in self._held
+        if held:
+            self.command("release", key)
+
+    def resume_held(self, state) -> GenRequest:
+        """Resume a captured handoff on this engine (the colocated
+        fallback): on a gang every rank seeds a slot from the pages it
+        holds, at the next step boundary (rank 0's ``resume`` command)."""
+        if not self._gang:
+            return self.submit_handoff(state)
+        key = state.request._seq
+        with self._work:
+            held = key in self._held
+        if not held:
+            raise RuntimeError("this gang holds no such handoff")
+        self.command("resume", key)
+        return state.request
 
     def _start_trace(self, req: GenRequest, trace_ctx) -> None:
         tracer = trace.get_tracer()
@@ -760,8 +827,19 @@ class ContinuousBatcher:
         request's seed when the body carried none: a greedy stream).  The
         state's page references are released at the seed or at the
         request's death.  Draining rejects only NEW work (a cross-process
-        resume); an in-process handoff continues an admitted request."""
-        self.refuse_in_gang("a disaggregated handoff")
+        resume); an in-process handoff continues an admitted request.
+
+        On a gang's leader a cross-process state carries its pages in
+        ``state.whole`` (``disagg.deserialize_handoff``): the request
+        waits for the next step record, whose page broadcast every rank
+        places in its own pool (``_take_handoffs``); a held state
+        (``request`` set) resumes through ``resume_held``."""
+        if self._gang:
+            if self.rank != 0:
+                raise RuntimeError(f"rank {self.rank} of a serving gang "
+                                   "takes no requests")
+            if state.request is not None:
+                return self.resume_held(state)
         req = state.request
         preadmitted = req is not None
         if req is None:
@@ -788,15 +866,22 @@ class ContinuousBatcher:
             if self._draining and not preadmitted:
                 raise Draining("serving engine is draining (finishing "
                                "in-flight requests, accepting no new ones)")
-            self._enqueue_locked(req)
+            if self._gang:
+                if self._crash is not None:
+                    raise RuntimeError(
+                        f"serving engine crashed: {self._crash}")
+                # enqueued by the next record, on every rank alike
+                self._pending.append(req)
+                self._work.notify_all()
+            else:
+                self._enqueue_locked(req)
         return req
 
     def adopt(self, req: GenRequest) -> bool:
         """Take over a live request from a dying sibling engine (the
         coordinator's decode failover) for a cold re-run; False when this
-        engine cannot accept work."""
-        if self._gang:
-            return False
+        engine cannot accept work.  A gang refuses it by name."""
+        self.refuse_in_gang("adopting a failed-over request", "7c-ii-c")
         with self._work:
             if self._closed or self._draining:
                 return False
@@ -934,7 +1019,7 @@ class ContinuousBatcher:
         """Reopen a shut-down (or draining) engine; the batcher respawns
         on the next submit.  The pool and prefix cache survive, so the
         warm prefixes are advertised again."""
-        self.refuse_in_gang("restart after shutdown")
+        self.refuse_in_gang("restart after shutdown", "7c-ii-c")
         with self._work:
             self._closed = False
             self._draining = False
@@ -1035,10 +1120,10 @@ class ContinuousBatcher:
         except Exception as e:
             self.log.error("batcher loop crashed", exc_info=True)
             with self._work:
-                dying = (list(self.queue) + self._pending
+                dying = (list(self.queue) + self._pending + self._resuming
                          + [s for s in self.slots if s])
                 self.queue.clear()
-                self._pending = []
+                self._pending, self._resuming = [], []
                 self.slots = [None] * self.max_batch
                 self._thread = None
                 if self._gang:
@@ -1124,6 +1209,7 @@ class ContinuousBatcher:
                             f"serving gang diverged: rank {self.rank} "
                             f"enqueued #{req._seq} as the leader's "
                             f"#{n.seq}")
+            self._take_handoffs(rec.handoffs, None)
             return rec
         with self._work:
             if not (self._stop or self.queue or self._pending
@@ -1141,20 +1227,147 @@ class ContinuousBatcher:
                     rec.commands.append((cmd.kind, cmd.arg))
                     self._in_flight.append(cmd)
                 self._commands = []
+            resumes = self._resuming = []
             for req in self._pending:
+                if req._handoff is not None:
+                    # a ``:resume`` handoff goes after the new requests;
+                    # a stop fails it here
+                    if rec.stop:
+                        self._enqueue_locked(req)
+                    else:
+                        resumes.append(req)
+                    continue
                 self._enqueue_locked(req)
                 rec.new.append(lockstep.NewRequest(
                     req._seq, req.ids, req.max_new_tokens, req.temperature,
                     req.eos_id, req.seed, req.top_k, req.top_p,
                     req.deadline is not None, req.tenant))
             self._pending = []
+            for req in resumes:
+                st = req._handoff
+                rec.handoffs.append(lockstep.Handoff(
+                    st.ids, st.max_new_tokens, st.temperature, st.eos_id,
+                    st.seed, st.top_k, st.top_p, req.deadline is not None,
+                    st.generated[0], len(st.whole[0]["k"]),
+                    b"" if st.gen_state is None
+                    else st.gen_state.numpy().tobytes()))
             if not rec.stop:
                 now = time.perf_counter()
                 for req in self.queue + [r for r in self.slots if r]:
                     outcome = self._verdict(req, now)
                     if outcome is not None:
                         rec.dead.append((req._seq, outcome))
-        return lockstep.exchange(rec, self.record_tally, self._group)
+        rec = lockstep.exchange(rec, self.record_tally, self._group)
+        self._take_handoffs(rec.handoffs, list(resumes))
+        return rec
+
+    # -- a decode gang's handoffs ----------------------------------------------
+    def _wire_layout(self, n: int) -> list[list[tuple]]:
+        """Per layer, ``(name, shape, dtype, padded bytes)`` of a handoff's
+        ``n`` pages at every KV head, in the page broadcast's order."""
+        cfg = self.cfg
+        kv = ((n, self.page_size, cfg.num_kv_heads, cfg.head_dim),
+              torch.int8 if self.kv_quant else cfg.torch_dtype)
+        scale = ((n, 1, cfg.num_kv_heads, 1), torch.float32)
+        names = ("k", "ks", "v", "vs") if self.kv_quant else ("k", "v")
+        out = []
+        for _ in range(cfg.num_layers):
+            layer = []
+            for name in names:
+                shape, dt = scale if name in ("ks", "vs") else kv
+                nbytes = math.prod(shape) * dt.itemsize
+                layer.append((name, shape, dt, nbytes + (-nbytes) % 8))
+            out.append(layer)
+        return out
+
+    def _take_handoffs(self, entries: list, reqs: list | None) -> None:
+        """The record's ``:resume`` handoffs on this rank, in order: each
+        one's pages in one broadcast on the model's group (the leader's
+        ``state.whole``, every KV head), this rank's heads put into pages
+        it allocates here (every rank's pool hands out the same ids), and
+        the request enqueued; a pool that cannot host them sheds it, on
+        every rank alike.  ``reqs``: the leader's requests (None on a
+        follower, which mints them from the record); each stays in
+        ``_resuming`` until it is enqueued or shed, so a broadcast that
+        raises leaves it to the crash path."""
+        for i, h in enumerate(entries):
+            layout = self._wire_layout(h.n_pages)
+            nbytes = sum(b for layer in layout for *_, b in layer)
+            req = None if reqs is None else reqs[i]
+            buf = None
+            if req is not None:
+                parts = []
+                for layer, want in zip(req._handoff.whole, layout):
+                    for name, _, dt, b in want:
+                        raw = layer[name].to(dt).contiguous().reshape(
+                            -1).view(torch.uint8)
+                        parts += [raw, raw.new_zeros(b - raw.numel())]
+                buf = torch.cat(parts).to(self.device)
+            t0 = time.perf_counter()
+            got = lockstep.exchange_pages(buf, nbytes, self.device,
+                                          self.record_tally, self._group)
+            if req is None:
+                req = self._follower_handoff(h)
+            state = req._handoff
+            state.whole = None
+            state.timing["broadcast_s"] = time.perf_counter() - t0
+            state.timing["broadcast_bytes"] = nbytes
+            hk = self.cfg.num_kv_heads // self.tp
+            first = (self.mesh.coordinate("tp") if self.tp > 1 else 0) * hk
+            mine, at = [], 0
+            for want in layout:
+                tensors = {}
+                for name, shape, dt, b in want:
+                    size = math.prod(shape) * dt.itemsize
+                    tensors[name] = got[at:at + size].view(dt).reshape(
+                        shape).narrow(2, first, hk)
+                    at += b
+                mine.append(tensors)
+            pids = self.pool.alloc(h.n_pages)
+            while pids is None:
+                if (self.prefix_cache is None
+                        or not self.prefix_cache.evict_lru()):
+                    break
+                pids = self.pool.alloc(h.n_pages)
+            if pids is None:
+                if reqs is not None:
+                    with self._work:
+                        self._resuming.remove(req)
+                self._fail(req, "shed", f"decode worker kv pool cannot host "
+                           f"{h.n_pages} handoff pages")
+                continue
+            self.pool.put_many(pids, mine)
+            state.pages = pids
+            with self._work:
+                if reqs is not None:
+                    self._resuming.remove(req)
+                self._enqueue_locked(req)
+
+    def _follower_handoff(self, h) -> GenRequest:
+        """A follower's request and state for the leader's ``:resume``
+        handoff ``h``: its generator restored from the same state."""
+        from kubeflow_tpu_torch.serving.disagg import HandoffState, seed_words
+
+        req = GenRequest(list(h.ids), h.max_new_tokens, h.temperature,
+                         h.eos_id, seed=h.seed, top_k=h.top_k, top_p=h.top_p,
+                         # the leader's clock decides; this only marks it
+                         deadline=math.inf if h.has_deadline else None)
+        req.generated = [h.first_token]
+        req._gen = torch.Generator(device=self.device)
+        if h.gen_state:
+            req._gen.set_state(torch.frombuffer(bytearray(h.gen_state),
+                                                dtype=torch.uint8))
+        else:
+            req._gen.manual_seed(h.seed)
+        if self.spec_max:
+            req._spec = SpeculationState(self.spec_max)
+        req._handoff = HandoffState(
+            ids=list(h.ids), generated=[h.first_token],
+            max_new_tokens=h.max_new_tokens, temperature=h.temperature,
+            eos_id=h.eos_id, seed=h.seed, top_k=h.top_k, top_p=h.top_p,
+            pages=[], key_chain=seed_words(h.seed), deadline=req.deadline,
+            committed_at=time.perf_counter(), request=req)
+        return req
 
     def _apply_record(self, rec: lockstep.StepRecord) -> bool:
         """The record's stop (every live request dies with the engine:
@@ -1375,11 +1588,55 @@ class ContinuousBatcher:
         HANDOFFS.inc()
         with self._work:
             self._handoffs += 1
+        if self._gang:
+            # the wire carries every KV head: gathered here, inside the
+            # step, where every rank of the tp group takes part (a
+            # follower in ``follow()`` would never join a later one)
+            state.whole = self._gather_pages(pages, state.timing)
+            with self._work:
+                self._held[req._seq] = state
+            if self.rank != 0:
+                return
         try:
             self.handoff_fn(req, state)
         except Exception as e:
             self.log.warning("prefill handoff failed", error=str(e))
             self._fail(req, "error", f"prefill handoff failed: {e}")
+
+    def _gather_pages(self, pages: list[int], timing: dict) -> list | None:
+        """Every KV head of ``pages`` (per layer ``{name: [n, page, Hkv,
+        ...]}``, int8 pages with their per-(page, head) scales, which
+        gather exactly): this rank's rows, concatenated over the tp group
+        in head order (the KV heads are whole on each ep rank).  Rank 0
+        keeps them in host memory, where the body is built, so no card
+        holds a second copy of the pages while the peer decodes; the
+        others drop theirs and return None.  One ``all_gather`` per
+        tensor: gloo gathers only host tensors to one rank."""
+        t0 = time.perf_counter()
+        n = len(pages)
+        bufs = [{name: torch.empty((n,) + tuple(t.shape[1:]), dtype=t.dtype,
+                                   device=t.device)
+                 for name, t in layer.items()}
+                for layer in self.pool.kv["layers"]]
+        self.pool.gather(pages, bufs)
+        group = self.mesh.group("tp")
+        whole, nbytes = [], 0
+        for layer in bufs:
+            got = {}
+            for name, t in layer.items():
+                if group is not None:
+                    t = pd.all_gather_cat(t, 2, group)
+                nbytes += t.numel() * t.element_size()
+                if self.rank == 0:
+                    got[name] = t.cpu()
+            whole.append(got)
+        dt = time.perf_counter() - t0
+        timing["gather_s"], timing["gather_bytes"] = dt, nbytes
+        tally = self.record_tally
+        tally["gather_calls"] = tally.get("gather_calls", 0) + 1
+        tally["gather_bytes"] = tally.get("gather_bytes", 0) + nbytes
+        tally["gather_seconds"] = tally.get("gather_seconds", 0.0) + dt
+        return whole if self.rank == 0 else None
 
     def _admit_handoff(self, free: int, req: GenRequest) -> None:
         """Decode-side admission: seed the scratch from the handoff's pages

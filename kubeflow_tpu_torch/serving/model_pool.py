@@ -320,13 +320,15 @@ class ModelPool:
         self._notify()
         return freed
 
-    def evict_lru(self) -> int:
-        """Evict the least-recently-used IDLE resident model; returns
-        bytes freed (0 when every resident model is pinned)."""
+    def evict_lru(self, only=None) -> int:
+        """Evict the least-recently-used IDLE resident model (of the names
+        in ``only``, when given); returns bytes freed (0 when every such
+        resident model is pinned)."""
         with self._lock:
             idle = [e for e in self._entries.values()
                     if e.state == RESIDENT and e.refs == 0
-                    and e.payload is not None]
+                    and e.payload is not None
+                    and (only is None or e.name in only)]
             if not idle:
                 return 0
             victim = min(idle, key=lambda e: e.last_used).name
@@ -352,17 +354,22 @@ class ModelPool:
             return
 
     # -- weights-and-pages-one-currency ----------------------------------------
-    def relieve(self, page_pool=None) -> bool:
+    def relieve(self, page_pool=None, only=None) -> bool:
         """KV pressure hook (the engine's page-alloc failure path): evict
-        ONE idle model and donate the freed bytes to ``page_pool`` as
-        page capacity.  True when capacity was donated — the caller
-        retries its alloc before spilling or evicting hot KV."""
+        ONE idle model (of the names in ``only``, when given) and donate
+        the freed bytes to ``page_pool`` as page capacity.  True when
+        capacity was donated — the caller retries its alloc before
+        spilling or evicting hot KV.  A serving gang's engine passes its
+        gang siblings as ``only`` (``predictor.wire_model_pool``): every
+        rank donates the freed pages, so the victim must free them on
+        every rank's card; the reference, one process over a mesh, has
+        no such case."""
         if page_pool is None:
             return False
         page_nbytes = int(getattr(page_pool, "page_nbytes", 0) or 0)
         if page_nbytes <= 0 or not hasattr(page_pool, "donate"):
             return False
-        freed = self.evict_lru()
+        freed = self.evict_lru(only)
         if freed <= 0:
             return False
         pages = freed // page_nbytes

@@ -8,9 +8,10 @@ when ``--prefix-cache-mb`` > 0 (``--kv-page-size``, ``--host-kv-pages``),
 speculative decoding when ``--speculative-tokens`` > 0 (n-gram drafts, or
 a truncated-target draft model with ``--draft-layers``), weight-only int8
 (model option ``quantize=int8``), int8 KV pages (``--kv-quant``), the
-disaggregated roles (``--role prefill|decode``), tenant-fair admission
-(the ``Kubeflow-Userid`` header names the tenant; ``tenant_shares=``) and
-request tracing (``KF_TRACE_SAMPLE``, W3C ``traceparent``).  Weights come
+disaggregated roles (``--role prefill|decode``, on a gang too),
+tenant-fair admission (the ``Kubeflow-Userid`` header names the tenant;
+``tenant_shares=``) and request tracing (``KF_TRACE_SAMPLE``, W3C
+``traceparent``).  Weights come
 from a seeded init or a streamed checkpoint (``--checkpoint-dir``, the
 ``serving/model_pool.py`` format, through a ``--staging-mb`` host
 window); ``--weight-budget-mb`` puts every generative model under one
@@ -31,10 +32,15 @@ start, and under ``--weight-budget-mb`` rank 0 alone runs the
 reach every rank's page pool alike); several ``--model``s share one gang
 (the option ``name=`` serves two models of one registry entry), each gang
 model followed in a thread of its own, while a one-card model or a
-classifier is served by rank 0 alone.  Under a gang the disaggregated
-roles, the prefix directory and ``:pages``, the handoff resume, adoption
-and restart are refused by name (ROADMAP queue A item 7c-ii).  Routes,
-as the reference serves them:
+classifier is served by rank 0 alone.  The disaggregated roles serve on
+a gang too: a ``--role prefill`` gang gathers each handoff's KV heads to
+rank 0 inside the step and forwards the one-process body, releasing or
+resuming every rank's pages by step-record command; a ``--role decode``
+gang's rank 0 checks a ``:resume`` body and passes its pages on in the
+next step record, where every rank keeps its heads.  Under a gang the
+prefix directory and ``:pages`` (ROADMAP queue A item 7c-ii-b), adoption
+and restart (item 7c-ii-c) are refused by name.  Routes, as the
+reference serves them:
 
     GET  /healthz                          ready / draining
     GET  /metrics                          Prometheus text
@@ -62,7 +68,9 @@ kubeflow_tpu_torch.serving.predictor --model llama:size=7b`` (add
 ``--model 'llama:size=7b,moe_experts=8'``, int8 weights with ``--model
 'llama:size=7b,quantize=int8'``; a disaggregated pair as ``--role decode
 --port 8603`` and ``--role prefill``, with clients sending
-``X-KF-Decode-Peer: 127.0.0.1:8603`` to the prefill one; a checkpoint
+``X-KF-Decode-Peer: 127.0.0.1:8603`` to the prefill one, or under two
+gangs' ``JAXJOB_*`` envs ``--model 'llama:size=7b,tp=2,role=decode'`` and
+``--model 'llama:size=7b,tp=2,role=prefill'``; a checkpoint
 with ``--checkpoint-dir /ckpt/llama``, and several models under one
 weight budget with ``--weight-budget-mb``; under the ``JAXJOB_*`` env of a
 gang of 2, ``--model 'llama:size=7b,name=a,tp=2' --model
@@ -174,7 +182,7 @@ class GenerativePredictor:
                         self.module.named_parameters()}
         self._axes = {n: getattr(t, "logical_axes", None) for n, t in
                       self.module.named_parameters()}
-        self.mesh = self._serving_mesh(tp, ep, role, directory)
+        self.mesh = self._serving_mesh(tp, ep, directory)
         self._seed = seed
         self._state = state
         self._quantize = quantize
@@ -228,7 +236,7 @@ class GenerativePredictor:
         self.log.info("predictor ready", device=str(self.device),
                       params=sum(p.numel() for p in self.module.parameters()))
 
-    def _serving_mesh(self, tp: int, ep: int, role: str, directory):
+    def _serving_mesh(self, tp: int, ep: int, directory):
         """The tp x ep mesh over the gang (None for one card), after the
         reference's checks in its order: ep on a dense model or an expert
         count ep does not divide, then KV heads tp does not divide (before
@@ -243,13 +251,10 @@ class GenerativePredictor:
                              f"divisible by tp={tp}")
         if tp * ep == 1:
             return None
-        for what, used in (("a disaggregated role", role != "colocated"),
-                           ("the cluster prefix directory",
-                            directory is not None)):
-            if used:
-                raise NotImplementedError(
-                    f"{what} under tp={tp} x ep={ep} is not ported yet "
-                    "(ROADMAP queue A item 7c-ii)")
+        if directory is not None:
+            raise NotImplementedError(
+                f"the cluster prefix directory under tp={tp} x ep={ep} is "
+                "not ported yet (ROADMAP queue A item 7c-ii-b)")
         from kubeflow_tpu_torch.parallel import distributed as pd
         from kubeflow_tpu_torch.serving.multihost import global_serving_mesh
 
@@ -445,7 +450,8 @@ class GenerativePredictor:
     def _capture_handoff(self, req, state) -> None:
         """The prefill engine's handoff_fn: park the state for the HTTP
         thread driving this request (it forwards to the decode peer; the
-        batcher thread goes on to the next prompt)."""
+        batcher thread goes on to the next prompt).  On a gang, rank 0's
+        engine alone calls it, with the pages' heads gathered."""
         with self._hand_cv:
             self._handoffs[id(req)] = state
             self._hand_cv.notify_all()
@@ -475,7 +481,7 @@ class GenerativePredictor:
     def export_pages(self, ids: list[int]) -> dict:
         """``:pages``: the full prefix pages this engine caches for
         ``ids``, in the handoff wire format."""
-        self.engine.refuse_in_gang("the :pages prefix fetch")
+        self.engine.refuse_in_gang("the :pages prefix fetch", "7c-ii-b")
         return self.engine.export_prefix([int(t) for t in ids])
 
     def resume(self, body: dict, trace_ctx=None) -> dict:
@@ -501,7 +507,8 @@ class GenerativePredictor:
         try:
             full = disagg.forward_handoff(
                 state, self.engine.pool, decode_peer, self.name,
-                post_fn=self._handoff_post or disagg.http_post_json)
+                post_fn=self._handoff_post or disagg.http_post_json,
+                release=self.engine.release_held)
             disagg.complete_forwarded(r, full)
         except Exception as e:
             self.log.warning("decode peer failed; resuming locally",
@@ -513,11 +520,19 @@ class GenerativePredictor:
         from kubeflow_tpu_torch.serving import disagg
 
         try:
-            self.engine.submit_handoff(state)
+            self.engine.resume_held(state)
         except BaseException as err:
             # the state is in our hands: release it or the pages leak
-            disagg.release_handoff(self.engine.pool, state)
+            self._release(state)
             disagg.fail_forwarded(r, f"{why}; local resume failed: {err}")
+
+    def _release(self, state) -> None:
+        """Drop a captured handoff's pages (on a gang, every rank's at the
+        next step boundary); a gang that stopped keeps nothing to drop."""
+        try:
+            self.engine.release_held(state)
+        except RuntimeError as err:
+            self.log.warning("handoff release failed", error=str(err))
 
     def _generate_prefill(self, ids, max_new_tokens, temperature, seed,
                           eos_id, top_k, top_p, deadline_s, decode_peer,
@@ -548,7 +563,7 @@ class GenerativePredictor:
                         with self._hand_cv:
                             late = self._handoffs.pop(id(r), None)
                         if late is not None:
-                            disagg.release_handoff(self.engine.pool, late)
+                            self._release(late)
                             disagg.fail_forwarded(
                                 r, "prefill handoff wait timed out")
                     continue               # finished or failed locally
@@ -569,7 +584,7 @@ class GenerativePredictor:
                 with self._hand_cv:
                     orphan = self._handoffs.pop(id(r), None)
                 if orphan is not None:
-                    disagg.release_handoff(self.engine.pool, orphan)
+                    self._release(orphan)
             raise
 
     def generate(self, ids: list[list[int]], max_new_tokens: int = 32,
@@ -874,18 +889,26 @@ def wire_model_pool(predictors: dict[str, Any],
     a resident predictor's first acquire only accounts its bytes), the
     evictor ``park()``, and each engine's page pressure may evict an
     idle sibling's weights into its page pool (``pressure_pages``: on a
-    gang, the view whose donations and reclaims every rank mirrors).
-    Classifiers stay outside the budget.  The pool becomes the process's
-    (``get_model_pool``); on a gang, rank 0's alone."""
+    gang, the view whose donations and reclaims every rank mirrors).  A
+    gang engine's pressure evicts gang siblings only: a one-card
+    sibling's park frees rank 0's card alone, and the followers would
+    donate pages their cards never freed (the reference's pool, one
+    process, evicts any idle model).  Classifiers stay outside the
+    budget.  The pool becomes the process's (``get_model_pool``); on a
+    gang, rank 0's alone."""
     pool = mp.set_model_pool(mp.ModelPool(int(budget_bytes)))
+    gang = frozenset(name for name, pred in predictors.items()
+                     if getattr(getattr(pred, "engine", None), "_gang",
+                                False))
     for name, pred in predictors.items():
         engine = getattr(pred, "engine", None)
         if engine is None:
             continue
         pool.register(name, (lambda p=pred: (p, p.warm())),
                       evictor=pred.park, nbytes_hint=pred.weight_bytes)
-        engine.pressure_fn = (lambda pages=engine.pressure_pages, mpool=pool:
-                              mpool.relieve(pages))
+        engine.pressure_fn = (
+            lambda pages=engine.pressure_pages, mpool=pool,
+            only=gang if engine._gang else None: mpool.relieve(pages, only))
     return pool
 
 
@@ -1034,11 +1057,6 @@ def main(argv=None) -> int:
         # tp / ep models serve from a gang (the env's rendezvous): rank 0
         # answers HTTP and leads every gang model's engine, the others
         # follow their step records
-        for _, kw in specs:
-            if kw["tp"] * kw["ep"] > 1 and kw["role"] != "colocated":
-                raise SystemExit(
-                    f"role={kw['role']} under tp={kw['tp']} x ep={kw['ep']} "
-                    "is not ported yet (ROADMAP queue A item 7c-ii)")
         from kubeflow_tpu_torch.parallel import distributed as pd
 
         pd.initialize_from_env(device=args.device)

@@ -1153,12 +1153,15 @@ def test_multihost_predictor_prefills_through_k1_once_per_layer(
     the CPU (float32, head_dim 64)."""
     from kubeflow_tpu_torch.serving.multihost import MultiHostPredictor
 
-    config = {"dtype": "float32", "use_flash": True, "hidden_size": 256,
-              "num_heads": 4, "num_kv_heads": 2}
+    # the widths are all in the config ("tiny" fixes its own)
+    config = {"dtype": "float32", "use_flash": True, "vocab_size": 512,
+              "hidden_size": 256, "num_layers": 2, "num_heads": 4,
+              "num_kv_heads": 2, "intermediate_size": 512,
+              "max_seq_len": 128}
     prompts = [[1, 2, 3], [7, 8, 9, 10], [5], [11, 12]]
     got, state = {}, None
     for device in ("cpu", "cuda"):
-        mh = MultiHostPredictor("llama", size="tiny", max_seq=64,
+        mh = MultiHostPredictor("llama", size="7b", max_seq=64,
                                 model_config=config, device=device,
                                 state=state)
         state = {n: p.detach() for n, p in mh.module.named_parameters()}
@@ -1324,3 +1327,85 @@ def test_tp2_gang_park_and_warm_on_one_card(cuda_device, quantize):
                                                        mem1)
         # two requests of two prompts each, one chunk, every layer
         assert o["launches"] == 2 * 2 * 2, o
+
+
+TP_DISAGG = r"""
+import json, os, threading, torch
+from kubeflow_tpu_torch.ops import flash_attention as fa
+from kubeflow_tpu_torch.parallel import distributed as pd
+from kubeflow_tpu_torch.serving.predictor import GenerativePredictor
+
+pd.initialize_from_env()                             # the card, not the CPU
+spec = json.loads(os.environ["GANG_SPEC"])
+rank = pd.rank_of(pd.default_group())
+
+
+def build(**kw):
+    # the widths are all in the config ("tiny" fixes its own)
+    return GenerativePredictor("llama", size="7b", max_batch=2, max_seq=64,
+                               model_config=spec["config"], tp=2, **kw)
+
+
+def post(addr, path, payload, timeout=300.0):
+    # the POST, in process: the body through JSON to the decode gang
+    return dec.resume(json.loads(json.dumps(payload)))
+
+
+col = build()
+dec = build(role="decode")
+pre = build(role="prefill", handoff_post=post)
+preds = (col, dec, pre)
+out = {"rank": rank}
+before = fa.flash_attention.launches
+if rank == 0:
+    kw = dict(max_new_tokens=8, **spec["sampling"])
+    out["colocated"] = col.generate(spec["prompts"], **kw)["ids"]
+    out["disagg"] = pre.generate(spec["prompts"], decode_peer="decode:0",
+                                 **kw)["ids"]
+    out["no_peer"] = pre.generate(spec["prompts"], **kw)["ids"]
+    for p in preds:
+        p.engine.shutdown()
+else:
+    threads = [threading.Thread(target=p.follow) for p in preds]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+out["launches"] = fa.flash_attention.launches - before
+out["in_use"] = [p.engine.pool.stats()["in_use"] for p in preds]
+print(json.dumps(out))
+"""
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sampling", [{}, {"temperature": 1.1, "seed": 5,
+                                           "top_k": 20}],
+                         ids=["greedy", "seeded"])
+def test_tp2_disaggregated_gang_on_one_card_serves_the_colocated_streams(
+        cuda_device, sampling):
+    """A prefill-role and a decode-role ``GenerativePredictor(tp=2)`` beside
+    a colocated one in a 2-rank gloo gang on cuda:0 (a tiny Llama at
+    hidden 256, float32, seeded): the handed-off streams (the prefill
+    gang gathers each handoff's heads to rank 0, the decode gang takes
+    the body's pages in a step record) and the ones resumed on the
+    prefill gang with no decode peer equal the colocated gang's, greedy
+    and seeded; every prefill ran K1, and no page is left in use."""
+    from kubeflow_tpu_torch.ops import _build
+    from kubeflow_tpu_torch.parallel import distributed as pd
+
+    _build.build_all()         # once, before the ranks load it
+    spec = {"config": {"dtype": "float32", "use_flash": True,
+                       "vocab_size": 512, "hidden_size": 256,
+                       "num_layers": 2, "num_heads": 4, "num_kv_heads": 2,
+                       "intermediate_size": 512, "max_seq_len": 128},
+            "prompts": [[5, 8, 13, 21], list(range(3, 40))],
+            "sampling": sampling}
+    gang = pd.spawn_local_gang(TP_DISAGG, 2, timeout=300.0,
+                               extra_env={"GANG_SPEC": json.dumps(spec)})
+    lead = gang[0]
+    assert lead["disagg"] == lead["colocated"]
+    assert lead["no_peer"] == lead["colocated"]
+    for o in gang:
+        # three rounds of two prompts, one chunk each, every layer
+        assert o["launches"] == 3 * 2 * 2, o
+        assert o["in_use"] == [0, 0, 0], o

@@ -15,6 +15,15 @@ reference predictors' ``weight_bytes``; every stream is the reference's
 never-parked one; four cold requests to the parked b coalesce behind
 one gang-wide load (one weight load on each rank); and ``mnist_mlp`` in
 the same CLI is served by rank 0 alone.
+
+A second CLI gang (``sibling_gang``) serves the tp=2 ``a`` beside ``c``, a
+one-card Llama on rank 0's card, under a budget that holds both, and
+holds every free page of a's pool on both ranks before a long prompt:
+the gang's page pressure never evicts the one-card sibling (its park
+would free rank 0's card alone, while every follower donated as many
+page slots to its own pool), no rank's pool grows by a page, both ranks
+decide alike, and the commit falls back to the prefix cache as it does
+with no idle sibling.
 """
 
 import threading
@@ -23,7 +32,7 @@ import pytest
 
 from kubeflow_tpu.serving import model_pool as jmp
 from torch_residency_gangs import (  # noqa: F401  (reference: a fixture)
-    COLD_K, SEQUENCE, cli_budget, of, pool_gang, reference)
+    COLD_K, SEQUENCE, cli_budget, of, pool_gang, reference, sibling_gang)
 
 KEY = {"a": "dense", "b": "moe"}
 
@@ -165,3 +174,61 @@ def test_a_classifier_in_the_same_cli_is_served_by_rank_zero_alone(
                        torch.tensor(want["logits"]))
     # the follower built and followed the two gang models only
     assert follow["followed"] == ["a", "b"] and "followed" not in lead
+
+
+def sibling_steps(reference) -> list[dict]:
+    lead = sibling_gang(reference)[0]
+    assert lead["client"].get("error") is None, lead["client"]["error"]
+    return lead["client"]["steps"]
+
+
+def test_gang_pressure_serves_every_stream_with_a_one_card_sibling(
+        reference):
+    lead, follow = sibling_gang(reference)
+    assert lead["rc"] == follow["rc"] == 0
+    want = {"c": reference["dense"]["solo"], "a": reference["dense"]["solo"]}
+    got = {}
+    for step in sibling_steps(reference)[1:]:
+        if step["label"].startswith("hold"):
+            continue
+        status, body = step["got"]
+        assert status == 200
+        got.setdefault(step["label"], []).append(body["ids"])
+    assert got == {"c": [want["c"]],
+                   "a": [want["a"], reference["dense"]["long"]]}
+    # the long prompt's commit met page pressure on both ranks alike
+    calls = [o["tally"]["a"].get("pressure_calls", 0)
+             for o in (lead, follow)]
+    assert calls[0] >= 1 and calls[0] == calls[1]
+
+
+def test_gang_pressure_never_evicts_a_one_card_sibling(reference):
+    lead, follow = sibling_gang(reference)
+    last = sibling_steps(reference)[-1]
+    assert last["residency"] == {"a": "resident", "c": "resident"}
+    assert last["pool"]["models"]["c"]["evictions"] == 0
+    assert last["pool"]["donated_pages"] == 0
+    for o in (lead, follow):
+        assert of(o["events"], "c", "park") == []
+
+
+def test_no_follower_pool_grows_by_pages_its_card_did_not_free(reference):
+    """Each rank's donations into the gang model's pool follow a park on
+    that rank's own card, and every rank decides alike: the same held
+    pages, the same donations, the same pool after every request."""
+    logs = [o["events"] for o in sibling_gang(reference)]
+    for log in logs:
+        parked = 0
+        for e in log:
+            if e[1] == "park" and e[2] > 0:
+                parked += 1
+            elif e[:2] == ["a", "donate"]:
+                assert parked > 0, f"donated {e[2]} pages with no park"
+                parked -= 1
+    mine, theirs = (of(log, "a", "held", "done", "donate") for log in logs)
+    assert [e[:2] for e in mine] == [["a", "done"], ["a", "held"],
+                                     ["a", "done"]]
+    assert mine == theirs
+    assert mine[1][3]["free"] == 0 and mine[1][2] > 0
+    # the long prompt's pages: no page slot was minted on either rank
+    assert mine[2][3]["pages"] == mine[1][3]["pages"]

@@ -25,7 +25,7 @@ import pytest
 
 from torch_predictor_gangs import (  # noqa: F401  (setup: a fixture)
     IDLE_S, HEARTBEAT_S, PAIR, PREFIX, SOLO, SPEC, cli_gang, flat, gang,
-    setup, shard_at)
+    int8_mismatches, setup, shard_at)
 
 # every kernel tp splits: the attention and MLP projections, the embedding
 SPLIT = ("attention.q.kernel", "attention.k.kernel", "attention.v.kernel",
@@ -167,16 +167,41 @@ def test_ep2_on_the_moe_model_matches_the_reference(setup):
         assert rec["view"] == [[2, 64, 2, 16]] * 2      # heads whole
 
 
+def test_int8_moe_at_ep2_matches_the_reference(setup):
+    """int8 weights under ep (the reference serves them): the int8 MoE
+    gang decodes the reference's one-chip int8 stream, every rank
+    alike."""
+    lead, follow = ranks(setup, "ep2_int8")
+    assert lead["result"] == setup["moe_int8_solo"]
+    assert follower_streams(follow) == follower_streams(lead)
+
+
+def test_int8_moe_at_ep2_blocks_are_the_reference_shards(setup):
+    for ep, rec in enumerate(ranks(setup, "ep2_int8")):
+        assert int8_mismatches(rec["blocks"], setup["ep2_int8"], 0, ep) == []
+        w_in = rec["blocks"]["layers.0.moe.w_in"]
+        # one expert a rank: q [1, d, f], its scale [1, 1, f]
+        assert w_in["ep"] == [0, 2, ep]
+        assert w_in["q"] == [1, 64, 128] and w_in["scale"] == [1, 1, 128]
+
+
 @pytest.mark.parametrize("case, kind, message", [
     ("tp8", "ValueError", "num_kv_heads=2 not divisible by tp=8"),
     ("ep_dense", "ValueError", "ep=2 needs a MoE model"),
     ("ep4", "ValueError", "ep=4 needs a MoE model whose moe_experts "
                           "divides by it (got moe_experts=2)"),
-    ("role", "NotImplementedError", "ROADMAP queue A item 7c")])
+    # a role under tp serves now (test_torch_disagg_gang.py): the case
+    # keeps its id and checks that the predictor starts on every rank
+    pytest.param("role", None, None,
+                 id="role-NotImplementedError-ROADMAP queue A item 7c"),
+    ("directory", "NotImplementedError", "ROADMAP queue A item 7c-ii-b")])
 def test_refusals_carry_the_reference_messages(setup, case, kind, message):
     from kubeflow_tpu.serving.predictor import GenerativePredictor
 
     for o in gang(setup, "tp2"):
+        if kind is None:
+            assert o["refusals"][case] is None
+            continue
         got_kind, got = o["refusals"][case]
         assert got_kind == kind and message in got, (case, got)
     # the reference's own messages, where it refuses the same
@@ -198,12 +223,18 @@ def test_gang_only_refusals(setup, what):
             follow["refused"]["submit"]
         return
     if what == "park":
-        # park is served on a gang now (test_torch_predictor_residency.py);
-        # the handoff resume is still refused
+        # park is served on a gang now (test_torch_predictor_residency.py),
+        # and so is the handoff: a prefill gang with no decode peer
+        # resumes it on every rank, to the reference's stream
         assert lead["refused"]["park"] is None
-        what = "handoff"
+        lead_h, follow_h = ranks(setup, "handoff")
+        assert lead_h["result"] == setup["solo"]
+        assert lead_h["stats"]["handoffs"] == lead_h["stats"]["resumed"] == 1
+        assert follower_streams(follow_h) == follower_streams(lead_h)
+        return
     kind, message = lead["refused"][what]
-    assert kind == "NotImplementedError" and "item 7c" in message
+    item = {"pages": "item 7c-ii-b", "restart": "item 7c-ii-c"}[what]
+    assert kind == "NotImplementedError" and item in message
 
 
 def test_a_follower_whose_tokens_differ_raises(setup):
@@ -240,9 +271,11 @@ def test_cli_serves_generate_from_rank_zero_of_a_gang():
 
 @pytest.mark.parametrize("n_ids", [3, 5000])
 def test_step_record_round_trip_and_overflow(monkeypatch, n_ids):
-    """A step record crosses to a follower whole, its residency commands
-    included: one broadcast of ``RECORD_WORDS`` words, and a second of the
-    exact length when new prompts overflow it (a 5000-token prompt)."""
+    """A step record crosses to a follower whole, its residency and
+    handoff commands and its ``:resume`` handoffs (a generator state of
+    odd length) included: one broadcast of ``RECORD_WORDS`` words, and a
+    second of the exact length when new prompts overflow it (a 5000-token
+    prompt)."""
     from kubeflow_tpu_torch.serving import lockstep
 
     rec = lockstep.StepRecord(
@@ -252,7 +285,13 @@ def test_step_record_round_trip_and_overflow(monkeypatch, n_ids):
                                  None, 1234, 5, 0.9, True, "team-ä"),
              lockstep.NewRequest(11, [2, 3], 1, 0.0, 2, 0, 0, 0.0, False,
                                  "anonymous")],
-        commands=[("park", 7), ("warm", 0), ("reclaim", 1575)])
+        commands=[("park", 7), ("warm", 0), ("reclaim", 1575),
+                  ("release", 12), ("resume", 13)],
+        handoffs=[lockstep.Handoff(list(range(3, n_ids + 3)), 16, 1.1, None,
+                                   5, 20, 0.0, True, 42, 94,
+                                   bytes(range(256)) * 19 + b"\x01"),
+                  lockstep.Handoff([9, 8], 4, 0.0, 7, 0, 0, 0.0, False, 3,
+                                   1, b"")])
     sent = []
 
     def leader_broadcast(buf, group=None):

@@ -345,16 +345,20 @@ def test_main_refuses_unported_model_options():
         tpred.main(["--model", "llama:checkpoint_dir=/ckpt", "--device",
                     "cpu"])
     # tp / ep serve from a gang (test_torch_predictor_tp.py), under a
-    # weight budget and parked=true too (test_torch_predictor_pool_gang.py);
-    # what a gang does not port yet is refused by name before anything is
-    # built: the disaggregated roles
-    with pytest.raises(SystemExit, match="role=prefill under tp=2 x ep=1 "
-                                         ".*item 7c"):
+    # weight budget and parked=true too (test_torch_predictor_pool_gang.py),
+    # and so do the disaggregated roles (test_torch_disagg_gang.py): here,
+    # outside a gang, they pass the CLI and reach the mesh's gang check
+    with pytest.raises(ValueError, match="tp=2 x ep=1 needs 2 devices"):
         tpred.main(["--model", "llama:tp=2,role=prefill",
                     "--weight-budget-mb", "64", "--device", "cpu"])
-    with pytest.raises(SystemExit, match="role=decode under tp=1 x ep=2"):
+    with pytest.raises(ValueError, match="tp=1 x ep=2 needs 2 devices"):
         tpred.main(["--model", "llama:moe_experts=8,ep=2,parked=true",
                     "--role", "decode", "--device", "cpu"])
+    # what a gang does not port yet is refused by name before anything is
+    # built: the cluster prefix directory
+    with pytest.raises(NotImplementedError, match="item 7c-ii-b"):
+        tpred.GenerativePredictor("llama", size="tiny", tp=2,
+                                  directory=object(), device="cpu")
     # two specs that would serve under one name
     with pytest.raises(SystemExit):
         tpred.main(["--model", "llama:tp=2", "--model", "llama:ep=2",

@@ -4,9 +4,9 @@ placed shards and pool statistics.
 
 ``test_torch_predictor_tp.py`` runs a 2-process gang (tp=2 dense and
 int8, the prefix cache, n-gram speculation, the lockstep cases, ep=2 on
-the MoE model, the refusals, and last a forced token mismatch) and a
-2-process CLI gang; ``test_torch_predictor_tp_four.py`` a 4-process
-tp=2 x ep=2 MoE gang.  Each gang is spawned once per module, every rank
+the MoE model in float32 and int8, the refusals, and last a forced token
+mismatch) and a 2-process CLI gang; ``test_torch_predictor_tp_four.py``
+a 4-process tp=2 x ep=2 MoE gang, in float32 and int8.  Each gang is spawned once per module, every rank
 on the CPU over gloo, and held to the reference's ``GenerativePredictor``
 (the tiny Llama in float32, its seed-0 weights carried across by
 ``convert.from_jax_params``) and, for the layout, to its tp=2 placement.
@@ -126,7 +126,6 @@ def serve(label, traffic=None, state="dense", **kw):
         rec["stats"] = e.stats()
         rec["refused"] = {
             "park": refused(pred.park),
-            "handoff": refused(lambda: e.submit_handoff(None)),
             "pages": refused(lambda: pred.export_pages([1, 2])),
             "restart": refused(e.restart)}
         e.shutdown()
@@ -216,14 +215,26 @@ if spec["layout"] == "tp2":
           tp=2, max_batch=2, speculative_tokens=4)
     serve("lockstep", lockstep, tp=2, max_batch=2)
     serve("ep2", gen(spec["solo"], 10), state="moe", ep=2, max_batch=2)
+    # a prefill gang with no decode peer resumes the handoff itself
+    serve("handoff", gen(spec["solo"], 12), tp=2, max_batch=2,
+          role="prefill")
+    serve("ep2_int8", gen(spec["solo"], 10), state="moe", ep=2, max_batch=2,
+          quantize=True)
     kw = dict(size="tiny", max_seq=spec["max_seq"], device="cpu")
     out["refusals"] = {
         "tp8": refused(lambda: GenerativePredictor(tp=8, **kw)),
         "ep_dense": refused(lambda: GenerativePredictor(ep=2, **kw)),
         "ep4": refused(lambda: GenerativePredictor(
             ep=4, model_config=spec["moe_cfg"], **kw)),
-        "role": refused(lambda: GenerativePredictor(
-            tp=2, role="prefill", **kw))}
+        "directory": refused(lambda: GenerativePredictor(
+            tp=2, directory=object(), **kw))}
+    # a role serves on a gang now: the predictor starts on every rank
+    role = GenerativePredictor(tp=2, role="prefill", **kw)
+    out["refusals"]["role"] = None
+    if rank == 0:
+        role.engine.shutdown()
+    else:
+        role.follow()
     # last: a follower whose tokens differ raises at the next record, and
     # its exit breaks the leader's next collective
     if rank == 0:
@@ -249,6 +260,8 @@ elif spec["layout"] == "moe":
                                        "pair": gen(spec["pair"], 8)(p)},
                  state="moe", tp=2, ep=2, max_batch=2)
     out["coords"] = [pred.mesh.coordinate("tp"), pred.mesh.coordinate("ep")]
+    serve("tp2_ep2_int8", gen(spec["solo"], 10), state="moe", tp=2, ep=2,
+          max_batch=2, quantize=True)
 print(json.dumps(out), flush=True)
 os._exit(0)
 """
@@ -315,16 +328,45 @@ def shard_at(x, mesh, tp: int, ep: int = 0):
     return np.asarray(shard.data)
 
 
+def int8_mismatches(got: dict, placed, tp: int, ep: int) -> list[str]:
+    """The int8 weights of a rank's ``blocks`` record (at mesh coordinate
+    (tp, ep)) whose ``q`` or ``scale`` is not bitwise (SHA-256 and shape)
+    its shard of the reference's placement ``placed``.  The other leaves
+    are held by the layout tests: the port keeps the router whole where
+    the reference splits its logits over ep (``parallel/sharding.py``)."""
+    import hashlib
+
+    def digest(a):
+        return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+    bad = []
+    want = flat(placed.params)
+    if set(got) != set(want):
+        bad.append(f"names {sorted(set(got) ^ set(want))}")
+    for name, leaf in want.items():
+        rec = got.get(name, {})
+        if hasattr(leaf, "q"):
+            q = shard_at(leaf.q, placed.mesh, tp, ep)
+            scale = shard_at(leaf.scale, placed.mesh, tp, ep)
+            if (rec.get("q"), rec.get("scale"), rec.get("q_sha"),
+                    rec.get("scale_sha")) != (
+                    list(q.shape), list(scale.shape), digest(q),
+                    digest(scale)):
+                bad.append(name)
+    return bad
+
+
 def run(pred, prompts, n, **kw):
     return pred.generate(prompts, max_new_tokens=n, **kw)["ids"]
 
 
 @pytest.fixture(scope="module")
 def setup(tmp_path_factory):
-    """The reference's one-chip predictors (dense and MoE: their streams
-    and their seed-0 weights as the port's state dicts), its tp=2
-    placements (bf16 and int8: the shards each rank must hold) and its
-    prefix-cached engine's statistics after ``PREFIX``."""
+    """The reference's one-chip predictors (dense and MoE, and the MoE in
+    int8: their streams and their seed-0 weights as the port's state
+    dicts), its tp=2 placements (bf16 and int8) and its int8 MoE
+    placements at ep=2 and tp=2 x ep=2 (the shards each rank must hold),
+    and its prefix-cached engine's statistics after ``PREFIX``."""
     from kubeflow_tpu.serving.predictor import GenerativePredictor
 
     root = tmp_path_factory.mktemp("predictor_tp")
@@ -355,9 +397,19 @@ def setup(tmp_path_factory):
         ref["moe_pair"] = run(moe, PAIR, 8)
     finally:
         moe.engine.shutdown()
-    for name, extra in (("tp2", {}), ("tp2_int8", {"quantize": True})):
-        placed = GenerativePredictor("llama", model_config=CFG, tp=2,
-                                     **extra, **kw)
+    moe8 = GenerativePredictor("llama", model_config=MOE, quantize=True,
+                               **kw)
+    try:
+        ref["moe_int8_solo"] = run(moe8, SOLO, 10)
+    finally:
+        moe8.engine.shutdown()
+    for name, cfg, extra in (
+            ("tp2", CFG, {"tp": 2}),
+            ("tp2_int8", CFG, {"tp": 2, "quantize": True}),
+            ("ep2_int8", MOE, {"ep": 2, "quantize": True}),
+            ("tp2_ep2_int8", MOE, {"tp": 2, "ep": 2, "quantize": True})):
+        placed = GenerativePredictor("llama", model_config=cfg, **extra,
+                                     **kw)
         placed.engine.shutdown()
         ref[name] = placed
     return ref

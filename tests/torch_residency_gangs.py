@@ -92,7 +92,11 @@ def init(self, *args, name=None, **kwargs):
 GP._load_params = load
 
 
+PREDS = []
+
+
 def observe(pred):
+    PREDS.append(pred)
     e = pred.engine
     inner = e.residency_fn
 
@@ -386,11 +390,20 @@ def client():
             got = fn()
             res["steps"].append({
                 "label": label, "got": got, "pool": pool.stats(),
-                "residency": {n: get(n)["residency"] for n in ("a", "b")}})
+                "residency": {n: get(n)["residency"]
+                              for n in spec.get("pooled", ("a", "b"))}})
 
         step("start", lambda: None)
-        for name, n in spec["sequence"]:
-            step(name, lambda name=name, n=n: post(name, spec["solo"], n))
+        for entry in spec["sequence"]:
+            if entry[0] == "hold":
+                step(f"hold {entry[1]}", lambda m=entry[1]: hold(m))
+                continue
+            name, n = entry[:2]
+            prompts = spec[entry[2]] if len(entry) > 2 else spec["solo"]
+            step(name, lambda name=name, n=n, prompts=prompts: post(
+                name, prompts, n))
+        if not spec.get("cold_k"):
+            return
         # K cold requests to the parked b at once: one gang-wide load
         replies = [None] * spec["cold_k"]
 
@@ -416,8 +429,25 @@ def client():
             res["predict"] = [resp.status, json.loads(resp.read())]
     except Exception as err:
         res["error"] = f"{type(err).__name__}: {err}"
-    out["client"] = res
-    os.kill(os.getpid(), signal.SIGTERM)
+    finally:
+        out["client"] = res
+        os.kill(os.getpid(), signal.SIGTERM)
+
+
+def hold(model):
+    # every free page of ``model``'s pool held on every rank, once its
+    # engine has finished every request the client sent it (the pools
+    # are in lockstep, so the held ids are the same on each rank)
+    sent = sum(1 for e in spec["sequence"][:spec["sequence"].index(
+        ["hold", model])] if e[0] == model)
+    while sum(e[:2] == [model, "done"] for e in events) < sent:
+        time.sleep(0.01)
+    (pred,) = [p for p in PREDS if p.name == model]
+    dist.barrier()
+    pool = pred.engine.pool
+    held = pool.alloc(pool.free_count)
+    note(model, "held", len(held or []), pool_stats(pred.engine))
+    dist.barrier()
 
 
 argv = ["--device", "cpu", "--max-seq", str(spec["max_seq"]),
@@ -427,8 +457,14 @@ for m in spec["models"]:
 if rank == 0:
     os.environ["KF_POD_PORT"] = str(spec["port"])
     threading.Thread(target=client, daemon=True).start()
+else:
+    for entry in spec["sequence"]:
+        if entry[0] == "hold":
+            threading.Thread(target=hold, args=(entry[1],),
+                             daemon=True).start()
 out["rc"] = tpred.main(argv)
 out["events"] = events
+out["tally"] = {p.name: p.engine.record_tally for p in PREDS}
 print(json.dumps(out), flush=True)
 """
 
@@ -455,6 +491,9 @@ def reference(tmp_path_factory):
                                                       device="cpu", **cfg)
             module.load_state_dict(state)
             tmp_.save_streamable(module, str(root / f"ckpt_{label}"))
+            if label == "dense":
+                # the one-card sibling's copy of the same weights
+                tmp_.save_streamable(module, str(root / "ckpt_c"))
             ref[label] = {"solo": pred.generate(SOLO, new)["ids"],
                           "pair": pred.generate(PAIR, 8)["ids"],
                           "weight_bytes": pred.weight_bytes}
@@ -528,6 +567,36 @@ def pool_gang(reference) -> list[dict]:
             CLI_WORKER, 2, timeout=300.0,
             extra_env={"GANG_SPEC": json.dumps(spec)})
     return reference["gangs"]["cli"]
+
+
+# the sibling gang's traffic: the one-card c, the gang model a, every
+# free page of a's pool held on both ranks, then a's long prompt, whose
+# commit meets page pressure with c idle
+SIBLING_SEQUENCE = [["c", 12], ["a", 12], ["hold", "a"],
+                    ["a", LONG_NEW, "long"]]
+
+
+def sibling_gang(reference) -> list[dict]:
+    """``predictor.main`` in a gang of 2 serving ``a`` (dense, tp=2, a
+    small prefix cache) and ``c`` (the same weights on rank 0's card
+    alone) from the reference's streamed checkpoints under a budget that
+    holds both; rank 0 drives ``SIBLING_SEQUENCE``.  Spawned once per
+    module."""
+    if "sibling" not in reference["gangs"]:
+        root = reference["root"]
+        budget = 2 * reference["dense"]["weight_bytes"] + (1 << 20)
+        models = [f"llama:name=a,tp=2,prefix_cache_mb={CACHE_MB},"
+                  f"kv_page_size={PAGE_SIZE},prefill_chunk=16,"
+                  f"checkpoint_dir={root / 'ckpt_dense'}",
+                  f"llama:name=c,checkpoint_dir={root / 'ckpt_c'}"]
+        spec = {"models": models, "max_seq": MAX_SEQ,
+                "budget_mb": budget / (1 << 20), "port": pd.free_port(),
+                "solo": SOLO, "long": [LONG], "sequence": SIBLING_SEQUENCE,
+                "pooled": ["a", "c"], "cold_k": 0}
+        reference["gangs"]["sibling"] = pd.spawn_local_gang(
+            CLI_WORKER, 2, timeout=300.0,
+            extra_env={"GANG_SPEC": json.dumps(spec)})
+    return reference["gangs"]["sibling"]
 
 
 def of(events: list, model: str, *kinds: str) -> list:
